@@ -1,0 +1,72 @@
+"""Experiment entry point of the PyTorch port.
+
+    python -m mi_based_regularized_semi_supervised_segmentation_tpu_torch.main \
+        Trainer.name=udaiic Trainer.save_dir=udaiic_run Trainer.device=cuda \
+        UDARegCriterion.weight=10.0 IICRegParameters.weight=0.1
+
+Flow: config (YAML + dotted-key overrides) -> seed -> matmul precision ->
+loaders (labeled / unlabeled / test, val carved from unlabeled) -> trainer
+from the registry -> start_training. Runs on ``Trainer.device`` (``cuda`` by
+default; ``cpu`` on request).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+import torch
+
+from . import PROJECT_PATH
+from .config import ConfigManager
+from .data import create_val_loader, generate_synthetic_acdc, get_dataloaders
+from .engine import trainer_zoos
+from .utils import gethash, set_seed
+
+
+def set_matmul_precision(name: str) -> None:
+    """``highest`` keeps fp32 matmuls and convolutions in full fp32 (TF32
+    off), the meaning of the JAX package's default precision."""
+    if name not in ("highest", "high", "medium"):
+        raise ValueError(f"Precision.matmul_precision={name!r}")
+    torch.set_float32_matmul_precision(name)
+    torch.backends.cuda.matmul.allow_tf32 = name != "highest"
+    torch.backends.cudnn.allow_tf32 = name != "highest"
+
+
+def main(argv: Optional[List[str]] = None):
+    config = ConfigManager(argv=argv if argv is not None else sys.argv[1:]).config
+    set_seed(int(config.get("RandomSeed", 1)))
+    set_matmul_precision(str((config.get("Precision") or {}).get("matmul_precision", "highest")))
+    if config.get("Checkpoint") is not None:
+        raise NotImplementedError("resuming from Checkpoint is not ported yet; see ROADMAP.md")
+    if config.get("Inference"):
+        raise NotImplementedError("Inference is not ported yet; see ROADMAP.md")
+
+    if (config.get("Data") or {}).get("synthetic"):
+        from . import DATA_PATH
+
+        generate_synthetic_acdc(DATA_PATH)
+    labeled_loader, unlabeled_loader, test_loader = get_dataloaders(config)
+    val_loader = create_val_loader(unlabeled_loader, test_loader)
+
+    trainer_config = dict(config["Trainer"])
+    name = trainer_config.pop("name")
+    if name not in trainer_zoos:
+        raise NotImplementedError(f"Trainer.name={name!r} is not ported yet; see ROADMAP.md")
+    Trainer = trainer_zoos[name]
+    trainer = Trainer(
+        labeled_loader=labeled_loader,
+        unlabeled_loader=unlabeled_loader,
+        val_loader=val_loader,
+        test_loader=test_loader,
+        configuration={**config, "GITHASH": gethash(PROJECT_PATH)},
+        **trainer_config,
+    )
+    trainer.init()
+    trainer.start_training()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()
