@@ -12,15 +12,25 @@ Phases, each printing JSON lines:
            exactly on small-integer inputs (all sums exact in fp32), and
            within TOL on probability maps in bf16 and fp32 operand modes;
            times by CUDA events (median), beside the plain version, one
-           PyTorch library call of the same function and the card's bound
+           PyTorch library call of the same function and the card's bound.
+           Then the two rotation kernels at the device path's shapes (4 and
+           10 slices of 256^2): bit-exact against their plain versions, the
+           single-pass rotation against the three-roll one, identity at 0
   step     one small udaiic train step on the card against the same step on
            the CPU (plain joint), same weights, batch and flip mask
+  step_device  the same on the device-data path with geometry=shear: the
+           same store, injected augmentation draws and flip mask
   train    the headline udaiic trainer through ``main.main`` on synthetic data
            (U-Net 16..256, 224^2 crops, 4 labeled + 10 unlabeled, taps Conv5 /
            Up_conv3 / Up_conv2, 5 x 20 clusters, paddings [1, 3]), with the
            kernel launch counts of that run, set to 0 just before it
-  profile  device time by kernel and by kind over a few more steps of that
-           trainer (torch.profiler), and the device's busy share of the wall
+  train_device  the same trainer on the device-data path
+           (Trainer.device_data=true, 8 steps in chunks of 4), once with
+           Kernel.geometry=shear (the rotation kernel, 3 launches a step) and
+           once with the default fused geometry; counts set to 0 before each
+  profile  device time by kernel and by kind over a few more steps of the host
+           path's trainer and of the device path's (shear) trainer
+           (torch.profiler), and the device's busy share of the wall
 
 The line before the last is the JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. A failed check raises, and the script exits
@@ -45,6 +55,9 @@ PEAK_FLOPS = {"bf16": 989e12,       # dense tensor cores
               "fp32": 67e12}        # CUDA cores
 PORT = "mi_based_regularized_semi_supervised_segmentation_tpu_torch"
 JAX_KERNELS = "mi_based_regularized_semi_supervised_segmentation_tpu/ops/pallas/mi_joint.py"
+JAX_ROTATE = "mi_based_regularized_semi_supervised_segmentation_tpu/ops/pallas/rotate.py"
+# the device path's rotations: (label, slices, edge) of the 256^2 synthetic store
+ROTATIONS = (("labeled", 4, 256), ("unlabeled", 10, 256))
 # decoder taps of the headline udaiic config: (name, batch, map edge, padding)
 TAPS = (("Up_conv2", 10, 224, 3), ("Up_conv3", 10, 112, 1))
 LANES, SUBHEADS, CLUSTERS = 128, 5, 20
@@ -86,13 +99,40 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device time per call: the summed time of every kernel that ``reps``
+    calls of ``fn`` launch (torch.profiler), divided by ``reps``. For
+    kernels of a few microseconds, where CUDA events around a call measure
+    the host's launch overhead instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "the profiler saw no device time")
+    return total / 1e3 / reps
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     import torch
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         check=True, capture_output=True, text=True).stdout.strip().splitlines()
-    print(smi[0], flush=True)
-    info = {"phase": "device", "nvidia_smi": smi[0], "torch": torch.__version__,
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
     emit(info)
@@ -212,7 +252,7 @@ def phase_kernels(reps: int) -> list:
                       f"{tap} {mode} {name}: max err {err} vs max |ref| {scale}")
                 lib_err = float((case["unpack"](case["library"]()).float() - want).abs().max())
                 by_ops = flops / PEAK_FLOPS[mode] >= nbytes / HBM_BYTES_PER_S
-                row = {"phase": "kernels", "name": name, "tap": tap, "mode": mode,
+                row = {"phase": "kernels", "name": name, "tap": tap, "label": tap, "mode": mode,
                        "route": "cuda", "source": f"{PORT}/csrc/mi_joint.cu",
                        "replaces": replaces[name], "shape": [n, c], "padding": p,
                        "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL,
@@ -228,6 +268,85 @@ def phase_kernels(reps: int) -> list:
                 rows.append(row)
             del ap, bp, ref, ref_da, ref_db, cases
         del a, b, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_rotate(reps: int) -> list:
+    """rotate_shear and lane_roll_rows at the device path's shapes: each
+    bit-exact against its plain version on the same tables (the rotation is a
+    pixel permutation, so nothing may differ), rotate_shear bit-exact against
+    rotate_shear_lanes, identity at angle 0."""
+    import torch
+
+    rot = port("ops.rotate")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = []
+    for label, batch, edge in ROTATIONS:
+        x = torch.randint(0, 256, (batch, edge, edge), generator=gen, device="cuda").float()
+        ang = torch.rand(batch, generator=gen, device="cuda") * 90.0 - 45.0
+        tables = rot.shear_tables(ang, edge, edge)
+        tables_l = rot.shear_tables(ang, edge, edge, lane_aligned_rows=True)
+        _, _, geom = tables
+        _, _, geom_l = tables_l
+        got = rot.rotate_shear(x, ang, tables=tables)
+        want = rot.rotate_shear_plain(x, ang, tables=tables)
+        err = float((got - want).abs().max())
+        check(err == 0.0, f"rotate_shear {label}: max err {err} vs plain")
+        lanes = rot.rotate_shear_lanes(x, ang, tables=tables_l)
+        check(bool(torch.equal(lanes, got)), f"rotate_shear vs rotate_shear_lanes {label}")
+        zero = torch.zeros_like(ang)
+        check(bool(torch.equal(rot.rotate_shear(x, zero), x))
+              and bool(torch.equal(rot.rotate_shear_lanes(x, zero), x)), f"identity {label}")
+        s_x = tables_l[0]
+        canvas = rot._pad_canvas(x, geom_l)
+        roll_err = float((rot.lane_roll_rows(canvas, s_x)
+                          - rot.lane_roll_rows_plain(canvas, s_x)).abs().max())
+        check(roll_err == 0.0, f"lane_roll_rows {label}: max err {roll_err} vs plain")
+        # library yardstick: one torch.gather over the flattened input with the
+        # composite source index precomputed (the same permutation); the index
+        # comes from rotating 1..H*W (exact in fp32), 0 meaning outside
+        n = edge * edge
+        ids = torch.arange(1, n + 1, device="cuda", dtype=torch.float32).reshape(1, edge, edge)
+        src = rot.rotate_shear(ids.expand(batch, -1, -1).contiguous(), ang, tables=tables)
+        src = torch.where(src > 0, src - 1, torch.full_like(src, n)).long().reshape(batch, n)
+        x_ext = torch.cat([x.reshape(batch, n), torch.zeros((batch, 1), device="cuda")], 1)
+        library = lambda: torch.gather(x_ext, 1, src)
+        check(bool(torch.equal(library().reshape(batch, edge, edge), got)),
+              f"gather yardstick {label}")
+        roll_src = torch.remainder(torch.arange(geom_l[3], device="cuda")[None, None, :]
+                                   - s_x[:, :, None].long(), geom_l[3])
+        roll_library = lambda: torch.gather(canvas, 2, roll_src)
+        hc, wc = geom[2], geom[3]
+        rot_bytes = 4.0 * (2 * batch * n + batch * (hc + wc))   # in, out, tables
+        roll_bytes = 4.0 * (2 * canvas.numel() + s_x.numel())
+        plain_reps = max(3, reps // 3)
+        for name, nbytes, kernel, plain, lib_fn, shape, extra in (
+                (rot.ROTATE, rot_bytes, lambda: rot.rotate_shear(x, ang, tables=tables),
+                 lambda: rot.rotate_shear_plain(x, ang, tables=tables), library,
+                 [batch, edge, edge],
+                 {"canvas": [hc, wc], "with_tables_device_ms":
+                  device_ms(lambda: rot.rotate_shear(x, ang), reps)}),
+                (rot.ROLL, roll_bytes, lambda: rot.lane_roll_rows(canvas, s_x),
+                 lambda: rot.lane_roll_rows_plain(canvas, s_x), roll_library,
+                 list(canvas.shape),
+                 {"rotate_shear_lanes_device_ms": device_ms(
+                     lambda: rot.rotate_shear_lanes(x, ang, tables=tables_l), reps)})):
+            row = {"phase": "kernels", "name": name, "label": f"{label} B={batch}",
+                   "route": "cuda", "source": f"{PORT}/csrc/rotate.cu",
+                   "replaces": f"{JAX_ROTATE}:138" if name == rot.ROTATE else f"{JAX_ROTATE}:161",
+                   "shape": shape, "batch": batch, "max_abs_err": err if name == rot.ROTATE
+                   else roll_err, "timing": "device time per call (torch.profiler)",
+                   "ms": device_ms(kernel, reps), "plain_ms": device_ms(plain, plain_reps),
+                   "library_ms": device_ms(lib_fn, plain_reps),
+                   "call_ms": cuda_ms(kernel, reps),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "mbytes": nbytes / 1e6, **extra}
+            row["achieved_gb_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+            emit(row)
+            rows.append(row)
+        del x, canvas, src, x_ext, roll_src
         torch.cuda.empty_cache()
     return rows
 
@@ -283,6 +402,69 @@ def phase_step() -> None:
           "launches_cuda": n_gpu})
 
 
+def phase_step_device() -> None:
+    """One small device-data udaiic step (crop 32, 2 + 3 slices of a 64^2
+    synthetic store, 4 classes, 2 x 5 clusters, paddings [1, 3]) with
+    geometry=shear on the card and on the CPU: same weights, same store, the
+    same injected augmentation draws and flip mask."""
+    import numpy as np
+    import torch
+
+    models, optim, steps, mj, rot, data, dp = (
+        port("models"), port("engine.optim"), port("engine.steps"), port("ops.mi_joint"),
+        port("ops.rotate"), port("data"), port("data.device_pipeline"))
+    aug_mod = port("ops.augment_device")
+    root = Path(import_module(PORT).PROJECT_PATH) / "build" / "chip_smoke_small"
+    data.generate_synthetic_acdc(str(root), num_train_patients=3, num_val_patients=1,
+                                 slices_per_patient=4, size=64)
+    dataset = data.ACDCDataset(str(root), "train")
+    feats = ["Conv5", "Up_conv3", "Up_conv2"]
+    lab_idx, unlab_idx = np.array([1, 7]), np.array([0, 5, 9])
+    cpu_store = dp.DeviceDataStore(dataset, pack=True)
+    gen = torch.Generator().manual_seed(5)
+    aug = {"labeled": aug_mod.sample_augment_params(
+               gen, 2, cpu_store.shape, crop=32, valid_hw=cpu_store.valid_hw_dev[lab_idx],
+               offsets=cpu_store.offsets_dev[lab_idx]),
+           "unlabeled": aug_mod.sample_augment_params(
+               gen, 3, cpu_store.shape, crop=32, valid_hw=cpu_store.valid_hw_dev[unlab_idx],
+               offsets=cpu_store.offsets_dev[unlab_idx])}
+    flip_mask = torch.rand((3, 2), generator=gen) < 0.8
+    results = {}
+    for device in ("cpu", "cuda"):
+        store = cpu_store if device == "cpu" else dp.DeviceDataStore(dataset, device=device,
+                                                                     pack=True)
+        torch.manual_seed(0)
+        model = models.UNet(1, 4)
+        proj = models.ProjectorWrapper(feats, num_clusters=5, num_subheads=2)
+        model.to(device)
+        proj.to(device)
+        opt = optim.build_optimizer(list(chain(model.parameters(), proj.parameters())),
+                                    {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
+        step = steps.build_train_step(
+            model, opt, "udaiic", num_classes=4, generator=torch.Generator(device=device),
+            feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
+            uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024,
+            data_store=store, crop=32, geometry="shear")
+        mj.reset_launch_counts()
+        rot.reset_launch_counts()
+        dev_aug = {k: {n: None if t is None else t.to(device) for n, t in v.items()}
+                   for k, v in aug.items()}
+        metrics = step({"labeled_indices": torch.from_numpy(lab_idx).to(device),
+                        "unlabeled_indices": torch.from_numpy(unlab_idx).to(device)},
+                       flip_mask=flip_mask.to(device), aug_params=dev_aug)
+        results[device] = ({k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")},
+                           rot.launch_count(rot.ROTATE), sum(mj.LAUNCHES.values()))
+    (l_cpu, r_cpu, j_cpu), (l_gpu, r_gpu, j_gpu) = results["cpu"], results["cuda"]
+    check(r_cpu == j_cpu == 0 and r_gpu == 3 and j_gpu == 6,
+          f"step_device launches: rotation cpu={r_cpu} cuda={r_gpu} (want 0, 3), "
+          f"mi_joint cpu={j_cpu} cuda={j_gpu} (want 0, 6)")
+    rel = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    check(all(v <= STEPS_TOL for v in rel.values()), f"step_device losses differ: {rel}")
+    emit({"phase": "step_device", "geometry": "shear", "losses_cpu": l_cpu,
+          "losses_cuda": l_gpu, "rel_err": rel, "rotation_launches_cuda": r_gpu,
+          "mi_joint_launches_cuda": j_gpu})
+
+
 def phase_train(steps: int):
     import torch
 
@@ -310,17 +492,66 @@ def phase_train(steps: int):
            "launches": counts, "launches_per_step": launches / steps, "losses": losses,
            "val_dsc_mean": val_dsc, "first_step_ms": trainer.step_times_ms[0],
            "median_step_ms": step_ms, "step_ms": trainer.step_times_ms,
-           "slices_per_s": 24 / (step_ms / 1e3),
+           "slices_per_s": 24 / (step_ms / 1e3), "epoch_wall_s": trainer.epoch_times_s[0],
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "wall_s": wall}
     emit(out)
     return trainer, dict(mj.LAUNCHES)
 
 
+def phase_train_device(steps: int, geometry: str, chunk: int = 4):
+    """The headline trainer on the device-data path; returns the trainer and
+    the rotation and joint launch counts of this run (set to 0 just before)."""
+    import torch
+
+    main_mod, mj, rot = port("main"), port("ops.mi_joint"), port("ops.rotate")
+    argv = ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
+            f"Trainer.num_batches={steps}", f"Trainer.scan_chunk={chunk}",
+            "Trainer.max_epoch=1", "Trainer.device=cuda", "Trainer.device_data=true",
+            f"Kernel.geometry={geometry}", f"Trainer.save_dir=chip_smoke_device_{geometry}",
+            "Trainer.step_timing=true"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mj.reset_launch_counts()
+    rot.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = main_mod.main(argv)
+    wall = time.perf_counter() - t0
+    rot_launches, joint_launches = dict(rot.LAUNCHES), dict(mj.LAUNCHES)
+    n_rot, n_joint = rot.launch_count(rot.ROTATE), sum(joint_launches.values())
+    want_rot = 3 * steps if geometry == "shear" else 0
+    check(n_rot == want_rot and rot.launch_count(rot.ROLL) == 0,
+          f"{geometry}: {n_rot} rotation launches in {steps} steps (want {want_rot})")
+    check(n_joint >= 6 * steps, f"{geometry}: {n_joint} joint launches in {steps} steps")
+    row = trainer._storage._rows[0]
+    losses = {k: row[k] for k in ("tra_sup_loss_mean", "tra_reg_loss_mean", "tra_uda_mean",
+                                  "tra_mi_mean")}
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite losses {losses}")
+    val_dsc = row["val_dice_DSC_mean"]
+    check(0.0 <= val_dsc <= 1.0, f"val DSC {val_dsc}")
+    per_chunk = trainer.step_times_ms[::chunk]
+    steady = statistics.median(trainer.step_times_ms[chunk:]) if steps > chunk else per_chunk[0]
+    emit({"phase": "train_device", "geometry": geometry, "steps": steps, "scan_chunk": chunk,
+          "batch": [4, 10], "crop": 224,
+          "rotation_launches": {f"{n}/B{b}": v for (n, b), v in sorted(rot_launches.items())},
+          "rotation_launches_per_step": n_rot / steps,
+          "joint_launches_per_step": n_joint / steps, "losses": losses, "val_dsc_mean": val_dsc,
+          "chunk_ms_per_step": per_chunk, "median_step_ms": steady,
+          "median_step_ms_note": "median over the steps after the first chunk "
+                                 "(each step: its chunk's wall time / chunk size)",
+          "slices_per_s": 24 / (steady / 1e3), "epoch_wall_s": trainer.epoch_times_s[0],
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "wall_s": wall})
+    return trainer, rot_launches, joint_launches
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     if "joint_fwd" in lowered or "joint_bwd" in lowered:
         return "mi_joint (this port's CUDA)"
+    if "rotate_shear" in lowered or "lane_roll" in lowered:
+        return "rotation (this port's CUDA)"
     if any(k in lowered for k in ("batch_norm", "batchnorm", "bn_", "welford")):
         return "batch norm"
     if any(k in lowered for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "wgrad", "dgrad",
@@ -329,16 +560,23 @@ def _kernel_kind(name: str) -> str:
     return "elementwise, reduction, copy"
 
 
-def phase_profile(trainer, steps: int) -> None:
+def phase_profile(trainer, steps: int, path: str = "host") -> None:
     """Device time of a few train steps of the headline trainer, by kernel
-    and by kind (torch.profiler with CUDA activity), on one host batch."""
+    and by kind (torch.profiler with CUDA activity), on one batch: host
+    images already on the card, or (path "device") slice indices whose
+    gather and augmentation run inside each step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
-    batch = {"labeled_image": trainer._to_device(lab["image"]),
-             "labeled_target": trainer._to_device(lab["target"]),
-             "unlabeled_image": trainer._to_device(unlab["image"])}
+    if path == "host":
+        lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
+        batch = {"labeled_image": trainer._to_device(lab["image"]),
+                 "labeled_target": trainer._to_device(lab["target"]),
+                 "unlabeled_image": trainer._to_device(unlab["image"])}
+    else:
+        lab, unlab = next(zip(trainer._labeled_index_loader, trainer._unlabeled_index_loader))
+        batch = {"labeled_indices": trainer._to_device(lab["indices"]),
+                 "unlabeled_indices": trainer._to_device(unlab["indices"])}
     trainer._train_step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -355,7 +593,7 @@ def phase_profile(trainer, steps: int) -> None:
     by_kind: dict = {}
     for name, ms, _ in kernels:
         by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
-    emit({"phase": "profile", "steps": steps, "wall_ms_per_step": wall_ms,
+    emit({"phase": "profile", "path": path, "steps": steps, "wall_ms_per_step": wall_ms,
           "device_ms_per_step": device_ms,
           "device_busy_share": device_ms / wall_ms if wall_ms else None,
           "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
@@ -365,7 +603,8 @@ def phase_profile(trainer, steps: int) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="device,build,kernels,step,train,profile")
+    parser.add_argument("--phases", default="device,build,kernels,step,step_device,train,"
+                                              "train_device,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -386,17 +625,36 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     kernel_rows = phase_kernels(args.reps) if "kernels" in phases else []
+    rotation_rows = phase_kernels_rotate(args.reps) if "kernels" in phases else []
     if "step" in phases:
         phase_step()
+    if "step_device" in phases:
+        phase_step_device()
     trainer, launches = phase_train(args.steps) if "train" in phases else (None, {})
-    if "profile" in phases and trainer is not None:
-        phase_profile(trainer, steps=3)
-    # one entry per kernel and main-path shape, in the training path's bf16 mode
+    device_trainer, rot_launches = None, {}
+    if "train_device" in phases:
+        device_trainer, rot_launches, _ = phase_train_device(args.steps, "shear")
+        phase_train_device(args.steps, "fused")
+    if "profile" in phases:
+        if trainer is not None:
+            phase_profile(trainer, steps=3)
+        if device_trainer is not None:
+            phase_profile(device_trainer, steps=3, path="device")
+    # one entry per kernel and main-path shape; the joint in the training
+    # path's bf16 mode. Launches: the joint's from the host path's train
+    # phase, the rotation's from the device path's shear run (lane_roll_rows
+    # is not on that path: its counterpart of the JAX path's three-roll
+    # rotation is the single-pass rotate_shear, which gives the same output)
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "tap")
+            "bound_by", "library_ms", "label")
     summary = [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                     launches=launches.get((r["name"], r["padding"])))
                for r in kernel_rows if r["mode"] == "bf16"]
+    summary += [dict(name=f"{r['name']}@B{r['batch']}", **{k: r[k] for k in keys},
+                     launches=rot_launches.get((r["name"], r["batch"]), 0),
+                     on_main_path=r["name"] == "rotate_shear")
+                for r in rotation_rows]
+    print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

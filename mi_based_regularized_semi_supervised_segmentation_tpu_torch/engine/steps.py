@@ -14,16 +14,22 @@ step. Modes:
 The step updates the model, projector and optimizer in place and returns
 its metrics as detached tensors, so the caller syncs with the device only
 when it reads them.
+
+With a ``DeviceDataStore`` the batch is slice indices only and the step
+gathers and augments on the card. The JAX package's epoch programs
+(``lax.scan`` over the step) become Python loops over the step that keep the
+metrics on the device, stacked, for one readback per chunk of steps.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..models.unet import ENCODER_NAMES
+from ..ops.augment_device import apply_augment, center_crop_batch, sample_augment_params
 from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
 from ..ops.iic_local import iid_segmentation_small_patch_loss_flat
@@ -121,13 +127,23 @@ def build_train_step(
     patch_sizes=1024,
     flip_threshold: float = 0.8,
     backend: str = "auto",
+    data_store=None,
+    crop: int = 224,
+    geometry: str = "fused",
 ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Returns step(batch, flip_mask=None) -> metrics.
+    """Returns step(batch, flip_mask=None, aug_params=None) -> metrics.
 
     batch: {"labeled_image" [Bl, H, W, 1], "labeled_target" [Bl, H, W],
-            "unlabeled_image" [Bu, H, W, 1]} tensors on the model's device.
-    flip_mask: optional [Bu, 2] bool; drawn from ``generator`` when absent
-    (tests inject the JAX step's draw)."""
+            "unlabeled_image" [Bu, H, W, 1]} tensors on the model's device;
+    or, with ``data_store`` (a ``DeviceDataStore``, or a dict of one per
+    "labeled" / "unlabeled"), {"labeled_indices" [Bl], "unlabeled_indices"
+    [Bu]}: the step gathers those slices and augments them on the store's
+    device (``geometry``, ``crop``).
+    Each step draws, from ``generator``, the labeled augmentation, the
+    unlabeled augmentation (device-data path) and the flip mask. Tests inject
+    them: ``flip_mask`` [Bu, 2] bool, ``aug_params`` {"labeled": params,
+    "unlabeled": params} as ``ops.augment_device.sample_augment_params``
+    returns them."""
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r} is not ported yet; see ROADMAP.md")
     if uda_criterion != "mse":
@@ -143,11 +159,21 @@ def build_train_step(
         total = sum(float(x) for x in feature_importance)
         importance = [float(x) / total for x in feature_importance]
 
-    def step(batch: Dict[str, torch.Tensor],
-             flip_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        labeled_image = batch["labeled_image"]
-        labeled_target = batch["labeled_target"]
-        unlabeled_image = batch["unlabeled_image"]
+    def step(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
+             aug_params: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+        if data_store is not None:
+            lab_store, unlab_store = _stores(data_store)
+            aug_params = aug_params or {}
+            labeled_image, labeled_target = augment_from_store(
+                lab_store, batch["labeled_indices"], crop, geometry, generator,
+                aug_params.get("labeled"))
+            unlabeled_image, _ = augment_from_store(
+                unlab_store, batch["unlabeled_indices"], crop, geometry, generator,
+                aug_params.get("unlabeled"), with_labels=False)
+        else:
+            labeled_image = batch["labeled_image"]
+            labeled_target = batch["labeled_target"]
+            unlabeled_image = batch["unlabeled_image"]
         n_labeled, n_unlabeled = labeled_image.shape[0], unlabeled_image.shape[0]
         if flip_mask is None:
             flip_mask = sample_flip_mask(generator, n_unlabeled, flip_threshold)
@@ -203,10 +229,13 @@ def build_train_step(
     return step
 
 
-def build_eval_step(model: torch.nn.Module, *, num_classes: int):
+def build_eval_step(model: torch.nn.Module, *, num_classes: int, data_store=None,
+                    crop: int = 224):
     """Returns evaluate(image, target, mask) -> {loss, inter [1, C],
     union [1, C], pred}: one padded patient volume per call, dice sums pooled
-    over its valid slices (volume dice)."""
+    over its valid slices (volume dice). With ``data_store`` the signature is
+    evaluate(indices, mask): the slices are gathered and centre-cropped on
+    the store's device."""
 
     @torch.no_grad()
     def evaluate(image: torch.Tensor, target: torch.Tensor, mask: torch.Tensor):
@@ -223,4 +252,149 @@ def build_eval_step(model: torch.nn.Module, *, num_classes: int):
         return {"loss": loss, "inter": inter.sum(0, keepdim=True),
                 "union": union.sum(0, keepdim=True), "pred": pred}
 
-    return evaluate
+    def evaluate_device(indices: torch.Tensor, mask: torch.Tensor):
+        idx = torch.as_tensor(indices, device=data_store.device).long()
+        image = center_crop_batch(data_store.images[idx].float() / 255.0, crop)[..., None]
+        target = center_crop_batch(data_store.labels[idx].to(torch.int32), crop)
+        return evaluate(image, target, torch.as_tensor(mask, device=data_store.device))
+
+    return evaluate if data_store is None else evaluate_device
+
+
+# ---------------------------------------------------------------------------
+# device-data path: gathering and augmenting from a store, epoch loops
+# ---------------------------------------------------------------------------
+
+def _stores(data_store):
+    if isinstance(data_store, dict):
+        return data_store["labeled"], data_store["unlabeled"]
+    return data_store, data_store
+
+
+def _rows(t: torch.Tensor, idx: Optional[torch.Tensor]) -> torch.Tensor:
+    if idx is None:
+        return t
+    if t.dtype == torch.uint16:  # index its bits as int16 (uint16 kernels are sparse)
+        return t.view(torch.int16)[idx].view(torch.uint16)
+    return t[idx]
+
+
+def augment_from_store(store, indices, crop: int, geometry: str,
+                       generator: Optional[torch.Generator] = None,
+                       params: Optional[Dict[str, Any]] = None,
+                       with_labels: bool = True):
+    """Gathers the slices ``indices`` (None: the whole store) on the store's
+    device and augments them, with the injected ``params`` or with draws from
+    ``generator``. A packed store is gathered as one plane. Returns (image
+    [B, crop, crop, 1] float32, label [B, crop, crop] int32 or None)."""
+    idx = None if indices is None else torch.as_tensor(indices, device=store.device).long()
+    packed = with_labels and store.packed is not None
+    images = _rows(store.packed if packed else store.images, idx)
+    labels = None if packed or not with_labels else _rows(store.labels, idx)
+    if params is None:
+        params = sample_augment_params(
+            generator, images.shape[0], store.shape, crop=crop,
+            valid_hw=_rows(store.valid_hw_dev, idx), offsets=_rows(store.offsets_dev, idx))
+    return apply_augment(images, labels, params, crop=crop, geometry=geometry, packed=packed)
+
+
+def _row(batches: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in batches.items()}
+
+
+def _stack(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-step metric dicts -> one dict of [steps, ...] device tensors."""
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def build_epoch_scan(step_fn, num_batches: int):
+    """A chunk of ``num_batches`` device-data steps: epoch(batches) ->
+    stacked metrics, where batches holds [num_batches, B] index tensors.
+    No metric leaves the device (the JAX package's ``lax.scan`` epoch)."""
+
+    def epoch(batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return _stack([step_fn(_row(batches, i)) for i in range(num_batches)])
+
+    return epoch
+
+
+def _fold_in(seed: int, i: int) -> int:
+    return (int(seed) * 1_000_003 + int(i)) % (1 << 63)
+
+
+def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused"):
+    """aug(seed, i, index_batch) -> {"labeled_image", "labeled_target",
+    "unlabeled_image"}: the device augmentation alone, drawn from a generator
+    seeded from (seed, i) rather than from the step's generator, so batch
+    i + 1 can be augmented before step i runs."""
+    lab_store, unlab_store = _stores(data_store)
+
+    def aug(seed: int, i: int, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        gen = torch.Generator(device=lab_store.device)
+        gen.manual_seed(_fold_in(seed, i))
+        image, target = augment_from_store(lab_store, batch["labeled_indices"], crop, geometry,
+                                           gen)
+        unlabeled, _ = augment_from_store(unlab_store, batch["unlabeled_indices"], crop,
+                                          geometry, gen, with_labels=False)
+        return {"labeled_image": image, "labeled_target": target, "unlabeled_image": unlabeled}
+
+    return aug
+
+
+def build_epoch_scan_pipelined(aug_fn, step_fn, num_batches: int):
+    """epoch(batches, seed): batch i + 1 is augmented (``aug_fn`` with
+    ``seed``) before step i runs; the last iteration augments the first
+    batch again and drops it (one wasted augmentation per call), as the JAX
+    package's scan does. Everything runs on one stream, in that order.
+    ``step_fn`` is a tensor-batch step (no store)."""
+
+    def epoch(batches: Dict[str, torch.Tensor], seed: int) -> Dict[str, torch.Tensor]:
+        cur = aug_fn(seed, 0, _row(batches, 0))
+        out = []
+        for i in range(num_batches):
+            nxt = aug_fn(seed, i + 1, _row(batches, (i + 1) % num_batches))
+            out.append(step_fn(cur))
+            cur = nxt
+        return _stack(out)
+
+    return epoch
+
+
+def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 224,
+                            geometry: str = "fused",
+                            generator: Optional[torch.Generator] = None):
+    """``Kernel.augment=epoch``: every stored slice is augmented once per
+    call, with draws from ``generator``, and each step takes its rows of the
+    augmented stores; the step's flip mask stays drawn per step. Within one
+    call the repeats of a slice share one transform (the original project
+    draws one per sample). ``step_fn`` is a tensor-batch step (no store)."""
+    lab_store, unlab_store = _stores(data_store)
+
+    def epoch(batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        lab_img, lab_tgt = augment_from_store(lab_store, None, crop, geometry, generator)
+        unlab_img, _ = augment_from_store(unlab_store, None, crop, geometry, generator,
+                                          with_labels=False)
+        out = []
+        for i in range(num_batches):
+            li = batches["labeled_indices"][i].long()
+            ui = batches["unlabeled_indices"][i].long()
+            out.append(step_fn({"labeled_image": lab_img[li], "labeled_target": lab_tgt[li],
+                                "unlabeled_image": unlab_img[ui]}))
+        return _stack(out)
+
+    return epoch
+
+
+def build_eval_scan(model: torch.nn.Module, *, num_classes: int, data_store, crop: int = 224):
+    """eval_all(indices [P, padded], masks [P, padded]) -> {loss [P],
+    inter [P, C], union [P, C]} over every patient of ``data_store``, kept on
+    the device."""
+    eval_one = build_eval_step(model, num_classes=num_classes, data_store=data_store, crop=crop)
+
+    def eval_all(indices: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
+        outs = [eval_one(indices[i], masks[i]) for i in range(indices.shape[0])]
+        return {"loss": torch.stack([o["loss"] for o in outs]),
+                "inter": torch.stack([o["inter"][0] for o in outs]),
+                "union": torch.stack([o["union"][0] for o in outs])}
+
+    return eval_all

@@ -2,7 +2,8 @@
 
     python -m mi_based_regularized_semi_supervised_segmentation_tpu_torch.main \
         Trainer.name=udaiic Trainer.save_dir=udaiic_run Trainer.device=cuda \
-        UDARegCriterion.weight=10.0 IICRegParameters.weight=0.1
+        UDARegCriterion.weight=10.0 IICRegParameters.weight=0.1 \
+        Trainer.device_data=true Kernel.geometry=shear   # data staged on the card
 
 Flow: config (YAML + dotted-key overrides) -> seed -> matmul precision ->
 loaders (labeled / unlabeled / test, val carved from unlabeled) -> trainer

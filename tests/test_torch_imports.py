@@ -12,6 +12,7 @@ import torch
 
 import mi_based_regularized_semi_supervised_segmentation_tpu_torch as port
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer as port_trainer
+from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import rotate
 
 REPO = Path(port.PROJECT_PATH)
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -38,7 +39,9 @@ def _imported_roots(path: Path):
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert f"{PORT_DIR.name}.ops.mi_joint" in modules and f"{PORT_DIR.name}.main" in modules
+    for name in ("ops.mi_joint", "ops.rotate", "ops.augment_device", "data.device_pipeline",
+                 "engine.steps", "main"):
+        assert f"{PORT_DIR.name}.{name}" in modules, name
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -72,4 +75,32 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         port_trainer.SemiTrainer(labeled_loader=None, unlabeled_loader=None, val_loader=None,
                                  test_loader=None, configuration={}, device="cuda",
                                  run_dir=None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_trainer.SemiTrainer(labeled_loader=None, unlabeled_loader=None, val_loader=None,
+                                 test_loader=None, device="cuda", run_dir=None,
+                                 configuration={"Trainer": {"device_data": True},
+                                                "Kernel": {"geometry": "shear"}})
     assert port_trainer.resolve_device("cpu") == torch.device("cpu")
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor: what the rotation
+    wrapper sees when it is handed a card's tensor."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_rotation_of_a_cuda_tensor_without_a_card_raises():
+    """No fallback: a CUDA tensor goes to the kernel, and without a card (or
+    nvcc) that raises instead of rotating with the plain version."""
+    images = torch.zeros((2, 16, 16)).as_subclass(_CudaLooking)
+    angles = torch.tensor([10.0, -20.0]).as_subclass(_CudaLooking)
+    rotate.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        rotate.rotate_shear(images, angles)
+    with pytest.raises(RuntimeError):
+        rotate.lane_roll_rows(images, torch.zeros((2, 16), dtype=torch.int32)
+                              .as_subclass(_CudaLooking))
+    assert sum(rotate.LAUNCHES.values()) == 0
