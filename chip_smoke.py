@@ -15,22 +15,33 @@ Phases, each printing JSON lines:
            PyTorch library call of the same function and the card's bound.
            Then the two rotation kernels at the device path's shapes (4 and
            10 slices of 256^2): bit-exact against their plain versions, the
-           single-pass rotation against the three-roll one, identity at 0
+           single-pass rotation against the three-roll one, identity at 0.
+           Then the three fused softmax + mask + joint kernels
+           (Kernel.backend=pallas_fused) at both decoder-tap shapes, on
+           logits: exactly on inputs whose softmax is dyadic (one lane per
+           group far above the rest, p = 1; equal lanes, p = 1/4), within a
+           stated bound on random logits in both operand modes; timed beside
+           the plain version and the unfused path (group softmax, mask,
+           mi_joint kernel) at the same shapes
   step     one small udaiic train step on the card against the same step on
            the CPU (plain joint), same weights, batch and flip mask
+  step_fused  the same with the decoder heads emitting logits (fused kernels
+           on the card, their plain version on the CPU): 6 fused launches
   step_device  the same on the device-data path with geometry=shear: the
            same store, injected augmentation draws and flip mask
   train    the headline udaiic trainer through ``main.main`` on synthetic data
            (U-Net 16..256, 224^2 crops, 4 labeled + 10 unlabeled, taps Conv5 /
            Up_conv3 / Up_conv2, 5 x 20 clusters, paddings [1, 3]), with the
            kernel launch counts of that run, set to 0 just before it
+  train_fused  the same with Kernel.backend=pallas_fused: 2 fused forward and
+           4 fused backward launches a step, no mi_joint launch
   train_device  the same trainer on the device-data path
            (Trainer.device_data=true, 8 steps in chunks of 4), once with
            Kernel.geometry=shear (the rotation kernel, 3 launches a step) and
            once with the default fused geometry; counts set to 0 before each
   profile  device time by kernel and by kind over a few more steps of the host
-           path's trainer and of the device path's (shear) trainer
-           (torch.profiler), and the device's busy share of the wall
+           path's trainer, the fused trainer and the device path's (shear)
+           trainer (torch.profiler), and the device's busy share of the wall
 
 The line before the last is the JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. A failed check raises, and the script exits
@@ -56,6 +67,7 @@ PEAK_FLOPS = {"bf16": 989e12,       # dense tensor cores
 PORT = "mi_based_regularized_semi_supervised_segmentation_tpu_torch"
 JAX_KERNELS = "mi_based_regularized_semi_supervised_segmentation_tpu/ops/pallas/mi_joint.py"
 JAX_ROTATE = "mi_based_regularized_semi_supervised_segmentation_tpu/ops/pallas/rotate.py"
+JAX_FUSED = "mi_based_regularized_semi_supervised_segmentation_tpu/ops/pallas/mi_fused.py"
 # the device path's rotations: (label, slices, edge) of the 256^2 synthetic store
 ROTATIONS = (("labeled", 4, 256), ("unlabeled", 10, 256))
 # decoder taps of the headline udaiic config: (name, batch, map edge, padding)
@@ -66,7 +78,14 @@ LANES, SUBHEADS, CLUSTERS = 128, 5, 20
 # up to ~24k rows each (tensor-core accumulation, then a chunk sum), so the
 # largest of ~800k joint entries drifts by ~1e-4 of the largest entry.
 TOL = 5e-4
-STEPS_TOL = 1e-3     # step phase: card vs CPU losses (relative)
+# fused backward, bf16 operands: t = p * dq is rounded to bf16 before its group
+# sum, so a last-bit difference in dq (another summation order) moves a
+# rounded t by one bf16 step (2^-8 of it), which reaches d(logits) scaled by p:
+# max |kernel - plain| / max |plain| up to a few 1e-3, on a small share of the
+# entries. The fp32 mode of the same kernels holds at TOL.
+FUSED_BF16_BWD_TOL = 1e-2
+FUSED_BF16_BWD_SHARE = 1e-3  # share of entries off by more than TOL * max
+STEPS_TOL = 1e-3     # step phases: card vs CPU losses (relative)
 
 
 def emit(obj) -> None:
@@ -351,14 +370,153 @@ def phase_kernels_rotate(reps: int) -> list:
     return rows
 
 
-def phase_step() -> None:
+def _fused_logits(n: int, gen, kind: str = "random"):
+    """[n, 128] logits as the heads emit them (dead lanes at float32 min):
+    random normal in the 5 x 20 live lanes; "onehot": small integers with one
+    lane per group at 200 (p = 1 there, exactly 0 elsewhere); "uniform":
+    each row one small integer in 100 live lanes (groups of 4: p = 1/4)."""
+    import torch
+
+    live = SUBHEADS * CLUSTERS
+    z = torch.full((n, LANES), torch.finfo(torch.float32).min, device="cuda")
+    if kind == "random":
+        z[:, :live] = torch.randn((n, live), generator=gen, device="cuda")
+    elif kind == "onehot":
+        z[:, :live] = torch.randint(-3, 4, (n, live), generator=gen, device="cuda").float()
+        hot = torch.randint(0, CLUSTERS, (n, SUBHEADS), generator=gen, device="cuda")
+        hot += torch.arange(SUBHEADS, device="cuda") * CLUSTERS
+        z.scatter_(1, hot, 200.0)
+    else:
+        z[:, :live] = torch.randint(-3, 4, (n, 1), generator=gen, device="cuda").float()
+    return z
+
+
+def _fused_exact_check(mf, n: int, wp: int, p: int, gen) -> None:
+    """Probabilities of 0, 1 or 1/4, integer cotangents: every product, sum
+    and rounding is exact in both operand modes, so the kernels must equal
+    the plain version bit for bit (a missing, doubled or misplaced row,
+    displacement, lane or group shows here)."""
+    import torch
+
+    d = (2 * p + 1) ** 2
+    g = torch.randint(-2, 3, (d, LANES, LANES), generator=gen, device="cuda").float()
+    for kind, (s, k) in (("onehot", (SUBHEADS, CLUSTERS)), ("uniform", (25, 4))):
+        l1, l2 = _fused_logits(n, gen, kind), _fused_logits(n, gen, kind)
+        args = (wp, wp, p, s, k, 1.0)
+        for dot in (torch.bfloat16, torch.float32):
+            bf16 = dot == torch.bfloat16
+            got = {"fwd": (mf.mi_fused_fwd(l1, l2, *args, bf16=bf16),
+                           mf.fused_fwd_plain(l1, l2, *args, dot)),
+                   "dl2": (mf.mi_fused_bwd(l1, l2, g, *args, transpose_g=False, bf16=bf16),
+                           mf.fused_bwd_side_plain(l1, l2, g, *args, dot, transpose_g=False)),
+                   "dl1": (mf.mi_fused_bwd(l2, l1, g, *args, transpose_g=True, bf16=bf16),
+                           mf.fused_bwd_side_plain(l2, l1, g, *args, dot, transpose_g=True))}
+            for what, (x, y) in got.items():
+                err = float((x - y).abs().max())
+                # (the one-hot softmax is saturated: its fp32 d(logits) are all 0)
+                nonzero = what == "fwd" or kind == "uniform"
+                check(err == 0.0 and (float(y.abs().max()) > 0 or not nonzero),
+                      f"exact fused {kind} {what} p={p} {dot}: max err {err}")
+
+
+def phase_kernels_fused(reps: int) -> list:
+    """The three fused kernels at both decoder-tap shapes: exact checks, then
+    random logits in both operand modes against the plain version, timed
+    beside it and beside the unfused path at the same shapes (per-group
+    softmax, mask and the mi_joint kernel; the backward's softmax VJP by
+    autograd)."""
+    import torch
+
+    mf, mj, heads = port("ops.mi_fused"), port("ops.mi_joint"), port("models.heads")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    replaces = {mf.FWD: f"{JAX_FUSED}:215", mf.BWD_DL2: f"{JAX_FUSED}:254",
+                mf.BWD_DL1: f"{JAX_FUSED}:275"}
+    rows = []
+    for tap, batch, edge, p in TAPS:
+        hp = edge + 2 * p
+        d = (2 * p + 1) ** 2
+        n = batch * hp * hp
+        c = LANES
+        _fused_exact_check(mf, n, hp, p, gen)
+        emit({"phase": "kernels", "tap": tap, "fused_exact_check": "passed", "shape": [n, c]})
+        l1, l2 = _fused_logits(n, gen), _fused_logits(n, gen)
+        g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
+        args = (hp, hp, p, SUBHEADS, CLUSTERS, 1.0)
+        valid = mf.row_valid(n, hp, hp, p, "cuda")
+        flops = 2.0 * n * c * c * d
+        fwd_bytes = 4.0 * (2 * n * c + d * c * c)  # two logit maps in, J out
+        bwd_bytes = 4.0 * (3 * n * c + d * c * c)  # two logit maps and g in, dl out
+        # the unfused path: per-group softmax and mask as separate kernels,
+        # probabilities in device memory, then the mi_joint kernels
+        leaves = [t.clone().requires_grad_(True) for t in (l1, l2)]
+        probs = [heads.group_softmax_flat(t, SUBHEADS, CLUSTERS) * valid for t in leaves]
+        saved = [t.detach().contiguous() for t in probs]
+        for mode in ("bf16", "fp32"):
+            bf16 = mode == "bf16"
+            dot = torch.bfloat16 if bf16 else torch.float32
+            unfused_bwd = lambda own, src, tr: torch.autograd.grad(
+                probs[own], leaves[own], mj.mi_joint_bwd(saved[src], g, hp, p, tr, bf16),
+                retain_graph=True)
+            cases = {
+                mf.FWD: dict(
+                    kernel=lambda: mf.mi_fused_fwd(l1, l2, *args, bf16=bf16),
+                    plain=lambda: mf.fused_fwd_plain(l1, l2, *args, dot),
+                    unfused=lambda: mj.mi_joint_fwd(
+                        (heads.group_softmax_flat(l1, SUBHEADS, CLUSTERS) * valid),
+                        (heads.group_softmax_flat(l2, SUBHEADS, CLUSTERS) * valid), hp, p, bf16),
+                    nbytes=fwd_bytes),
+                mf.BWD_DL2: dict(
+                    kernel=lambda: mf.mi_fused_bwd(l1, l2, g, *args, transpose_g=False, bf16=bf16),
+                    plain=lambda: mf.fused_bwd_side_plain(l1, l2, g, *args, dot, transpose_g=False),
+                    unfused=lambda: unfused_bwd(1, 0, False), nbytes=bwd_bytes),
+                mf.BWD_DL1: dict(
+                    kernel=lambda: mf.mi_fused_bwd(l2, l1, g, *args, transpose_g=True, bf16=bf16),
+                    plain=lambda: mf.fused_bwd_side_plain(l2, l1, g, *args, dot, transpose_g=True),
+                    unfused=lambda: unfused_bwd(0, 1, True), nbytes=bwd_bytes),
+            }
+            for name, case in cases.items():
+                got, want = case["kernel"](), case["plain"]()
+                diff = (got - want).abs()
+                err, scale = float(diff.max()), float(want.abs().max())
+                share = float((diff > TOL * scale).float().mean())
+                tol = FUSED_BF16_BWD_TOL if bf16 and name != mf.FWD else TOL
+                check(math.isfinite(err) and err <= tol * scale,
+                      f"{tap} {mode} {name}: max err {err} vs max |ref| {scale}")
+                check(tol == TOL or share <= FUSED_BF16_BWD_SHARE,
+                      f"{tap} {mode} {name}: {share} of the entries off by more than TOL")
+                by_ops = flops / PEAK_FLOPS[mode] >= case["nbytes"] / HBM_BYTES_PER_S
+                row = {"phase": "kernels", "name": name, "tap": tap, "label": tap, "mode": mode,
+                       "route": "cuda", "source": f"{PORT}/csrc/mi_fused.cu",
+                       "replaces": replaces[name], "shape": [n, c], "padding": p,
+                       "max_abs_err": err, "max_abs_ref": scale, "tol_rel": tol,
+                       "share_above_tol": share,
+                       "ms": cuda_ms(case["kernel"], reps),
+                       "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
+                       "unfused_path_ms": cuda_ms(case["unfused"], max(3, reps // 3), warmup=1),
+                       "library_ms": None,
+                       "bound_ms": max(case["nbytes"] / HBM_BYTES_PER_S,
+                                       flops / PEAK_FLOPS[mode]) * 1e3,
+                       "bound_by": "operations" if by_ops else "bytes",
+                       "gflop": flops / 1e9}
+                row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+                emit(row)
+                rows.append(row)
+            del cases
+        del l1, l2, g, leaves, probs, saved, valid
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_step(fused: bool = False) -> None:
     """One udaiic step (crop 32, 2 + 3 slices, 3 classes, 2 x 5 clusters,
-    paddings [1, 3]) on the card and on the CPU from the same weights."""
+    paddings [1, 3]) on the card and on the CPU from the same weights; with
+    ``fused`` the decoder heads emit logits (the fused kernels on the card)."""
     import numpy as np
     import torch
 
-    models, optim, steps, mj = port("models"), port("engine.optim"), port("engine.steps"), \
-        port("ops.mi_joint")
+    models, optim, steps, mj, mf = port("models"), port("engine.optim"), port("engine.steps"), \
+        port("ops.mi_joint"), port("ops.mi_fused")
     feats = ["Conv5", "Up_conv3", "Up_conv2"]
     rng = np.random.default_rng(0)
     batch_np = {"labeled_image": rng.random((2, 32, 32, 1), dtype=np.float32),
@@ -369,7 +527,8 @@ def phase_step() -> None:
     for device in ("cpu", "cuda"):
         torch.manual_seed(0)
         model = models.UNet(1, 3)
-        proj = models.ProjectorWrapper(feats, num_clusters=5, num_subheads=2)
+        proj = models.ProjectorWrapper(feats, num_clusters=5, num_subheads=2,
+                                       local_emit_logits=fused)
         model.to(device)
         proj.to(device)
         params = list(chain(model.named_parameters(), proj.named_parameters(prefix="proj")))
@@ -382,13 +541,16 @@ def phase_step() -> None:
             iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024)
         before = {k: p.detach().cpu().clone() for k, p in params}
         mj.reset_launch_counts()
+        mf.reset_launch_counts()
         metrics = step({k: torch.from_numpy(v).to(device) for k, v in batch_np.items()},
                        flip_mask=flip_mask)
-        launches = sum(mj.LAUNCHES.values())
+        launches = (sum(mj.LAUNCHES.values()), sum(mf.LAUNCHES.values()))
         results[device] = ({k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")},
                            {k: p.detach().cpu() - before[k] for k, p in params}, launches)
     (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = results["cpu"], results["cuda"]
-    check(n_cpu == 0 and n_gpu == 6, f"step launches cpu={n_cpu} cuda={n_gpu} (want 0, 6)")
+    want = (0, 6) if fused else (6, 0)
+    check(n_cpu == (0, 0) and n_gpu == want,
+          f"step launches (mi_joint, mi_fused) cpu={n_cpu} cuda={n_gpu} (want (0, 0), {want})")
     rel = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
     check(all(v <= STEPS_TOL for v in rel.values()), f"step losses differ: {rel}")
     # Adam's first step is ~ -lr * sign(g): where a gradient is near fp32
@@ -397,9 +559,10 @@ def phase_step() -> None:
     loose = float(np.mean(diffs > 0.05 * 1e-3))
     check(diffs.max() <= 2.05e-3 and loose < 0.005, f"param deltas: max {diffs.max()}, "
           f"loose share {loose}")
-    emit({"phase": "step", "losses_cpu": l_cpu, "losses_cuda": l_gpu, "rel_err": rel,
-          "param_delta_max_diff": float(diffs.max()), "param_delta_loose_share": loose,
-          "launches_cuda": n_gpu})
+    emit({"phase": "step_fused" if fused else "step", "losses_cpu": l_cpu, "losses_cuda": l_gpu,
+          "rel_err": rel, "param_delta_max_diff": float(diffs.max()),
+          "param_delta_loose_share": loose,
+          "launches_cuda": dict(zip(("mi_joint", "mi_fused"), n_gpu))})
 
 
 def phase_step_device() -> None:
@@ -465,22 +628,42 @@ def phase_step_device() -> None:
           "mi_joint_launches_cuda": j_gpu})
 
 
-def phase_train(steps: int):
+def phase_train(steps: int, backend: str = "auto"):
+    """The headline trainer on the host path; with backend pallas_fused the
+    fused kernels (2 forward and 4 backward launches a step) replace the
+    mi_joint ones. Returns the trainer and the launch counts of this run of
+    the kernels it uses (all counts set to 0 just before)."""
     import torch
 
-    main_mod, mj = port("main"), port("ops.mi_joint")
+    main_mod, mj, mf = port("main"), port("ops.mi_joint"), port("ops.mi_fused")
+    fused = backend == "pallas_fused"
     argv = ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
             "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
             f"Trainer.num_batches={steps}", "Trainer.max_epoch=1", "Trainer.device=cuda",
-            "Trainer.save_dir=chip_smoke_udaiic", "Trainer.step_timing=true"]
+            f"Kernel.backend={backend}",
+            f"Trainer.save_dir=chip_smoke_udaiic{'_fused' if fused else ''}",
+            "Trainer.step_timing=true"]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mj.reset_launch_counts()
+    mf.reset_launch_counts()
     t0 = time.perf_counter()
     trainer = main_mod.main(argv)
     wall = time.perf_counter() - t0
-    counts = {f"{name}/p{p}": v for (name, p), v in sorted(mj.LAUNCHES.items())}
-    launches = sum(mj.LAUNCHES.values())
-    check(launches >= 6 * steps, f"{launches} kernel launches in {steps} steps (want >= 6 per step)")
+    used, other = (mf, mj) if fused else (mj, mf)
+    counts = {f"{name}/p{p}": v for (name, p), v in sorted(used.LAUNCHES.items())}
+    launches = sum(used.LAUNCHES.values())
+    check(sum(other.LAUNCHES.values()) == 0,
+          f"{backend}: {dict(other.LAUNCHES)} launches of the other path's kernels")
+    check(trainer._projector.local_emit_logits == fused, f"{backend}: local_emit_logits")
+    if fused:
+        per_step = {name: mf.launch_count(name) / steps
+                    for name in (mf.FWD, mf.BWD_DL2, mf.BWD_DL1)}
+        check(per_step == {mf.FWD: 2, mf.BWD_DL2: 2, mf.BWD_DL1: 2},
+              f"fused launches per step {per_step} (want 2 forward, 2 + 2 backward)")
+    else:
+        check(launches >= 6 * steps,
+              f"{launches} kernel launches in {steps} steps (want >= 6 per step)")
     row = trainer._storage._rows[0]
     losses = {k: row[k] for k in ("tra_sup_loss_mean", "tra_reg_loss_mean", "tra_uda_mean",
                                   "tra_mi_mean")}
@@ -488,7 +671,8 @@ def phase_train(steps: int):
     val_dsc = row["val_dice_DSC_mean"]
     check(0.0 <= val_dsc <= 1.0, f"val DSC {val_dsc}")
     step_ms = statistics.median(trainer.step_times_ms[1:])
-    out = {"phase": "train", "steps": steps, "batch": [4, 10], "crop": 224,
+    out = {"phase": "train_fused" if fused else "train", "backend": backend, "steps": steps,
+           "batch": [4, 10], "crop": 224,
            "launches": counts, "launches_per_step": launches / steps, "losses": losses,
            "val_dsc_mean": val_dsc, "first_step_ms": trainer.step_times_ms[0],
            "median_step_ms": step_ms, "step_ms": trainer.step_times_ms,
@@ -496,7 +680,7 @@ def phase_train(steps: int):
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "wall_s": wall}
     emit(out)
-    return trainer, dict(mj.LAUNCHES)
+    return trainer, dict(used.LAUNCHES)
 
 
 def phase_train_device(steps: int, geometry: str, chunk: int = 4):
@@ -548,6 +732,8 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4):
 
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
+    if "fused_fwd" in lowered or "fused_bwd" in lowered:
+        return "mi_fused (this port's CUDA)"
     if "joint_fwd" in lowered or "joint_bwd" in lowered:
         return "mi_joint (this port's CUDA)"
     if "rotate_shear" in lowered or "lane_roll" in lowered:
@@ -561,14 +747,14 @@ def _kernel_kind(name: str) -> str:
 
 
 def phase_profile(trainer, steps: int, path: str = "host") -> None:
-    """Device time of a few train steps of the headline trainer, by kernel
-    and by kind (torch.profiler with CUDA activity), on one batch: host
-    images already on the card, or (path "device") slice indices whose
-    gather and augmentation run inside each step."""
+    """Device time of a few train steps of a headline trainer, by kernel and
+    by kind (torch.profiler with CUDA activity), on one batch: host images
+    already on the card, or (a device-data trainer) slice indices whose
+    gather and augmentation run inside each step. ``path`` labels the line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if path == "host":
+    if not trainer._device_data:
         lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
         batch = {"labeled_image": trainer._to_device(lab["image"]),
                  "labeled_target": trainer._to_device(lab["target"]),
@@ -603,8 +789,8 @@ def phase_profile(trainer, steps: int, path: str = "host") -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="device,build,kernels,step,step_device,train,"
-                                              "train_device,profile")
+    parser.add_argument("--phases", default="device,build,kernels,step,step_fused,step_device,"
+                                              "train,train_fused,train_device,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -626,11 +812,16 @@ def main(argv=None) -> int:
         phase_build()
     kernel_rows = phase_kernels(args.reps) if "kernels" in phases else []
     rotation_rows = phase_kernels_rotate(args.reps) if "kernels" in phases else []
+    fused_rows = phase_kernels_fused(args.reps) if "kernels" in phases else []
     if "step" in phases:
         phase_step()
+    if "step_fused" in phases:
+        phase_step(fused=True)
     if "step_device" in phases:
         phase_step_device()
     trainer, launches = phase_train(args.steps) if "train" in phases else (None, {})
+    fused_trainer, fused_launches = (phase_train(args.steps, "pallas_fused")
+                                     if "train_fused" in phases else (None, {}))
     device_trainer, rot_launches = None, {}
     if "train_device" in phases:
         device_trainer, rot_launches, _ = phase_train_device(args.steps, "shear")
@@ -638,13 +829,16 @@ def main(argv=None) -> int:
     if "profile" in phases:
         if trainer is not None:
             phase_profile(trainer, steps=3)
+        if fused_trainer is not None:
+            phase_profile(fused_trainer, steps=3, path="host_fused")
         if device_trainer is not None:
             phase_profile(device_trainer, steps=3, path="device")
-    # one entry per kernel and main-path shape; the joint in the training
-    # path's bf16 mode. Launches: the joint's from the host path's train
-    # phase, the rotation's from the device path's shear run (lane_roll_rows
-    # is not on that path: its counterpart of the JAX path's three-roll
-    # rotation is the single-pass rotate_shear, which gives the same output)
+    # one entry per kernel and main-path shape; the joint and the fused
+    # kernels in the training path's bf16 mode. Launches: the joint's from the
+    # host path's train phase, the fused kernels' from the train_fused phase,
+    # the rotation's from the device path's shear run (lane_roll_rows is not
+    # on that path: its counterpart of the JAX path's three-roll rotation is
+    # the single-pass rotate_shear, which gives the same output)
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "label")
     summary = [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
@@ -654,6 +848,10 @@ def main(argv=None) -> int:
                      launches=rot_launches.get((r["name"], r["batch"]), 0),
                      on_main_path=r["name"] == "rotate_shear")
                 for r in rotation_rows]
+    summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
+                     unfused_path_ms=r["unfused_path_ms"],
+                     launches=fused_launches.get((r["name"], r["padding"]), 0))
+                for r in fused_rows if r["mode"] == "bf16"]
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

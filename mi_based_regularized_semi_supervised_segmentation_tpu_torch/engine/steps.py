@@ -32,7 +32,10 @@ from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import apply_augment, center_crop_batch, sample_augment_params
 from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
-from ..ops.iic_local import iid_segmentation_small_patch_loss_flat
+from ..ops.iic_local import (
+    iid_segmentation_loss_fused_logits,
+    iid_segmentation_small_patch_loss_flat,
+)
 from ..ops.losses import kl_div, mse_consistency
 from ..utils.general import class2one_hot
 
@@ -71,7 +74,9 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
     positions pair them directly (pooling is flip-invariant); decoder
     positions re-apply the flips to the plain half and pad both halves by the
     position's displacement radius, so the head's probabilities are born on
-    the padded canvas the joint kernel reads; the border is then zeroed."""
+    the padded canvas the joint kernel reads; the border is then zeroed. With
+    ``projector.local_emit_logits`` (the fused path) the decoder heads emit
+    logits and the fused kernels apply the softmax and the border mask."""
     dec_idx = 0
     half1: Dict[str, torch.Tensor] = {}
     half2: Dict[str, torch.Tensor] = {}
@@ -100,9 +105,16 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
             continue
         padding, patch = loss_cfg[name]
         hp, wp = p1.shape[1], p1.shape[2]
+        S, K = projector.head_shape(name)
+        if projector.local_emit_logits:
+            # p1, p2 are lane-padded logits: no valid multiply here
+            if patch < hp - 2 * padding or patch < wp - 2 * padding:
+                raise ValueError(f"the fused path covers one full-map tile: patch {patch} < "
+                                 f"map {hp - 2 * padding}x{wp - 2 * padding} at {name}")
+            losses[name] = iid_segmentation_loss_fused_logits(p1, p2, S, K, padding=padding)
+            continue
         valid = torch.zeros((1, hp, wp, 1), dtype=p1.dtype, device=p1.device)
         valid[:, padding:hp - padding, padding:wp - padding] = 1.0
-        S, K = projector.head_shape(name)
         losses[name] = iid_segmentation_small_patch_loss_flat(
             p1 * valid, p2 * valid, S, K, padding=padding, patch_size=patch,
             backend=backend, pre_padded=True)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import time
 from itertools import chain
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +56,8 @@ from .steps import (
 LAST_NAME = "last.pth"
 BEST_NAME = "best.pth"
 _ROADMAP = "is not ported yet; see ROADMAP.md"
+BACKENDS = ("auto", "plain", "pallas_fused")
+_JAX_ONLY_BACKENDS = ("pallas", "xla", "xla_banded", "xla_scan")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -99,6 +101,12 @@ def kernel_options(cfg: Dict[str, Any]) -> Tuple[str, str, str]:
     backend = kernel.get("backend", "auto")
     geometry = kernel.get("geometry", "fused")
     augment = kernel.get("augment", "draw")
+    if backend in _JAX_ONLY_BACKENDS:
+        raise NotImplementedError(f"Kernel.backend={backend!r} {_ROADMAP} (the port has "
+                                  + " | ".join(repr(b) for b in BACKENDS) + ")")
+    if backend not in BACKENDS:
+        raise ValueError(f"Kernel.backend={backend!r}: expected one of "
+                         + " | ".join(repr(b) for b in BACKENDS))
     if geometry not in GEOMETRIES:
         raise ValueError(f"Kernel.geometry={geometry!r}: expected one of "
                          + " | ".join(repr(g) for g in GEOMETRIES))
@@ -223,7 +231,9 @@ class SemiTrainer:
             feature_names=self._feature_names,
             feature_importance=self._feature_importance,
             projector=self._projector,
-            backend=backend,
+            # pallas_fused is selected on the projector (local_emit_logits);
+            # a decoder tap that gets probabilities takes the joint kernel
+            backend="auto" if backend == "pallas_fused" else backend,
             data_store=step_stores,
             crop=self._crop_size,
             geometry=geometry,
@@ -521,7 +531,28 @@ class UDATrainer(SemiTrainer):
         self._step_kwargs = dict(uda_criterion=cfg["name"], reg_weight=float(cfg["weight"]))
 
 
-def _make_projector(config: Dict[str, Any], feature_names) -> ProjectorWrapper:
+def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
+                     decoder_heads: Sequence[Tuple[str, bool]]) -> Optional[str]:
+    """None when ``Kernel.backend=pallas_fused`` can take the fused path,
+    else the first unmet condition. ``decoder_heads``: (head_type, normalize)
+    of each decoder position. The JAX package's gate also requires a batch
+    that needs no padding to divide the mesh; the port has no mesh, so that
+    always holds here."""
+    if device.type != "cuda":
+        # the counterpart of the JAX gate's jax.default_backend() == "tpu"
+        return (f"the fused kernels run on cuda, not {device.type} (the JAX package trains "
+                "the unfused path off the TPU)")
+    min_patch = min(patch_sizes) if isinstance(patch_sizes, (list, tuple)) else patch_sizes
+    if min_patch < crop_size:
+        return (f"min(patch_sizes)={min_patch} < crop_size={crop_size} (the fused path covers "
+                "one full-map tile)")
+    if any(head_type != "linear" or normalize for head_type, normalize in decoder_heads):
+        return f"decoder heads {list(decoder_heads)} are not all linear and unnormalized"
+    return None
+
+
+def _make_projector(config: Dict[str, Any], feature_names,
+                    fused_ok: bool = False) -> ProjectorWrapper:
     enc, dec = config["EncoderParams"], config["DecoderParams"]
 
     def per_position(key, default):
@@ -534,6 +565,7 @@ def _make_projector(config: Dict[str, Any], feature_names) -> ProjectorWrapper:
         num_subheads=per_position("num_subheads", 5),
         head_types=per_position("head_types", "linear"),
         normalize=per_position("normalize", False),
+        local_emit_logits=fused_ok,
     )
 
 
@@ -543,11 +575,21 @@ class IICTrainer(SemiTrainer):
     def _build_components(self) -> None:
         cfg = self._config["IICRegParameters"]
         loss_cfg = cfg.get("LossParams", {})
-        self._projector = _make_projector(cfg, self._feature_names)
+        patch_sizes = loss_cfg.get("patch_sizes", 1024)
+        fused_ok = False
+        if self._kernel_options[0] == "pallas_fused":
+            dec = cfg["DecoderParams"]
+            heads = [(dec.get("head_types", "linear"), bool(dec.get("normalize", False)))
+                     for name in self._feature_names if name not in ENCODER_NAMES]
+            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads)
+            fused_ok = unmet is None
+            if unmet:
+                _warn(f"Kernel.backend=pallas_fused: {unmet}; training the unfused path.")
+        self._projector = _make_projector(cfg, self._feature_names, fused_ok)
         self._step_kwargs = dict(
             reg_weight=float(cfg["weight"]),
             paddings=loss_cfg.get("paddings", 1),
-            patch_sizes=loss_cfg.get("patch_sizes", 1024),
+            patch_sizes=patch_sizes,
         )
 
 

@@ -4,7 +4,9 @@
 Subheads are one batched linear layer producing S*K outputs. Layout NHWC,
 clusters on the last axis. Decoder heads emit flat probabilities
 [B, H, W, C] with C = S*K rounded up to 128 lanes and the dead lanes exactly
-zero, which is the layout the displaced-MI kernel consumes.
+zero, which is the layout the displaced-MI kernel consumes; with
+``emit_logits`` they emit the logits instead, dead lanes at float32 min, for
+the fused softmax + mask + joint kernels (``Kernel.backend=pallas_fused``).
 """
 
 from __future__ import annotations
@@ -66,32 +68,43 @@ class LocalClusterHead(nn.Module):
     """Per-pixel (decoder) head: a 1x1 linear map -> per-subhead softmax ->
     probabilities lane-padded with zeros to a multiple of ``lane_multiple``.
     Output [B, H, W, C]. The JAX head pads the logits with float32 min and
-    then softmaxes; the probabilities are the same."""
+    then softmaxes; the probabilities are the same. With ``emit_logits`` the
+    softmax is skipped and the logits come out lane-padded with float32 min,
+    as the JAX head emits them (T = 1 only)."""
 
     def __init__(self, input_dim: int, num_clusters: int = 10, num_subheads: int = 5,
                  head_type: str = "linear", T: float = 1.0, normalize: bool = False,
-                 lane_multiple: int = 128) -> None:
+                 lane_multiple: int = 128, emit_logits: bool = False) -> None:
         super().__init__()
         _check_head(head_type, normalize)
+        if emit_logits and T != 1.0:
+            raise ValueError(f"emit_logits covers the T = 1 head, got T = {T}")
         self.S, self.K, self.T = num_subheads, num_clusters, T
         self.lane_multiple = lane_multiple
+        self.emit_logits = emit_logits
         self.linear = _linear(input_dim, num_subheads * num_clusters)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
-        probs = group_softmax_flat(self.linear(features.float()), self.S, self.K, self.T)
+        out = self.linear(features.float())
         sk = self.S * self.K
-        return F.pad(probs, (0, -(-sk // self.lane_multiple) * self.lane_multiple - sk))
+        lanes = (0, -(-sk // self.lane_multiple) * self.lane_multiple - sk)
+        if self.emit_logits:
+            return F.pad(out, lanes, value=torch.finfo(torch.float32).min)
+        return F.pad(group_softmax_flat(out, self.S, self.K, self.T), lanes)
 
 
 class ProjectorWrapper(nn.Module):
     """Cluster heads keyed by U-Net feature name: ClusterHead at encoder taps,
     LocalClusterHead at decoder taps. Per-head settings may be scalars or
-    per-position lists."""
+    per-position lists. ``local_emit_logits``: the decoder heads emit logits
+    (the fused path); the parameters are the same either way."""
 
     def __init__(self, feature_names: Sequence[str], num_clusters=20, num_subheads=5,
-                 head_types="linear", normalize=False, local_lane_multiple: int = 128) -> None:
+                 head_types="linear", normalize=False, local_lane_multiple: int = 128,
+                 local_emit_logits: bool = False) -> None:
         super().__init__()
         self.feature_names = tuple(feature_names)
+        self.local_emit_logits = bool(local_emit_logits)
         self._shapes: Dict[str, Tuple[int, int]] = {}
         heads = {}
         for i, name in enumerate(self.feature_names):
@@ -102,7 +115,8 @@ class ProjectorWrapper(nn.Module):
             if name in ENCODER_NAMES:
                 heads[name] = ClusterHead(**kwargs)
             else:
-                heads[name] = LocalClusterHead(**kwargs, lane_multiple=local_lane_multiple)
+                heads[name] = LocalClusterHead(**kwargs, lane_multiple=local_lane_multiple,
+                                               emit_logits=self.local_emit_logits)
             self._shapes[name] = (kwargs["num_subheads"], kwargs["num_clusters"])
         self.heads = nn.ModuleDict(heads)
 

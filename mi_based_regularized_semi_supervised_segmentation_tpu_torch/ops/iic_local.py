@@ -7,19 +7,23 @@ Counterpart of the JAX package's ``ops/iic_local.py``:
 with zero contribution outside the image, then per-displacement
 normalization, symmetrization and the negative MI (``mi_from_joint``).
 
-Backends of ``iid_segmentation_small_patch_loss_flat``:
+Backends of ``iid_segmentation_small_patch_loss_flat`` (probability maps):
   auto          the CUDA kernel (bf16 operands, fp32 sums) for CUDA tensors,
                 its plain version (same rounding) for CPU tensors
   plain         fp32 per-displacement products (``displaced_joint_plain``),
                 the parity path
-  pallas_fused  the softmax-in-kernel opt-in: not ported yet (ROADMAP.md)
-The multi-tile path (patch smaller than the map) is not ported yet either.
+``Kernel.backend=pallas_fused`` takes the logits instead: the trainer makes
+the decoder heads emit them and the step calls
+``iid_segmentation_loss_fused_logits`` (softmax, mask and joint in the
+``ops/mi_fused.py`` kernels; bf16 operands, T = 1). The multi-tile path (patch
+smaller than the map) is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .mi_fused import displaced_joint_softmax
 from .mi_joint import displaced_joint
 
 _ROADMAP = "see ROADMAP.md, which lists what the port still lacks"
@@ -86,8 +90,6 @@ def iid_segmentation_small_patch_loss_flat(
     _, h, w, c = x_out.shape
     if c < S * K:
         raise ValueError(f"{c} lanes cannot hold {S} x {K} clusters")
-    if backend == "pallas_fused":
-        raise NotImplementedError(f"Kernel.backend=pallas_fused is not ported yet; {_ROADMAP}")
     if backend not in ("auto", "plain"):
         raise ValueError(f"unknown backend {backend!r}: expected 'auto' or 'plain'")
     interior_h = h - 2 * padding if pre_padded else h
@@ -104,5 +106,16 @@ def iid_segmentation_small_patch_loss_flat(
             x_out = x_out[:, p:h - p, p:w - p]
             x_tf_out = x_tf_out[:, p:h - p, p:w - p]
         flat = displaced_joint_plain(x_out[..., :S * K], x_tf_out[..., :S * K], padding)
+    joint = _block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K)
+    return torch.stack([mi_from_joint(joint[:, :, i], lamb) for i in range(S)]).mean()
+
+
+def iid_segmentation_loss_fused_logits(l1: torch.Tensor, l2: torch.Tensor, S: int, K: int,
+                                       padding: int, lamb: float = 1.0,
+                                       T: float = 1.0) -> torch.Tensor:
+    """Subhead-mean displaced-MI loss straight from pre-padded 128-lane logit
+    canvases [B, Hp, Wp, 128] (one full-map tile): the row-max group softmax,
+    the interior mask and the joint in the fused kernels, bf16 operands."""
+    flat = displaced_joint_softmax(l1, l2, padding, S, K, T)
     joint = _block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K)
     return torch.stack([mi_from_joint(joint[:, :, i], lamb) for i in range(S)]).mean()

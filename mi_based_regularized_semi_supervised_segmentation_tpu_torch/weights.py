@@ -6,6 +6,8 @@ neither JAX nor flax. Maps:
   conv kernel [kh, kw, in, out]          -> Conv2d.weight [out, in, kh, kw]
   BN scale / bias + batch_stats mean/var -> weight / bias / running_mean / running_var
   Dense / head kernel [dim, S*K], bias   -> Linear.weight [S*K, dim], bias
+A decoder head that emits logits (``local_emit_logits``, the fused path) has
+the same parameters as one that emits probabilities, so the same map serves.
 """
 
 from __future__ import annotations

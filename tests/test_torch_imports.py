@@ -12,7 +12,7 @@ import torch
 
 import mi_based_regularized_semi_supervised_segmentation_tpu_torch as port
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer as port_trainer
-from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import rotate
+from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_fused, rotate
 
 REPO = Path(port.PROJECT_PATH)
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -39,8 +39,8 @@ def _imported_roots(path: Path):
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    for name in ("ops.mi_joint", "ops.rotate", "ops.augment_device", "data.device_pipeline",
-                 "engine.steps", "main"):
+    for name in ("ops.mi_joint", "ops.mi_fused", "ops.rotate", "ops.augment_device",
+                 "data.device_pipeline", "engine.steps", "main"):
         assert f"{PORT_DIR.name}.{name}" in modules, name
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
@@ -104,3 +104,17 @@ def test_rotation_of_a_cuda_tensor_without_a_card_raises():
         rotate.lane_roll_rows(images, torch.zeros((2, 16), dtype=torch.int32)
                               .as_subclass(_CudaLooking))
     assert sum(rotate.LAUNCHES.values()) == 0
+
+
+def test_fused_joint_of_a_cuda_tensor_without_a_card_raises():
+    """No fallback: CUDA logits go to the fused kernels, and without a card (or
+    nvcc) that raises instead of taking the plain version."""
+    logits = torch.zeros((2, 10, 10, 128)).as_subclass(_CudaLooking)
+    mi_fused.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        mi_fused.displaced_joint_softmax(logits, logits, 1, 5, 20)
+    flat = logits.reshape(-1, 128)
+    with pytest.raises(RuntimeError):
+        mi_fused.mi_fused_bwd(flat, flat, torch.zeros((9, 128, 128)).as_subclass(_CudaLooking),
+                              10, 10, 1, 5, 20)
+    assert sum(mi_fused.LAUNCHES.values()) == 0

@@ -117,7 +117,7 @@ def test_flat_loss_unported_paths_raise(rng):
     x = torch.tensor(_maps(rng, (1, 12, 12, 128), 20, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         iid_segmentation_small_patch_loss_flat(x, x, 2, 10, 1, 4, pre_padded=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown backend 'pallas_fused'"):
         iid_segmentation_small_patch_loss_flat(x, x, 2, 10, 1, 1024, backend="pallas_fused",
                                                pre_padded=True)
 
