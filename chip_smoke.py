@@ -8,11 +8,14 @@ Phases, each printing JSON lines:
   device   the card's name and power limit (nvidia-smi, also printed raw)
   build    compile every CUDA source of the port with nvcc (sm_90a)
   kernels  each kernel launch of the training path against its plain PyTorch
-           version, at both decoder-tap shapes of the headline config:
-           exactly on small-integer inputs (all sums exact in fp32), and
-           within TOL on probability maps in bf16 and fp32 operand modes;
-           times by CUDA events (median), beside the plain version, one
-           PyTorch library call of the same function and the card's bound.
+           version: exactly on small-integer inputs (all sums exact in fp32)
+           at ragged shapes and at both decoder-tap shapes of the headline
+           config, then at the taps within TOL on probability maps in bf16
+           and fp32 operand modes, two calls bit-identical; times by CUDA
+           events (median) of the whole wrapper call, beside the plain
+           version, one PyTorch library call of the same function (its NCHW
+           permute and cast included) and the card's bound, with the device
+           time of each kernel the wrapper launches (torch.profiler).
            Then the two rotation kernels at the device path's shapes (4 and
            10 slices of 256^2): bit-exact against their plain versions, the
            single-pass rotation against the three-roll one, identity at 0.
@@ -72,6 +75,12 @@ JAX_FUSED = "mi_based_regularized_semi_supervised_segmentation_tpu/ops/pallas/mi
 ROTATIONS = (("labeled", 4, 256), ("unlabeled", 10, 256))
 # decoder taps of the headline udaiic config: (name, batch, map edge, padding)
 TAPS = (("Up_conv2", 10, 224, 3), ("Up_conv3", 10, 112, 1))
+# ragged joint shapes for the exact check: (batch, Hp, Wp, padding); N is no
+# multiple of the kernels' 256-row output tile or 64-row stage, Wp no
+# multiple of 8; from one partial tile to several forward chunks; padding 2
+# and 0 take the kernels' other displacement groups and ring depths
+RAGGED = ((1, 37, 43, 3), (3, 29, 21, 1), (2, 101, 67, 3), (1, 13, 11, 1), (2, 12, 10, 2),
+          (1, 9, 8, 0))
 LANES, SUBHEADS, CLUSTERS = 128, 5, 20
 # max |kernel - plain| / max |plain| on probability maps. Both sides sum the
 # same fp32 products in different orders: the forward's accumulators run over
@@ -118,25 +127,38 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Device time per call: the summed time of every kernel that ``reps``
-    calls of ``fn`` launch (torch.profiler), divided by ``reps``. For
-    kernels of a few microseconds, where CUDA events around a call measure
-    the host's launch overhead instead."""
+def device_split(fn, reps: int, warmup: int = 2) -> dict:
+    """Device time per call by kernel name: the time of every kernel that
+    ``reps`` calls of ``fn`` launch (torch.profiler), divided by ``reps``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    # a profiling session now and then records no device activity at all
+    # (seen on the card for a window of a few microsecond-kernels): take it
+    # again, up to three times, rather than report nothing
+    for _ in range(3):
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(total > 0, "the profiler saw no device time")
-    return total / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split: dict = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                key = e.key[:80]
+                split[key] = split.get(key, 0.0) + e.self_device_time_total / 1e3 / reps
+        if split:
+            return split
+    raise RuntimeError("check failed: the profiler saw no device time in three sessions")
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device time per call (``device_split`` summed). For kernels of a few
+    microseconds, where CUDA events around a call measure the host's launch
+    overhead instead."""
+    return sum(device_split(fn, reps, warmup).values())
 
 
 def nvidia_smi() -> str:
@@ -163,7 +185,8 @@ def phase_build() -> None:
     sources = sorted(p.stem for p in build.SOURCE_DIR.glob("*.cu"))
     t0 = time.perf_counter()
     paths = build.build(sources)
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if any(k in ln for k in ("registers", "spill", "entry function", "wgmma"))]
              for name, log in build.build_logs.items()}
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v) for k, v in paths.items()}, "ptxas": ptxas})
@@ -184,9 +207,11 @@ def _tap_inputs(batch: int, edge: int, padding: int, gen):
 
 
 def _exact_check(mj, n: int, wp: int, p: int, gen) -> None:
-    """Small integers are exact in bf16, and every sum stays below 2^24, so
-    the kernel must equal the plain version bit for bit in both modes: a
-    missing, doubled or misplaced row or displacement shows here."""
+    """Small integers are exact in bf16, and every sum stays below 2^24
+    whatever the summation order, so the kernel must equal the plain version
+    bit for bit in both modes: a missing, doubled or misplaced row or
+    displacement shows here. Every row holds data, so the slabs' first and
+    last rows and the zero fill beyond both ends of [0, N) are exercised."""
     import torch
 
     d = (2 * p + 1) ** 2
@@ -216,6 +241,11 @@ def phase_kernels(reps: int) -> list:
     replaces = {mj.FWD: f"{JAX_KERNELS}:178", mj.BWD_DX_TF: f"{JAX_KERNELS}:230",
                 mj.BWD_DX: f"{JAX_KERNELS}:249"}
     rows = []
+    for batch, hp, wp, p in RAGGED:
+        n = batch * hp * wp
+        _exact_check(mj, n, wp, p, gen)
+        emit({"phase": "kernels", "ragged": [batch, hp, wp, p], "exact_check": "passed",
+              "shape": [n, LANES]})
     for tap, batch, edge, p in TAPS:
         hp = edge + 2 * p
         d = (2 * p + 1) ** 2
@@ -269,6 +299,8 @@ def phase_kernels(reps: int) -> list:
                 scale = float(want.abs().max())
                 check(math.isfinite(err) and err <= TOL * scale,
                       f"{tap} {mode} {name}: max err {err} vs max |ref| {scale}")
+                check(bool(torch.equal(case["kernel"](), got)),
+                      f"{tap} {mode} {name}: two calls on the same inputs differ")
                 lib_err = float((case["unpack"](case["library"]()).float() - want).abs().max())
                 by_ops = flops / PEAK_FLOPS[mode] >= nbytes / HBM_BYTES_PER_S
                 row = {"phase": "kernels", "name": name, "tap": tap, "label": tap, "mode": mode,
@@ -283,6 +315,10 @@ def phase_kernels(reps: int) -> list:
                        "bound_by": "operations" if by_ops else "bytes",
                        "gflop": flops / 1e9}
                 row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+                row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+                row["vs_library"] = row["ms"] / row["library_ms"]
+                if bf16:  # the wrapper's kernels: conversion, product, chunk sum
+                    row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
                 emit(row)
                 rows.append(row)
             del ap, bp, ref, ref_da, ref_db, cases
@@ -734,7 +770,7 @@ def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     if "fused_fwd" in lowered or "fused_bwd" in lowered:
         return "mi_fused (this port's CUDA)"
-    if "joint_fwd" in lowered or "joint_bwd" in lowered:
+    if "joint_fwd" in lowered or "joint_bwd" in lowered or "joint_prep" in lowered:
         return "mi_joint (this port's CUDA)"
     if "rotate_shear" in lowered or "lane_roll" in lowered:
         return "rotation (this port's CUDA)"
@@ -842,6 +878,7 @@ def main(argv=None) -> int:
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "label")
     summary = [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
+                    pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
                     launches=launches.get((r["name"], r["padding"])))
                for r in kernel_rows if r["mode"] == "bf16"]
     summary += [dict(name=f"{r['name']}@B{r['batch']}", **{k: r[k] for k in keys},

@@ -12,7 +12,9 @@ zero-padded by p (or arrives pre-padded) and flattened row-major into an
 The backward is two products of the same shape (see the kernel source).
 ``dot_dtype=torch.bfloat16`` rounds both operands (and, in the backward, the
 incoming cotangent) to bf16 and accumulates in fp32, as the TPU kernel does;
-``torch.float32`` is the parity mode.
+``torch.float32`` is the parity mode. The bf16 kernels take C <= 128 (lanes
+zero-padded to 128 on the card) and their launch geometry comes from
+``launch_plan``, plain Python that the CPU tests check.
 
 Dispatch: CUDA tensors go to the kernel (or the call raises), CPU tensors to
 ``displaced_joint_plain_flat``. ``LAUNCHES`` counts kernel launches by
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -36,8 +40,17 @@ KERNEL_SOURCE = "mi_joint"
 FWD, BWD_DX_TF, BWD_DX = "mi_joint_fwd", "mi_joint_bwd_dx_tf", "mi_joint_bwd_dx"
 LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
 
-_KT = 32    # rows per staged slice in the kernel (rows_per_chunk is a multiple)
-_TILE = 128  # output tile edge in the kernel
+_KT = 32    # rows per staged slice of the fp32 kernel (rows_per_chunk is a multiple)
+_TILE = 128  # output tile edge of the fp32 kernel
+
+# the bf16 kernels' geometry (constants of csrc/mi_joint.cu)
+LANES = 128            # C is zero-padded to this many lanes
+BWD_TILE = 256         # joint_bwd: output rows per block
+BWD_STAGE_LANES = 64   # joint_bwd: K lanes of g per pipeline stage
+FWD_STAGE_ROWS = 64    # joint_fwd_partial: rows per pipeline stage
+FWD_STAGES = 6
+FWD_HALF = 64          # joint_fwd_partial: a block's J tile is 64 x 64
+SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on an H100
 
 
 def reset_launch_counts() -> None:
@@ -104,10 +117,13 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(KERNEL_SOURCE)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mi_joint_fwd.argtypes = [vp, vp, vp, vp, ll, i, i, i, ll, i, i, vp]
-        lib.mi_joint_fwd.restype = i
-        lib.mi_joint_bwd.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i, vp]
-        lib.mi_joint_bwd.restype = i
+        lib.mi_joint_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, ll, i, i, i, vp]
+        lib.mi_joint_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, vp]
+        lib.mi_joint_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, ll, i, vp]
+        lib.mi_joint_bwd_fp32.argtypes = [vp, vp, vp, ll, i, i, i, i, vp]
+        for fn in (lib.mi_joint_fwd_bf16, lib.mi_joint_bwd_bf16, lib.mi_joint_fwd_fp32,
+                   lib.mi_joint_bwd_fp32):
+            fn.restype = i
         lib.mi_joint_error_string.argtypes = [i]
         lib.mi_joint_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -137,8 +153,9 @@ def _check_geometry(wp: int, padding: int) -> None:
 
 
 def fwd_chunking(n: int, c: int, padding: int, sm_count: int) -> Tuple[int, int]:
-    """(rows_per_chunk, n_chunks) of the forward's split over rows: about 8
-    blocks per SM, each chunk a multiple of the kernel's 32-row slice."""
+    """(rows_per_chunk, n_chunks) of the fp32 forward's (and the fused
+    forward's) split over rows: about 8 blocks per SM, each chunk a multiple
+    of the kernel's 32-row slice."""
     d = (2 * padding + 1) ** 2
     tiles = (-(-c // _TILE)) ** 2
     want = max(1, math.ceil(8 * sm_count / (d * tiles)))
@@ -146,6 +163,106 @@ def fwd_chunking(n: int, c: int, padding: int, sm_count: int) -> Tuple[int, int]
     rows = -(-n // want)
     rows = -(-rows // _KT) * _KT
     return rows, -(-n // rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class JointPlan:
+    """Launch geometry of the bf16 kernels for one call shape: every number
+    the wrapper hands the CUDA side, and the source row windows the kernels
+    stage. A window is what the block's own rows need; its rows outside
+    [0, N) are zero-filled in shared memory, never read."""
+    n: int
+    padding: int
+    wp: int
+    # joint_bwd: grid (bwd_blocks,), BWD_TILE output rows a block; per dy one
+    # slab of bwd_slab_rows source rows (two buffers), then bwd_stages stages
+    # of BWD_STAGE_LANES lanes of g
+    bwd_blocks: int
+    bwd_slab_rows: int
+    bwd_stages: int
+    bwd_smem: int
+    # joint_fwd_partial: grid (4 * fwd_groups * taps, fwd_chunks); a block
+    # takes one chunk of rows, one dy, fwd_dx_group displacements along x
+    # (the largest of 7, 5, 3, 1 that divides 2p + 1) and a 64 x 64 quarter
+    # of J, in FWD_STAGES stages of FWD_STAGE_ROWS rows
+    fwd_dx_group: int
+    fwd_groups: int
+    fwd_rows_per_chunk: int
+    fwd_chunks: int
+    fwd_smem: int
+
+    @property
+    def taps(self) -> int:
+        return 2 * self.padding + 1
+
+    @property
+    def bwd_grid(self) -> Tuple[int]:
+        return (self.bwd_blocks,)
+
+    @property
+    def fwd_grid(self) -> Tuple[int, int]:
+        return (4 * self.fwd_groups * self.taps, self.fwd_chunks)
+
+    def bwd_out_rows(self, block: int) -> Tuple[int, int]:
+        lo = block * BWD_TILE
+        return lo, min(self.n, lo + BWD_TILE)
+
+    def bwd_slab_window(self, block: int, dy: int) -> Tuple[int, int]:
+        lo, hi = self.bwd_out_rows(block)
+        shift = (dy - self.padding) * self.wp
+        return lo + shift - self.padding, hi + shift + self.padding
+
+    def fwd_chunk_rows(self, chunk: int) -> Tuple[int, int]:
+        lo = chunk * self.fwd_rows_per_chunk
+        return lo, min(self.n, lo + self.fwd_rows_per_chunk)
+
+    def fwd_a_window(self, chunk: int, dy: int, group: int) -> Tuple[int, int]:
+        """A rows that the chunk's stages read for (dy, group): B row r meets
+        A row r + (dy - p) * wp + dx - p for each dx of the group."""
+        lo, hi = self.fwd_chunk_rows(chunk)
+        shift = (dy - self.padding) * self.wp + group * self.fwd_dx_group - self.padding
+        return lo + shift, hi + shift + self.fwd_dx_group - 1
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, c: int, padding: int, wp: int, sm_count: int) -> JointPlan:
+    """The bf16 kernels' launch plan (see ``JointPlan``). The backward's ring
+    has 6 stages, 4 in flight; 4 stages, 2 in flight, where 6 do not fit or
+    where p = 0 (a dy has 2 steps there, and a slab buffer may be refilled
+    only after the last step that read it). The forward's chunk count gives
+    whole waves of blocks (a multiple of sm_count / gcd(blocks per chunk,
+    sm_count)), at least 4 blocks per SM and at least 4 stages a chunk."""
+    if not 1 <= c <= LANES:
+        raise ValueError(f"the bf16 joint kernels take 1 to {LANES} lanes, got C = {c}")
+    if n < 1:
+        raise ValueError(f"no rows (N = {n})")
+    _check_geometry(wp, padding)
+    t = 2 * padding + 1
+    slab_rows = BWD_TILE + 2 * padding
+    smem = {s: 2 * slab_rows * LANES * 2 + s * LANES * BWD_STAGE_LANES * 2 for s in (6, 4)}
+    fits = [s for s in (6, 4) if smem[s] <= SMEM_LIMIT and 2 * t >= s - 2]
+    if not fits:
+        raise ValueError(f"padding {padding} needs {smem[4]} bytes of shared memory "
+                         f"(at most {SMEM_LIMIT})")
+    stages = fits[0]
+    group = next(g for g in (7, 5, 3, 1) if t % g == 0)
+    groups = t // group
+    stage = FWD_HALF * 2 * (2 * FWD_STAGE_ROWS + group - 1)  # B slice and A slab, bf16
+    fwd_smem = FWD_STAGES * math.ceil(stage / 1024) * 1024   # stages 1024-byte aligned
+    per_chunk = 4 * groups * t
+    unit = sm_count // math.gcd(per_chunk, sm_count)
+    want = unit * max(1, math.ceil(4 * sm_count / (per_chunk * unit)))
+    chunks = max(1, min(want, math.ceil(n / (4 * FWD_STAGE_ROWS)), 65535))
+    rows = math.ceil(math.ceil(n / chunks) / FWD_STAGE_ROWS) * FWD_STAGE_ROWS
+    return JointPlan(n=n, padding=padding, wp=wp, bwd_blocks=math.ceil(n / BWD_TILE),
+                     bwd_slab_rows=slab_rows, bwd_stages=stages, bwd_smem=smem[stages],
+                     fwd_dx_group=group, fwd_groups=groups, fwd_rows_per_chunk=rows,
+                     fwd_chunks=math.ceil(n / rows), fwd_smem=fwd_smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
@@ -160,13 +277,24 @@ def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
     d = (2 * padding + 1) ** 2
     lib = _library()
     with torch.cuda.device(a.device):
-        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        rows, chunks = fwd_chunking(n, c, padding, sms)
-        partial = torch.empty((chunks, d, c, c), dtype=torch.float32, device=a.device)
+        sms = _sm_count(a.device.index)
         out = torch.empty((d, c, c), dtype=torch.float32, device=a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.mi_joint_fwd(a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                              n, c, padding, wp, rows, chunks, int(bf16), stream)
+        if bf16:
+            plan = launch_plan(n, c, padding, wp, sms)
+            a16 = torch.empty((n, LANES), dtype=torch.bfloat16, device=a.device)
+            b16 = torch.empty_like(a16)
+            partial = torch.empty((plan.fwd_chunks, d, LANES, LANES), dtype=torch.float32,
+                                  device=a.device)
+            rc = lib.mi_joint_fwd_bf16(a.data_ptr(), b.data_ptr(), a16.data_ptr(),
+                                       b16.data_ptr(), partial.data_ptr(), out.data_ptr(), n, c,
+                                       padding, wp, plan.fwd_rows_per_chunk, plan.fwd_chunks,
+                                       plan.fwd_dx_group, plan.fwd_smem, stream)
+        else:
+            rows, chunks = fwd_chunking(n, c, padding, sms)
+            partial = torch.empty((chunks, d, c, c), dtype=torch.float32, device=a.device)
+            rc = lib.mi_joint_fwd_fp32(a.data_ptr(), b.data_ptr(), partial.data_ptr(),
+                                       out.data_ptr(), n, c, padding, wp, rows, chunks, stream)
     _check(rc, FWD)
     LAUNCHES[(FWD, padding)] += 1
     return out
@@ -190,8 +318,16 @@ def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
     with torch.cuda.device(src.device):
         out = torch.empty((n, c), dtype=torch.float32, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.mi_joint_bwd(src.data_ptr(), g.data_ptr(), out.data_ptr(), n, c, padding, wp,
-                              -1 if transpose_g else 1, int(transpose_g), int(bf16), stream)
+        if bf16:
+            plan = launch_plan(n, c, padding, wp, _sm_count(src.device.index))
+            s16 = torch.empty((n, LANES), dtype=torch.bfloat16, device=src.device)
+            h16 = torch.empty((d, LANES, LANES), dtype=torch.bfloat16, device=src.device)
+            rc = lib.mi_joint_bwd_bf16(src.data_ptr(), g.data_ptr(), s16.data_ptr(),
+                                       h16.data_ptr(), out.data_ptr(), n, c, padding, wp,
+                                       int(transpose_g), plan.bwd_stages, plan.bwd_smem, stream)
+        else:
+            rc = lib.mi_joint_bwd_fp32(src.data_ptr(), g.data_ptr(), out.data_ptr(), n, c,
+                                       padding, wp, int(transpose_g), stream)
     name = BWD_DX if transpose_g else BWD_DX_TF
     _check(rc, name)
     LAUNCHES[(name, padding)] += 1

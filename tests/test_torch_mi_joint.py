@@ -8,6 +8,8 @@ operands the same, since both sides round the same operands (and the
 cotangent) to bf16 and sum exact products in fp32.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -141,21 +143,125 @@ def test_forward_chunking_covers_rows(n, padding):
     assert (chunks - 1) * rows < n <= chunks * rows
 
 
+# launch-plan shapes (n, padding, wp): both decoder taps of the headline config
+# and ragged ones (n no multiple of the 256-row tile or the 64-row stage, wp no
+# multiple of 8, a batch of 1, one partial tile, padding 0 and 2)
+PLAN_SHAPES = [(529_000, 3, 230), (129_960, 1, 114), (1 * 37 * 43, 3, 43),
+               (3 * 29 * 21, 1, 21), (2 * 101 * 67, 3, 67), (13 * 11, 1, 11),
+               (2 * 12 * 10, 2, 10), (9 * 8, 0, 8)]
+
+
+def _plan(n, padding, wp):
+    return mi_joint.launch_plan(n, 128, padding, wp, sm_count=132)
+
+
+@pytest.mark.parametrize("n,padding,wp", PLAN_SHAPES)
+def test_plan_bwd_covers_each_output_row_once(n, padding, wp):
+    plan = _plan(n, padding, wp)
+    assert plan.bwd_grid == (plan.bwd_blocks,)
+    seen = np.zeros(n, np.int64)
+    for block in range(plan.bwd_blocks):
+        lo, hi = plan.bwd_out_rows(block)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n,padding,wp", PLAN_SHAPES)
+def test_plan_staged_windows_stay_in_bounds(n, padding, wp):
+    """Every staged row window lies in [-(p*wp + p), n + p*wp + p) and fits
+    its shared-memory buffer."""
+    plan = _plan(n, padding, wp)
+    p, t = padding, plan.taps
+    low, high = -(p * wp + p), n + p * wp + p
+    for block in range(plan.bwd_blocks):
+        for dy in range(t):
+            lo, hi = plan.bwd_slab_window(block, dy)
+            assert low <= lo < hi <= high
+            assert hi - lo <= plan.bwd_slab_rows
+    for chunk in range(plan.fwd_chunks):
+        for dy in range(t):
+            for group in range(plan.fwd_groups):
+                lo, hi = plan.fwd_a_window(chunk, dy, group)
+                assert low <= lo < hi <= high
+    assert plan.fwd_groups * plan.fwd_dx_group == t
+
+
+@pytest.mark.parametrize("n,padding,wp", PLAN_SHAPES)
+def test_plan_shared_memory_fits(n, padding, wp):
+    plan = _plan(n, padding, wp)
+    assert 0 < plan.bwd_smem <= 232_448
+    assert 0 < plan.fwd_smem <= 232_448
+    assert plan.bwd_slab_rows == mi_joint.BWD_TILE + 2 * padding
+    # a slab buffer is refilled only after the last step of its dy read it
+    assert 2 * plan.taps >= plan.bwd_stages - 2
+
+
+@pytest.mark.parametrize("n,padding,wp", PLAN_SHAPES)
+def test_plan_fwd_chunks_cover_rows(n, padding, wp):
+    plan = _plan(n, padding, wp)
+    assert plan.fwd_rows_per_chunk % mi_joint.FWD_STAGE_ROWS == 0
+    assert plan.fwd_grid == (4 * plan.fwd_groups * plan.taps, plan.fwd_chunks)
+    end = 0
+    for chunk in range(plan.fwd_chunks):
+        lo, hi = plan.fwd_chunk_rows(chunk)
+        assert lo == end and hi > lo  # contiguous, none empty
+        end = hi
+    assert end == n
+
+
+def test_plan_whole_waves_at_the_taps():
+    """At both decoder taps the forward's blocks fill whole waves of 132 SMs."""
+    for n, padding, wp in PLAN_SHAPES[:2]:
+        grid = _plan(n, padding, wp).fwd_grid
+        assert grid[0] * grid[1] % 132 == 0
+
+
+def test_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="lanes"):
+        mi_joint.launch_plan(1000, 129, 1, 20, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        mi_joint.launch_plan(100_000, 128, 40, 100, 132)
+    with pytest.raises(ValueError, match="rows"):
+        mi_joint.launch_plan(0, 128, 1, 20, 132)
+    with pytest.raises(ValueError, match="padding"):
+        mi_joint.launch_plan(1000, 128, 5, 10, 132)
+
+
+def test_plan_constants_match_kernel_source():
+    """The plan's geometry is the kernel's: the constants of csrc/mi_joint.cu."""
+    src = (mi_joint.build.SOURCE_DIR / "mi_joint.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["LANES"]) == mi_joint.LANES
+    assert int(consts["BW_TILE"]) == mi_joint.BWD_TILE
+    assert int(consts["BW_KC"]) == mi_joint.BWD_STAGE_LANES
+    assert int(consts["FW_KT"]) == mi_joint.FWD_STAGE_ROWS
+    assert int(consts["FW_HALF"]) == mi_joint.FWD_HALF
+    assert int(consts["FW_STAGES"]) == mi_joint.FWD_STAGES
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(rng):
-    """The CUDA kernel against its plain version, both operand modes, on a
-    small pre-padded canvas (C = 128, padding 3); rtol 1e-4 of max |ref|."""
+@pytest.mark.parametrize("shape,padding", [
+    ((2, 20, 19, 128), 3),   # small pre-padded canvas
+    ((1, 23, 17, 128), 1),   # ragged: n = 391
+    ((3, 37, 43, 100), 3),   # ragged n = 4773, C < 128 lanes
+])
+def test_kernel_matches_plain_on_card(rng, shape, padding):
+    """The CUDA kernels against their plain version, both operand modes, on
+    pre-padded canvases; rtol 1e-4 of max |ref|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (a CUDA kernel has no CPU mode)")
-    x = _maps(rng, (2, 20, 19, 128), 100, 3)
-    y = _maps(rng, (2, 20, 19, 128), 100, 3)
-    g = torch.tensor(rng.normal(size=(7, 7, 128, 128)).astype(np.float32))
+    c = shape[-1]
+    x = _maps(rng, shape, min(c, 100), padding)
+    y = _maps(rng, shape, min(c, 100), padding)
+    t = 2 * padding + 1
+    g = torch.tensor(rng.normal(size=(t, t, c, c)).astype(np.float32))
     for dot in (torch.float32, torch.bfloat16):
         outs = []
         for dev in ("cpu", "cuda"):
             tx = torch.tensor(x, device=dev, requires_grad=True)
             ty = torch.tensor(y, device=dev, requires_grad=True)
-            joint = mi_joint.displaced_joint(tx, ty, 3, dot, pre_padded=True)
+            joint = mi_joint.displaced_joint(tx, ty, padding, dot, pre_padded=True)
             (joint * g.to(dev)).sum().backward()
             outs.append([t.detach().cpu().numpy() for t in (joint, tx.grad, ty.grad)])
         for want, got in zip(*outs):
