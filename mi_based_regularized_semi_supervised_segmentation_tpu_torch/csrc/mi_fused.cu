@@ -1,13 +1,16 @@
 // Fused displaced-MI joint from logits: the row's group softmax, the interior
-// mask and the displaced joint in one pass, and the two backward products
-// with the softmax VJP, for Hopper (sm_90a), bound to Python through a plain C
+// mask and the displaced joint, and the two backward products with the
+// softmax VJP, for Hopper (sm_90a), bound to Python through a plain C
 // interface (ctypes).
 //
 // Replaces the Pallas TPU kernels of the JAX package's
 // ops/pallas/mi_fused.py (Kernel.backend=pallas_fused):
-//   * _fused_fwd / _fwd_kernel                    -> fused_fwd_partial + fused_fwd_reduce
-//   * _fused_bwd / _bwd_kernel (dl2)              -> fused_bwd, sign +1, g as is
-//   * _fused_bwd / _bwd_kernel (dl1, transpose_g) -> fused_bwd, sign -1, g transposed
+//   * mi_fused.py:215 _fused_fwd / _fwd_kernel
+//       -> joint_prep<SoftmaxRows> + joint_fwd_partial + joint_fwd_reduce
+//   * mi_fused.py:254 _fused_bwd / _bwd_kernel (dl2)
+//       -> joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[d] as is
+//   * mi_fused.py:275 _fused_bwd / _bwd_kernel (dl1, transpose_g)
+//       -> joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[D-1-d]^T
 //
 // What is computed. l1, l2 are [N, 128] fp32 logits: the row-major
 // flattening of [B, Hp, Wp, 128] canvases with a border of width p; lanes
@@ -35,43 +38,68 @@
 // bound it (~0.04-0.06 ms). The 2*N*128 exps that the function needs are far
 // below either bound.
 //
-// What the design does about it. Probabilities never go to device memory:
-// each kernel reads logits and forms the masked probabilities while staging
-// them into shared memory, one warp per 128-lane row (max by shuffles, the
-// group sums over a per-warp row of shared memory), then runs the products of
-// csrc/mi_joint.cu on the tensor cores (WMMA 16x16x16 bf16; CUDA-core FMAs in
-// fp32 mode). The forward is the split-K product per displacement: block
-// (d, chunk) stages 32-row slices of the shifted l1 and of l2, keeps the
-// 128x128 tile in registers and writes a partial tile; a second pass sums the
-// chunks in a fixed order. The backward gives each block 128 own rows: it
-// walks the displacements, staging the 128 full source rows as probabilities
-// and g[d] as stored (the transposed read is a column-major fragment load),
-// then moves the fp32 accumulators to shared memory, recomputes its own rows'
-// probabilities and applies the mask and the softmax VJP. The simple price:
-// the forward recomputes each row's softmax once per displacement (about
-// 49 x 2 x N rows at Up_conv2); staging per dy and looping over dx would cut
-// that 7x.
+// What the bf16 design (the training path) does about it: each row's softmax
+// is formed once per call, in the joint's conversion pass, and the products
+// run on the joint's wgmma kernels (joint_core.cuh, one copy shared with
+// mi_joint.cu; the launch plan and scratch are the joint's, from
+// ops/mi_joint.py). The products take bf16 operands anyway, so the pass
+// writes pm = bf16(p * valid) into the joint's [N, 128] bf16 scratch: bit for
+// bit the operands the tensor cores would have read from a softmax formed
+// while staging, and no fp32 probability tensor exists.
+//   * SoftmaxRows, joint_prep's row policy. A row's softmax is a chain of
+//     shuffles, exps, divisions and group sums, and the pass is bound by the
+//     instructions it issues, not by its bytes (at Up_conv2 271 MB of logits
+//     in and 135 MB of bf16 out per operand). So a warp forms 4 rows at once
+//     (4 lanes of each a thread: four independent chains) while the next 4
+//     rows' loads are in flight; each thread's lane-to-group map is computed
+//     once, not per row; one lane a row tests the interior mask (two integer
+//     divisions) and a ballot shares it; T = 1, the only temperature the
+//     heads emit, divides nothing (x / 1 is x); group sums read 16 bytes at a
+//     time when K % 4 == 0. The rounding points are the TPU kernel's
+//     (row_softmax).
+//   * Forward: SoftmaxRows over l1 and l2 in one launch, then the joint's
+//     joint_fwd_partial and joint_fwd_reduce unchanged: 3 launches.
+//   * Backward, once per side: SoftmaxRows over the source side's logits with
+//     the joint's conversion of g (transposed, and for dl1 in reversed
+//     displacement order) in one launch, then joint_bwd with the VjpRows
+//     epilogue: 2 launches. After its last wgmma wait the block moves its
+//     256 x 128 fp32 accumulators (dq before the mask) to shared memory, over
+//     the ring and slabs it no longer reads (152 KB of the 197-227 KB), reads
+//     its own rows' logits (4 rows a warp at once, the next 4 in flight),
+//     recomputes their unmasked probabilities with the same device code and
+//     writes dl = (t - p*s) / T, t = p * (valid * dq). dq never reaches device
+//     memory, and the epilogue holds nothing live across the main loop. The
+//     SM's tensor cores idle while it runs (one block an SM): it is what the
+//     backward costs over the joint's.
+//   * Edge rows: rows outside [0, N) of the shifted source are zero-filled by
+//     the joint's cp.async; border rows are zero through the mask in the pass;
+//     own rows that are border rows get dl = 0.
+// The fp32 parity mode keeps the first (CUDA-core) kernels: they form each
+// staged row's softmax while staging it, once per displacement, and are not
+// on the training path.
+//
+// ptxas (sm_90a, -O3; chip_smoke.py's build phase prints it), no spills:
+// joint_bwd<6, VjpRows> 232 registers (joint_bwd<6, StoreRows> 219), 1 block
+// per SM; joint_prep<SoftmaxRows> 128 registers and 16 KB of static shared
+// memory (the warps' scratch rows).
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-using namespace nvcuda;
+#include "joint_core.cuh"
 
 namespace {
 
-constexpr int C = 128;        // lanes per row: the head's lane width
-constexpr int KT = 32;        // rows per staged slice in the forward
-constexpr int ROWS = 128;     // own rows per block in the backward
+constexpr int C = LANES;      // lanes per row: the head's lane width
+constexpr int KT = 32;        // rows per staged slice in the fp32 forward
+constexpr int ROWS = 128;     // own rows per block in the fp32 backward
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int PAD_H = 8;      // bf16 row padding (16 bytes)
 constexpr int PAD_F = 4;      // fp32 row padding (16 bytes)
-constexpr int LDQ = C + PAD_F;
+constexpr int LD = C + PAD_F;
+constexpr int LDQ = C + 8;    // VjpRows' dq rows: conflict-free float2 stores
 
 struct Geometry {
   long long n;  // rows of the flattened canvas
@@ -80,24 +108,8 @@ struct Geometry {
   float t;      // temperature
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return a | (b << 16);
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 4 values to shared memory as the operand type (bf16 bits or fp32).
-template <bool BF16>
-__device__ __forceinline__ void store4(void* dst, float4 v) {
-  if constexpr (BF16) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
-  } else {
-    *reinterpret_cast<float4*>(dst) = v;
-  }
 }
 
 // Interior row of the canvas (the conv zero-padding semantics); rows outside
@@ -112,123 +124,364 @@ __device__ __forceinline__ bool row_valid(long long n, const Geometry& g) {
   return y >= g.p && y < g.hp - g.p && x >= g.p && x < g.wp - g.p;
 }
 
-// For this thread's lanes j0..j0+3: the sum of each live lane's group over
-// the warp's 128-float row `row` (written and synced by the caller), in fp32
-// with four running sums; 0 on dead lanes.
-__device__ __forceinline__ void group_sums(const float* row, int j0, const Geometry& g,
-                                           float out[4]) {
-  int cur = -1;
-  float sum = 0.f;
+// The groups of this thread's lanes j0..j0+3 (j0 = 4 * lane), the same for
+// every row of a call: computed once, so a row costs no integer division.
+struct LaneMap {
+  int j0;
+  int begin[4];  // first lane of lane j0 + i's group; -1 for a dead lane
+  bool vec;      // K % 4 == 0: every group starts on a 16-byte boundary
+};
+
+__device__ __forceinline__ LaneMap lane_map(int lane, const Geometry& g) {
+  LaneMap m;
+  m.j0 = lane * 4;
+  m.vec = (g.k & 3) == 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int j = j0 + i;
-    out[i] = 0.f;
-    if (j < g.sk) {
-      const int grp = j / g.k;
-      if (grp != cur) {
-        cur = grp;
-        const int end = grp * g.k + g.k;
-        int q = grp * g.k;
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        for (; q + 3 < end; q += 4) {
-          s0 += row[q];
-          s1 += row[q + 1];
-          s2 += row[q + 2];
-          s3 += row[q + 3];
+    const int j = m.j0 + i;
+    m.begin[i] = j < g.sk ? j - j % g.k : -1;
+  }
+  return m;
+}
+
+// For this thread's lanes of each of R rows: the sum of each live lane's
+// group over the warp's 128-float row r of `rows` (rows r * C apart, written
+// and synced by the caller), in fp32 with four running sums (of elements q,
+// q + 1, q + 2, q + 3 of each step of 4, the tail into the first); 0 on dead
+// lanes. The R rows' sums are independent chains, interleaved.
+template <int R>
+__device__ __forceinline__ void group_sums(const float* rows, const LaneMap& m, int k,
+                                           float (&out)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = m.begin[i];
+    if (b < 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) out[r][i] = 0.f;
+    } else if (i > 0 && b == m.begin[i - 1]) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) out[r][i] = out[r][i - 1];
+    } else {
+      float s0[R], s1[R], s2[R], s3[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) s0[r] = s1[r] = s2[r] = s3[r] = 0.f;
+      const int end = b + k;
+      int q = b;
+      if (m.vec) {
+        for (; q < end; q += 4) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 x = *reinterpret_cast<const float4*>(rows + r * C + q);
+            s0[r] += x.x;
+            s1[r] += x.y;
+            s2[r] += x.z;
+            s3[r] += x.w;
+          }
         }
-        for (; q < end; ++q) s0 += row[q];
-        sum = (s0 + s1) + (s2 + s3);
+      } else {
+        for (; q + 3 < end; q += 4) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float* row = rows + r * C;
+            s0[r] += row[q];
+            s1[r] += row[q + 1];
+            s2[r] += row[q + 2];
+            s3[r] += row[q + 3];
+          }
+        }
+        for (; q < end; ++q) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) s0[r] += rows[r * C + q];
+        }
       }
-      out[i] = sum;
+#pragma unroll
+      for (int r = 0; r < R; ++r) out[r][i] = (s0[r] + s1[r]) + (s2[r] + s3[r]);
     }
   }
 }
 
-// Unmasked probabilities of one row, lanes 4*lane..4*lane+3 (the whole warp
-// calls it on the same row). scratch: the warp's 128 floats.
-template <bool BF16>
-__device__ __forceinline__ float4 row_softmax(float4 v, int lane, const Geometry& g,
-                                              float* scratch) {
-  const int j0 = lane * 4;
-  float z[4] = {v.x, v.y, v.z, v.w};
-  float m = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    z[i] = (j0 + i < g.sk) ? z[i] / g.t : -INFINITY;
-    m = fmaxf(m, z[i]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  float e[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    e[i] = (j0 + i < g.sk) ? expf(z[i] - m) : 0.f;
-    scratch[j0 + i] = BF16 ? round_bf16(e[i]) : e[i];
-  }
-  __syncwarp();
-  float den[4];
-  group_sums(scratch, j0, g, den);
-  __syncwarp();  // the caller's next row rewrites scratch
-  float p[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = (j0 + i < g.sk) ? e[i] / (den[i] + 1e-16f) : 0.f;
-  return make_float4(p[0], p[1], p[2], p[3]);
+// x / T, or x itself when the call's T is 1 (UNIT_T; x / 1 is x exactly)
+template <bool UNIT_T>
+__device__ __forceinline__ float by_t(float x, float t) {
+  return UNIT_T ? x : x / t;
 }
 
-// d(logits) of one row from its probabilities p and masked upstream dq.
+// Unmasked probabilities of R rows, lanes j0..j0+3 of each (the whole warp
+// calls it on the same rows). scratch: the warp's R x 128 floats.
+template <bool BF16, int R, bool UNIT_T = false>
+__device__ __forceinline__ void row_softmax(const float4 (&v)[R], const LaneMap& lm,
+                                            const Geometry& g, float* scratch,
+                                            float4 (&out)[R]) {
+  float z[R][4], m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float x[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+    m[r] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      z[r][i] = lm.begin[i] >= 0 ? by_t<UNIT_T>(x[i], g.t) : -INFINITY;
+      m[r] = fmaxf(m[r], z[r][i]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
+  float e[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[r][i] = lm.begin[i] >= 0 ? expf(z[r][i] - m[r]) : 0.f;
+    *reinterpret_cast<float4*>(scratch + r * C + lm.j0) =
+        BF16 ? make_float4(round_bf16(e[r][0]), round_bf16(e[r][1]), round_bf16(e[r][2]),
+                           round_bf16(e[r][3]))
+             : make_float4(e[r][0], e[r][1], e[r][2], e[r][3]);
+  }
+  __syncwarp();
+  float den[R][4];
+  group_sums<R>(scratch, lm, g.k, den);
+  __syncwarp();  // the caller's next rows rewrite scratch
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = lm.begin[i] >= 0 ? e[r][i] / (den[r][i] + 1e-16f) : 0.f;
+    out[r] = make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// d(logits) of R rows from their probabilities p and masked upstream dq.
 // Multiplies and subtractions are rounded one by one (no FMA contraction),
 // as the plain version computes them.
-template <bool BF16>
-__device__ __forceinline__ float4 row_softmax_vjp(float4 pv, float4 qv, int lane,
-                                                  const Geometry& g, float* scratch) {
-  const int j0 = lane * 4;
-  const float p[4] = {pv.x, pv.y, pv.z, pv.w};
-  const float q[4] = {qv.x, qv.y, qv.z, qv.w};
-  float t[4];
+template <bool BF16, int R, bool UNIT_T = false>
+__device__ __forceinline__ void row_softmax_vjp(const float4 (&pv)[R], const float4 (&qv)[R],
+                                                const LaneMap& lm, const Geometry& g,
+                                                float* scratch, float4 (&out)[R]) {
+  float p[R][4], t[R][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    t[i] = __fmul_rn(p[i], q[i]);
-    scratch[j0 + i] = BF16 ? round_bf16(t[i]) : t[i];
+  for (int r = 0; r < R; ++r) {
+    const float pr[4] = {pv[r].x, pv[r].y, pv[r].z, pv[r].w};
+    const float qr[4] = {qv[r].x, qv[r].y, qv[r].z, qv[r].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[r][i] = pr[i];
+      t[r][i] = __fmul_rn(pr[i], qr[i]);
+    }
+    *reinterpret_cast<float4*>(scratch + r * C + lm.j0) =
+        BF16 ? make_float4(round_bf16(t[r][0]), round_bf16(t[r][1]), round_bf16(t[r][2]),
+                           round_bf16(t[r][3]))
+             : make_float4(t[r][0], t[r][1], t[r][2], t[r][3]);
   }
   __syncwarp();
-  float s[4];
-  group_sums(scratch, j0, g, s);
+  float s[R][4];
+  group_sums<R>(scratch, lm, g.k, s);
   __syncwarp();
-  float dl[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    dl[i] = (j0 + i < g.sk) ? __fsub_rn(t[i], __fmul_rn(p[i], s[i])) / g.t : 0.f;
-  return make_float4(dl[0], dl[1], dl[2], dl[3]);
+  for (int r = 0; r < R; ++r) {
+    float dl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dl[i] = lm.begin[i] >= 0
+                  ? by_t<UNIT_T>(__fsub_rn(t[r][i], __fmul_rn(p[r][i], s[r][i])), g.t)
+                  : 0.f;
+    out[r] = make_float4(dl[0], dl[1], dl[2], dl[3]);
+  }
 }
 
-// One warp stages tall row `row` of logits l as masked probabilities into the
-// 128-lane shared row dst (zeros where the row is invalid or not `live`).
-// (Issuing a warp's 8 row loads at once raised the registers from 128 to 177
-// and cut the blocks per SM from 2 to 1, which made both kernels slower.)
-template <bool BF16>
+__device__ __forceinline__ float4 load_row4(const float* l, long long row, int lane) {
+  return reinterpret_cast<const float4*>(l + row * C)[lane];
+}
+
+// ===========================================================================
+// bf16 mode (the training path): the two policies of the joint's kernels
+// ===========================================================================
+
+constexpr int ROW_GROUP = 4;  // rows a warp forms at once (independent chains)
+
+// joint_prep's row policy: dst_i[r] = bf16(softmax(src_i[r]) * valid(r)),
+// i = 0, 1 (src1 may be null); one warp for ROW_GROUP consecutive rows of the
+// operand pair, grid-stride over the groups, the next group's logits loaded
+// before this group is formed.
+struct SoftmaxRows {
+  const float* src0;
+  __nv_bfloat16* dst0;
+  const float* src1;
+  __nv_bfloat16* dst1;
+  Geometry geo;
+
+  __device__ __forceinline__ void operator()(long long first, long long stride) const {
+    __shared__ __align__(16) float scratch[PREP_THREADS / 32][ROW_GROUP * C];
+    float* ws = scratch[threadIdx.x >> 5];
+    if (geo.t == 1.f)
+      run<true>(first, stride, ws);
+    else
+      run<false>(first, stride, ws);
+  }
+
+  template <bool UNIT_T>
+  __device__ __forceinline__ void run(long long first, long long stride, float* ws) const {
+    const int lane = threadIdx.x & 31;
+    const LaneMap lm = lane_map(lane, geo);
+    const long long rows = src1 ? 2 * geo.n : geo.n;
+    const long long groups = (rows + ROW_GROUP - 1) / ROW_GROUP;
+    const long long step = stride >> 5;
+    // rows ROW_GROUP * grp + i of the operand pair: which are valid (bit i;
+    // lane i tests row i), and the logits of the valid ones
+    auto fetch = [&](long long grp, unsigned& valid, float4 (&v)[ROW_GROUP]) {
+      bool mine = false;
+      if (lane < ROW_GROUP) {
+        const long long u = grp * ROW_GROUP + lane;
+        mine = u < rows && row_valid(u >= geo.n ? u - geo.n : u, geo);
+      }
+      valid = __ballot_sync(0xffffffffu, mine);
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i) {
+        const long long u = grp * ROW_GROUP + i;
+        const bool second = u >= geo.n;
+        v[i] = (valid >> i) & 1u ? load_row4(second ? src1 : src0, second ? u - geo.n : u, lane)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    };
+    long long grp = first >> 5;
+    unsigned valid;
+    float4 v[ROW_GROUP];
+    fetch(grp, valid, v);
+    for (; grp < groups; grp += step) {  // grp is uniform across the warp
+      unsigned next_valid;
+      float4 next[ROW_GROUP], q[ROW_GROUP];
+      fetch(grp + step, next_valid, next);
+      row_softmax<true, ROW_GROUP, UNIT_T>(v, lm, geo, ws, q);
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i) {
+        const long long u = grp * ROW_GROUP + i;
+        if (u >= rows) break;
+        const bool second = u >= geo.n;
+        const long long r = second ? u - geo.n : u;
+        const float4 x = (valid >> i) & 1u ? q[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<uint2*>((second ? dst1 : dst0) + r * LANES + 4 * lane) =
+            make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
+      }
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i) v[i] = next[i];
+      valid = next_valid;
+    }
+  }
+};
+
+// blocks of joint_prep<SoftmaxRows>: a warp for each group of rows, at most
+// 8192 blocks (grid-stride beyond), and enough threads for the units of H
+unsigned softmax_prep_blocks(long long rows, long long units_g) {
+  const long long warps = (rows + ROW_GROUP - 1) / ROW_GROUP;
+  const long long for_rows = (warps + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32);
+  const long long for_g = (units_g + PREP_THREADS - 1) / PREP_THREADS;
+  const long long want = for_rows > for_g ? for_rows : for_g;
+  return (unsigned)(want < 8192 ? want : 8192);
+}
+
+// joint_bwd's epilogue: out[n] = d(own logits) of the block's own rows, the
+// softmax VJP at dq = valid(n) * (the block's accumulators).
+struct VjpRows {
+  const float* own;
+  float* out;
+  Geometry geo;
+
+  __device__ __forceinline__ void operator()(float (&acc)[2][64], unsigned char* smem,
+                                             long long n0, long long N, int tid) const {
+    float* dq = reinterpret_cast<float*>(smem);   // [BW_TILE][LDQ]
+    float* scratch = dq + BW_TILE * LDQ;          // [8 warps][ROW_GROUP * C]
+    const int lane = tid & 31, warp = tid >> 5;
+    const int wg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    __syncthreads();  // every warp is done with the ring and the slabs
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float* row = dq + (wg * 128 + h * 64 + wq * 16 + g + half * 8) * LDQ;
+#pragma unroll
+        for (int c8 = 0; c8 < 16; ++c8)
+          *reinterpret_cast<float2*>(row + c8 * 8 + 2 * t4) =
+              make_float2(acc[h][4 * c8 + 2 * half], acc[h][4 * c8 + 2 * half + 1]);
+      }
+    __syncthreads();
+    if (geo.t == 1.f)
+      rows<true>(dq, scratch + warp * ROW_GROUP * C, n0, N, lane, warp);
+    else
+      rows<false>(dq, scratch + warp * ROW_GROUP * C, n0, N, lane, warp);
+  }
+
+  // warp w takes rows [32 w, 32 w + 32), ROW_GROUP at once; a group's logits
+  // are loaded while the group before it is formed
+  template <bool UNIT_T>
+  __device__ __forceinline__ void rows(const float* dq, float* ws, long long n0, long long N,
+                                       int lane, int warp) const {
+    const LaneMap lm = lane_map(lane, geo);
+    // bit i: row 32 w + i is valid (lane i tests it)
+    const unsigned valid = __ballot_sync(0xffffffffu, row_valid(n0 + warp * 32 + lane, geo));
+    auto fetch = [&](int r0, float4 (&v)[ROW_GROUP]) {
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i) {
+        const int b = r0 + i - warp * 32;
+        v[i] = b < 32 && (valid >> b) & 1u ? load_row4(own, n0 + r0 + i, lane)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    };
+    float4 v[ROW_GROUP];
+    fetch(warp * 32, v);
+#pragma unroll 1
+    for (int r0 = warp * 32; r0 < (warp + 1) * 32; r0 += ROW_GROUP) {
+      if (n0 + r0 >= N) break;  // uniform across the warp; later rows are out too
+      float4 next[ROW_GROUP], pv[ROW_GROUP], qv[ROW_GROUP], res[ROW_GROUP];
+      fetch(r0 + ROW_GROUP, next);
+      row_softmax<true, ROW_GROUP, UNIT_T>(v, lm, geo, ws, pv);
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i)
+        qv[i] = reinterpret_cast<const float4*>(dq + (r0 + i) * LDQ)[lane];
+      row_softmax_vjp<true, ROW_GROUP, UNIT_T>(pv, qv, lm, geo, ws, res);
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i) {
+        const long long n = n0 + r0 + i;
+        if (n >= N) break;
+        // an invalid row has dq = 0, hence dl = 0
+        reinterpret_cast<float4*>(out + n * C)[lane] =
+            (valid >> (r0 + i - warp * 32)) & 1u ? res[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < ROW_GROUP; ++i) v[i] = next[i];
+    }
+  }
+};
+static_assert((BW_TILE * LDQ + 8 * ROW_GROUP * C) * 4 <= bwd_smem_bytes(0, 4),
+              "VjpRows' dq tile and scratch rows fit in joint_bwd's smallest shared memory");
+
+// ===========================================================================
+// fp32 parity mode: CUDA-core FMAs, synchronous staging, the softmax formed
+// while staging (not on the training path)
+// ===========================================================================
+
+// One warp stages tall row `row` of logits l as masked fp32 probabilities
+// into the 128-lane shared row dst (zeros where the row is invalid or not
+// `live`).
 __device__ __forceinline__ void stage_row(const float* __restrict__ l, long long row, bool live,
-                                          const Geometry& g, int lane, float* scratch, void* dst) {
+                                          const Geometry& g, int lane, float* scratch,
+                                          float* dst) {
   float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
   if (live && row_valid(row, g)) {  // uniform across the warp
-    const float4 v = reinterpret_cast<const float4*>(l + row * C)[lane];
-    q = row_softmax<BF16>(v, lane, g, scratch);
+    const float4 v[1] = {load_row4(l, row, lane)};
+    float4 p[1];
+    row_softmax<false, 1>(v, lane_map(lane, g), g, scratch, p);
+    q = p[0];
   }
-  store4<BF16>(dst, q);
+  *reinterpret_cast<float4*>(dst) = q;
 }
 
-// ---------------------------------------------------------------------------
-// forward: partial[chunk, d, k1, k2] = sum over the chunk's rows n of
-//          pm1[n + o_d, k1] * pm2[n, k2]
-// grid (D, n_chunks), THREADS threads
-// ---------------------------------------------------------------------------
-template <bool BF16>
+// partial[chunk, d, k1, k2] = sum over the chunk's rows n of
+// pm1[n + o_d, k1] * pm2[n, k2]; grid (D, n_chunks), THREADS threads
 __global__ void __launch_bounds__(THREADS)
-fused_fwd_partial(const float* __restrict__ l1, const float* __restrict__ l2,
-                  float* __restrict__ partial, Geometry geo, long long rows_per_chunk) {
-  constexpr int LD = BF16 ? C + PAD_H : C + PAD_F;
-  using Elem = typename std::conditional<BF16, unsigned short, float>::type;
-  __shared__ __align__(128) Elem As[KT][LD];  // As[kk][m] = pm1[n0 + kk + o, m]
-  __shared__ __align__(128) Elem Bs[KT][LD];  // Bs[kk][j] = pm2[n0 + kk, j]
+fused_fwd_partial_fp32(const float* __restrict__ l1, const float* __restrict__ l2,
+                       float* __restrict__ partial, Geometry geo, long long rows_per_chunk) {
+  __shared__ __align__(128) float As[KT][LD];  // As[kk][m] = pm1[n0 + kk + o, m]
+  __shared__ __align__(128) float Bs[KT][LD];  // Bs[kk][j] = pm2[n0 + kk, j]
   __shared__ __align__(16) float scratch[WARPS][C];
 
   const int D = gridDim.x;
@@ -240,24 +493,13 @@ fused_fwd_partial(const float* __restrict__ l1, const float* __restrict__ l2,
   const long long n_end = min(geo.n, n_begin + rows_per_chunk);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-
-  // BF16: warp w owns rows [wm*32, +32) x cols [wn*64, +64) as 2x4 fragments.
-  const int wm = warp / 2, wn = warp % 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-  // FP32: thread (ty, tx) owns rows ty + 16*i, cols tx + 16*j.
+  // thread (ty, tx) owns rows ty + 16*i, cols tx + 16*j
   const int ty = tid / 16, tx = tid % 16;
-  float facc[BF16 ? 1 : 8][BF16 ? 1 : 8];
-  if constexpr (BF16) {
+  float facc[8][8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) facc[i][j] = 0.f;
-  }
+    for (int j = 0; j < 8; ++j) facc[i][j] = 0.f;
 
   for (long long n0 = n_begin; n0 < n_end; n0 += KT) {
     // stage: rows r < KT are the shifted l1 rows, the rest the l2 rows
@@ -265,110 +507,49 @@ fused_fwd_partial(const float* __restrict__ l1, const float* __restrict__ l2,
       const int kk = r % KT;
       const long long n = n0 + kk;
       if (r < KT)
-        stage_row<BF16>(l1, n + o, n < n_end, geo, lane, scratch[warp], &As[kk][lane * 4]);
+        stage_row(l1, n + o, n < n_end, geo, lane, scratch[warp], &As[kk][lane * 4]);
       else
-        stage_row<BF16>(l2, n, n < n_end, geo, lane, scratch[warp], &Bs[kk][lane * 4]);
+        stage_row(l2, n, n < n_end, geo, lane, scratch[warp], &Bs[kk][lane * 4]);
     }
     __syncthreads();
-    if constexpr (BF16) {
-#pragma unroll
-      for (int kk = 0; kk < KT; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], reinterpret_cast<const __nv_bfloat16*>(&As[kk][wm * 32 + i * 16]), LD);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], reinterpret_cast<const __nv_bfloat16*>(&Bs[kk][wn * 64 + j * 16]), LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < KT; ++kk) {
-        float a[8], b[8];
+    for (int kk = 0; kk < KT; ++kk) {
+      float a[8], b[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int i = 0; i < 8; ++i) a[i] = As[kk][ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
-      }
+        for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
     }
     __syncthreads();
   }
 
   float* out = partial + ((long long)chunk * D + d) * (long long)C * C;
-  if constexpr (BF16) {
-    // Each warp writes its fragments through a 16x16 staging area in its own
-    // slice of As (8 x 1 KB; the operand tiles are no longer needed).
-    float* stage = reinterpret_cast<float*>(&As[0][0]) + warp * 256;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = wm * 32 + i * 16 + e / 16;
-          const int c = wn * 64 + j * 16 + e % 16;
-          out[r * C + c] = stage[e];
-        }
-        __syncwarp();
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) out[(ty + 16 * i) * C + tx + 16 * j] = facc[i][j];
-  }
+    for (int j = 0; j < 8; ++j) out[(ty + 16 * i) * C + tx + 16 * j] = facc[i][j];
 }
 
-// out[e] = sum_chunk partial[chunk, e], e over D*C*C, in chunk order
-__global__ void fused_fwd_reduce(const float* __restrict__ partial, float* __restrict__ out,
-                                 long long per_chunk, int n_chunks) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < per_chunk;
-       e += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < n_chunks; ++k) s += partial[(long long)k * per_chunk + e];
-    out[e] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: for own rows n of the block,
+// for own rows n of the block:
 //   dq[n, j] = valid_own(n) * sum_d sum_k pm_src[n + sign*o_d, k] * G_d[k, j]
 //   G_d = g[d] (TRANSPOSE = false) or g[d]^T (TRANSPOSE = true)
 //   out[n] = softmax VJP of the own row's probabilities at dq
-// grid (ceil(N / ROWS)), THREADS threads, dynamic shared memory (bwd_smem)
-// ---------------------------------------------------------------------------
-template <bool BF16>
-__host__ __device__ constexpr int bwd_ld() { return BF16 ? C + PAD_H : C + PAD_F; }
+// grid (ceil(N / ROWS)), THREADS threads, dynamic shared memory FP32_BWD_SMEM
+constexpr size_t FP32_BWD_SMEM = 2 * (size_t)ROWS * LD * 4 + (size_t)WARPS * C * 4;
 
-template <bool BF16>
-__host__ __device__ constexpr size_t bwd_smem() {
-  // source rows + g[d] (the fp32 dq tile reuses them) + the warps' scratch rows
-  return 2 * (size_t)ROWS * bwd_ld<BF16>() * (BF16 ? 2 : 4) + (size_t)WARPS * C * 4;
-}
-
-template <bool BF16, bool TRANSPOSE>
+template <bool TRANSPOSE>
 __global__ void __launch_bounds__(THREADS)
-fused_bwd(const float* __restrict__ src, const float* __restrict__ own,
-          const float* __restrict__ g, float* __restrict__ out, Geometry geo, int sign) {
-  constexpr int LD = bwd_ld<BF16>();
-  using Elem = typename std::conditional<BF16, unsigned short, float>::type;
-  static_assert(2 * ROWS * LD * sizeof(Elem) >= ROWS * LDQ * sizeof(float),
-                "the dq tile must fit in the operand buffers");
+fused_bwd_fp32(const float* __restrict__ src, const float* __restrict__ own,
+               const float* __restrict__ g, float* __restrict__ out, Geometry geo, int sign) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Elem* Ss = reinterpret_cast<Elem*>(smem);  // Ss[m][k] = pm_src[n0 + m + sign*o, k]
-  Elem* Gs = Ss + ROWS * LD;                 // Gs[r][c] = g[d][r][c]
-  float* dq = reinterpret_cast<float*>(smem);  // [ROWS][LDQ], after the loop
-  float* scratch = reinterpret_cast<float*>(smem + 2 * ROWS * LD * sizeof(Elem));
+  float* Ss = reinterpret_cast<float*>(smem);  // Ss[m][k] = pm_src[n0 + m + sign*o, k]
+  float* Gs = Ss + ROWS * LD;                  // Gs[r][c] = g[d][r][c]
+  float* dq = Ss;                              // [ROWS][LD], after the loop
+  float* scratch = Gs + ROWS * LD;
 
   const long long n0 = (long long)blockIdx.x * ROWS;
   const int T = 2 * geo.p + 1;
@@ -376,85 +557,42 @@ fused_bwd(const float* __restrict__ src, const float* __restrict__ own,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   float* wscratch = scratch + warp * C;
-
-  const int wm = warp / 2, wn = warp % 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
   const int ty = tid / 16, tx = tid % 16;
-  float facc[BF16 ? 1 : 8][BF16 ? 1 : 8];
-  if constexpr (BF16) {
+  float facc[8][8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) facc[i][j] = 0.f;
-  }
+    for (int j = 0; j < 8; ++j) facc[i][j] = 0.f;
 
   for (int d = 0; d < D; ++d) {
     const long long o = sign * ((long long)(d / T - geo.p) * geo.wp + (d % T - geo.p));
     for (int r = warp; r < ROWS; r += WARPS)
-      stage_row<BF16>(src, n0 + r + o, true, geo, lane, wscratch, Ss + r * LD + lane * 4);
+      stage_row(src, n0 + r + o, true, geo, lane, wscratch, Ss + r * LD + lane * 4);
     const float4* gd = reinterpret_cast<const float4*>(g + (long long)d * C * C);
     for (int idx = tid; idx < C * C / 4; idx += THREADS)
-      store4<BF16>(Gs + (idx / (C / 4)) * LD + (idx % (C / 4)) * 4, gd[idx]);
+      *reinterpret_cast<float4*>(Gs + (idx / (C / 4)) * LD + (idx % (C / 4)) * 4) = gd[idx];
     __syncthreads();
-    if constexpr (BF16) {
-      using BLayout = typename std::conditional<TRANSPOSE, wmma::col_major, wmma::row_major>::type;
-      const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(Ss);
-      const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(Gs);
-#pragma unroll 2
-      for (int kk = 0; kk < C; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], sb + (wm * 32 + i * 16) * LD + kk, LD);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = wn * 64 + j * 16;
-          // B[k][j] = g[d][k][j] (row-major) or g[d][j][k] (column-major)
-          wmma::load_matrix_sync(fb[j], TRANSPOSE ? gb + col * LD + kk : gb + kk * LD + col, LD);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < C; ++kk) {
-        float a[8], b[8];
+    for (int kk = 0; kk < C; ++kk) {
+      float a[8], b[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = Ss[(ty + 16 * i) * LD + kk];
+      for (int i = 0; i < 8; ++i) a[i] = Ss[(ty + 16 * i) * LD + kk];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          b[j] = TRANSPOSE ? Gs[(tx + 16 * j) * LD + kk] : Gs[kk * LD + tx + 16 * j];
+      for (int j = 0; j < 8; ++j)
+        b[j] = TRANSPOSE ? Gs[(tx + 16 * j) * LD + kk] : Gs[kk * LD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
-      }
+        for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
     }
     __syncthreads();
   }
 
-  // the fp32 accumulators to shared memory (over the operand buffers)
-  if constexpr (BF16) {
+  // the fp32 accumulators to shared memory (over the source rows)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(dq + (wm * 32 + i * 16) * LDQ + wn * 64 + j * 16, acc[i][j], LDQ,
-                                wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dq[(ty + 16 * i) * LDQ + tx + 16 * j] = facc[i][j];
-  }
+    for (int j = 0; j < 8; ++j) dq[(ty + 16 * i) * LD + tx + 16 * j] = facc[i][j];
   __syncthreads();
 
   // own rows: probabilities from the logits again, the mask, the softmax VJP
@@ -463,25 +601,31 @@ fused_bwd(const float* __restrict__ src, const float* __restrict__ own,
     if (n >= geo.n) break;  // uniform across the warp; later rows are out too
     float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row_valid(n, geo)) {  // an invalid row has dq = 0, hence dl = 0
-      const float4 v = reinterpret_cast<const float4*>(own + n * C)[lane];
-      const float4 pv = row_softmax<BF16>(v, lane, geo, wscratch);
-      const float4 qv = reinterpret_cast<const float4*>(dq + r * LDQ)[lane];
-      res = row_softmax_vjp<BF16>(pv, qv, lane, geo, wscratch);
+      const float4 v[1] = {load_row4(own, n, lane)};
+      const float4 qv[1] = {reinterpret_cast<const float4*>(dq + r * LD)[lane]};
+      float4 pv[1], dl[1];
+      const LaneMap lm = lane_map(lane, geo);
+      row_softmax<false, 1>(v, lm, geo, wscratch, pv);
+      row_softmax_vjp<false, 1>(pv, qv, lm, geo, wscratch, dl);
+      res = dl[0];
     }
     reinterpret_cast<float4*>(out + n * C)[lane] = res;
   }
 }
 
-template <bool BF16, bool TRANSPOSE>
-cudaError_t launch_bwd(const float* src, const float* own, const float* g, float* out,
-                       const Geometry& geo, cudaStream_t s) {
-  constexpr size_t bytes = bwd_smem<BF16>();
-  cudaError_t err = cudaFuncSetAttribute(fused_bwd<BF16, TRANSPOSE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+template <bool TRANSPOSE>
+cudaError_t launch_bwd_fp32(const float* src, const float* own, const float* g, float* out,
+                            const Geometry& geo, cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_bwd_fp32<TRANSPOSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FP32_BWD_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
   dim3 grid((unsigned)((geo.n + ROWS - 1) / ROWS));
-  fused_bwd<BF16, TRANSPOSE><<<grid, THREADS, bytes, s>>>(src, own, g, out, geo,
-                                                          TRANSPOSE ? -1 : 1);
+  fused_bwd_fp32<TRANSPOSE><<<grid, THREADS, FP32_BWD_SMEM, s>>>(src, own, g, out, geo,
+                                                                 TRANSPOSE ? -1 : 1);
   return cudaGetLastError();
 }
 
@@ -503,43 +647,76 @@ extern "C" {
 
 const char* mi_fused_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// J[D, 128, 128] from logits l1, l2 [N, 128]; partial is scratch of
-// n_chunks * D * 128 * 128 floats. Rows of 512 bytes, pointers 16-byte aligned.
-int mi_fused_fwd(const float* l1, const float* l2, float* partial, float* out, long long n_rows,
-                 int hp, int wp, int p, int s, int k, float t, long long rows_per_chunk,
-                 int n_chunks, int bf16, void* stream) {
+// Logits [N, 128] fp32, rows of 512 bytes, pointers 16-byte aligned. The bf16
+// entry points take the joint's launch plan and refuse
+// (cudaErrorInvalidValue) one that disagrees with the kernels.
+
+// bf16: J[D, 128, 128] from logits l1, l2. a16, b16: scratch of N x 128 bf16
+// (pm1, pm2); partial: scratch of n_chunks x D x 128 x 128 floats.
+int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, float* partial,
+                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
+                      void* stream) {
+  if (!fwd_plan_ok(C, p, dx_group, smem_bytes)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* A16 = static_cast<__nv_bfloat16*>(a16);
+  auto* B16 = static_cast<__nv_bfloat16*>(b16);
+  const SoftmaxRows rows{l1, A16, l2, B16, make_geometry(n_rows, hp, wp, p, s, k, t)};
+  joint_prep<<<softmax_prep_blocks(2 * n_rows, 0), PREP_THREADS, 0, st>>>(rows, nullptr, nullptr,
+                                                                         C, 0, 0);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)run_fwd(dx_group, n_chunks, smem_bytes, st, A16, B16, partial, out, n_rows, C, p,
+                      wp, rows_per_chunk);
+}
+
+// bf16: d(own logits) [N, 128]: transpose_g = 0 gives dl2 (src = l1, own = l2),
+// transpose_g = 1 gives dl1 (src = l2, own = l1); g [D, 128, 128]. s16:
+// scratch of N x 128 bf16 (pm of src); h16: scratch of D x 128 x 128 bf16.
+int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* s16, void* h16,
+                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      int transpose_g, int stages, int smem_bytes, void* stream) {
+  if (!bwd_plan_ok(C, p, stages, smem_bytes)) return (int)cudaErrorInvalidValue;
+  const int T = 2 * p + 1;
+  const int D = T * T;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* S16 = static_cast<__nv_bfloat16*>(s16);
+  auto* H16 = static_cast<__nv_bfloat16*>(h16);
+  const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
+  const SoftmaxRows rows{src, S16, nullptr, nullptr, geo};
+  joint_prep<<<softmax_prep_blocks(n_rows, h_units(D)), PREP_THREADS, 0, st>>>(
+      rows, g, H16, C, D, transpose_g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16, H16, VjpRows{own, out, geo});
+}
+
+// fp32 parity mode: J[D, 128, 128] from logits l1, l2; partial is scratch of
+// n_chunks * D * 128 * 128 floats.
+int mi_fused_fwd_fp32(const float* l1, const float* l2, float* partial, float* out,
+                      long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      long long rows_per_chunk, int n_chunks, void* stream) {
   const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
   const int T = 2 * p + 1;
   const int D = T * T;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(D, n_chunks);
-  if (bf16)
-    fused_fwd_partial<true><<<grid, THREADS, 0, st>>>(l1, l2, partial, geo, rows_per_chunk);
-  else
-    fused_fwd_partial<false><<<grid, THREADS, 0, st>>>(l1, l2, partial, geo, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
+  fused_fwd_partial_fp32<<<dim3(D, n_chunks), THREADS, 0, st>>>(l1, l2, partial, geo,
+                                                                rows_per_chunk);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long per_chunk = (long long)D * C * C;
-  const int blocks = (int)((per_chunk + 255) / 256);
-  fused_fwd_reduce<<<blocks, 256, 0, st>>>(partial, out, per_chunk, n_chunks);
+  joint_fwd_reduce<<<reduce_blocks((long long)D * C * C), 256, 0, st>>>(partial, out, D, C, C,
+                                                                       n_chunks);
   return (int)cudaGetLastError();
 }
 
-// d(own logits) [N, 128]: transpose_g = 0 gives dl2 (src = l1, own = l2),
-// transpose_g = 1 gives dl1 (src = l2, own = l1); g [D, 128, 128].
-int mi_fused_bwd(const float* src, const float* own, const float* g, float* out,
-                 long long n_rows, int hp, int wp, int p, int s, int k, float t, int transpose_g,
-                 int bf16, void* stream) {
+// fp32 parity mode: d(own logits) [N, 128], as mi_fused_bwd_bf16
+int mi_fused_bwd_fp32(const float* src, const float* own, const float* g, float* out,
+                      long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      int transpose_g, void* stream) {
   const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16)
-    err = transpose_g ? launch_bwd<true, true>(src, own, g, out, geo, st)
-                      : launch_bwd<true, false>(src, own, g, out, geo, st);
-  else
-    err = transpose_g ? launch_bwd<false, true>(src, own, g, out, geo, st)
-                      : launch_bwd<false, false>(src, own, g, out, geo, st);
-  return (int)err;
+  return (int)(transpose_g ? launch_bwd_fp32<true>(src, own, g, out, geo, st)
+                           : launch_bwd_fp32<false>(src, own, g, out, geo, st));
 }
 
 }  // extern "C"

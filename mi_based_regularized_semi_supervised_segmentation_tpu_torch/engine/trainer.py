@@ -33,6 +33,7 @@ from ..data.device_pipeline import DeviceDataStore, DeviceIndexLoader, DevicePat
 from ..models import ProjectorWrapper, UNet
 from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import GEOMETRIES
+from ..ops.mi_fused import LANES as FUSED_LANES
 from ..utils import (
     AverageValueMeter,
     MeterInterface,
@@ -523,21 +524,40 @@ class SemiTrainer:
             torch.save(state, Path(self._save_dir) / BEST_NAME)
 
 
+def uda_criterion(cfg: Dict[str, Any]) -> str:
+    """``UDARegCriterion.name``, checked when the trainer is built (the JAX
+    trainer asserts ``mse | kl``): ``kl`` is not ported yet, anything else
+    but ``mse`` is no criterion."""
+    name = cfg["name"]
+    if name == "kl":
+        raise NotImplementedError(f"UDARegCriterion.name='kl' {_ROADMAP} (the port has 'mse')")
+    if name != "mse":
+        raise ValueError(f"UDARegCriterion.name={name!r}: expected 'mse' | 'kl'")
+    return name
+
+
 class UDATrainer(SemiTrainer):
     mode = "uda"
 
     def _build_components(self) -> None:
         cfg = self._config["UDARegCriterion"]
-        self._step_kwargs = dict(uda_criterion=cfg["name"], reg_weight=float(cfg["weight"]))
+        self._step_kwargs = dict(uda_criterion=uda_criterion(cfg), reg_weight=float(cfg["weight"]))
 
 
 def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
-                     decoder_heads: Sequence[Tuple[str, bool]]) -> Optional[str]:
+                     decoder_heads: Sequence[Tuple[str, bool]],
+                     live_lanes: Sequence[int]) -> Optional[str]:
     """None when ``Kernel.backend=pallas_fused`` can take the fused path,
     else the first unmet condition. ``decoder_heads``: (head_type, normalize)
-    of each decoder position. The JAX package's gate also requires a batch
-    that needs no padding to divide the mesh; the port has no mesh, so that
-    always holds here."""
+    of each decoder position; ``live_lanes``: S*K of each. The port's fused
+    kernels take one 128-lane tile (the JAX kernel any multiple of 128 lanes;
+    see ROADMAP.md). The JAX package's gate also requires a batch that needs
+    no padding to divide the mesh; the port has no mesh, so that always holds
+    here."""
+    wide = [sk for sk in live_lanes if sk > FUSED_LANES]
+    if wide:
+        return (f"decoder heads with S*K={wide[0]} live lanes (the fused kernels take "
+                f"S*K <= {FUSED_LANES}, one {FUSED_LANES}-lane tile)")
     if device.type != "cuda":
         # the counterpart of the JAX gate's jax.default_backend() == "tpu"
         return (f"the fused kernels run on cuda, not {device.type} (the JAX package trains "
@@ -551,14 +571,16 @@ def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
     return None
 
 
+def _per_position(config: Dict[str, Any], feature_names, key: str, default) -> list:
+    """A head option at each feature position, from EncoderParams or
+    DecoderParams by the position's name."""
+    enc, dec = config["EncoderParams"], config["DecoderParams"]
+    return [(enc if name in ENCODER_NAMES else dec).get(key, default) for name in feature_names]
+
+
 def _make_projector(config: Dict[str, Any], feature_names,
                     fused_ok: bool = False) -> ProjectorWrapper:
-    enc, dec = config["EncoderParams"], config["DecoderParams"]
-
-    def per_position(key, default):
-        return [(enc if name in ENCODER_NAMES else dec).get(key, default)
-                for name in feature_names]
-
+    per_position = lambda key, default: _per_position(config, feature_names, key, default)
     return ProjectorWrapper(
         feature_names=tuple(feature_names),
         num_clusters=per_position("num_clusters", 10),
@@ -578,10 +600,13 @@ class IICTrainer(SemiTrainer):
         patch_sizes = loss_cfg.get("patch_sizes", 1024)
         fused_ok = False
         if self._kernel_options[0] == "pallas_fused":
-            dec = cfg["DecoderParams"]
-            heads = [(dec.get("head_types", "linear"), bool(dec.get("normalize", False)))
-                     for name in self._feature_names if name not in ENCODER_NAMES]
-            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads)
+            positions = [name for name in self._feature_names if name not in ENCODER_NAMES]
+            per_position = lambda key, default: _per_position(cfg, positions, key, default)
+            heads = [(head_type, bool(normalize)) for head_type, normalize in zip(
+                per_position("head_types", "linear"), per_position("normalize", False))]
+            lanes = [int(s) * int(k) for s, k in zip(
+                per_position("num_subheads", 5), per_position("num_clusters", 10))]
+            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads, lanes)
             fused_ok = unmet is None
             if unmet:
                 _warn(f"Kernel.backend=pallas_fused: {unmet}; training the unfused path.")
@@ -597,11 +622,12 @@ class UDAIICTrainer(IICTrainer):
     mode = "udaiic"
 
     def _build_components(self) -> None:
+        uda_cfg = self._config["UDARegCriterion"]
+        criterion = uda_criterion(uda_cfg)
         super()._build_components()
         iic_weight = self._step_kwargs.pop("reg_weight")
-        uda_cfg = self._config["UDARegCriterion"]
         self._step_kwargs.update(
-            uda_criterion=uda_cfg["name"],
+            uda_criterion=criterion,
             uda_weight=float(uda_cfg["weight"]),
             iic_weight=iic_weight,
             reg_weight=1.0,

@@ -2,8 +2,8 @@
 
 Each source has a plain C interface and is compiled at first use into a
 shared library under ``<repo>/build/torch_kernels/``, named after the source
-and a hash of its text and flags, then loaded with ``ctypes``. Nothing is
-compiled at import time.
+and a hash of its text, of every header it includes from ``csrc/`` and of the
+flags, then loaded with ``ctypes``. Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -11,11 +11,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 from .. import PROJECT_PATH
 
@@ -40,9 +41,26 @@ def nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes from ``csrc/``, directly
+    or through another header (``#include "..."``), in the order first met."""
+    files = [SOURCE_DIR / f"{name}.cu"]
+    for path in files:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = SOURCE_DIR / inc.decode()
+            if header.exists() and header not in files:
+                files.append(header)
+    return files
+
+
 def library_path(name: str) -> Path:
-    source = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in sources_of(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

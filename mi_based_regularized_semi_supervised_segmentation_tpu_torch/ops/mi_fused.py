@@ -24,10 +24,14 @@ with g = dL/dJ rounded to dot_dtype:
     t = p * dq;  s = per-group sum of t (of bf16-rounded t in bf16 mode)
     dl = (t - p * s) / T, 0 on the dead lanes
 
-Products are summed in fp32. Probabilities never reach device memory on the
-kernel path. The plain version computes the same in fp32 with bf16 rounding
-at exactly those points; its backward is written out, not left to autograd,
-which would round elsewhere.
+Products are summed in fp32. On the kernel path no fp32 probability tensor
+and no dq is ever allocated: in bf16 mode the joint's conversion pass forms
+the masked softmax of each row once a call into the joint's [N, 128] bf16
+scratch, and the joint's backward kernel applies the softmax VJP to its own
+rows before it writes (``csrc/mi_fused.cu``); the launch plan and scratch are
+the joint's (``launch_setup``). The plain version computes the same in fp32
+with bf16 rounding at exactly those points; its backward is written out, not
+left to autograd, which would round elsewhere.
 
 Dispatch: CUDA tensors go to the kernels (or the call raises), CPU tensors to
 the plain version. ``LAUNCHES`` counts kernel launches by (kernel, padding).
@@ -43,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .mi_joint import _check_operand, _offsets, fwd_chunking
+from .mi_joint import (JointPlan, ScratchSpec, _check_operand, _offsets, _sm_count,
+                       alloc_scratch, bf16_scratch, fwd_chunking, launch_plan)
 
 KERNEL_SOURCE = "mi_fused"
 FWD, BWD_DL2, BWD_DL1 = "mi_fused_fwd", "mi_fused_bwd_dl2", "mi_fused_bwd_dl1"
@@ -184,10 +189,15 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(KERNEL_SOURCE)
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.mi_fused_fwd.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, ll, i, i, vp]
-        lib.mi_fused_fwd.restype = i
-        lib.mi_fused_bwd.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, i, i, vp]
-        lib.mi_fused_bwd.restype = i
+        lib.mi_fused_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, f, ll, i, i,
+                                          i, vp]
+        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, f, i, i, i,
+                                          vp]
+        lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, ll, i, vp]
+        lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, i, vp]
+        for fn in (lib.mi_fused_fwd_bf16, lib.mi_fused_bwd_bf16, lib.mi_fused_fwd_fp32,
+                   lib.mi_fused_bwd_fp32):
+            fn.restype = i
         lib.mi_fused_error_string.argtypes = [i]
         lib.mi_fused_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -213,6 +223,15 @@ def _check_layout(n: int, c: int, hp: int, wp: int, padding: int, S: int, K: int
             raise ValueError("the fused kernels read rows as 16-byte vectors: pointer misaligned")
 
 
+def launch_setup(n: int, wp: int, padding: int, sm_count: int,
+                 backward: bool) -> Tuple[JointPlan, ScratchSpec]:
+    """The bf16 kernels' launch plan and scratch: the joint's, at the same
+    shape (its forward's two [N, 128] bf16 copies, which hold the masked
+    probabilities here, or its backward's source copy and H)."""
+    plan = launch_plan(n, LANES, padding, wp, sm_count)
+    return plan, bf16_scratch(plan, backward)
+
+
 def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: int,
                  S: int, K: int, T: float = 1.0, bf16: bool = True) -> torch.Tensor:
     """Kernel launch: J [D, 128, 128] fp32 from flat logit canvases [N, 128]."""
@@ -225,13 +244,22 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
     d = (2 * padding + 1) ** 2
     lib = _library()
     with torch.cuda.device(l1.device):
-        sms = torch.cuda.get_device_properties(l1.device).multi_processor_count
-        rows, chunks = fwd_chunking(n, c, padding, sms)
-        partial = torch.empty((chunks, d, c, c), dtype=torch.float32, device=l1.device)
+        sms = _sm_count(l1.device.index)
         out = torch.empty((d, c, c), dtype=torch.float32, device=l1.device)
         stream = torch.cuda.current_stream(l1.device).cuda_stream
-        rc = lib.mi_fused_fwd(l1.data_ptr(), l2.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                              n, hp, wp, padding, S, K, float(T), rows, chunks, int(bf16), stream)
+        geometry = (n, hp, wp, padding, S, K, float(T))
+        if bf16:
+            plan, spec = launch_setup(n, wp, padding, sms, backward=False)
+            buf = alloc_scratch(spec, l1.device)
+            rc = lib.mi_fused_fwd_bf16(l1.data_ptr(), l2.data_ptr(), buf["a16"].data_ptr(),
+                                       buf["b16"].data_ptr(), buf["partial"].data_ptr(),
+                                       out.data_ptr(), *geometry, plan.fwd_rows_per_chunk,
+                                       plan.fwd_chunks, plan.fwd_dx_group, plan.fwd_smem, stream)
+        else:
+            rows, chunks = fwd_chunking(n, c, padding, sms)
+            partial = torch.empty((chunks, d, c, c), dtype=torch.float32, device=l1.device)
+            rc = lib.mi_fused_fwd_fp32(l1.data_ptr(), l2.data_ptr(), partial.data_ptr(),
+                                       out.data_ptr(), *geometry, rows, chunks, stream)
     _check(rc, FWD)
     LAUNCHES[(FWD, padding)] += 1
     return out
@@ -257,9 +285,17 @@ def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int,
     with torch.cuda.device(src.device):
         out = torch.empty((n, c), dtype=torch.float32, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.mi_fused_bwd(src.data_ptr(), own.data_ptr(), g.data_ptr(), out.data_ptr(), n,
-                              hp, wp, padding, S, K, float(T), int(transpose_g), int(bf16),
-                              stream)
+        geometry = (n, hp, wp, padding, S, K, float(T), int(transpose_g))
+        if bf16:
+            plan, spec = launch_setup(n, wp, padding, _sm_count(src.device.index), backward=True)
+            buf = alloc_scratch(spec, src.device)
+            rc = lib.mi_fused_bwd_bf16(src.data_ptr(), own.data_ptr(), g.data_ptr(),
+                                       buf["s16"].data_ptr(), buf["h16"].data_ptr(),
+                                       out.data_ptr(), *geometry, plan.bwd_stages, plan.bwd_smem,
+                                       stream)
+        else:
+            rc = lib.mi_fused_bwd_fp32(src.data_ptr(), own.data_ptr(), g.data_ptr(),
+                                       out.data_ptr(), *geometry, stream)
     name = BWD_DL1 if transpose_g else BWD_DL2
     _check(rc, name)
     LAUNCHES[(name, padding)] += 1

@@ -12,9 +12,11 @@ zero-padded by p (or arrives pre-padded) and flattened row-major into an
 The backward is two products of the same shape (see the kernel source).
 ``dot_dtype=torch.bfloat16`` rounds both operands (and, in the backward, the
 incoming cotangent) to bf16 and accumulates in fp32, as the TPU kernel does;
-``torch.float32`` is the parity mode. The bf16 kernels take C <= 128 (lanes
-zero-padded to 128 on the card) and their launch geometry comes from
-``launch_plan``, plain Python that the CPU tests check.
+``torch.float32`` is the parity mode. A bf16 launch takes C <= 128 lanes
+(zero-padded to 128 on the card); a wider C = 128 t is tiled into 128-lane
+blocks (``lane_tiled_fwd``, ``lane_tiled_bwd``), one launch per block pair.
+The launch geometry comes from ``launch_plan`` and the scratch from
+``bf16_scratch``, plain Python that the CPU tests check.
 
 Dispatch: CUDA tensors go to the kernel (or the call raises), CPU tensors to
 ``displaced_joint_plain_flat``. ``LAUNCHES`` counts kernel launches by
@@ -29,7 +31,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -260,6 +262,60 @@ def launch_plan(n: int, c: int, padding: int, wp: int, sm_count: int) -> JointPl
                      fwd_chunks=math.ceil(n / rows), fwd_smem=fwd_smem)
 
 
+ScratchSpec = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+
+
+def bf16_scratch(plan: JointPlan, backward: bool) -> ScratchSpec:
+    """The scratch of one bf16 call, name -> (shape, dtype): the conversion
+    pass's bf16 copies of the operands ([N, 128] each: two in the forward,
+    the source in the backward), the backward's g as H [D, 128, 128] bf16 and
+    the forward's chunk partials (fp32 J tiles). No [N, 128] fp32 buffer."""
+    d = plan.taps ** 2
+    rows = ((plan.n, LANES), torch.bfloat16)
+    if backward:
+        return {"s16": rows, "h16": ((d, LANES, LANES), torch.bfloat16)}
+    return {"a16": rows, "b16": rows,
+            "partial": ((plan.fwd_chunks, d, LANES, LANES), torch.float32)}
+
+
+def alloc_scratch(spec: ScratchSpec, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {name: torch.empty(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in spec.items()}
+
+
+def _lane_tiles(c: int) -> List[slice]:
+    return [slice(i, min(i + LANES, c)) for i in range(0, c, LANES)]
+
+
+def lane_tiled_fwd(a: torch.Tensor, b: torch.Tensor,
+                   fwd: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """J [D, C, C] of [N, C] operands of any width from a forward that takes
+    at most 128 lanes (``fwd(A_i, B_j)`` -> [D, c_i, c_j]): block (i, j) of J
+    is fwd on the 128-lane blocks A_i, B_j, each copied contiguous once."""
+    tiles = _lane_tiles(a.shape[1])
+    a_t = [a[:, t].contiguous() for t in tiles]
+    b_t = [b[:, t].contiguous() for t in tiles]
+    return torch.cat([torch.cat([fwd(ai, bj) for bj in b_t], dim=2) for ai in a_t], dim=1)
+
+
+def lane_tiled_bwd(src: torch.Tensor, g: torch.Tensor,
+                   bwd: Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor],
+                   transpose_g: bool) -> torch.Tensor:
+    """The backward products of ``mi_joint_bwd`` for any width from one that
+    takes at most 128 lanes (``bwd(src_k, g_k, transpose_g)``):
+      transpose_g=False (src = A): dx_tf_j = sum_i bwd(A_i, g_ij, False)
+      transpose_g=True  (src = B): dx_i    = sum_j bwd(B_j, g_ij, True)
+    with g_ij the (i, j) lane block of g [D, C, C]."""
+    tiles = _lane_tiles(src.shape[1])
+    src_t = [src[:, t].contiguous() for t in tiles]
+    out = []
+    for o in tiles:  # the output's lane block
+        parts = [bwd(src_t[k], (g[:, o, t] if transpose_g else g[:, t, o]).contiguous(),
+                     transpose_g) for k, t in enumerate(tiles)]
+        out.append(functools.reduce(torch.add, parts))
+    return torch.cat(out, dim=1)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -267,13 +323,20 @@ def _sm_count(device_index: int) -> int:
 
 def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
                  bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: J [D, C, C] fp32 from flat canvases a, b [N, C]."""
+    """Kernel launch: J [D, C, C] fp32 from flat canvases a, b [N, C]; in
+    bf16 one launch per pair of 128-lane blocks."""
     _check_operand(a, "a")
     _check_operand(b, "b", a.shape)
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
-    n, c = a.shape
     _check_geometry(wp, padding)
+    if bf16 and a.shape[1] > LANES:
+        return lane_tiled_fwd(a, b, lambda x, y: _launch_fwd(x, y, wp, padding, bf16))
+    return _launch_fwd(a, b, wp, padding, bf16)
+
+
+def _launch_fwd(a, b, wp, padding, bf16):
+    n, c = a.shape
     d = (2 * padding + 1) ** 2
     lib = _library()
     with torch.cuda.device(a.device):
@@ -282,13 +345,11 @@ def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if bf16:
             plan = launch_plan(n, c, padding, wp, sms)
-            a16 = torch.empty((n, LANES), dtype=torch.bfloat16, device=a.device)
-            b16 = torch.empty_like(a16)
-            partial = torch.empty((plan.fwd_chunks, d, LANES, LANES), dtype=torch.float32,
-                                  device=a.device)
-            rc = lib.mi_joint_fwd_bf16(a.data_ptr(), b.data_ptr(), a16.data_ptr(),
-                                       b16.data_ptr(), partial.data_ptr(), out.data_ptr(), n, c,
-                                       padding, wp, plan.fwd_rows_per_chunk, plan.fwd_chunks,
+            buf = alloc_scratch(bf16_scratch(plan, backward=False), a.device)
+            rc = lib.mi_joint_fwd_bf16(a.data_ptr(), b.data_ptr(), buf["a16"].data_ptr(),
+                                       buf["b16"].data_ptr(), buf["partial"].data_ptr(),
+                                       out.data_ptr(), n, c, padding, wp,
+                                       plan.fwd_rows_per_chunk, plan.fwd_chunks,
                                        plan.fwd_dx_group, plan.fwd_smem, stream)
         else:
             rows, chunks = fwd_chunking(n, c, padding, sms)
@@ -302,7 +363,8 @@ def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
 
 def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
                  transpose_g: bool, bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: out [N, C] fp32.
+    """Kernel launch: out [N, C] fp32; in bf16 one launch per pair of 128-lane
+    blocks.
 
     transpose_g=False: dx_tf[n] = sum_d src[n + o_d] @ g[d]     (src = A)
     transpose_g=True:  dx[m]    = sum_d src[m - o_d] @ g[d]^T   (src = B)
@@ -314,16 +376,23 @@ def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
     if src.device != g.device:
         raise ValueError(f"src on {src.device}, g on {g.device}")
     _check_geometry(wp, padding)
+    if bf16 and c > LANES:
+        return lane_tiled_bwd(src, g, lambda s, h, tr: _launch_bwd(s, h, wp, padding, tr, bf16),
+                              transpose_g)
+    return _launch_bwd(src, g, wp, padding, transpose_g, bf16)
+
+
+def _launch_bwd(src, g, wp, padding, transpose_g, bf16):
+    n, c = src.shape
     lib = _library()
     with torch.cuda.device(src.device):
         out = torch.empty((n, c), dtype=torch.float32, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
         if bf16:
             plan = launch_plan(n, c, padding, wp, _sm_count(src.device.index))
-            s16 = torch.empty((n, LANES), dtype=torch.bfloat16, device=src.device)
-            h16 = torch.empty((d, LANES, LANES), dtype=torch.bfloat16, device=src.device)
-            rc = lib.mi_joint_bwd_bf16(src.data_ptr(), g.data_ptr(), s16.data_ptr(),
-                                       h16.data_ptr(), out.data_ptr(), n, c, padding, wp,
+            buf = alloc_scratch(bf16_scratch(plan, backward=True), src.device)
+            rc = lib.mi_joint_bwd_bf16(src.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
+                                       buf["h16"].data_ptr(), out.data_ptr(), n, c, padding, wp,
                                        int(transpose_g), plan.bwd_stages, plan.bwd_smem, stream)
         else:
             rc = lib.mi_joint_bwd_fp32(src.data_ptr(), g.data_ptr(), out.data_ptr(), n, c,

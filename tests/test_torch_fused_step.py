@@ -75,13 +75,48 @@ def test_pallas_fused_on_cpu_trains_unfused_and_warns(tmp_path, capsys):
 
 def test_fused_gate_conditions():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    linear = [("linear", False), ("linear", False)]
-    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear) is None
-    assert trainer_mod.fused_path_unmet(cuda, [1024, 224], 224, linear) is None
-    assert "cuda" in trainer_mod.fused_path_unmet(cpu, 1024, 224, linear)
-    assert "patch_sizes" in trainer_mod.fused_path_unmet(cuda, [1024, 64], 224, linear)
+    linear, lanes = [("linear", False), ("linear", False)], [100, 100]
+    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, lanes) is None
+    assert trainer_mod.fused_path_unmet(cuda, [1024, 224], 224, linear, lanes) is None
+    assert "cuda" in trainer_mod.fused_path_unmet(cpu, 1024, 224, linear, lanes)
+    assert "patch_sizes" in trainer_mod.fused_path_unmet(cuda, [1024, 64], 224, linear, lanes)
     for heads in ([("mlp", False), ("linear", False)], [("linear", True), ("linear", False)]):
-        assert "linear and unnormalized" in trainer_mod.fused_path_unmet(cuda, 1024, 224, heads)
+        assert "linear and unnormalized" in trainer_mod.fused_path_unmet(cuda, 1024, 224, heads,
+                                                                          lanes)
+
+
+def test_fused_gate_names_a_head_wider_than_one_tile():
+    """The fused kernels take S*K <= 128 live lanes; 5 x 30 clusters (150
+    lanes, padded to 256) fail the gate on any device, named by S*K."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    linear = [("linear", False), ("linear", False)]
+    for device in (cuda, cpu):
+        assert "S*K=150" in trainer_mod.fused_path_unmet(device, 1024, 224, linear, [150, 150])
+    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, [100, 128]) is None
+
+
+def _cpu_batch(seed=0):
+    rng = np.random.default_rng(seed)
+    return {"labeled_image": torch.tensor(rng.random((2, CROP, CROP, 1), dtype=np.float32)),
+            "labeled_target": torch.tensor(rng.integers(0, 4, (2, CROP, CROP)),
+                                           dtype=torch.int32),
+            "unlabeled_image": torch.tensor(rng.random((3, CROP, CROP, 1), dtype=np.float32))}
+
+
+def test_wide_head_with_pallas_fused_warns_and_trains_unfused(tmp_path, capsys):
+    """DecoderParams.num_clusters=30 (5 x 30 = 150 lanes in 256) with
+    Kernel.backend=pallas_fused: the trainer names S*K in its warning, the
+    decoder heads emit 256-lane probabilities and a step runs the unfused
+    path."""
+    trainer = _trainer(tmp_path, DecoderParams={"num_clusters": 30, "num_subheads": 5})
+    trainer.init()
+    out = capsys.readouterr().out
+    assert "[trainer] WARNING: Kernel.backend=pallas_fused: decoder heads with S*K=150" in out
+    proj = trainer._projector
+    assert proj.local_emit_logits is False
+    assert proj.heads["Up_conv2"](torch.zeros(1, 4, 4, 16)).shape[-1] == 256
+    metrics = trainer._train_step(_cpu_batch())
+    assert np.isfinite(float(metrics["total_loss"])) and float(metrics["mi"]) != 0.0
 
 
 def test_fused_ok_emits_logits_and_the_trainer_step_runs_fused(tmp_path, monkeypatch):

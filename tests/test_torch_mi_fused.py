@@ -193,6 +193,23 @@ def test_front_door_checks_before_any_kernel():
         mi_fused.mi_fused_fwd(y.reshape(-1, C), y.reshape(-1, C), 8, 8, 1, S, K)
 
 
+@pytest.mark.parametrize("n,wp,padding", [(529_000, 230, 3), (129_960, 114, 1)])
+def test_launch_setup_is_the_joints_plan_and_scratch(n, wp, padding):
+    """At both decoder taps the bf16 fused kernels take the joint's launch
+    plan, and their scratch holds the masked probabilities as two [N, 128]
+    bf16 buffers (forward) or one (backward, beside g as H): no fp32
+    probability or dq buffer of N rows."""
+    from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint
+
+    for backward in (False, True):
+        plan, spec = mi_fused.launch_setup(n, wp, padding, 132, backward)
+        assert plan == mi_joint.launch_plan(n, C, padding, wp, 132)
+        assert spec == mi_joint.bf16_scratch(plan, backward)
+        rows = [dtype for shape, dtype in spec.values() if shape[0] == n]
+        assert rows == [torch.bfloat16] * (1 if backward else 2)
+        assert all(shape[1:] == (C,) for shape, _ in spec.values() if shape[0] == n)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(rng):
     """The CUDA kernels against the plain version, both operand modes, on a

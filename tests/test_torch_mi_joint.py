@@ -62,7 +62,9 @@ def _torch_joint_and_grads(x, y, g, padding, dot, pre_padded):
 
 
 # every padding, both canvas forms, both lane layouts and both operand modes,
-# each value in at least two cases (interpret-mode Pallas takes seconds a case)
+# each value in at least two cases (interpret-mode Pallas takes seconds a case);
+# c256 is a head of 5 x 30 clusters (150 live lanes padded to 256), where the
+# wrapper's lane tiling (fed the plain 128-lane versions) is held to JAX too
 @pytest.mark.parametrize("padding,pre_padded,lanes,mode", [
     (1, False, "c6", "fp32"),
     (2, True, "c128_dead", "fp32"),
@@ -70,9 +72,10 @@ def _torch_joint_and_grads(x, y, g, padding, dot, pre_padded):
     (1, True, "c6", "bf16"),
     (3, True, "c6", "fp32"),
     (2, False, "c6", "bf16"),
+    (1, True, "c256", "bf16"),
 ])
 def test_joint_matches_pallas_values_and_grads(rng, padding, pre_padded, lanes, mode):
-    c, live = (6, 6) if lanes == "c6" else (128, 20)
+    c, live = {"c6": (6, 6), "c128_dead": (128, 20), "c256": (256, 150)}[lanes]
     edge = 2 * padding if pre_padded else 0
     shape = (2, 9 + edge, 8 + edge, c)
     x = _maps(rng, shape, live, padding if pre_padded else 0)
@@ -85,6 +88,18 @@ def test_joint_matches_pallas_values_and_grads(rng, padding, pre_padded, lanes, 
     for name, w, v in zip(("joint", "dx", "dx_tf"), want, got):
         assert v.shape == w.shape, name
         np.testing.assert_allclose(v, w, rtol=1e-4, atol=1e-5, err_msg=name)
+    if c > 128:
+        wp = shape[2]
+        a, b = torch.tensor(x.reshape(-1, c)), torch.tensor(y.reshape(-1, c))
+        gd = torch.tensor(g.reshape(t * t, c, c))
+        fwd = lambda u, v: mi_joint.displaced_joint_plain_flat(u, v, wp, padding, tdot)
+        bwd = _plain_bwd_128(wp, padding, tdot)
+        tiled = (mi_joint.lane_tiled_fwd(a, b, fwd),
+                 mi_joint.lane_tiled_bwd(b, gd, bwd, transpose_g=True),
+                 mi_joint.lane_tiled_bwd(a, gd, bwd, transpose_g=False))
+        for name, w, v in zip(("tiled joint", "tiled dx", "tiled dx_tf"), want, tiled):
+            np.testing.assert_allclose(v.numpy().reshape(w.shape), w, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("padding", [1, 3])
@@ -229,8 +244,9 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 
 
 def test_plan_constants_match_kernel_source():
-    """The plan's geometry is the kernel's: the constants of csrc/mi_joint.cu."""
-    src = (mi_joint.build.SOURCE_DIR / "mi_joint.cu").read_text()
+    """The plan's geometry is the kernel's: the constants of csrc/mi_joint.cu
+    and the headers it includes (the wgmma core, joint_core.cuh)."""
+    src = "".join(path.read_text() for path in mi_joint.build.sources_of("mi_joint"))
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["LANES"]) == mi_joint.LANES
     assert int(consts["BW_TILE"]) == mi_joint.BWD_TILE
@@ -240,11 +256,68 @@ def test_plan_constants_match_kernel_source():
     assert int(consts["FW_STAGES"]) == mi_joint.FWD_STAGES
 
 
+def _plain_bwd_128(wp, padding, dot):
+    """The plain 128-lane backward products, by autograd of the plain joint
+    (J is linear in each operand, so the other one may be zero)."""
+    def bwd(src, g, transpose_g):
+        assert src.shape[1] <= mi_joint.LANES
+        other = torch.zeros_like(src, requires_grad=True)
+        pair = (other, src) if transpose_g else (src, other)
+        joint = mi_joint.displaced_joint_plain_flat(*pair, wp, padding, dot)
+        return torch.autograd.grad(joint, other, g)[0]
+    return bwd
+
+
+@pytest.mark.parametrize("padding", [1, 3])
+@pytest.mark.parametrize("mode", ["bf16", "fp32"])
+def test_lane_tiling_matches_plain_joint_at_256_lanes(rng, padding, mode):
+    """The wrapper's lane tiling (a head of 5 x 30 clusters: 150 live lanes
+    padded to 256), fed the plain 128-lane forward and backward, against the
+    plain joint at 256 lanes: J and both gradients. Both sides sum the same
+    products, the tiled backward in two partial sums per lane block: 1e-5 of
+    the largest entry (summation order only)."""
+    tdot = DTYPES[mode][0]
+    shape = (2, 9 + 2 * padding, 8 + 2 * padding, 256)
+    wp = shape[2]
+    a = torch.tensor(_maps(rng, shape, 150, padding).reshape(-1, 256))
+    b = torch.tensor(_maps(rng, shape, 150, padding).reshape(-1, 256))
+    t = 2 * padding + 1
+    g = torch.tensor(rng.normal(size=(t * t, 256, 256)).astype(np.float32))
+    ap, bp = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    ref = mi_joint.displaced_joint_plain_flat(ap, bp, wp, padding, tdot)
+    ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), g)
+    fwd = lambda x, y: mi_joint.displaced_joint_plain_flat(x, y, wp, padding, tdot)
+    bwd = _plain_bwd_128(wp, padding, tdot)
+    got = {"joint": (mi_joint.lane_tiled_fwd(a, b, fwd), ref),
+           "dx": (mi_joint.lane_tiled_bwd(b, g, bwd, transpose_g=True), ref_da),
+           "dx_tf": (mi_joint.lane_tiled_bwd(a, g, bwd, transpose_g=False), ref_db)}
+    for name, (x, want) in got.items():
+        assert x.shape == want.shape, name
+        want = want.detach().numpy()
+        np.testing.assert_allclose(x.detach().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("n,padding,wp", PLAN_SHAPES[:2])
+def test_bf16_scratch_is_bf16_rows_and_no_fp32_rows(n, padding, wp):
+    """A bf16 call's scratch at the taps: the operands' bf16 copies ([N, 128]
+    each: two in the forward, one in the backward), g as H, the forward's
+    chunk partials; no [N, ...] fp32 buffer."""
+    plan = _plan(n, padding, wp)
+    d = plan.taps ** 2
+    fwd = mi_joint.bf16_scratch(plan, backward=False)
+    bwd = mi_joint.bf16_scratch(plan, backward=True)
+    assert fwd == {"a16": ((n, 128), torch.bfloat16), "b16": ((n, 128), torch.bfloat16),
+                   "partial": ((plan.fwd_chunks, d, 128, 128), torch.float32)}
+    assert bwd == {"s16": ((n, 128), torch.bfloat16), "h16": ((d, 128, 128), torch.bfloat16)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,padding", [
     ((2, 20, 19, 128), 3),   # small pre-padded canvas
     ((1, 23, 17, 128), 1),   # ragged: n = 391
     ((3, 37, 43, 100), 3),   # ragged n = 4773, C < 128 lanes
+    ((2, 13, 12, 256), 1),   # 256 lanes: tiled into four launches a product
 ])
 def test_kernel_matches_plain_on_card(rng, shape, padding):
     """The CUDA kernels against their plain version, both operand modes, on

@@ -19,6 +19,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.data import (
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.data.augment import (
     PairedTransform,
 )
+from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer as trainer_mod
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer_zoos
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint
 
@@ -106,3 +107,24 @@ def test_main_cli_config_parses():
     assert ConfigManager(argv=[]).config["Trainer"]["device"] == "cuda"
     assert config["Kernel"]["backend"] == "auto"
     assert config["Precision"]["matmul_precision"] == "highest"
+
+
+@pytest.mark.parametrize("mode", ["uda", "udaiic"])
+@pytest.mark.parametrize("name,error", [("kl", NotImplementedError), ("bogus", ValueError)])
+def test_uda_criterion_is_checked_before_any_data_is_staged(tmp_path, monkeypatch, mode, name,
+                                                            error):
+    """UDARegCriterion.name is checked when the trainer is built, as the JAX
+    trainer asserts mse | kl: 'kl' is not ported yet, any other name but
+    'mse' is refused; both before the device-data path stages a dataset."""
+    staged = []
+    monkeypatch.setattr(trainer_mod.SemiTrainer, "_setup_device_data",
+                        lambda self, *args: staged.append(args))
+    cfg = _config(mode)
+    cfg["UDARegCriterion"]["name"] = name
+    cfg["Trainer"]["device_data"] = True
+    trainer = trainer_zoos[mode](labeled_loader=None, unlabeled_loader=None, val_loader=None,
+                                 test_loader=None, configuration=cfg, device="cpu",
+                                 crop_size=CROP, run_dir=str(tmp_path))
+    with pytest.raises(error, match="UDARegCriterion.name"):
+        trainer.init()
+    assert staged == []
