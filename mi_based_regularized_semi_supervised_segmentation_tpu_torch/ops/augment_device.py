@@ -18,8 +18,9 @@ Geometries (``Kernel.geometry``):
 - ``sequential``: rotate (``rotate_nearest_batch``), then flip, then crop;
   bit-identical to ``fused``.
 - ``shear``: rotate with the 3-shear kernel (``ops/rotate.rotate_shear``, one
-  launch per rotated tensor), then flip and crop. A pixel permutation, exact
-  for labels; it differs from nearest rotation in sub-pixel choices.
+  launch for a batch's images and labels together), then flip and crop. A
+  pixel permutation, exact for labels; it differs from nearest rotation in
+  sub-pixel choices.
 """
 
 from __future__ import annotations
@@ -230,11 +231,11 @@ def apply_augment(
         img = _to_float(images)
         lab = None if labels is None else labels.to(torch.int32)
         if angles is not None:
-            if geometry == "shear":
-                img = rotate_shear(img, angles.to(dev), max_angle=rotation)
-                if lab is not None:  # labels: an exact permutation through fp32
-                    lab = rotate_shear(lab.float(), angles.to(dev),
-                                       max_angle=rotation).to(torch.int32)
+            if geometry == "shear":  # labels: the same permutation, in the same launch
+                if lab is None:
+                    img = rotate_shear(img, angles.to(dev), max_angle=rotation)
+                else:
+                    img, lab = rotate_shear(img, angles.to(dev), max_angle=rotation, labels=lab)
             else:
                 img = rotate_nearest_batch(img, angles)
                 if lab is not None:

@@ -11,9 +11,10 @@ Each shear rounds to integer shifts and rolls the rows (or columns) of a
 zero canvas padded so that no roll wraps real content, so the result is a
 pixel permutation: exact for integer-valued inputs such as labels.
 
-- ``rotate_shear`` (``rotate_shear_pallas``): one kernel launch that inverts
-  the three rolls per output pixel. Its canvas is ``Hc = round_up(H + 2py, 8)``
-  by ``Wc = round_up(W + 2px, 128)``.
+- ``rotate_shear`` (``rotate_shear_pallas``): one kernel launch that derives
+  the shifts from the angles and inverts the three rolls per output pixel,
+  for the images and, given, their int32 labels together. Its canvas is
+  ``Hc = round_up(H + 2py, 8)`` by ``Wc = round_up(W + 2px, 128)``.
 - ``lane_roll_rows`` (``_lane_roll_rows``): ``out[b, r, c] = x[b, r, (c - s[b, r]) mod Wc]``.
 - ``rotate_shear_lanes`` (``rotate_shear_pallas_lanes``): three
   ``lane_roll_rows`` with two transposes, on a canvas with both sides rounded
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -58,10 +60,13 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+@functools.lru_cache(maxsize=64)
 def canvas(h: int, w: int, max_angle: float, lane_aligned_rows: bool) -> Tuple[int, int, int, int]:
     """Static (py, px, Hc, Wc): stage 1 reaches x + tan(theta/2) y, stages 2
     and 3 the final rotated coordinates; the alignment padding goes to the far
-    side, so the content stays centred at (py + (H-1)/2, px + (W-1)/2)."""
+    side, so the content stays centred at (py + (H-1)/2, px + (W-1)/2).
+    Cached: a kernel call would otherwise spend more host time here than the
+    card spends rotating."""
     tm = math.radians(float(max_angle))
     cy0, cx0 = (h - 1) / 2.0, (w - 1) / 2.0
     grid = [tm * i / 32.0 for i in range(33)]
@@ -133,6 +138,16 @@ def rotate_shear_plain(images: torch.Tensor, angles: torch.Tensor, max_angle: fl
     return z[:, py:py + h, px:px + w]
 
 
+def rotate_shear_pair_plain(images: torch.Tensor, labels: torch.Tensor, angles: torch.Tensor,
+                            max_angle: float = 45.0, tables: Optional[Tables] = None):
+    """(images, labels) rotated by the same shifts; the int32 labels through
+    fp32, exact below 2^24, as the JAX path rotates them."""
+    _, h, w = images.shape
+    tables = tables if tables is not None else shear_tables(angles, h, w, max_angle)
+    return (rotate_shear_plain(images, angles, max_angle, tables),
+            rotate_shear_plain(labels.float(), angles, max_angle, tables).to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -145,7 +160,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(KERNEL_SOURCE)
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.rotate_shear_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        lib.rotate_shear_f32.argtypes = [vp] * 7 + [i] * 7 + [vp]
         lib.rotate_shear_f32.restype = i
         lib.lane_roll_rows_f32.argtypes = [vp, vp, vp, i, i, i, vp]
         lib.lane_roll_rows_f32.restype = i
@@ -174,21 +189,30 @@ def _check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _rotate_shear_cuda(images: torch.Tensor, tables: Tables) -> torch.Tensor:
-    s_x, s_y, (py, px, hc, wc) = tables
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _rotate_shear_cuda(images: torch.Tensor, angles: torch.Tensor,
+                       labels: Optional[torch.Tensor], geom: Tuple[int, int, int, int]):
+    """One launch: (images, labels or None)."""
+    py, px, hc, wc = geom
     b, h, w = images.shape
     _check_operand(images, "images", torch.float32, (b, h, w))
-    _check_operand(s_x, "s_x", torch.int32, (b, hc), images.device)
-    _check_operand(s_y, "s_y", torch.int32, (b, wc), images.device)
+    _check_operand(angles, "angles", torch.float32, (b,), images.device)
+    if labels is not None:
+        _check_operand(labels, "labels", torch.int32, (b, h, w), images.device)
     lib = _library()
     with torch.cuda.device(images.device):
         out = torch.empty_like(images)
+        out_lab = None if labels is None else torch.empty_like(labels)
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        rc = lib.rotate_shear_f32(images.data_ptr(), s_x.data_ptr(), s_y.data_ptr(),
-                                  out.data_ptr(), b, h, w, py, px, hc, wc, stream)
+        rc = lib.rotate_shear_f32(images.data_ptr(), _ptr(labels), angles.data_ptr(),
+                                  out.data_ptr(), _ptr(out_lab), None, None, b, h, w,
+                                  py, px, hc, wc, stream)
     _check(rc, ROTATE)
     LAUNCHES[(ROTATE, b)] += 1
-    return out
+    return out, out_lab
 
 
 def _lane_roll_rows_cuda(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
@@ -207,27 +231,66 @@ def _lane_roll_rows_cuda(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    if any(t.is_cuda for t in tensors):
+    """True for CPU operands, False for CUDA ones; raises on a mix."""
+    cuda = [t.is_cuda for t in tensors]
+    if all(cuda):
         return False
-    if all(t.device.type == "cpu" for t in tensors):
+    if not any(cuda) and all(t.device.type == "cpu" for t in tensors):
         return True
-    raise ValueError(f"unsupported devices {[str(t.device) for t in tensors]}")
+    raise ValueError(f"operands on mixed or unsupported devices {[str(t.device) for t in tensors]}")
 
 
 def rotate_shear(images: torch.Tensor, angles: torch.Tensor, max_angle: float = 45.0,
-                 tables: Optional[Tables] = None) -> torch.Tensor:
+                 labels: Optional[torch.Tensor] = None, tables: Optional[Tables] = None):
     """[B, H, W] float rotated per sample by ``angles`` (degrees, |angle| <=
-    ``max_angle``): the kernel for CUDA tensors, the plain version for CPU
-    tensors. ``tables`` (from ``shear_tables``) skips recomputing the shifts."""
+    ``max_angle``), and with ``labels`` ([B, H, W] int32) the labels by the
+    same permutation: returns the images, or (images, labels). CUDA tensors
+    take one kernel launch, which derives its own shifts; CPU tensors the
+    plain version, the labels through fp32 as the JAX path rotates them.
+    ``tables`` (from ``shear_tables``) skips recomputing the shifts of the
+    plain version, and is refused with CUDA tensors."""
     if images.dim() != 3 or not images.is_floating_point():
         raise TypeError(f"images must be a float [B, H, W] tensor, got {images.dtype} "
                         f"{tuple(images.shape)}")
-    if _on_cpu(images, angles):
-        return rotate_shear_plain(images, angles, max_angle, tables)
+    operands = (images, angles)
+    if labels is not None:
+        if labels.dtype != torch.int32:
+            raise TypeError(f"labels must be int32, got {labels.dtype}")
+        if labels.shape != images.shape:
+            raise ValueError(f"labels have shape {tuple(labels.shape)}, expected the images' "
+                             f"{tuple(images.shape)}")
+        operands += (labels,)
     _, h, w = images.shape
-    if tables is None:
-        tables = shear_tables(angles, h, w, max_angle)
-    return _rotate_shear_cuda(images, tables)
+    if _on_cpu(*operands):
+        if labels is None:
+            return rotate_shear_plain(images, angles, max_angle, tables)
+        return rotate_shear_pair_plain(images, labels, angles, max_angle, tables)
+    if tables is not None:
+        raise ValueError("tables= is for the plain version: the kernel derives its own shifts")
+    angles = angles if angles.dtype == torch.float32 else angles.float()
+    out, out_lab = _rotate_shear_cuda(images, angles, labels, canvas(h, w, max_angle, False))
+    return out if labels is None else (out, out_lab)
+
+
+def kernel_shifts(angles: torch.Tensor, h: int, w: int,
+                  max_angle: float = 45.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shifts (s_x [B, Hc], s_y [B, Wc]) that the rotation kernel derives
+    for ``angles`` (fp32, on the card) of [h, w] images, written by one
+    launch of the kernel that moves no pixel; ``shear_tables`` computes the
+    same with torch ops."""
+    b = angles.shape[0]
+    _check_operand(angles, "angles", torch.float32, (b,))
+    py, px, hc, wc = canvas(h, w, max_angle, False)
+    lib = _library()
+    with torch.cuda.device(angles.device):
+        s_x = torch.empty((b, hc), dtype=torch.int32, device=angles.device)
+        s_y = torch.empty((b, wc), dtype=torch.int32, device=angles.device)
+        stream = torch.cuda.current_stream(angles.device).cuda_stream
+        rc = lib.rotate_shear_f32(None, None, angles.data_ptr(), None, None, s_x.data_ptr(),
+                                  s_y.data_ptr(), b, h, w, py, px, hc, wc, stream)
+    _check(rc, ROTATE)
+    LAUNCHES[(ROTATE, b)] += 1
+    return s_x, s_y
 
 
 def lane_roll_rows(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
