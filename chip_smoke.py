@@ -43,6 +43,9 @@ Phases, each printing JSON lines:
            on the card, their plain version on the CPU): 6 fused launches
   step_device  the same on the device-data path with geometry=shear: the
            same store, injected augmentation draws and flip mask
+  step_meanteacher  one small meanteacher step on the card against the CPU:
+           the same weights, batch and flip mask; every loss and the
+           teacher's parameters and BN statistics after its EMA update
   train    the headline udaiic trainer through ``main.main`` on synthetic data
            (U-Net 16..256, 224^2 crops, 4 labeled + 10 unlabeled, taps Conv5 /
            Up_conv3 / Up_conv2, 5 x 20 clusters, paddings [1, 3]), with the
@@ -54,6 +57,18 @@ Phases, each printing JSON lines:
            (Trainer.device_data=true, 8 steps in chunks of 4), once with
            Kernel.geometry=shear (the rotation kernel, 2 launches a step) and
            once with the default fused geometry; counts set to 0 before each
+  resume   the headline udaiic trainer through ``main.main`` for one epoch of
+           4 steps, then ``Checkpoint=<that run dir>``: the loaded state equals
+           last.pth bit for bit (model, projector, Adam, step counter,
+           generator), and with ``Trainer.max_epoch=2`` the resumed run trains
+           epoch 1 only (Storage 2 rows), launching the joint kernels
+  inference  ``Inference=true`` on that run dir, host path and
+           ``Trainer.device_data=true``: DSC_mean equal to the same trainer's
+           test eval, Hausdorff keys, one PNG per test slice in img/ gt/ pred/
+  train_zoo  4 full-width steps each of meanteacher (device-data path,
+           Kernel.geometry=shear: 2 rotation launches a step; the teacher moved
+           from init and unlike the student), entropy and uda with
+           UDARegCriterion.name=kl (host path)
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
            trainer (torch.profiler), and the device's busy share of the wall
@@ -66,8 +81,10 @@ non-zero without printing a result. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -111,6 +128,7 @@ TOL = 5e-4
 FUSED_BF16_BWD_TOL = 1e-2
 FUSED_BF16_BWD_SHARE = 1e-3  # share of entries off by more than TOL * max
 STEPS_TOL = 1e-3     # step phases: card vs CPU losses (relative)
+ZOO_STEPS = 4        # steps of each resume / train_zoo run
 
 
 def emit(obj) -> None:
@@ -923,6 +941,64 @@ def phase_step_device() -> None:
           "mi_joint_launches_cuda": j_gpu})
 
 
+def phase_step_meanteacher() -> None:
+    """One meanteacher step (crop 32, 2 + 3 slices, 3 classes) on the card and
+    on the CPU from the same weights, batch and flip mask: every loss, and
+    the teacher after its EMA update (step 0: alpha 0, the student's
+    parameters times 1 - wd) with the BN statistics of its own forward."""
+    import numpy as np
+    import torch
+
+    models, optim, steps = port("models"), port("engine.optim"), port("engine.steps")
+    rng = np.random.default_rng(0)
+    batch_np = {"labeled_image": rng.random((2, 32, 32, 1), dtype=np.float32),
+                "labeled_target": rng.integers(0, 3, (2, 32, 32)),
+                "unlabeled_image": rng.random((3, 32, 32, 1), dtype=np.float32)}
+    flip_mask = torch.from_numpy(rng.random((3, 2)) < 0.8)
+    results = {}
+    for device in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        model = models.UNet(1, 3)
+        teacher = copy.deepcopy(model).requires_grad_(False)
+        init = torch.cat([p.detach().flatten() for p in teacher.parameters()])
+        model.to(device)
+        teacher.to(device)
+        opt = optim.build_optimizer(model.parameters(),
+                                    {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
+        counter = torch.zeros((), dtype=torch.int64)
+        step = steps.build_train_step(
+            model, opt, "meanteacher", num_classes=3, generator=torch.Generator(device=device),
+            teacher=teacher, reg_weight=10.0, ema_alpha=0.999, ema_weight_decay=1e-6,
+            step_counter=counter)
+        metrics = step({k: torch.from_numpy(v).to(device) for k, v in batch_np.items()},
+                       flip_mask=flip_mask)
+        check(int(counter) == 1, f"{device}: step counter {int(counter)}")
+        sd = {k: v.detach().cpu() for k, v in teacher.state_dict().items()}
+        results[device] = ({k: float(metrics[k]) for k in ("sup_loss", "uda", "total_loss")},
+                           torch.cat([sd[k].flatten() for k, _ in teacher.named_parameters()]),
+                           torch.cat([v.flatten() for k, v in sd.items() if "running_" in k]))
+    (l_cpu, p_cpu, b_cpu), (l_gpu, p_gpu, b_gpu) = results["cpu"], results["cuda"]
+    # after step 0 the teacher is the student times 1 - wd: its move from
+    # init to the two-tier bound of the step phase (<= 2 lr; more than 0.05 lr
+    # apart for under 0.5% of the elements)
+    diffs = ((p_gpu - init) - (p_cpu - init)).abs()
+    loose = float((diffs > 0.05 * 1e-3).float().mean())
+    check(float(diffs.max()) <= 2.05e-3 and loose < 0.005,
+          f"teacher moves: max {float(diffs.max())}, loose share {loose}")
+    rel = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    check(all(v <= STEPS_TOL for v in rel.values()), f"step_meanteacher losses differ: {rel}")
+    # relative to the whole vector: Adam's first step moves a parameter by
+    # about lr * sign(g), so single elements with a gradient at fp32 noise
+    # may step opposite ways on the two devices
+    rel_params = float((p_gpu - p_cpu).norm() / p_cpu.norm())
+    rel_stats = float((b_gpu - b_cpu).norm() / b_cpu.norm())
+    check(rel_params <= STEPS_TOL and rel_stats <= STEPS_TOL,
+          f"teacher differs: parameters {rel_params}, BN statistics {rel_stats}")
+    emit({"phase": "step_meanteacher", "losses_cpu": l_cpu, "losses_cuda": l_gpu, "rel_err": rel,
+          "teacher_param_rel_err": rel_params, "teacher_bn_stats_rel_err": rel_stats,
+          "teacher_param_max_abs_diff": float(diffs.max()), "teacher_param_loose_share": loose})
+
+
 def phase_train(steps: int, backend: str = "auto"):
     """The headline trainer on the host path; with backend pallas_fused the
     fused kernels (2 forward and 4 backward launches a step) replace the
@@ -1025,6 +1101,163 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4):
     return trainer, rot_launches, joint_launches
 
 
+def _zoo_argv(save_dir: str, *extra: str) -> list:
+    """The headline config through ``main.main`` on the card, ZOO_STEPS
+    steps an epoch, one run dir under runs/."""
+    return ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
+            f"Trainer.num_batches={ZOO_STEPS}", "Trainer.device=cuda",
+            f"Trainer.save_dir={save_dir}", "Trainer.step_timing=true", *extra]
+
+
+def _state_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _state_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _state_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def phase_resume():
+    """One epoch of the headline trainer, then two resumes from its run dir:
+    one with no epoch left (the state just after the load, held against
+    last.pth bit for bit; the load timed again on it), one that trains epoch
+    1. Returns the run dir and the joint launches of the resumed epoch."""
+    import torch
+
+    main_mod, mj = port("main"), port("ops.mi_joint")
+    save_dir = "chip_smoke_resume"
+    shutil.rmtree(Path(port("engine.trainer").SemiTrainer.RUN_DIR) / save_dir, ignore_errors=True)
+    first = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=1"))
+    run = Path(first._save_dir)
+    saved = torch.load(run / "last.pth", map_location="cpu", weights_only=True)
+    meta = saved.pop("meta")
+
+    loaded = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=1", f"Checkpoint={run}"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded.load_state_dict_from_path(str(run), strict=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = dict(_state_leaves(loaded.state_dict()))
+    want = dict(_state_leaves(saved))
+    check(got.keys() == want.keys(), f"resume: entries {sorted(got.keys() ^ want.keys())[:5]}")
+    bad = [p for p, w in want.items() if not (
+        torch.equal(got[p].cpu(), w) and got[p].dtype == w.dtype
+        if isinstance(w, torch.Tensor) else got[p] == w)]
+    check(not bad, f"resume: {len(bad)} entries differ from last.pth, e.g. {bad[:5]}")
+    n_tensors = sum(isinstance(w, torch.Tensor) for w in want.values())
+    check(loaded._start_epoch == 1 and loaded._best_score == meta["best_score"]
+          and loaded._storage.state_dict() == meta["storage"],
+          f"resume: start epoch {loaded._start_epoch}, best {loaded._best_score}")
+    check(int(loaded._step_counter) == ZOO_STEPS, f"resume: step {int(loaded._step_counter)}")
+
+    torch.cuda.synchronize()
+    mj.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=2", f"Checkpoint={run}"))
+    wall = time.perf_counter() - t0
+    launches = dict(mj.LAUNCHES)
+    n_joint = sum(launches.values())
+    check(resumed._start_epoch == 1 and sorted(resumed._storage._rows) == [0, 1]
+          and len(resumed.epoch_times_s) == 1,
+          f"resume: start epoch {resumed._start_epoch}, Storage rows "
+          f"{sorted(resumed._storage._rows)}")
+    check(n_joint >= 6 * ZOO_STEPS, f"resume: {n_joint} joint launches in {ZOO_STEPS} steps")
+    row = resumed._storage._rows[1]
+    check(all(math.isfinite(row[k]) for k in ("tra_sup_loss_mean", "tra_mi_mean")),
+          f"resume: epoch 1 losses {row}")
+    emit({"phase": "resume", "steps_per_epoch": ZOO_STEPS, "load_s": load_s,
+          "tensors_equal_bit_for_bit": n_tensors, "entries_equal": len(want),
+          "start_epoch": resumed._start_epoch, "storage_rows": len(resumed._storage._rows),
+          "joint_launches_per_step": n_joint / ZOO_STEPS,
+          "joint_launches": {f"{n}/p{p}": v for (n, p), v in sorted(launches.items())},
+          "resumed_epoch_wall_s": resumed.epoch_times_s[0],
+          "resumed_median_step_ms": statistics.median(resumed.step_times_ms[1:]),
+          "main_wall_s": wall})
+    return run, launches
+
+
+def phase_inference(run: Path) -> None:
+    """``Inference=true`` on the resume phase's run dir (its best.pth), on
+    the host path and on the device-data path; each report's DSC_mean against
+    the same trainer's test eval, its Hausdorff keys and its PNG dumps.
+    ``trainer.inference()`` is timed once more after the main call."""
+    main_mod = port("main")
+    for device_data in ("false", "true"):
+        trainer = main_mod.main(_zoo_argv(run.name, "Trainer.max_epoch=2", f"Checkpoint={run}",
+                                          "Inference=true", f"Trainer.device_data={device_data}"))
+        report = json.loads((run / "inference.json").read_text())
+        _, dsc = trainer._eval_epoch(trainer._test_loader)
+        check(abs(dsc - report["dice"]["DSC_mean"]) <= 1e-6,
+              f"inference DSC_mean {report['dice']['DSC_mean']} vs test eval {dsc}")
+        hd_keys = sorted(k for k in report["hd"] if k.startswith("hausdorff"))
+        check(bool(hd_keys), f"inference: no hausdorff keys in {report['hd']}")
+        n_test = len(trainer._test_loader.dataset)
+        pngs = {f: len(list((run / f).glob("*.png"))) for f in ("img", "gt", "pred")}
+        check(all(n == n_test for n in pngs.values()), f"inference PNGs {pngs}, {n_test} slices")
+        t0 = time.perf_counter()
+        trainer.inference()
+        wall = time.perf_counter() - t0
+        emit({"phase": "inference", "device_data": device_data == "true",
+              "dsc_mean": report["dice"]["DSC_mean"], "test_eval_dsc_mean": dsc,
+              "hd": report["hd"], "test_slices": n_test, "pngs": pngs,
+              "inference_wall_s": wall, "s_per_test_slice": wall / n_test})
+
+
+def phase_train_zoo():
+    """ZOO_STEPS full-width steps of each of the other trainers through
+    ``main.main``. Returns the rotation launches of the meanteacher run."""
+    import torch
+
+    main_mod, rot = port("main"), port("ops.rotate")
+    runs = (("meanteacher", ["Trainer.name=meanteacher", "Trainer.device_data=true",
+                             "Kernel.geometry=shear", "Trainer.scan_chunk=2"]),
+            ("entropy", ["Trainer.name=entropy"]),
+            ("uda_kl", ["Trainer.name=uda", "UDARegCriterion.name=kl"]))
+    rot_launches = {}
+    for name, extra in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rot.reset_launch_counts()
+        trainer = main_mod.main(_zoo_argv(f"chip_smoke_{name}", "Trainer.max_epoch=1", *extra))
+        row = trainer._storage._rows[0]
+        term = "tra_entropy_mean" if name == "entropy" else "tra_uda_mean"
+        losses = {k: row[k] for k in ("tra_sup_loss_mean", "tra_reg_loss_mean", term)}
+        check(all(math.isfinite(v) for v in losses.values()), f"{name}: losses {losses}")
+        val_dsc = row["val_dice_DSC_mean"]
+        check(0.0 <= val_dsc <= 1.0, f"{name}: val DSC {val_dsc}")
+        n_rot = rot.launch_count(rot.ROTATE)
+        out = {"phase": "train_zoo", "trainer": name, "steps": ZOO_STEPS, "losses": losses,
+               "val_dsc_mean": val_dsc, "rotation_launches_per_step": n_rot / ZOO_STEPS,
+               "median_step_ms": statistics.median(trainer.step_times_ms[1:]),
+               "step_ms": trainer.step_times_ms, "epoch_wall_s": trainer.epoch_times_s[0],
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if name == "meanteacher":
+            out["median_step_ms_note"] = ("chunks of 2 steps, each step its chunk's wall time / 2:"
+                                          " the median is the second chunk's")
+            check(n_rot == 2 * ZOO_STEPS, f"meanteacher: {n_rot} rotation launches in "
+                                          f"{ZOO_STEPS} steps (want 2 a step)")
+            rot_launches = dict(rot.LAUNCHES)
+            torch.manual_seed(int(trainer._config["RandomSeed"]))
+            init = port("models").UNet(1, 4).state_dict()
+            teacher = {k: v.cpu() for k, v in trainer._teacher.state_dict().items()}
+            student = {k: v.cpu() for k, v in trainer._model.state_dict().items()}
+            moved = {k: not torch.equal(teacher[k], init[k]) for k in teacher
+                     if "num_batches" not in k}
+            unlike = {k: not torch.equal(teacher[k], student[k]) for k in teacher
+                      if "num_batches" not in k}
+            check(all(moved.values()) and all(unlike.values()),
+                  f"meanteacher: teacher entries at init {[k for k, v in moved.items() if not v]}"
+                  f", equal to the student's {[k for k, v in unlike.items() if not v]}")
+            out["teacher_entries_moved_and_unlike_student"] = len(moved)
+        emit(out)
+    return rot_launches
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
@@ -1085,11 +1318,14 @@ def phase_profile(trainer, steps: int, path: str = "host") -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="device,build,kernels,step,step_fused,step_device,"
-                                              "train,train_fused,train_device,profile")
+                                              "step_meanteacher,train,train_fused,train_device,"
+                                              "resume,inference,train_zoo,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
+    start = time.perf_counter()
+    walls = {}  # seconds of the phases this slice added
 
     import torch
 
@@ -1116,6 +1352,10 @@ def main(argv=None) -> int:
         phase_step(fused=True)
     if "step_device" in phases:
         phase_step_device()
+    if "step_meanteacher" in phases:
+        t0 = time.perf_counter()
+        phase_step_meanteacher()
+        walls["step_meanteacher"] = time.perf_counter() - t0
     trainer, launches, peak = (phase_train(args.steps) if "train" in phases
                                else (None, {}, None))
     fused_trainer, fused_launches, fused_peak = (phase_train(args.steps, "pallas_fused")
@@ -1127,6 +1367,19 @@ def main(argv=None) -> int:
     if "train_device" in phases:
         device_trainer, rot_launches, _ = phase_train_device(args.steps, "shear")
         phase_train_device(args.steps, "fused")
+    resume_launches, zoo_rot_launches = {}, {}
+    if "resume" in phases or "inference" in phases:  # inference evaluates the resumed run
+        t0 = time.perf_counter()
+        run, resume_launches = phase_resume()
+        walls["resume"] = time.perf_counter() - t0
+        if "inference" in phases:
+            t0 = time.perf_counter()
+            phase_inference(run)
+            walls["inference"] = time.perf_counter() - t0
+    if "train_zoo" in phases:
+        t0 = time.perf_counter()
+        zoo_rot_launches = phase_train_zoo()
+        walls["train_zoo"] = time.perf_counter() - t0
     if "profile" in phases:
         if trainer is not None:
             phase_profile(trainer, steps=3)
@@ -1144,17 +1397,20 @@ def main(argv=None) -> int:
             "bound_by", "library_ms", "label")
     summary = [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
-                    launches=launches.get((r["name"], r["padding"])))
+                    launches=launches.get((r["name"], r["padding"])),
+                    resume_launches=resume_launches.get((r["name"], r["padding"]), 0))
                for r in kernel_rows if r["mode"] == "bf16"]
     summary += [dict(name=f"{r['name']}@B{r['batch']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], l2_warm_ms=r["l2_warm_ms"],
                      launches=rot_launches.get((r["name"], r["batch"]), 0),
+                     meanteacher_launches=zoo_rot_launches.get((r["name"], r["batch"]), 0),
                      on_main_path=r["name"] == "rotate_shear")
                 for r in rotation_rows]
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], unfused_path_ms=r["unfused_path_ms"],
                      launches=fused_launches.get((r["name"], r["padding"]), 0))
                 for r in fused_rows if r["mode"] == "bf16"]
+    emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

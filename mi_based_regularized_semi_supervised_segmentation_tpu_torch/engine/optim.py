@@ -46,6 +46,21 @@ def build_optimizer(params: Iterable[torch.nn.Parameter],
                             weight_decay=float(cfg.pop("weight_decay", 0.0)))
 
 
+def init_optimizer_state(optimizer: torch.optim.Adam) -> None:
+    """Creates Adam's per-parameter state (step 0, zero moments) now, as
+    torch's Adam (the one ``build_optimizer`` makes: not capturable, fused
+    or amsgrad) would on its first step, so that a checkpoint of a trainer
+    that has not stepped yet already holds every entry a resumed one loads
+    (the JAX package's ``tx.init``)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr

@@ -5,15 +5,22 @@ over [labeled, unlabeled, unlabeled_tf] (BN statistics over the mixed batch),
 supervised KL (= cross-entropy), the mode's regularizer, backward and an Adam
 step. Modes:
 - partial: reg = 0
-- uda:     reg_weight * mse(softmax(f(Tx)), softmax(T f(x)).detach())
+- uda:     reg_weight * consistency(softmax(f(Tx)), softmax(T f(x)).detach()),
+           consistency = mse or kl (``uda_criterion``)
 - iic:     reg_weight * importance-weighted IIC losses (global IID loss at
            encoder taps, displaced local MI at decoder taps, with the same
            flips re-applied to the plain decoder features)
 - udaiic:  uda_weight * uda + iic_weight * iic
+- entropy: reg_weight * mean entropy of softmax([f(x), f(Tx)])
+- meanteacher: reg_weight * consistency(softmax(f(Tx)), softmax(T g(x))),
+           g the EMA teacher: a no-grad train-mode forward on its own BN
+           running statistics; after the Adam step its parameters move to
+           (g * a + (1 - a) * f) * (1 - weight_decay),
+           a = min(1 - 1 / (t + 1), alpha), t the global step
 
-The step updates the model, projector and optimizer in place and returns
-its metrics as detached tensors, so the caller syncs with the device only
-when it reads them.
+The step updates the model, projector, optimizer, teacher and step counter
+in place and returns its metrics as detached tensors, so the caller syncs
+with the device only when it reads them.
 
 With a ``DeviceDataStore`` the batch is slice indices only and the step
 gathers and augments on the card. The JAX package's epoch programs
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,10 +44,11 @@ from ..ops.iic_local import (
     iid_segmentation_loss_fused_logits,
     iid_segmentation_small_patch_loss_flat,
 )
-from ..ops.losses import kl_div, mse_consistency
+from ..ops.losses import entropy, kl_div, mse_consistency
 from ..utils.general import class2one_hot
 
-MODES = ("partial", "uda", "iic", "udaiic")
+MODES = ("partial", "uda", "iic", "udaiic", "entropy", "meanteacher")
+UDA_CRITERIA = ("mse", "kl")
 
 
 def _as_list(value, n: int) -> List:
@@ -142,6 +151,10 @@ def build_train_step(
     data_store=None,
     crop: int = 224,
     geometry: str = "fused",
+    teacher: Optional[torch.nn.Module] = None,
+    ema_alpha: float = 0.999,
+    ema_weight_decay: float = 1e-6,
+    step_counter: Optional[torch.Tensor] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, flip_mask=None, aug_params=None) -> metrics.
 
@@ -155,13 +168,30 @@ def build_train_step(
     unlabeled augmentation (device-data path) and the flip mask. Tests inject
     them: ``flip_mask`` [Bu, 2] bool, ``aug_params`` {"labeled": params,
     "unlabeled": params} as ``ops.augment_device.sample_augment_params``
-    returns them."""
+    returns them.
+    ``teacher`` (meanteacher only): the EMA model, a copy of ``model``.
+    ``step_counter``: a 0-d int64 CPU tensor, the global step, incremented
+    in place by every step (the EMA schedule reads it); the caller keeps it
+    to checkpoint it."""
     if mode not in MODES:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet; see ROADMAP.md")
-    if uda_criterion != "mse":
-        raise NotImplementedError(f"uda_criterion {uda_criterion!r} is not ported yet")
+        raise ValueError(f"mode {mode!r}: expected one of {MODES}")
+    if uda_criterion not in UDA_CRITERIA:
+        raise ValueError(f"uda_criterion {uda_criterion!r}: expected one of {UDA_CRITERIA}")
+    if (teacher is not None) != (mode == "meanteacher"):
+        raise ValueError(f"mode {mode!r} {'needs' if mode == 'meanteacher' else 'takes no'} "
+                         "teacher")
     needs_iic = mode in ("iic", "udaiic")
-    needs_uda = mode in ("uda", "udaiic")
+    needs_uda = mode in ("uda", "udaiic", "meanteacher")
+    if step_counter is None:
+        step_counter = torch.zeros((), dtype=torch.int64)
+
+    def consistency(p_tf: torch.Tensor, p_target: torch.Tensor) -> torch.Tensor:
+        """The UDA / mean-teacher term between two softmax maps; the target
+        is detached."""
+        if uda_criterion == "mse":
+            return mse_consistency(p_tf, p_target)
+        return kl_div(p_tf, p_target)
+
     if needs_iic:
         if projector is None:
             raise ValueError(f"mode {mode!r} needs a projector")
@@ -192,6 +222,11 @@ def build_train_step(
         flip_mask = flip_mask.to(unlabeled_image.device)
         unlabeled_image_tf = apply_flips(unlabeled_image, flip_mask)
 
+        if teacher is not None:
+            teacher.train()
+            with torch.no_grad():  # its BN running statistics move here
+                teacher_logits_tf = apply_flips(teacher(unlabeled_image), flip_mask)
+
         model.train()
         if projector is not None:
             projector.train()
@@ -208,9 +243,14 @@ def build_train_step(
         reg_loss = torch.zeros((), device=logits.device)
         total_weight = reg_weight
         if needs_uda:
-            uda_loss = mse_consistency(torch.softmax(unlabel_tf_logits, -1),
-                                       torch.softmax(apply_flips(unlabel_logits, flip_mask), -1))
+            target_logits = (teacher_logits_tf if teacher is not None
+                             else apply_flips(unlabel_logits, flip_mask))
+            uda_loss = consistency(torch.softmax(unlabel_tf_logits, -1),
+                                   torch.softmax(target_logits, -1))
             metrics["uda"] = uda_loss
+        if mode == "entropy":
+            ent = entropy(torch.softmax(torch.cat([unlabel_logits, unlabel_tf_logits]), -1))
+            metrics["entropy"] = ent
         if needs_iic:
             iic_losses = iic_regularization(projector, features, flip_mask, n_labeled,
                                             n_unlabeled, feature_names, paddings, patch_sizes,
@@ -219,8 +259,10 @@ def build_train_step(
             metrics["mi"] = -iic_loss_val
             for n in feature_names:
                 metrics[f"individual_mis/{n}"] = -iic_losses[n]
-        if mode == "uda":
+        if mode in ("uda", "meanteacher"):
             reg_loss = uda_loss
+        elif mode == "entropy":
+            reg_loss = ent
         elif mode == "iic":
             reg_loss = iic_loss_val
         elif mode == "udaiic":
@@ -231,6 +273,9 @@ def build_train_step(
         metrics["total_loss"] = total
         total.backward()
         optimizer.step()
+        if teacher is not None:
+            _ema_update(teacher, model, int(step_counter), ema_alpha, ema_weight_decay)
+        step_counter.add_(1)
 
         with torch.no_grad():
             inter, union = dice_stats(label_logits.argmax(-1), labeled_target, num_classes)
@@ -239,6 +284,21 @@ def build_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+@torch.no_grad()
+def _ema_update(teacher: torch.nn.Module, student: torch.nn.Module, step: int, alpha: float,
+                weight_decay: float) -> None:
+    """teacher = (teacher * a + (1 - a) * student) * (1 - weight_decay) over
+    the parameters, a = min(1 - 1 / (step + 1), alpha), in fp32 as the JAX
+    step computes a; the BN buffers are the teacher's own."""
+    t = np.float32(step)
+    a = min(np.float32(1.0) - np.float32(1.0) / (t + np.float32(1.0)), np.float32(alpha))
+    decay = np.float32(1.0) - np.float32(weight_decay)
+    params = list(teacher.parameters())
+    torch._foreach_mul_(params, float(a))
+    torch._foreach_add_(params, list(student.parameters()), alpha=float(np.float32(1.0) - a))
+    torch._foreach_mul_(params, float(decay))
 
 
 def build_eval_step(model: torch.nn.Module, *, num_classes: int, data_store=None,

@@ -1,11 +1,16 @@
-"""Trainers: init -> epoch loop -> val/test eval -> checkpoints, for the
-partial / uda / iic / udaiic modes (counterpart of the JAX package's
-``engine/trainer.py``).
+"""Trainers: init -> (resume) -> epoch loop -> val/test eval -> checkpoints
+-> (inference), for the partial / uda / iic / udaiic / entropy / meanteacher
+modes (counterpart of the JAX package's ``engine/trainer.py``).
 
 Per epoch: set the epoch's learning rate, run ``num_batches`` train steps,
 read the metrics back, evaluate the val and test patients (volume dice),
 append to ``storage.csv`` and the event log, and save ``last.pth`` (and
-``best.pth`` when val DSC improves).
+``best.pth`` when val DSC improves; ``engine/checkpoints.py``). A resume
+(``load_state_dict_from_path``) restores the model, projector, Adam state,
+step counter, step generator, mean teacher, best score, ``Storage`` and
+epoch; the data samplers start afresh, as in the JAX package. ``inference``
+evaluates ``best.pth`` on the test patients with dice and Hausdorff and
+writes PNG dumps.
 
 Two data paths:
 - host loader (default): numpy augmentation in loader threads, one batch
@@ -19,6 +24,8 @@ Two data paths:
 
 from __future__ import annotations
 
+import copy
+import json
 import time
 from itertools import chain
 from pathlib import Path
@@ -36,14 +43,24 @@ from ..ops.augment_device import GEOMETRIES
 from ..ops.mi_fused import LANES as FUSED_LANES
 from ..utils import (
     AverageValueMeter,
+    ExceptionIgnorer,
     MeterInterface,
     MultipleAverageValueMeter,
     Storage,
     StorageIncomeDict,
     SummaryWriter,
+    SurfaceMeter,
     UniversalDice,
 )
-from .optim import build_optimizer, lr_at_epoch, set_learning_rate
+from ..utils.imageio import write_img_target, write_predict
+from .checkpoints import (
+    BEST_NAME,
+    LAST_NAME,
+    lenient_load_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from .optim import build_optimizer, init_optimizer_state, lr_at_epoch, set_learning_rate
 from .steps import (
     build_augment_fn,
     build_epoch_scan,
@@ -52,10 +69,10 @@ from .steps import (
     build_eval_scan,
     build_eval_step,
     build_train_step,
+    UDA_CRITERIA,
 )
 
-LAST_NAME = "last.pth"
-BEST_NAME = "best.pth"
+INFERENCE_NAME = "inference.json"
 _ROADMAP = "is not ported yet; see ROADMAP.md"
 BACKENDS = ("auto", "plain", "pallas_fused")
 _JAX_ONLY_BACKENDS = ("pallas", "xla", "xla_banded", "xla_scan")
@@ -198,12 +215,17 @@ class SemiTrainer:
         self._model = UNet(self._input_dim, self._num_classes).to(self._device)
         self._projector = None
         self._step_kwargs: Dict[str, Any] = {}
+        self._with_ema = False
         self._build_components()
+        # the mean teacher: the model's copy at init, BN buffers included
+        self._teacher = copy.deepcopy(self._model).requires_grad_(False) if self._with_ema else None
         params = self._model.parameters()
         if self._projector is not None:
             self._projector.to(self._device)
             params = chain(params, self._projector.parameters())
         self._optimizer = build_optimizer(params, cfg["Optim"])
+        init_optimizer_state(self._optimizer)  # so a checkpoint holds Adam's entries from init
+        self._step_counter = torch.zeros((), dtype=torch.int64)  # global step (EMA schedule)
         self._base_lr = float(cfg["Optim"].get("lr", 1e-3))
         scheduler = cfg.get("Scheduler") or {}
         self._sched_multiplier = float(scheduler.get("multiplier", 1.0)) if scheduler else None
@@ -238,6 +260,8 @@ class SemiTrainer:
             data_store=step_stores,
             crop=self._crop_size,
             geometry=geometry,
+            teacher=self._teacher,
+            step_counter=self._step_counter,
             **self._step_kwargs,
         )
         self._eval_step = build_eval_step(self._model, num_classes=self._num_classes)
@@ -312,8 +336,10 @@ class SemiTrainer:
         meters.register_meter("reg_loss", AverageValueMeter())
         meters.register_meter(
             "sup_dice", UniversalDice(self._num_classes, list(range(1, self._num_classes))))
-        if self.mode in ("uda", "udaiic"):
+        if self.mode in ("uda", "udaiic", "meanteacher"):
             meters.register_meter("uda", AverageValueMeter())
+        if self.mode == "entropy":
+            meters.register_meter("entropy", AverageValueMeter())
         if self.mode in ("iic", "udaiic"):
             meters.register_meter("mi", AverageValueMeter())
             meters.register_meter("individual_mis", MultipleAverageValueMeter())
@@ -381,6 +407,8 @@ class SemiTrainer:
                                      group_name=groups)
         if "uda" in meters:
             meters["uda"].add(float(metrics["uda"]))
+        if "entropy" in meters:
+            meters["entropy"].add(float(metrics["entropy"]))
         if "mi" in meters:
             meters["mi"].add(float(metrics["mi"]))
             meters["individual_mis"].add(**{
@@ -506,33 +534,115 @@ class SemiTrainer:
 
     # --- checkpointing --------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
+        """The tensors a resume restores (the JAX package's ``TrainState``):
+        model (BN statistics included), projector, Adam state, the global
+        step, the step generator's state and the mean teacher."""
         return {
             "model": self._model.state_dict(),
             "projector": None if self._projector is None else self._projector.state_dict(),
             "optimizer": self._optimizer.state_dict(),
-            "meta": {"cur_epoch": self._cur_epoch, "best_score": self._best_score,
-                     "storage": self._storage.state_dict(), "mode": self.mode},
+            "step": self._step_counter,
+            "generator": self._generator.get_state(),
+            "teacher": None if self._teacher is None else self._teacher.state_dict(),
         }
+
+    def _meta(self) -> Dict[str, Any]:
+        return {"cur_epoch": self._cur_epoch, "best_score": self._best_score,
+                "storage": self._storage.state_dict(), "mode": self.mode}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copies ``state`` (as ``state_dict`` returns it) into the trainer's
+        modules, optimizer, step counter and generator."""
+        self._model.load_state_dict(state["model"])
+        if self._projector is not None:
+            self._projector.load_state_dict(state["projector"])
+        if self._teacher is not None:
+            self._teacher.load_state_dict(state["teacher"])
+        self._optimizer.load_state_dict(state["optimizer"])
+        self._step_counter.copy_(state["step"])
+        self._generator.set_state(state["generator"])
 
     def save(self, cur_score: float) -> None:
         is_best = cur_score > self._best_score
         if is_best:
             self._best_score = float(cur_score)
-        state = self.state_dict()
-        torch.save(state, Path(self._save_dir) / LAST_NAME)
+        state, meta = self.state_dict(), self._meta()
+        save_checkpoint(Path(self._save_dir) / LAST_NAME, state, meta)
         if is_best:
-            torch.save(state, Path(self._save_dir) / BEST_NAME)
+            save_checkpoint(Path(self._save_dir) / BEST_NAME, state, meta)
+
+    def load_state_dict_from_path(self, path: str, strict: bool = True) -> None:
+        """Resume from ``path`` (a checkpoint, or a run directory: its
+        ``last.pth``). ``strict=False`` takes each entry whose name and shape
+        match and keeps the others at their initial values (warning with
+        their count); ``strict`` raises on any mismatch. The next epoch is
+        the checkpoint's + 1."""
+        template = self.state_dict()
+        if strict:
+            state, meta = load_checkpoint(path, template, LAST_NAME)
+        else:
+            state, meta, kept = lenient_load_checkpoint(path, template, LAST_NAME)
+            if kept:
+                _warn(f"lenient load of {path}: {kept} entries missing from the checkpoint or "
+                      "of another shape keep their initial values")
+        self.load_state_dict(state)
+        self._best_score = float(meta.get("best_score", -1.0))
+        self._cur_epoch = int(meta.get("cur_epoch", 0))
+        self._start_epoch = self._cur_epoch + 1
+        if "storage" in meta:
+            self._storage.load_state_dict(meta["storage"])
+
+    # --- inference ------------------------------------------------------
+    def inference(self, checkpoint: Optional[str] = None) -> Tuple[Dict[str, Any], float]:
+        """Strict load of ``best.pth`` (``checkpoint``: a file or a run
+        directory; default: this run's), then the test patients with loss,
+        dice and Hausdorff meters, PNG dumps of image, ground truth and
+        prediction under ``img/``, ``gt/`` and ``pred/``, and the report in
+        ``inference.json``. On ``Trainer.device_data`` the forward runs from
+        the device store; the host test loader supplies the pixels and names
+        for the dumps and the Hausdorff targets, and the predictions are
+        realigned to its slices by filename."""
+        state, _ = load_checkpoint(checkpoint or self._save_dir, self.state_dict(), BEST_NAME)
+        self.load_state_dict(state)
+        meters = self._eval_meters()
+        meters.register_meter(
+            "hd", SurfaceMeter(self._num_classes, list(range(1, self._num_classes))))
+        index_batches = ({b["group"]: b for b in self._eval_index_loaders["test"]}
+                         if self._device_data else {})
+        for batch in self._test_loader:
+            n_valid = int(np.sum(batch["mask"]))
+            ib = index_batches.get(batch["group"])
+            if ib is not None:
+                out = self._eval_steps_dev["test"](self._to_device(ib["indices"]),
+                                                   self._to_device(ib["mask"]))
+                rows = dict(zip(ib["filename"], out["pred"].cpu().numpy()))
+                pred = np.stack([rows[fn] for fn in batch["filename"][:n_valid]])
+            else:
+                out = self._eval_step(self._to_device(batch["image"]),
+                                      self._to_device(batch["target"]),
+                                      self._to_device(batch["mask"]))
+                pred = out["pred"].cpu().numpy()[:n_valid]
+            meters["loss"].add(float(out["loss"]))
+            meters["dice"].add_stats(out["inter"].cpu().numpy(), out["union"].cpu().numpy(),
+                                     group_name=batch["group"])
+            target = batch["target"][:n_valid]
+            with ExceptionIgnorer(RuntimeError):  # a class absent from pred or target
+                meters["hd"].add(pred, target)
+            write_img_target(batch["image"][:n_valid], target, self._save_dir, batch["filename"])
+            write_predict(pred, self._save_dir, batch["filename"])
+        report = meters.tracking_status()
+        with open(Path(self._save_dir) / INFERENCE_NAME, "w") as f:
+            json.dump(report, f, indent=1)
+        return report, report["dice"]["DSC_mean"]
 
 
-def uda_criterion(cfg: Dict[str, Any]) -> str:
-    """``UDARegCriterion.name``, checked when the trainer is built (the JAX
-    trainer asserts ``mse | kl``): ``kl`` is not ported yet, anything else
-    but ``mse`` is no criterion."""
-    name = cfg["name"]
-    if name == "kl":
-        raise NotImplementedError(f"UDARegCriterion.name='kl' {_ROADMAP} (the port has 'mse')")
-    if name != "mse":
-        raise ValueError(f"UDARegCriterion.name={name!r}: expected 'mse' | 'kl'")
+def uda_criterion(cfg: Dict[str, Any], section: str = "UDARegCriterion") -> str:
+    """``<section>.name``, checked when the trainer is built (the JAX trainer
+    asserts ``mse | kl``)."""
+    name = cfg.get("name", "mse")
+    if name not in UDA_CRITERIA:
+        raise ValueError(f"{section}.name={name!r}: expected "
+                         + " | ".join(repr(c) for c in UDA_CRITERIA))
     return name
 
 
@@ -542,6 +652,36 @@ class UDATrainer(SemiTrainer):
     def _build_components(self) -> None:
         cfg = self._config["UDARegCriterion"]
         self._step_kwargs = dict(uda_criterion=uda_criterion(cfg), reg_weight=float(cfg["weight"]))
+
+
+class EntropyMinTrainer(SemiTrainer):
+    """Entropy minimisation on the unlabeled views (the
+    ``EntropyMinParameters`` config section)."""
+
+    mode = "entropy"
+
+    def _build_components(self) -> None:
+        cfg = self._config.get("EntropyMinParameters") or {"weight": 1e-5}
+        self._step_kwargs = dict(reg_weight=float(cfg["weight"]))
+
+
+class MeanTeacherTrainer(SemiTrainer):
+    """Mean-teacher consistency (the ``MeanTeacherParameters`` config
+    section): the student trains on [labeled, unlabeled, unlabeled_tf]; an
+    EMA teacher with its own BN running statistics gives the flipped target;
+    evaluation and inference use the student."""
+
+    mode = "meanteacher"
+
+    def _build_components(self) -> None:
+        cfg = self._config.get("MeanTeacherParameters") or {}
+        self._step_kwargs = dict(
+            uda_criterion=uda_criterion(cfg, "MeanTeacherParameters"),
+            reg_weight=float(cfg.get("weight", 10.0)),
+            ema_alpha=float(cfg.get("alpha", 0.999)),
+            ema_weight_decay=float(cfg.get("weight_decay", 1e-6)),
+        )
+        self._with_ema = True
 
 
 def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
@@ -639,4 +779,6 @@ trainer_zoos = {
     "uda": UDATrainer,
     "iic": IICTrainer,
     "udaiic": UDAIICTrainer,
+    "entropy": EntropyMinTrainer,
+    "meanteacher": MeanTeacherTrainer,
 }

@@ -4,11 +4,18 @@
         Trainer.name=udaiic Trainer.save_dir=udaiic_run Trainer.device=cuda \
         UDARegCriterion.weight=10.0 IICRegParameters.weight=0.1 \
         Trainer.device_data=true Kernel.geometry=shear   # data staged on the card
+    # resume a run that died, then evaluate its best.pth on the test patients
+    python -m mi_based_regularized_semi_supervised_segmentation_tpu_torch.main \
+        Trainer.name=udaiic Trainer.save_dir=udaiic_run Checkpoint=runs/udaiic_run \
+        Inference=true
 
 Flow: config (YAML + dotted-key overrides) -> seed -> matmul precision ->
 loaders (labeled / unlabeled / test, val carved from unlabeled) -> trainer
-from the registry -> start_training. Runs on ``Trainer.device`` (``cuda`` by
-default; ``cpu`` on request).
+from the registry -> init -> resume from ``Checkpoint`` (a checkpoint or a
+run directory: its ``last.pth``; entries matched by name and shape) ->
+start_training -> with ``Inference``, the test patients on ``best.pth`` with
+Hausdorff and PNG dumps. Runs on ``Trainer.device`` (``cuda`` by default;
+``cpu`` on request).
 """
 
 from __future__ import annotations
@@ -39,10 +46,6 @@ def main(argv: Optional[List[str]] = None):
     config = ConfigManager(argv=argv if argv is not None else sys.argv[1:]).config
     set_seed(int(config.get("RandomSeed", 1)))
     set_matmul_precision(str((config.get("Precision") or {}).get("matmul_precision", "highest")))
-    if config.get("Checkpoint") is not None:
-        raise NotImplementedError("resuming from Checkpoint is not ported yet; see ROADMAP.md")
-    if config.get("Inference"):
-        raise NotImplementedError("Inference is not ported yet; see ROADMAP.md")
 
     if (config.get("Data") or {}).get("synthetic"):
         from . import DATA_PATH
@@ -54,7 +57,7 @@ def main(argv: Optional[List[str]] = None):
     trainer_config = dict(config["Trainer"])
     name = trainer_config.pop("name")
     if name not in trainer_zoos:
-        raise NotImplementedError(f"Trainer.name={name!r} is not ported yet; see ROADMAP.md")
+        raise ValueError(f"Trainer.name={name!r}: expected one of {sorted(trainer_zoos)}")
     Trainer = trainer_zoos[name]
     trainer = Trainer(
         labeled_loader=labeled_loader,
@@ -65,7 +68,13 @@ def main(argv: Optional[List[str]] = None):
         **trainer_config,
     )
     trainer.init()
+    checkpoint = config.get("Checkpoint")
+    if checkpoint is not None:
+        trainer.load_state_dict_from_path(checkpoint, strict=False)
     trainer.start_training()
+    if config.get("Inference"):
+        _, score = trainer.inference()
+        print(f"inference DSC_mean={score:.4f}", flush=True)
     return trainer
 
 

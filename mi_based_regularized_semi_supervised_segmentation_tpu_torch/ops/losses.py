@@ -1,9 +1,10 @@
 """Loss functions on [..., C] tensors (class axis last, as in the JAX package).
 
 Counterpart of the JAX package's ``ops/losses.py``: ``kl_div`` (with a one-hot
-target it is the supervised cross-entropy) and ``mse_consistency`` (the UDA
-term between two softmax maps). The other losses there wait for the pretrain
-slice.
+target it is the supervised cross-entropy, with a softmax target the UDA
+``kl`` criterion), ``entropy`` (the ``entropy`` trainer's term) and
+``mse_consistency`` (the UDA ``mse`` criterion between two softmax maps). The
+other losses there wait for the pretrain slice.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ def kl_div(prob: torch.Tensor, target: torch.Tensor, weight: Optional[torch.Tens
         weight = torch.as_tensor(weight, dtype=torch.float32, device=prob.device)
         kl = kl * (weight / weight.sum() * weight.shape[0])
     return _reduce(kl.sum(-1), reduction)
+
+
+def entropy(prob: torch.Tensor, reduction: str = "mean", eps: float = 1e-16) -> torch.Tensor:
+    """-sum_c p log(p + eps) over the last axis."""
+    return _reduce(-(prob * torch.log(prob + eps)).sum(-1), reduction)
 
 
 def mse_consistency(pred_probs: torch.Tensor, target_probs: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,17 @@
-from .general import class2one_hot, flatten_dict, gethash, set_seed
+from .general import ExceptionIgnorer, class2one_hot, flatten_dict, gethash, set_seed
 from .meters import (
     AverageValueMeter,
     MeterInterface,
     MultipleAverageValueMeter,
     Storage,
     StorageIncomeDict,
+    SurfaceMeter,
     UniversalDice,
 )
 from .writer import SummaryWriter
 
 __all__ = [
+    "ExceptionIgnorer",
     "class2one_hot",
     "flatten_dict",
     "gethash",
@@ -19,6 +21,7 @@ __all__ = [
     "MultipleAverageValueMeter",
     "Storage",
     "StorageIncomeDict",
+    "SurfaceMeter",
     "UniversalDice",
     "SummaryWriter",
 ]

@@ -45,3 +45,18 @@ def gethash(cwd: str = ".") -> str:
     except (OSError, subprocess.CalledProcessError):
         return "unknown"
     return out.decode().strip()
+
+
+class ExceptionIgnorer:
+    """Context manager that swallows the listed exception types (inference
+    guards the Hausdorff meter's empty-mask ``RuntimeError`` with it, as the
+    JAX package does)."""
+
+    def __init__(self, *exceptions):
+        self._exceptions = exceptions or (Exception,)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        return exc_type is not None and issubclass(exc_type, self._exceptions)

@@ -1,10 +1,10 @@
 """Host-side meters fed by per-step device summaries.
 
 The parts of the JAX package's ``utils/meters.py`` that the trainer uses:
-AverageValueMeter, MultipleAverageValueMeter, UniversalDice, MeterInterface,
-StorageIncomeDict and Storage. Storage writes its CSV with the ``csv``
-module, so the port does not need pandas. SurfaceMeter (Hausdorff) waits
-with inference.
+AverageValueMeter, MultipleAverageValueMeter, UniversalDice, SurfaceMeter
+(Hausdorff, for inference), MeterInterface, StorageIncomeDict and Storage.
+Storage writes its CSV with the ``csv`` module, so the port does not need
+pandas.
 """
 
 from __future__ import annotations
@@ -181,6 +181,71 @@ class UniversalDice(_Metric):
         out = self.summary()
         out.update({f"DSC_std{i}": float(stds[i]) for i in self._report_axis})
         return out
+
+
+def _surface_distances(a: np.ndarray, b: np.ndarray, spacing=None) -> np.ndarray:
+    """Distances from the surface voxels of ``a`` to the surface of ``b``;
+    raises ``RuntimeError`` when either mask is empty."""
+    from scipy import ndimage
+
+    a = np.atleast_1d(a.astype(bool))
+    b = np.atleast_1d(b.astype(bool))
+    if not a.any() or not b.any():
+        raise RuntimeError("empty mask in surface distance computation")
+    conn = ndimage.generate_binary_structure(a.ndim, 1)
+    a_border = a ^ ndimage.binary_erosion(a, conn, border_value=0)
+    b_border = b ^ ndimage.binary_erosion(b, conn, border_value=0)
+    dt = ndimage.distance_transform_edt(~b_border, sampling=spacing)
+    return dt[a_border]
+
+
+class SurfaceMeter(_Metric):
+    """Hausdorff / 95-percentile HD / average symmetric surface distance per
+    class, over the whole [B, H, W] volume of each ``add``.
+
+    ``add`` appends the classes one after another, so when a class's mask is
+    empty (``RuntimeError``) the classes before it keep their new values and
+    the ones after it get none for that volume, as in the JAX package."""
+
+    METHODS = ("hausdorff", "hd95", "assd")
+
+    def __init__(self, C: int = 4, report_axises: Optional[Sequence[int]] = None,
+                 metername: str = "hausdorff") -> None:
+        if metername not in self.METHODS:
+            raise ValueError(f"metername={metername!r}: expected one of {self.METHODS}")
+        self._C = C
+        self._report_axis = list(report_axises) if report_axises is not None else list(range(1, C))
+        self._method = metername
+        self.reset()
+
+    def reset(self) -> None:
+        self._values: Dict[int, List[float]] = defaultdict(list)
+
+    def _compute(self, p: np.ndarray, t: np.ndarray) -> float:
+        d_pt = _surface_distances(p, t)
+        d_tp = _surface_distances(t, p)
+        if self._method == "hausdorff":
+            return float(max(d_pt.max(), d_tp.max()))
+        if self._method == "hd95":
+            return float(max(np.percentile(d_pt, 95), np.percentile(d_tp, 95)))
+        return float((d_pt.sum() + d_tp.sum()) / (len(d_pt) + len(d_tp)))
+
+    def add(self, pred: np.ndarray, target: np.ndarray) -> None:
+        pred = np.asarray(pred)
+        target = np.asarray(target)
+        if pred.shape != target.shape:
+            raise ValueError(f"pred {pred.shape} and target {target.shape} differ in shape")
+        for c in self._report_axis:
+            self._values[c].append(self._compute(pred == c, target == c))
+
+    def summary(self) -> Dict[str, float]:
+        report = {
+            f"{self._method}{c}": float(np.mean(v)) if v else float("nan")
+            for c, v in sorted(self._values.items())
+        }
+        if report:
+            report[f"{self._method}_mean"] = float(np.mean(list(report.values())))
+        return report
 
 
 class MeterInterface:
