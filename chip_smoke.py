@@ -36,7 +36,15 @@ Phases, each printing JSON lines:
            p = 1/4), within a stated bound on random logits in both operand
            modes; at the taps timed beside the plain version and the unfused
            path (group softmax, mask, mi_joint kernel) at the same shapes,
-           with the device time of each kernel the wrapper launches
+           with the device time of each kernel the wrapper launches.
+           Each joint and fused check also runs on bf16 operands (the
+           model's bf16 compute: mode "bf16in"): the joint bit-exact on
+           integer inputs, its bf16 gradients equal to the plain version's
+           single rounding (also at 256 lanes), within TOL at the taps
+           beside one bf16 step of the output's rounding; the fused kernels
+           on bf16 logits with -inf dead lanes, exactly on dyadic logits and
+           within their tolerances on random ones; each bf16in row timed
+           beside its bound (operand bytes halved) and F.conv2d on bf16
   step     one small udaiic train step on the card against the same step on
            the CPU (plain joint), same weights, batch and flip mask
   step_fused  the same with the decoder heads emitting logits (fused kernels
@@ -46,6 +54,12 @@ Phases, each printing JSON lines:
   step_meanteacher  one small meanteacher step on the card against the CPU:
            the same weights, batch and flip mask; every loss and the
            teacher's parameters and BN statistics after its EMA update
+  step_bf16  the step phase with Precision.compute_dtype=bn_dtype=bfloat16
+           (bench.py's headline precision): losses at STEPS_TOL_BF16, the
+           parameter moves against the CPU's bf16 step at STEP_BF16_LOOSE,
+           closer to it than the CPU's fp32 step, the heads' at
+           STEP_BF16_HEADS_LOOSE
+  step_s2d the step phase with Arch.stem=s2d (fp32), at STEPS_TOL
   train    the headline udaiic trainer through ``main.main`` on synthetic data
            (U-Net 16..256, 224^2 crops, 4 labeled + 10 unlabeled, taps Conv5 /
            Up_conv3 / Up_conv2, 5 x 20 clusters, paddings [1, 3]), with the
@@ -57,6 +71,13 @@ Phases, each printing JSON lines:
            (Trainer.device_data=true, 8 steps in chunks of 4), once with
            Kernel.geometry=shear (the rotation kernel, 2 launches a step) and
            once with the default fused geometry; counts set to 0 before each
+  train_bf16  train, train_fused and train_device (shear) with
+           Precision.compute_dtype=bn_dtype=bfloat16: the joint's and the fused
+           kernels' bf16-operand launches (2 of each a step, none on fp32
+           operands), step wall and peak beside the fp32 run's
+  train_remat  the host-path trainer with and without Arch.remat=true from
+           the same seed, 3 steps on one batch: the same losses (the first
+           step bit for bit), a lower peak of device memory
   resume   the headline udaiic trainer through ``main.main`` for one epoch of
            4 steps, then ``Checkpoint=<that run dir>``: the loaded state equals
            last.pth bit for bit (model, projector, Adam, step counter,
@@ -71,7 +92,9 @@ Phases, each printing JSON lines:
            UDARegCriterion.name=kl (host path)
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
-           trainer (torch.profiler), and the device's busy share of the wall
+           trainer (torch.profiler), and the device's busy share of the wall;
+           the same for the three bf16 trainers, whose bf16-operand kernel
+           variants must appear by name
 
 The line before the last is the JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. A failed check raises, and the script exits
@@ -89,6 +112,8 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
+from functools import partial
 from importlib import import_module
 from itertools import chain, count
 from pathlib import Path
@@ -128,7 +153,35 @@ TOL = 5e-4
 FUSED_BF16_BWD_TOL = 1e-2
 FUSED_BF16_BWD_SHARE = 1e-3  # share of entries off by more than TOL * max
 STEPS_TOL = 1e-3     # step phases: card vs CPU losses (relative)
+# step_bf16: card vs CPU losses (relative). cuDNN's bf16 convolutions sum in
+# another order than the CPU's, so a last-bit difference flips a bf16 output
+# by one step now and then, and train-mode BN on this small random-init net
+# amplifies the flips layer by layer (tests/test_torch_precision.py measures
+# the same against the JAX package: up to 3.1e-3 on the losses)
+STEPS_TOL_BF16 = 2e-2
+# step_bf16's parameter moves. Adam's first move is about lr * sign(g), and
+# the bf16 gradients of this random-init net are mostly rounding noise in the
+# encoder (the JAX bf16 step's sit 0.73 relative L2 from its fp32 step's), so
+# two right bf16 steps move 10-15% of the elements opposite ways (the port's
+# CPU step against the JAX package's, tests/test_torch_precision.py: 0.103-
+# 0.149; card against CPU: 0.122). Held: that share, below 0.75 of the share
+# of the CPU's fp32 step (0.237: a dtype ignored), and the share in the heads
+# (the 1x1 head, the projector's), whose gradients come straight from the
+# losses (port against JAX: <= 0.0063; card against CPU: 0.034; a wrong
+# gradient there: ~0.5)
+STEP_BF16_LOOSE = 0.2
+STEP_BF16_LIVENESS = 0.75
+STEP_BF16_HEADS_LOOSE = 0.1
+BF16 = ("Precision.compute_dtype=bfloat16", "Precision.bn_dtype=bfloat16")
 ZOO_STEPS = 4        # steps of each resume / train_zoo run
+
+
+@contextmanager
+def timed(walls: dict, name: str):
+    """Adds the wall seconds of the block to ``walls[name]``."""
+    t0 = time.perf_counter()
+    yield
+    walls[name] = time.perf_counter() - t0
 
 
 def emit(obj) -> None:
@@ -174,7 +227,7 @@ def device_profile(fn, reps: int, warmup: int = 2) -> dict:
     # again, up to three times, rather than report nothing
     for _ in range(3):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -248,29 +301,34 @@ def _tap_inputs(batch: int, edge: int, padding: int, gen, clusters: int = CLUSTE
     return (probs * valid).reshape(-1, lanes).contiguous()
 
 
-def _exact_check(mj, n: int, wp: int, p: int, gen, lanes: int = LANES) -> None:
+def _exact_check(mj, n: int, wp: int, p: int, gen, lanes: int = LANES, dtype=None) -> None:
     """Small integers are exact in bf16, and every sum stays below 2^24
     whatever the summation order, so the kernel must equal the plain version
     bit for bit in both modes: a missing, doubled or misplaced row or
     displacement shows here. Every row holds data, so the slabs' first and
-    last rows and the zero fill beyond both ends of [0, N) are exercised."""
+    last rows and the zero fill beyond both ends of [0, N) are exercised.
+    With bf16 operands (``dtype``) the gradients come back bf16: each exact
+    fp32 sum rounded once on both sides, so again bit for bit."""
     import torch
 
+    dtype = dtype or torch.float32
     d = (2 * p + 1) ** 2
-    a = torch.randint(0, 2, (n, lanes), generator=gen, device="cuda").float()
-    b = torch.randint(0, 2, (n, lanes), generator=gen, device="cuda").float()
+    a = torch.randint(0, 2, (n, lanes), generator=gen, device="cuda").to(dtype)
+    b = torch.randint(0, 2, (n, lanes), generator=gen, device="cuda").to(dtype)
     g = torch.randint(-2, 3, (d, lanes, lanes), generator=gen, device="cuda").float()
     ap, bp = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
     ref = mj.displaced_joint_plain_flat(ap, bp, wp, p)
     ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), g)
     ref = ref.detach()
-    for bf16 in (True, False):
+    for bf16 in ((True,) if dtype == torch.bfloat16 else (True, False)):
         got = {"fwd": (mj.mi_joint_fwd(a, b, wp, p, bf16), ref),
                "dx": (mj.mi_joint_bwd(b, g, wp, p, True, bf16), ref_da),
                "dx_tf": (mj.mi_joint_bwd(a, g, wp, p, False, bf16), ref_db)}
         for what, (x, y) in got.items():
-            err = float((x - y).abs().max())
-            check(err == 0.0, f"exact {what} p={p} {lanes} lanes bf16={bf16}: max err {err}")
+            err = float((x.float() - y.float()).abs().max())
+            check(err == 0.0 and x.dtype == y.dtype,
+                  f"exact {what} p={p} {lanes} lanes {dtype} bf16={bf16}: max err {err}, "
+                  f"{x.dtype} vs {y.dtype}")
 
 
 def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool) -> dict:
@@ -284,7 +342,9 @@ def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool) -> dict:
     n, c = a.shape
     d = (2 * p + 1) ** 2
     dot = torch.bfloat16 if bf16 else torch.float32
-    ar, br, gr = (t.to(dot).float() for t in (a, b, g))
+    gr = g.to(dot).float()
+    # bf16 operands are taken as they are; their gradients come back bf16
+    ar, br = (a, b) if a.dtype == torch.bfloat16 else (t.to(dot).float() for t in (a, b))
     ap, bp = ar.clone().requires_grad_(True), br.clone().requires_grad_(True)
     ref = mj.displaced_joint_plain_flat(ap, bp, hp, p)
     ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), gr, retain_graph=True)
@@ -328,54 +388,78 @@ def phase_kernels(reps: int) -> list:
     for batch, hp, wp, p in RAGGED:
         n = batch * hp * wp
         _exact_check(mj, n, wp, p, gen)
+        _exact_check(mj, n, wp, p, gen, dtype=torch.bfloat16)
         emit({"phase": "kernels", "ragged": [batch, hp, wp, p], "exact_check": "passed",
-              "shape": [n, LANES]})
+              "exact_check_bf16in": "passed", "shape": [n, LANES]})
     for tap, batch, edge, p in TAPS:
         hp = edge + 2 * p
         d = (2 * p + 1) ** 2
         n = batch * hp * hp
         _exact_check(mj, n, hp, p, gen)
-        emit({"phase": "kernels", "tap": tap, "exact_check": "passed", "shape": [n, LANES]})
+        _exact_check(mj, n, hp, p, gen, dtype=torch.bfloat16)
+        emit({"phase": "kernels", "tap": tap, "exact_check": "passed",
+              "exact_check_bf16in": "passed", "shape": [n, LANES]})
         a = _tap_inputs(batch, edge, p, gen)
         b = _tap_inputs(batch, edge, p, gen)
         c = LANES
         g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
         flops = 2.0 * n * c * c * d
-        nbytes = 4.0 * (2 * n * c + d * c * c)  # fwd: A, B in, J out; bwd: S, g in, [N, C] out
-        for mode in ("bf16", "fp32"):
-            bf16 = mode == "bf16"
-            cases = _joint_cases(mj, a, b, g, batch, hp, p, bf16)
-            for name, case in cases.items():
+        # mode -> operands: bf16 products of fp32 maps, the fp32 parity mode,
+        # bf16 products of bf16 maps (the model's bf16 compute)
+        operands = {"bf16": (a, b), "fp32": (a, b),
+                    "bf16in": (a.to(torch.bfloat16), b.to(torch.bfloat16))}
+        for mode, (ma, mb) in operands.items():
+            bf16 = mode != "fp32"
+            peak = PEAK_FLOPS["fp32" if mode == "fp32" else "bf16"]
+            # fwd: A, B in, J out; bwd: S, g in, [N, C] out (operands in their type)
+            nbytes = 2.0 * ma.element_size() * n * c + 4.0 * d * c * c
+            cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16)
+            for base, case in cases.items():
+                name = mj.kernel_name(base, ma.dtype)
                 got = case["kernel"]()
                 want = case["want"]
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                check(math.isfinite(err) and err <= TOL * scale,
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                scale = float(want.float().abs().max())
+                # a bf16 gradient adds its output's rounding: an fp32 sum that lies
+                # within the summation-order difference of a rounding midpoint
+                # rounds the other way, one bf16 step (of the exponent of |want|)
+                bf16_steps = None
+                if got.dtype == torch.bfloat16:
+                    step = torch.exp2(torch.floor(torch.log2(want.float().abs())) - 7)
+                    # the reading behind the allowance: the largest error, in
+                    # steps of its own entry, among entries off by more than TOL
+                    off = diff > TOL * scale
+                    bf16_steps = float((diff / step)[off].max()) if bool(off.any()) else 0.0
+                    diff = (diff - step).clamp_min(0)
+                check(math.isfinite(err) and float(diff.max()) <= TOL * scale,
                       f"{tap} {mode} {name}: max err {err} vs max |ref| {scale}")
                 check(bool(torch.equal(case["kernel"](), got)),
                       f"{tap} {mode} {name}: two calls on the same inputs differ")
-                lib_err = float((case["unpack"](case["library"]()).float() - want).abs().max())
-                by_ops = flops / PEAK_FLOPS[mode] >= nbytes / HBM_BYTES_PER_S
+                lib_err = float((case["unpack"](case["library"]()).float()
+                                 - want.float()).abs().max())
+                by_ops = flops / peak >= nbytes / HBM_BYTES_PER_S
                 row = {"phase": "kernels", "name": name, "tap": tap, "label": tap, "mode": mode,
                        "route": "cuda", "source": f"{PORT}/csrc/mi_joint.cu",
-                       "replaces": replaces[name], "shape": [n, c], "padding": p,
+                       "replaces": replaces[base], "shape": [n, c], "padding": p,
                        "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL,
+                       "max_bf16_steps": bf16_steps,
                        "ms": cuda_ms(case["kernel"], reps),
                        "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
                        "library_ms": cuda_ms(case["library"], max(3, reps // 3), warmup=1),
                        "library_rel_err": lib_err / scale,
-                       "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[mode]) * 1e3,
+                       "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
                        "bound_by": "operations" if by_ops else "bytes",
                        "gflop": flops / 1e9}
                 row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
                 row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
                 row["vs_library"] = row["ms"] / row["library_ms"]
-                if bf16:  # the wrapper's kernels: conversion, product, chunk sum
+                if bf16:  # the wrapper's kernels: (conversion,) product(, chunk sum)
                     row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
                 emit(row)
                 rows.append(row)
             del cases
-        del a, b, g
+        del a, b, g, operands
         torch.cuda.empty_cache()
     return rows
 
@@ -394,7 +478,10 @@ def phase_kernels_wide(reps: int) -> list:
     lanes = 2 * LANES
     batch, hp, wp, p = RAGGED[1]
     _exact_check(mj, batch * hp * wp, wp, p, gen, lanes)
-    emit({"phase": "kernels", "ragged": list(RAGGED[1]), "lanes": lanes, "exact_check": "passed"})
+    # bf16 operands: the lane blocks' fp32 sums rounded once, as at 128 lanes
+    _exact_check(mj, batch * hp * wp, wp, p, gen, lanes, dtype=torch.bfloat16)
+    emit({"phase": "kernels", "ragged": list(RAGGED[1]), "lanes": lanes, "exact_check": "passed",
+          "exact_check_bf16in": "passed"})
     tap, batch, edge, p = TAPS[1]
     hp = edge + 2 * p
     d = (2 * p + 1) ** 2
@@ -669,9 +756,13 @@ def _fused_exact_check(mf, n: int, hp: int, wp: int, p: int, gen) -> None:
     d = (2 * p + 1) ** 2
     g = torch.randint(-2, 3, (d, LANES, LANES), generator=gen, device="cuda").float()
     for kind, (s, k) in (("onehot", (SUBHEADS, CLUSTERS)), ("uniform", (25, 4))):
-        l1, l2 = _fused_logits(n, gen, kind), _fused_logits(n, gen, kind)
+        f1, f2 = _fused_logits(n, gen, kind), _fused_logits(n, gen, kind)
         args = (hp, wp, p, s, k, 1.0)
-        for dot in (torch.bfloat16, torch.float32):
+        # fp32 logits in both product modes, then bf16 logits (the bf16 heads':
+        # dyadic values exact, dead lanes -inf) in the bf16 mode
+        for logits, dot in (((f1, f2), torch.bfloat16), ((f1, f2), torch.float32),
+                            ((f1.to(torch.bfloat16), f2.to(torch.bfloat16)), torch.bfloat16)):
+            l1, l2 = logits
             bf16 = dot == torch.bfloat16
             got = {"fwd": (mf.mi_fused_fwd(l1, l2, *args, bf16=bf16),
                            mf.fused_fwd_plain(l1, l2, *args, dot)),
@@ -680,18 +771,19 @@ def _fused_exact_check(mf, n: int, hp: int, wp: int, p: int, gen) -> None:
                    "dl1": (mf.mi_fused_bwd(l2, l1, g, *args, transpose_g=True, bf16=bf16),
                            mf.fused_bwd_side_plain(l2, l1, g, *args, dot, transpose_g=True))}
             for what, (x, y) in got.items():
-                err = float((x - y).abs().max())
+                err = float((x.float() - y.float()).abs().max())
                 # (the one-hot softmax is saturated: its fp32 d(logits) are all 0)
                 nonzero = what == "fwd" or kind == "uniform"
-                check(err == 0.0 and (float(y.abs().max()) > 0 or not nonzero),
-                      f"exact fused {kind} {what} p={p} {dot}: max err {err}")
+                check(err == 0.0 and x.dtype == y.dtype
+                      and (float(y.float().abs().max()) > 0 or not nonzero),
+                      f"exact fused {kind} {what} p={p} {l1.dtype} {dot}: max err {err}")
 
 
 def _fused_compare(mf, name: str, bf16: bool, got, want, where: str):
     """(max error, max |want|, share of entries off by more than TOL of it,
     the tolerance held): random logits against the plain version."""
-    diff = (got - want).abs()
-    err, scale = float(diff.max()), float(want.abs().max())
+    diff = (got.float() - want.float()).abs()
+    err, scale = float(diff.max()), float(want.float().abs().max())
     share = float((diff > TOL * scale).float().mean())
     tol = FUSED_BF16_BWD_TOL if bf16 and name != mf.FWD else TOL
     mode = "bf16" if bf16 else "fp32"
@@ -708,11 +800,14 @@ def _fused_random_check(mf, n: int, hp: int, wp: int, p: int, gen) -> dict:
     import torch
 
     d = (2 * p + 1) ** 2
-    l1, l2 = _fused_logits(n, gen), _fused_logits(n, gen)
+    f1, f2 = _fused_logits(n, gen), _fused_logits(n, gen)
     g = torch.randn((d, LANES, LANES), generator=gen, device="cuda") * 1e-3
     args = (hp, wp, p, SUBHEADS, CLUSTERS, 1.0)
     errs = {}
-    for dot in (torch.bfloat16, torch.float32):
+    for (l1, l2), dot, mode in (((f1, f2), torch.bfloat16, "bf16"),
+                                ((f1, f2), torch.float32, "fp32"),
+                                ((f1.to(torch.bfloat16), f2.to(torch.bfloat16)), torch.bfloat16,
+                                 "bf16in")):
         bf16 = dot == torch.bfloat16
         for name, got, want in (
                 (mf.FWD, mf.mi_fused_fwd(l1, l2, *args, bf16=bf16),
@@ -721,8 +816,9 @@ def _fused_random_check(mf, n: int, hp: int, wp: int, p: int, gen) -> dict:
                  mf.fused_bwd_side_plain(l1, l2, g, *args, dot, transpose_g=False)),
                 (mf.BWD_DL1, mf.mi_fused_bwd(l2, l1, g, *args, transpose_g=True, bf16=bf16),
                  mf.fused_bwd_side_plain(l2, l1, g, *args, dot, transpose_g=True))):
-            err, scale, _, _ = _fused_compare(mf, name, bf16, got, want, f"ragged n={n} p={p}")
-            errs[f"{name}/{'bf16' if bf16 else 'fp32'}"] = err / scale
+            err, scale, _, _ = _fused_compare(mf, name, bf16, got, want,
+                                              f"ragged n={n} p={p} {mode}")
+            errs[f"{name}/{mode}"] = err / scale
     return errs
 
 
@@ -761,16 +857,23 @@ def phase_kernels_fused(reps: int) -> list:
         # and K, and by its definition every lane from S*K on is dead (p = 0)
         live = SUBHEADS * CLUSTERS
         flops = 2.0 * n * live * live * d
-        fwd_bytes = 4.0 * (2 * n * live + d * live * live)  # two logit maps in, J out
-        bwd_bytes = 4.0 * (3 * n * live + d * live * live)  # two logit maps and g in, dl out
-        # the unfused path: per-group softmax and mask as separate kernels,
-        # probabilities in device memory, then the mi_joint kernels
-        leaves = [t.clone().requires_grad_(True) for t in (l1, l2)]
-        probs = [heads.group_softmax_flat(t, SUBHEADS, CLUSTERS) * valid for t in leaves]
-        saved = [t.detach().contiguous() for t in probs]
-        for mode in ("bf16", "fp32"):
-            bf16 = mode == "bf16"
+        fp32_logits = (l1, l2)
+        for mode in ("bf16", "fp32", "bf16in"):
+            bf16 = mode != "fp32"
             dot = torch.bfloat16 if bf16 else torch.float32
+            # bf16in: the bf16 heads' logits (dead lanes -inf) and, on the unfused
+            # path, their bf16 probabilities
+            l1, l2 = (t.to(torch.bfloat16) if mode == "bf16in" else t for t in fp32_logits)
+            esz = l1.element_size()
+            fwd_bytes = esz * 2 * n * live + 4.0 * d * live * live  # two logit maps in, J out
+            bwd_bytes = esz * 3 * n * live + 4.0 * d * live * live  # two maps, g in, dl out
+            # the unfused path: per-group softmax and mask as separate kernels,
+            # probabilities in device memory, then the mi_joint kernels
+            leaves = [t.clone().requires_grad_(True) for t in (l1, l2)]
+            probs = [heads.group_softmax_flat(t, SUBHEADS, CLUSTERS) * valid.to(t.dtype)
+                     for t in leaves]
+            saved = [t.detach().contiguous() for t in probs]
+            peak = PEAK_FLOPS["bf16" if bf16 else "fp32"]
             unfused_bwd = lambda own, src, tr: torch.autograd.grad(
                 probs[own], leaves[own], mj.mi_joint_bwd(saved[src], g, hp, p, tr, bf16),
                 retain_graph=True)
@@ -779,8 +882,9 @@ def phase_kernels_fused(reps: int) -> list:
                     kernel=lambda: mf.mi_fused_fwd(l1, l2, *args, bf16=bf16),
                     plain=lambda: mf.fused_fwd_plain(l1, l2, *args, dot),
                     unfused=lambda: mj.mi_joint_fwd(
-                        (heads.group_softmax_flat(l1, SUBHEADS, CLUSTERS) * valid),
-                        (heads.group_softmax_flat(l2, SUBHEADS, CLUSTERS) * valid), hp, p, bf16),
+                        (heads.group_softmax_flat(l1, SUBHEADS, CLUSTERS) * valid.to(l1.dtype)),
+                        (heads.group_softmax_flat(l2, SUBHEADS, CLUSTERS) * valid.to(l2.dtype)),
+                        hp, p, bf16),
                     nbytes=fwd_bytes),
                 mf.BWD_DL2: dict(
                     kernel=lambda: mf.mi_fused_bwd(l1, l2, g, *args, transpose_g=False, bf16=bf16),
@@ -791,21 +895,21 @@ def phase_kernels_fused(reps: int) -> list:
                     plain=lambda: mf.fused_bwd_side_plain(l2, l1, g, *args, dot, transpose_g=True),
                     unfused=lambda: unfused_bwd(0, 1, True), nbytes=bwd_bytes),
             }
-            for name, case in cases.items():
-                err, scale, share, tol = _fused_compare(mf, name, bf16, case["kernel"](),
-                                                        case["plain"](), tap)
-                by_ops = flops / PEAK_FLOPS[mode] >= case["nbytes"] / HBM_BYTES_PER_S
+            for base, case in cases.items():
+                name = mj.kernel_name(base, l1.dtype)
+                err, scale, share, tol = _fused_compare(mf, base, bf16, case["kernel"](),
+                                                        case["plain"](), f"{tap} {mode}")
+                by_ops = flops / peak >= case["nbytes"] / HBM_BYTES_PER_S
                 row = {"phase": "kernels", "name": name, "tap": tap, "label": tap, "mode": mode,
                        "route": "cuda", "source": f"{PORT}/csrc/mi_fused.cu",
-                       "replaces": replaces[name], "shape": [n, c], "live_lanes": live,
+                       "replaces": replaces[base], "shape": [n, c], "live_lanes": live,
                        "padding": p, "max_abs_err": err, "max_abs_ref": scale, "tol_rel": tol,
                        "share_above_tol": share,
                        "ms": cuda_ms(case["kernel"], reps),
                        "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
                        "unfused_path_ms": cuda_ms(case["unfused"], max(3, reps // 3), warmup=1),
                        "library_ms": None,
-                       "bound_ms": max(case["nbytes"] / HBM_BYTES_PER_S,
-                                       flops / PEAK_FLOPS[mode]) * 1e3,
+                       "bound_ms": max(case["nbytes"] / HBM_BYTES_PER_S, flops / peak) * 1e3,
                        "bound_by": "operations" if by_ops else "bytes",
                        "gflop": flops / 1e9}
                 row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
@@ -815,16 +919,17 @@ def phase_kernels_fused(reps: int) -> list:
                     row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
                 emit(row)
                 rows.append(row)
-            del cases
-        del l1, l2, g, leaves, probs, saved, valid
+            del cases, leaves, probs, saved
+        del l1, l2, g, valid, fp32_logits
         torch.cuda.empty_cache()
     return rows
 
 
-def phase_step(fused: bool = False) -> None:
+def _step_run(device: str, dtype, fused: bool, stem: str):
     """One udaiic step (crop 32, 2 + 3 slices, 3 classes, 2 x 5 clusters,
-    paddings [1, 3]) on the card and on the CPU from the same weights; with
-    ``fused`` the decoder heads emit logits (the fused kernels on the card)."""
+    paddings [1, 3]) on ``device`` from the weights of seed 0: its losses,
+    each parameter's move, the (mi_joint, mi_fused) launches and the names of
+    the kernels launched."""
     import numpy as np
     import torch
 
@@ -836,46 +941,86 @@ def phase_step(fused: bool = False) -> None:
                 "labeled_target": rng.integers(0, 3, (2, 32, 32)),
                 "unlabeled_image": rng.random((3, 32, 32, 1), dtype=np.float32)}
     flip_mask = torch.from_numpy(rng.random((3, 2)) < 0.8)
-    results = {}
-    for device in ("cpu", "cuda"):
-        torch.manual_seed(0)
-        model = models.UNet(1, 3)
-        proj = models.ProjectorWrapper(feats, num_clusters=5, num_subheads=2,
-                                       local_emit_logits=fused)
-        model.to(device)
-        proj.to(device)
-        params = list(chain(model.named_parameters(), proj.named_parameters(prefix="proj")))
-        opt = optim.build_optimizer([p for _, p in params],
-                                    {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
-        gen = torch.Generator(device=device)
-        step = steps.build_train_step(
-            model, opt, "udaiic", num_classes=3, generator=gen, feature_names=feats,
-            feature_importance=[1.0, 0.5, 0.5], projector=proj, uda_weight=10.0,
-            iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024)
-        before = {k: p.detach().cpu().clone() for k, p in params}
-        mj.reset_launch_counts()
-        mf.reset_launch_counts()
-        metrics = step({k: torch.from_numpy(v).to(device) for k, v in batch_np.items()},
-                       flip_mask=flip_mask)
-        launches = (sum(mj.LAUNCHES.values()), sum(mf.LAUNCHES.values()))
-        results[device] = ({k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")},
-                           {k: p.detach().cpu() - before[k] for k, p in params}, launches)
-    (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = results["cpu"], results["cuda"]
+    torch.manual_seed(0)
+    model = models.UNet(1, 3, dtype=dtype, bn_dtype=dtype, stem=stem)
+    proj = models.ProjectorWrapper(feats, num_clusters=5, num_subheads=2,
+                                   local_emit_logits=fused, local_dtype=dtype)
+    model.to(device)
+    proj.to(device)
+    params = list(chain(model.named_parameters(), proj.named_parameters(prefix="proj")))
+    opt = optim.build_optimizer([p for _, p in params],
+                                {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
+    step = steps.build_train_step(
+        model, opt, "udaiic", num_classes=3, generator=torch.Generator(device=device),
+        feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj, uda_weight=10.0,
+        iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024)
+    before = {k: p.detach().cpu().clone() for k, p in params}
+    mj.reset_launch_counts()
+    mf.reset_launch_counts()
+    metrics = step({k: torch.from_numpy(v).to(device) for k, v in batch_np.items()},
+                   flip_mask=flip_mask)
+    launches = (sum(mj.LAUNCHES.values()), sum(mf.LAUNCHES.values()))
+    names = sorted({k for k, _ in chain(mj.LAUNCHES, mf.LAUNCHES)})
+    return ({k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")},
+            {k: p.detach().cpu() - before[k] for k, p in params}, launches, names)
+
+
+def _loose_share(moves, ref, keys=None) -> float:
+    """The share of parameter elements whose first Adam move (about lr times
+    the gradient's sign) differs from ``ref``'s by more than 0.05 lr."""
+    import numpy as np
+
+    keys = list(ref) if keys is None else keys
+    diffs = np.concatenate([(moves[k] - ref[k]).abs().flatten().numpy() for k in keys])
+    return float(np.mean(diffs > 0.05 * 1e-3)) if diffs.size else 0.0
+
+
+def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "conv",
+               tol: float = STEPS_TOL) -> None:
+    """One udaiic step (``_step_run``) on the card and on the CPU from the
+    same weights; with ``fused`` the decoder heads emit logits (the fused
+    kernels on the card). ``dtype``: the compute and BN dtype (bf16: the
+    kernels' bf16-operand variants on the card, losses at ``tol``, the
+    parameter moves as STEP_BF16_* says); ``stem``: the U-Net's stem."""
+    import numpy as np
+    import torch
+
+    dtype = dtype or torch.float32
+    phase = phase or ("step_fused" if fused else "step")
+    mj = port("ops.mi_joint")
+    (l_cpu, d_cpu, n_cpu, _), (l_gpu, d_gpu, n_gpu, names) = (
+        _step_run(device, dtype, fused, stem) for device in ("cpu", "cuda"))
     want = (0, 6) if fused else (6, 0)
     check(n_cpu == (0, 0) and n_gpu == want,
-          f"step launches (mi_joint, mi_fused) cpu={n_cpu} cuda={n_gpu} (want (0, 0), {want})")
+          f"{phase} launches (mi_joint, mi_fused) cpu={n_cpu} cuda={n_gpu} (want (0, 0), {want})")
+    bf16_in = dtype == torch.bfloat16
+    check(all(n.endswith(mj.BF16_OPERANDS) == bf16_in for n in names),
+          f"{phase}: launched {names} on {dtype} operands")
     rel = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
-    check(all(v <= STEPS_TOL for v in rel.values()), f"step losses differ: {rel}")
+    check(all(v <= tol for v in rel.values()), f"{phase} losses differ: {rel}")
     # Adam's first step is ~ -lr * sign(g): where a gradient is near fp32
     # noise the two sides may step opposite ways (<= 2 lr); the bulk agrees
     diffs = np.concatenate([(d_gpu[k] - d_cpu[k]).abs().flatten().numpy() for k in d_cpu])
-    loose = float(np.mean(diffs > 0.05 * 1e-3))
-    check(diffs.max() <= 2.05e-3 and loose < 0.005, f"param deltas: max {diffs.max()}, "
-          f"loose share {loose}")
-    emit({"phase": "step_fused" if fused else "step", "losses_cpu": l_cpu, "losses_cuda": l_gpu,
-          "rel_err": rel, "param_delta_max_diff": float(diffs.max()),
-          "param_delta_loose_share": loose,
-          "launches_cuda": dict(zip(("mi_joint", "mi_fused"), n_gpu))})
+    loose = _loose_share(d_gpu, d_cpu)
+    out = {"phase": phase, "dtype": str(dtype), "stem": stem, "losses_cpu": l_cpu,
+           "losses_cuda": l_gpu, "rel_err": rel, "tol_rel": tol,
+           "param_delta_max_diff": float(diffs.max()), "param_delta_loose_share": loose,
+           "launches_cuda": dict(zip(("mi_joint", "mi_fused"), n_gpu)), "kernels": names}
+    if not bf16_in:
+        check(diffs.max() <= 2.05e-3 and loose < 0.005, f"param deltas: max {diffs.max()}, "
+              f"loose share {loose}")
+    else:
+        # the same step in fp32 on the CPU: how far a step that ignored the
+        # dtype would sit from the CPU's bf16 step
+        d_fp32 = _step_run("cpu", torch.float32, fused, stem)[1]
+        heads = [k for k in d_cpu if k.startswith(("proj.", "DeConv_1x1."))]
+        out.update(param_delta_loose_share_fp32=_loose_share(d_fp32, d_cpu),
+                   param_delta_loose_share_heads=_loose_share(d_gpu, d_cpu, heads))
+        check(diffs.max() <= 2.05e-3 and loose <= STEP_BF16_LOOSE
+              and loose < STEP_BF16_LIVENESS * out["param_delta_loose_share_fp32"]
+              and out["param_delta_loose_share_heads"] <= STEP_BF16_HEADS_LOOSE,
+              f"{phase} param deltas: {out}")
+    emit(out)
 
 
 def phase_step_device() -> None:
@@ -999,21 +1144,24 @@ def phase_step_meanteacher() -> None:
           "teacher_param_max_abs_diff": float(diffs.max()), "teacher_param_loose_share": loose})
 
 
-def phase_train(steps: int, backend: str = "auto"):
+def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", run_tag: str = ""):
     """The headline trainer on the host path; with backend pallas_fused the
     fused kernels (2 forward and 4 backward launches a step) replace the
-    mi_joint ones. Returns the trainer and the launch counts of this run of
-    the kernels it uses (all counts set to 0 just before)."""
+    mi_joint ones. ``extra``: more config overrides (BF16: the kernels'
+    bf16-operand variants, 2 launches of each a step, none on fp32
+    operands). Returns the trainer, the launch counts of this run of the
+    kernels it uses (all counts set to 0 just before) and the phase's line."""
     import torch
 
     main_mod, mj, mf = port("main"), port("ops.mi_joint"), port("ops.mi_fused")
     fused = backend == "pallas_fused"
+    phase = phase or ("train_fused" if fused else "train")
     argv = ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
             "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
             f"Trainer.num_batches={steps}", "Trainer.max_epoch=1", "Trainer.device=cuda",
             f"Kernel.backend={backend}",
-            f"Trainer.save_dir=chip_smoke_udaiic{'_fused' if fused else ''}",
-            "Trainer.step_timing=true"]
+            f"Trainer.save_dir=chip_smoke_udaiic{'_fused' if fused else ''}{run_tag}",
+            "Trainer.step_timing=true", *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mj.reset_launch_counts()
@@ -1027,14 +1175,22 @@ def phase_train(steps: int, backend: str = "auto"):
     check(sum(other.LAUNCHES.values()) == 0,
           f"{backend}: {dict(other.LAUNCHES)} launches of the other path's kernels")
     check(trainer._projector.local_emit_logits == fused, f"{backend}: local_emit_logits")
+    dtype = trainer._model.dtype
     if fused:
-        per_step = {name: mf.launch_count(name) / steps
+        per_step = {name: mf.launch_count(mj.kernel_name(name, dtype)) / steps
                     for name in (mf.FWD, mf.BWD_DL2, mf.BWD_DL1)}
         check(per_step == {mf.FWD: 2, mf.BWD_DL2: 2, mf.BWD_DL1: 2},
               f"fused launches per step {per_step} (want 2 forward, 2 + 2 backward)")
+    elif dtype == torch.bfloat16:
+        per_step = {name: mj.launch_count(mj.kernel_name(name, dtype)) / steps
+                    for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
+        check(per_step == {mj.FWD: 2, mj.BWD_DX: 2, mj.BWD_DX_TF: 2},
+              f"bf16-operand joint launches per step {per_step} (want 2 of each)")
     else:
         check(launches >= 6 * steps,
               f"{launches} kernel launches in {steps} steps (want >= 6 per step)")
+    check(all(name.endswith(mj.BF16_OPERANDS) == (dtype == torch.bfloat16)
+              for name, _ in used.LAUNCHES), f"{phase}: {dict(used.LAUNCHES)} on {dtype}")
     row = trainer._storage._rows[0]
     losses = {k: row[k] for k in ("tra_sup_loss_mean", "tra_reg_loss_mean", "tra_uda_mean",
                                   "tra_mi_mean")}
@@ -1042,7 +1198,7 @@ def phase_train(steps: int, backend: str = "auto"):
     val_dsc = row["val_dice_DSC_mean"]
     check(0.0 <= val_dsc <= 1.0, f"val DSC {val_dsc}")
     step_ms = statistics.median(trainer.step_times_ms[1:])
-    out = {"phase": "train_fused" if fused else "train", "backend": backend, "steps": steps,
+    out = {"phase": phase, "backend": backend, "dtype": str(dtype), "steps": steps,
            "batch": [4, 10], "crop": 224,
            "launches": counts, "launches_per_step": launches / steps, "losses": losses,
            "val_dsc_mean": val_dsc, "first_step_ms": trainer.step_times_ms[0],
@@ -1051,21 +1207,25 @@ def phase_train(steps: int, backend: str = "auto"):
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "wall_s": wall}
     emit(out)
-    return trainer, dict(used.LAUNCHES), out["max_memory_allocated_gib"]
+    return trainer, dict(used.LAUNCHES), out
 
 
-def phase_train_device(steps: int, geometry: str, chunk: int = 4):
-    """The headline trainer on the device-data path; returns the trainer and
-    the rotation and joint launch counts of this run (set to 0 just before)."""
+def phase_train_device(steps: int, geometry: str, chunk: int = 4, extra=(), phase: str = "",
+                       run_tag: str = ""):
+    """The headline trainer on the device-data path; returns the trainer, the
+    rotation and joint launch counts of this run (set to 0 just before) and
+    the phase's line. ``extra``: more config overrides (BF16)."""
     import torch
 
     main_mod, mj, rot = port("main"), port("ops.mi_joint"), port("ops.rotate")
+    phase = phase or "train_device"
     argv = ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
             "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
             f"Trainer.num_batches={steps}", f"Trainer.scan_chunk={chunk}",
             "Trainer.max_epoch=1", "Trainer.device=cuda", "Trainer.device_data=true",
-            f"Kernel.geometry={geometry}", f"Trainer.save_dir=chip_smoke_device_{geometry}",
-            "Trainer.step_timing=true"]
+            f"Kernel.geometry={geometry}",
+            f"Trainer.save_dir=chip_smoke_device{run_tag}_{geometry}",
+            "Trainer.step_timing=true", *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mj.reset_launch_counts()
@@ -1079,6 +1239,9 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4):
     check(n_rot == want_rot and rot.launch_count(rot.ROLL) == 0,
           f"{geometry}: {n_rot} rotation launches in {steps} steps (want {want_rot})")
     check(n_joint >= 6 * steps, f"{geometry}: {n_joint} joint launches in {steps} steps")
+    dtype = trainer._model.dtype
+    check(all(name.endswith(mj.BF16_OPERANDS) == (dtype == torch.bfloat16)
+              for name, _ in joint_launches), f"{phase}: {joint_launches} on {dtype}")
     row = trainer._storage._rows[0]
     losses = {k: row[k] for k in ("tra_sup_loss_mean", "tra_reg_loss_mean", "tra_uda_mean",
                                   "tra_mi_mean")}
@@ -1087,18 +1250,19 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4):
     check(0.0 <= val_dsc <= 1.0, f"val DSC {val_dsc}")
     per_chunk = trainer.step_times_ms[::chunk]
     steady = statistics.median(trainer.step_times_ms[chunk:]) if steps > chunk else per_chunk[0]
-    emit({"phase": "train_device", "geometry": geometry, "steps": steps, "scan_chunk": chunk,
-          "batch": [4, 10], "crop": 224,
-          "rotation_launches": {f"{n}/B{b}": v for (n, b), v in sorted(rot_launches.items())},
-          "rotation_launches_per_step": n_rot / steps,
-          "joint_launches_per_step": n_joint / steps, "losses": losses, "val_dsc_mean": val_dsc,
-          "chunk_ms_per_step": per_chunk, "median_step_ms": steady,
-          "median_step_ms_note": "median over the steps after the first chunk "
-                                 "(each step: its chunk's wall time / chunk size)",
-          "slices_per_s": 24 / (steady / 1e3), "epoch_wall_s": trainer.epoch_times_s[0],
-          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "wall_s": wall})
-    return trainer, rot_launches, joint_launches
+    out = {"phase": phase, "geometry": geometry, "dtype": str(dtype), "steps": steps,
+           "scan_chunk": chunk, "batch": [4, 10], "crop": 224,
+           "rotation_launches": {f"{n}/B{b}": v for (n, b), v in sorted(rot_launches.items())},
+           "rotation_launches_per_step": n_rot / steps,
+           "joint_launches_per_step": n_joint / steps, "losses": losses, "val_dsc_mean": val_dsc,
+           "chunk_ms_per_step": per_chunk, "median_step_ms": steady,
+           "median_step_ms_note": "median over the steps after the first chunk "
+                                  "(each step: its chunk's wall time / chunk size)",
+           "slices_per_s": 24 / (steady / 1e3), "epoch_wall_s": trainer.epoch_times_s[0],
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "wall_s": wall}
+    emit(out)
+    return trainer, rot_launches, joint_launches, out
 
 
 def _zoo_argv(save_dir: str, *extra: str) -> list:
@@ -1258,6 +1422,52 @@ def phase_train_zoo():
     return rot_launches
 
 
+def phase_train_remat(steps: int = 3) -> None:
+    """The host-path headline trainer with and without Arch.remat=true, from
+    the same seed (the same weights and step generator), ``steps`` steps on
+    one batch each: the same losses (the first step's bit for bit: the same
+    forward; later ones within STEPS_TOL, as cuDNN may sum a weight gradient
+    in another order from run to run) and a lower peak of device memory above
+    what was allocated before the steps (each block keeps only its input)."""
+    import torch
+
+    main_mod = port("main")
+    batch, results = None, {}
+    for remat in (False, True):
+        trainer = main_mod.main([
+            "Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic", "Trainer.max_epoch=0",
+            "Trainer.device=cuda", f"Arch.remat={str(remat).lower()}",
+            f"Trainer.save_dir=chip_smoke_remat_{str(remat).lower()}"])
+        check(trainer._model.remat == remat, f"train_remat: Arch.remat={remat} not taken")
+        if batch is None:
+            lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
+            batch = {"labeled_image": trainer._to_device(lab["image"]),
+                     "labeled_target": trainer._to_device(lab["target"]),
+                     "unlabeled_image": trainer._to_device(unlab["image"])}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            metrics = trainer._train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")})
+        results[remat] = (losses, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, times)
+        del trainer, metrics
+        torch.cuda.empty_cache()
+    (plain, plain_peak, plain_ms), (rem, rem_peak, rem_ms) = results[False], results[True]
+    check(plain[0] == rem[0], f"train_remat: first step losses {rem[0]} vs {plain[0]}")
+    rel = max(abs(r[k] - q[k]) / max(abs(q[k]), 1e-12) for q, r in zip(plain, rem) for k in q)
+    check(rel <= STEPS_TOL, f"train_remat: losses differ by {rel} (relative)")
+    check(rem_peak < plain_peak, f"train_remat: peak {rem_peak} GiB >= {plain_peak} GiB")
+    emit({"phase": "train_remat", "steps": steps, "losses": plain, "losses_remat": rem,
+          "max_rel_diff": rel, "peak_above_start_gib": plain_peak,
+          "peak_above_start_gib_remat": rem_peak, "step_ms": plain_ms, "step_ms_remat": rem_ms})
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
@@ -1274,11 +1484,12 @@ def _kernel_kind(name: str) -> str:
     return "elementwise, reduction, copy"
 
 
-def phase_profile(trainer, steps: int, path: str = "host") -> None:
+def phase_profile(trainer, steps: int, path: str = "host", expect=(), forbid=()) -> dict:
     """Device time of a few train steps of a headline trainer, by kernel and
     by kind (torch.profiler with CUDA activity), on one batch: host images
     already on the card, or (a device-data trainer) slice indices whose
-    gather and augmentation run inside each step. ``path`` labels the line."""
+    gather and augmentation run inside each step. ``path`` labels the line;
+    each of ``expect`` must be part of a kernel's name, none of ``forbid``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1293,7 +1504,7 @@ def phase_profile(trainer, steps: int, path: str = "host") -> None:
                  "unlabeled_indices": trainer._to_device(unlab["indices"])}
     trainer._train_step(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             trainer._train_step(batch)
@@ -1307,25 +1518,33 @@ def phase_profile(trainer, steps: int, path: str = "host") -> None:
     by_kind: dict = {}
     for name, ms, _ in kernels:
         by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
-    emit({"phase": "profile", "path": path, "steps": steps, "wall_ms_per_step": wall_ms,
-          "device_ms_per_step": device_ms,
-          "device_busy_share": device_ms / wall_ms if wall_ms else None,
-          "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-          "top_kernels": [{"name": n[:120], "ms_per_step": ms, "calls_per_step": c}
-                          for n, ms, c in kernels[:15]]})
+    names = [n for n, _, _ in kernels]
+    for part in expect:
+        check(any(part in n for n in names), f"profile {path}: no kernel named *{part}*")
+    for part in forbid:
+        check(not any(part in n for n in names), f"profile {path}: a kernel named *{part}*")
+    out = {"phase": "profile", "path": path, "dtype": str(trainer._model.dtype), "steps": steps,
+           "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / wall_ms if wall_ms else None,
+           "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+           "top_kernels": [{"name": n[:120], "ms_per_step": ms, "calls_per_step": c}
+                           for n, ms, c in kernels[:15]]}
+    emit(out)
+    return out
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="device,build,kernels,step,step_fused,step_device,"
-                                              "step_meanteacher,train,train_fused,train_device,"
+                                              "step_meanteacher,step_bf16,step_s2d,train,"
+                                              "train_fused,train_device,train_bf16,train_remat,"
                                               "resume,inference,train_zoo,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
     start = time.perf_counter()
-    walls = {}  # seconds of the phases this slice added
+    walls = {}  # seconds of each phase
 
     import torch
 
@@ -1340,53 +1559,95 @@ def main(argv=None) -> int:
 
     info = phase_device()
     if "build" in phases:
-        phase_build()
-    kernel_rows = phase_kernels(args.reps) if "kernels" in phases else []
+        with timed(walls, "build"):
+            phase_build()
+    kernel_rows, rotation_rows, fused_rows = [], [], []
     if "kernels" in phases:
-        phase_kernels_wide(args.reps)
-    rotation_rows = phase_kernels_rotate(args.reps) if "kernels" in phases else []
-    fused_rows = phase_kernels_fused(args.reps) if "kernels" in phases else []
-    if "step" in phases:
-        phase_step()
-    if "step_fused" in phases:
-        phase_step(fused=True)
-    if "step_device" in phases:
-        phase_step_device()
-    if "step_meanteacher" in phases:
-        t0 = time.perf_counter()
-        phase_step_meanteacher()
-        walls["step_meanteacher"] = time.perf_counter() - t0
-    trainer, launches, peak = (phase_train(args.steps) if "train" in phases
-                               else (None, {}, None))
-    fused_trainer, fused_launches, fused_peak = (phase_train(args.steps, "pallas_fused")
-                                                 if "train_fused" in phases else (None, {}, None))
-    if peak is not None and fused_peak is not None:
+        with timed(walls, "kernels_joint"):
+            kernel_rows = phase_kernels(args.reps)
+            phase_kernels_wide(args.reps)
+        with timed(walls, "kernels_rotate"):
+            rotation_rows = phase_kernels_rotate(args.reps)
+        with timed(walls, "kernels_fused"):
+            fused_rows = phase_kernels_fused(args.reps)
+    for name, run in (("step", phase_step), ("step_fused", partial(phase_step, fused=True)),
+                      ("step_device", phase_step_device),
+                      ("step_meanteacher", phase_step_meanteacher),
+                      ("step_bf16", partial(phase_step, phase="step_bf16", dtype=torch.bfloat16,
+                                            tol=STEPS_TOL_BF16)),
+                      ("step_s2d", partial(phase_step, phase="step_s2d", stem="s2d"))):
+        if name in phases:
+            with timed(walls, name):
+                run()
+    trainer, launches, train_out = None, {}, None
+    if "train" in phases:
+        with timed(walls, "train"):
+            trainer, launches, train_out = phase_train(args.steps)
+    fused_trainer, fused_launches, fused_out = None, {}, None
+    if "train_fused" in phases:
+        with timed(walls, "train_fused"):
+            fused_trainer, fused_launches, fused_out = phase_train(args.steps, "pallas_fused")
+    if train_out is not None and fused_out is not None:
         # the fused path's reason to exist: no probability map in device memory
+        peak, fused_peak = (o["max_memory_allocated_gib"] for o in (train_out, fused_out))
         check(fused_peak < peak, f"train_fused peak {fused_peak} GiB >= train peak {peak} GiB")
-    device_trainer, rot_launches = None, {}
+    device_trainer, rot_launches, device_out = None, {}, None
     if "train_device" in phases:
-        device_trainer, rot_launches, _ = phase_train_device(args.steps, "shear")
-        phase_train_device(args.steps, "fused")
+        with timed(walls, "train_device"):
+            device_trainer, rot_launches, _, device_out = phase_train_device(args.steps, "shear")
+            phase_train_device(args.steps, "fused")
+    # the bf16 compute (bench.py's headline precision) on the three paths
+    bf16_runs, bf16_launches, bf16_fused_launches = {}, {}, {}
+    if "train_bf16" in phases:
+        with timed(walls, "train_bf16"):
+            kw = dict(extra=BF16, phase="train_bf16", run_tag="_bf16")
+            trainer16, bf16_launches, out16 = phase_train(args.steps, **kw)
+            fused16, bf16_fused_launches, fused_out16 = phase_train(args.steps, "pallas_fused",
+                                                                    **kw)
+            device16, _, _, device_out16 = phase_train_device(args.steps, "shear", **kw)
+        bf16_runs = {"host": (trainer16, out16, train_out),
+                     "host_fused": (fused16, fused_out16, fused_out),
+                     "device": (device16, device_out16, device_out)}
+    if "train_remat" in phases:
+        with timed(walls, "train_remat"):
+            phase_train_remat()
     resume_launches, zoo_rot_launches = {}, {}
     if "resume" in phases or "inference" in phases:  # inference evaluates the resumed run
-        t0 = time.perf_counter()
-        run, resume_launches = phase_resume()
-        walls["resume"] = time.perf_counter() - t0
+        with timed(walls, "resume"):
+            run, resume_launches = phase_resume()
         if "inference" in phases:
-            t0 = time.perf_counter()
-            phase_inference(run)
-            walls["inference"] = time.perf_counter() - t0
+            with timed(walls, "inference"):
+                phase_inference(run)
     if "train_zoo" in phases:
-        t0 = time.perf_counter()
-        zoo_rot_launches = phase_train_zoo()
-        walls["train_zoo"] = time.perf_counter() - t0
+        with timed(walls, "train_zoo"):
+            zoo_rot_launches = phase_train_zoo()
+    profiles = {}
+    t0 = time.perf_counter()
     if "profile" in phases:
-        if trainer is not None:
-            phase_profile(trainer, steps=3)
-        if fused_trainer is not None:
-            phase_profile(fused_trainer, steps=3, path="host_fused")
-        if device_trainer is not None:
-            phase_profile(device_trainer, steps=3, path="device")
+        for path, tr in (("host", trainer), ("host_fused", fused_trainer),
+                         ("device", device_trainer)):
+            if tr is not None:
+                profiles[path] = phase_profile(tr, steps=3, path=path)
+        # the bf16 runs' kernels by name: the bf16-operand variants, and no
+        # conversion pass of fp32 operands on the joint's path
+        bf16_kernels = {"host": (("StoreRows<__nv_bfloat16>", "joint_fwd_partial"),
+                                 ("CastRows<float>",)),
+                        "host_fused": (("SoftmaxRows<__nv_bfloat16>", "VjpRows<__nv_bfloat16>"),
+                                       ("SoftmaxRows<float>",)),
+                        "device": (("StoreRows<__nv_bfloat16>", "rotate_shear"),
+                                   ("CastRows<float>",))}
+        for path, (tr, out16, out32) in bf16_runs.items():
+            prof = phase_profile(tr, steps=3, path=f"{path}_bf16", expect=bf16_kernels[path][0],
+                                 forbid=bf16_kernels[path][1])
+            prof32 = profiles.get(path, {})
+            emit({"phase": "train_bf16_vs_fp32", "path": path,
+                  "median_step_ms": [out16["median_step_ms"], out32 and out32["median_step_ms"]],
+                  "device_ms_per_step": [prof["device_ms_per_step"],
+                                         prof32.get("device_ms_per_step")],
+                  "max_memory_allocated_gib": [out16["max_memory_allocated_gib"],
+                                               out32 and out32["max_memory_allocated_gib"]],
+                  "order": ["bf16", "fp32"]})
+        walls["profile"] = time.perf_counter() - t0
     # one entry per kernel and main-path shape; the joint and the fused
     # kernels in the training path's bf16 mode. Launches: the joint's from the
     # host path's train phase, the fused kernels' from the train_fused phase,
@@ -1400,6 +1661,12 @@ def main(argv=None) -> int:
                     launches=launches.get((r["name"], r["padding"])),
                     resume_launches=resume_launches.get((r["name"], r["padding"]), 0))
                for r in kernel_rows if r["mode"] == "bf16"]
+    # the bf16-operand variants (Precision.compute_dtype=bfloat16): launches
+    # from the train_bf16 runs (host path; the fused ones from its fused run)
+    summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
+                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
+                     launches=bf16_launches.get((r["name"], r["padding"]), 0))
+                for r in kernel_rows if r["mode"] == "bf16in"]
     summary += [dict(name=f"{r['name']}@B{r['batch']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], l2_warm_ms=r["l2_warm_ms"],
                      launches=rot_launches.get((r["name"], r["batch"]), 0),
@@ -1408,8 +1675,9 @@ def main(argv=None) -> int:
                 for r in rotation_rows]
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], unfused_path_ms=r["unfused_path_ms"],
-                     launches=fused_launches.get((r["name"], r["padding"]), 0))
-                for r in fused_rows if r["mode"] == "bf16"]
+                     launches=(bf16_fused_launches if r["mode"] == "bf16in" else fused_launches)
+                     .get((r["name"], r["padding"]), 0))
+                for r in fused_rows if r["mode"] in ("bf16", "bf16in")]
     emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})

@@ -8,9 +8,11 @@
 //   * how joint_prep converts the rows of an operand (RowConv): the bf16 cast
 //     of C lanes (CastRows, below), or the row-max group softmax times the
 //     interior mask (mi_fused.cu);
-//   * what joint_bwd writes after its last wgmma (Epilogue): the fp32 product
-//     (StoreRows, below), or the softmax VJP of the block's own rows
-//     (mi_fused.cu).
+//   * what joint_bwd writes after its last wgmma (Epilogue): the product in
+//     the operands' type (StoreRows, below), or the softmax VJP of the
+//     block's own rows (mi_fused.cu).
+// Each takes fp32 or bf16 operands (the model's compute dtype); the products
+// run on bf16 either way and sum in fp32.
 // The design and its bounds are described in mi_joint.cu.
 
 #pragma once
@@ -148,25 +150,50 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // ---------------------------------------------------------------------------
 // joint_prep: the bf16 operands of the tensor-core kernels, in one launch of
 // PREP_THREADS-thread blocks, grid-stride:
-//   rows: the RowConv policy writes dst_i[r, 0:128] (i = 0, 1) from its fp32
-//         sources;
+//   rows: the RowConv policy writes dst_i[r, 0:128] (i = 0, 1) from its
+//         sources (fp32 or bf16; none when the operands are bf16 rows of 128
+//         lanes already);
 //   g:    H[d, j, k] = bf16_rn(transpose_g ? g[D-1-d, j, k] : g[d, k, j]),
 //         zero beyond C (g may be null)
 // so that joint_bwd computes out[n, j] = sum_d sum_k S[n + o_d, k] H[d, j, k]
 // for both backward products.
 // ---------------------------------------------------------------------------
 
+// a float or bf16 element as float
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// 8 consecutive elements from 16 bytes (two float4, or one uint4 of bf16)
+__device__ __forceinline__ void load8(const float* s, float (&v)[8]) {
+  const float4 x = *reinterpret_cast<const float4*>(s);
+  const float4 y = *reinterpret_cast<const float4*>(s + 4);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* s, float (&v)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(s);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // RowConv of the joint: dst_i[r, 0:128] = bf16_rn(src_i[r, 0:C]), zero
 // beyond C (i = 0, 1; src1 may be null), one 16-byte destination chunk a
-// thread and step.
+// thread and step. Src is float, or bf16 (then a copy that pads the rows to
+// 128 lanes: a bf16 value converts to float and back exactly). vec: C fills
+// whole 16-byte chunks of Src and both sources are 16-byte aligned.
+template <typename Src>
 struct CastRows {
-  const float* src0;
+  const Src* src0;
   __nv_bfloat16* dst0;
-  const float* src1;
+  const Src* src1;
   __nv_bfloat16* dst1;
   long long n;
   int C;
-  int vec4;
+  int vec;
 
   __device__ __forceinline__ void operator()(long long first, long long stride) const {
     const long long units0 = n * (LANES / 8);
@@ -176,16 +203,13 @@ struct CastRows {
       const long long u = second ? i - units0 : i;
       const long long r = u / (LANES / 8);
       const int c0 = (int)(u % (LANES / 8)) * 8;
-      const float* s = (second ? src1 : src0) + r * C + c0;
+      const Src* s = (second ? src1 : src0) + r * C + c0;
       float v[8];
-      if (vec4 && c0 + 8 <= C) {
-        const float4 x = *reinterpret_cast<const float4*>(s);
-        const float4 y = *reinterpret_cast<const float4*>(s + 4);
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-        v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+      if (vec && c0 + 8 <= C) {
+        load8(s, v);
       } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = c0 + e < C ? s[e] : 0.f;
+        for (int e = 0; e < 8; ++e) v[e] = c0 + e < C ? to_float(s[e]) : 0.f;
       }
       *reinterpret_cast<uint4*>((second ? dst1 : dst0) + r * LANES + c0) =
           make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
@@ -193,6 +217,13 @@ struct CastRows {
     }
   }
 };
+
+// CastRows' vec for C lanes of Src at the two row bases (b may be null)
+template <typename Src>
+int cast_vec(int C, const void* a, const void* b) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
+  return C % (16 / (int)sizeof(Src)) == 0 && (bits & 15u) == 0;
+}
 
 template <typename RowConv>
 __global__ void __launch_bounds__(PREP_THREADS)
@@ -242,9 +273,22 @@ __host__ __device__ constexpr long long h_units(int D) { return (long long)D * L
 // dynamic shared memory once the block has passed a barrier.
 // ---------------------------------------------------------------------------
 
-// Epilogue of the joint: the fp32 accumulators to out [N, C] (lanes < C).
+// two adjacent outputs, and one, as float or as bf16 (each fp32 sum rounded
+// once)
+__device__ __forceinline__ void store2(float* o, float v0, float v1) {
+  *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store1(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// Epilogue of the joint: the fp32 accumulators to out [N, C] (lanes < C), as
+// Out (float, or bf16 for bf16 operands).
+template <typename Out>
 struct StoreRows {
-  float* out;
+  Out* out;
   int C;
 
   __device__ __forceinline__ void operator()(float (&acc)[2][64], unsigned char*, long long n0,
@@ -263,16 +307,16 @@ struct StoreRows {
         for (int c8 = 0; c8 < 16; ++c8) {
           const int col = c8 * 8 + 2 * t4;
           const float v0 = acc[h][4 * c8 + 2 * half], v1 = acc[h][4 * c8 + 2 * half + 1];
-          float* o = out + row * C + col;
+          Out* o = out + row * C + col;
           if (col + 1 < C) {
             if (even) {
-              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+              store2(o, v0, v1);
             } else {
-              o[0] = v0;
-              o[1] = v1;
+              store1(o, v0);
+              store1(o + 1, v1);
             }
           } else if (col < C) {
-            o[0] = v0;
+            store1(o, v0);
           }
         }
       }

@@ -12,9 +12,11 @@
 //   * mi_fused.py:275 _fused_bwd / _bwd_kernel (dl1, transpose_g)
 //       -> joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[D-1-d]^T
 //
-// What is computed. l1, l2 are [N, 128] fp32 logits: the row-major
-// flattening of [B, Hp, Wp, 128] canvases with a border of width p; lanes
-// from S*K on are dead. For a row n:
+// What is computed. l1, l2 are [N, 128] logits, fp32 or (the model's bf16
+// compute, Precision.compute_dtype=bfloat16) bf16, read as fp32: the
+// row-major flattening of [B, Hp, Wp, 128] canvases with a border of width p;
+// lanes from S*K on are dead (float32 min, or -inf in bf16: no step reads a
+// dead lane's value). For a row n:
 //   valid(n) = 0 <= n < N and (y, x) of n lies in [p, Hp - p) x [p, Wp - p)
 //   z = l / T on live lanes, -inf on dead ones; m = max of z over the ROW
 //   e = exp(z - m); den = per-group sum of e (of bf16-rounded e in bf16 mode)
@@ -27,7 +29,8 @@
 //   dq2[n] = valid2(n) * sum_d pm1[n + o_d] @ g[d]
 //   dq1[m] = valid1(m) * sum_d pm2[m - o_d] @ g[d]^T
 //   t = p * dq;  s = per-group sum of t (of bf16-rounded t in bf16 mode)
-//   dl = (t - p * s) / T, and 0 on dead lanes
+//   dl = (t - p * s) / T, and 0 on dead lanes, written in the logits' type
+//   (bf16 logits: rounded once, the TPU kernel's out_dtype = l.dtype)
 // Products are accumulated in fp32; the fp32 operand mode is the parity mode.
 //
 // What bounds it on an H100 (989 TF/s dense bf16, 3.35 TB/s HBM). Each launch
@@ -288,8 +291,25 @@ __device__ __forceinline__ void row_softmax_vjp(const float4 (&pv)[R], const flo
   }
 }
 
+// lanes 4 * lane .. 4 * lane + 3 of logit row `row`, as float: 16 bytes of
+// fp32 or 8 bytes of bf16 (the model's bf16 compute: its dead lanes are -inf,
+// which no step reads before it tests the lane)
 __device__ __forceinline__ float4 load_row4(const float* l, long long row, int lane) {
   return reinterpret_cast<const float4*>(l + row * C)[lane];
+}
+__device__ __forceinline__ float4 load_row4(const __nv_bfloat16* l, long long row, int lane) {
+  const uint2 w = reinterpret_cast<const uint2*>(l + row * C)[lane];
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// the same lanes of a d(logits) row: fp32, or bf16 (each value rounded once)
+__device__ __forceinline__ void store_row4(float* o, long long row, int lane, float4 v) {
+  reinterpret_cast<float4*>(o + row * C)[lane] = v;
+}
+__device__ __forceinline__ void store_row4(__nv_bfloat16* o, long long row, int lane, float4 v) {
+  reinterpret_cast<uint2*>(o + row * C)[lane] = make_uint2(pack_bf16x2(v.x, v.y),
+                                                           pack_bf16x2(v.z, v.w));
 }
 
 // ===========================================================================
@@ -301,11 +321,12 @@ constexpr int ROW_GROUP = 4;  // rows a warp forms at once (independent chains)
 // joint_prep's row policy: dst_i[r] = bf16(softmax(src_i[r]) * valid(r)),
 // i = 0, 1 (src1 may be null); one warp for ROW_GROUP consecutive rows of the
 // operand pair, grid-stride over the groups, the next group's logits loaded
-// before this group is formed.
+// before this group is formed. L: the logits' type (float or bf16).
+template <typename L>
 struct SoftmaxRows {
-  const float* src0;
+  const L* src0;
   __nv_bfloat16* dst0;
-  const float* src1;
+  const L* src1;
   __nv_bfloat16* dst1;
   Geometry geo;
 
@@ -379,10 +400,12 @@ unsigned softmax_prep_blocks(long long rows, long long units_g) {
 }
 
 // joint_bwd's epilogue: out[n] = d(own logits) of the block's own rows, the
-// softmax VJP at dq = valid(n) * (the block's accumulators).
+// softmax VJP at dq = valid(n) * (the block's accumulators), in the logits'
+// type L (float, or bf16 rounded once from the fp32 result).
+template <typename L>
 struct VjpRows {
-  const float* own;
-  float* out;
+  const L* own;
+  L* out;
   Geometry geo;
 
   __device__ __forceinline__ void operator()(float (&acc)[2][64], unsigned char* smem,
@@ -443,8 +466,8 @@ struct VjpRows {
         const long long n = n0 + r0 + i;
         if (n >= N) break;
         // an invalid row has dq = 0, hence dl = 0
-        reinterpret_cast<float4*>(out + n * C)[lane] =
-            (valid >> (r0 + i - warp * 32)) & 1u ? res[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+        store_row4(out, n, lane,
+                   (valid >> (r0 + i - warp * 32)) & 1u ? res[i] : make_float4(0.f, 0.f, 0.f, 0.f));
       }
 #pragma unroll
       for (int i = 0; i < ROW_GROUP; ++i) v[i] = next[i];
@@ -641,27 +664,23 @@ Geometry make_geometry(long long n_rows, int hp, int wp, int p, int s, int k, fl
   return geo;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* mi_fused_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-// Logits [N, 128] fp32, rows of 512 bytes, pointers 16-byte aligned. The bf16
-// entry points take the joint's launch plan and refuse
+// Logits [N, 128], fp32 (rows of 512 bytes) or bf16 (the *_bf16in entry
+// points: rows of 256 bytes, dead lanes -inf), pointers 16-byte aligned. The
+// bf16 entry points take the joint's launch plan and refuse
 // (cudaErrorInvalidValue) one that disagrees with the kernels.
 
-// bf16: J[D, 128, 128] from logits l1, l2. a16, b16: scratch of N x 128 bf16
-// (pm1, pm2); partial: scratch of n_chunks x D x 128 x 128 floats.
-int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, float* partial,
-                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
-                      long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
-                      void* stream) {
+// bf16 products: J[D, 128, 128] from logits l1, l2. a16, b16: scratch of N x
+// 128 bf16 (pm1, pm2); partial: scratch of n_chunks x D x 128 x 128 floats.
+template <typename L>
+int fused_fwd_bf16(const L* l1, const L* l2, void* a16, void* b16, float* partial, float* out,
+                   long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                   long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
+                   void* stream) {
   if (!fwd_plan_ok(C, p, dx_group, smem_bytes)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* A16 = static_cast<__nv_bfloat16*>(a16);
   auto* B16 = static_cast<__nv_bfloat16*>(b16);
-  const SoftmaxRows rows{l1, A16, l2, B16, make_geometry(n_rows, hp, wp, p, s, k, t)};
+  const SoftmaxRows<L> rows{l1, A16, l2, B16, make_geometry(n_rows, hp, wp, p, s, k, t)};
   joint_prep<<<softmax_prep_blocks(2 * n_rows, 0), PREP_THREADS, 0, st>>>(rows, nullptr, nullptr,
                                                                          C, 0, 0);
   const cudaError_t err = cudaGetLastError();
@@ -670,12 +689,14 @@ int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, fl
                       wp, rows_per_chunk);
 }
 
-// bf16: d(own logits) [N, 128]: transpose_g = 0 gives dl2 (src = l1, own = l2),
-// transpose_g = 1 gives dl1 (src = l2, own = l1); g [D, 128, 128]. s16:
-// scratch of N x 128 bf16 (pm of src); h16: scratch of D x 128 x 128 bf16.
-int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* s16, void* h16,
-                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
-                      int transpose_g, int stages, int smem_bytes, void* stream) {
+// bf16 products: d(own logits) [N, 128] in the logits' type: transpose_g = 0
+// gives dl2 (src = l1, own = l2), transpose_g = 1 gives dl1 (src = l2, own =
+// l1); g [D, 128, 128] fp32. s16: scratch of N x 128 bf16 (pm of src); h16:
+// scratch of D x 128 x 128 bf16.
+template <typename L>
+int fused_bwd_bf16(const L* src, const L* own, const float* g, void* s16, void* h16, L* out,
+                   long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                   int transpose_g, int stages, int smem_bytes, void* stream) {
   if (!bwd_plan_ok(C, p, stages, smem_bytes)) return (int)cudaErrorInvalidValue;
   const int T = 2 * p + 1;
   const int D = T * T;
@@ -683,12 +704,54 @@ int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* 
   auto* S16 = static_cast<__nv_bfloat16*>(s16);
   auto* H16 = static_cast<__nv_bfloat16*>(h16);
   const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
-  const SoftmaxRows rows{src, S16, nullptr, nullptr, geo};
+  const SoftmaxRows<L> rows{src, S16, nullptr, nullptr, geo};
   joint_prep<<<softmax_prep_blocks(n_rows, h_units(D)), PREP_THREADS, 0, st>>>(
       rows, g, H16, C, D, transpose_g);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16, H16, VjpRows{own, out, geo});
+  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16, H16, VjpRows<L>{own, out, geo});
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* mi_fused_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// fp32 logits
+int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, float* partial,
+                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
+                      void* stream) {
+  return fused_fwd_bf16(l1, l2, a16, b16, partial, out, n_rows, hp, wp, p, s, k, t,
+                        rows_per_chunk, n_chunks, dx_group, smem_bytes, stream);
+}
+
+int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* s16, void* h16,
+                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      int transpose_g, int stages, int smem_bytes, void* stream) {
+  return fused_bwd_bf16(src, own, g, s16, h16, out, n_rows, hp, wp, p, s, k, t, transpose_g,
+                        stages, smem_bytes, stream);
+}
+
+// bf16 logits (Precision.compute_dtype=bfloat16): the same, reading 8 bytes
+// of 4 logits a lane; d(logits) are written as bf16
+int mi_fused_fwd_bf16in(const void* l1, const void* l2, void* a16, void* b16, float* partial,
+                        float* out, long long n_rows, int hp, int wp, int p, int s, int k,
+                        float t, long long rows_per_chunk, int n_chunks, int dx_group,
+                        int smem_bytes, void* stream) {
+  return fused_fwd_bf16(static_cast<const __nv_bfloat16*>(l1),
+                        static_cast<const __nv_bfloat16*>(l2), a16, b16, partial, out, n_rows,
+                        hp, wp, p, s, k, t, rows_per_chunk, n_chunks, dx_group, smem_bytes, stream);
+}
+
+int mi_fused_bwd_bf16in(const void* src, const void* own, const float* g, void* s16, void* h16,
+                        void* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                        int transpose_g, int stages, int smem_bytes, void* stream) {
+  return fused_bwd_bf16(static_cast<const __nv_bfloat16*>(src),
+                        static_cast<const __nv_bfloat16*>(own), g, s16, h16,
+                        static_cast<__nv_bfloat16*>(out), n_rows, hp, wp, p, s, k, t, transpose_g,
+                        stages, smem_bytes, stream);
 }
 
 // fp32 parity mode: J[D, 128, 128] from logits l1, l2; partial is scratch of

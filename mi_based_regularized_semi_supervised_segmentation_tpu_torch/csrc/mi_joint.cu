@@ -10,7 +10,8 @@
 //   * mi_joint.py:249 _joint_bwd_call / _band_kernel_bwd(transpose_g) (dx)
 //       -> joint_prep + joint_bwd, g[D-1-d]^T (the same kernel)
 //
-// What is computed. Both inputs are [N, C] fp32 matrices: the row-major
+// What is computed. Both inputs are [N, C] matrices (fp32, or bf16 when the
+// model computes in bf16): the row-major
 // flattening of [B, Hp, Wp, C] canvases that already carry a zero border of
 // width p. A spatial displacement (dy, dx), dy, dx in [0, 2p], becomes the row
 // offset o_d = (dy - p) * Wp + (dx - p), d = dy * (2p + 1) + dx, and rows
@@ -21,7 +22,11 @@
 //                 = sum_d sum_k2 B[m + o_d, k2] * g[D-1-d, k1, k2]   (o_{D-1-d} = -o_d)
 // The training path rounds operands (and g) to bf16, round-to-nearest, and
 // sums in fp32 (the TPU kernel's dot_dtype=bf16); the fp32 parity mode keeps
-// fp32 operands.
+// fp32 operands. bf16 operands (Precision.compute_dtype=bfloat16) are
+// already the tensor cores' operands: at C = 128 the kernels read them in
+// place (the forward launches no conversion pass, the backward's pass
+// converts g only), and the backward writes bf16, each fp32 sum over all
+// displacements rounded once (the TPU kernel's dx.astype(x.dtype)).
 //
 // What bounds it on an H100 (989 TF/s dense bf16, 3.35 TB/s HBM). At the
 // headline Up_conv2 tap (N = 10*230*230 = 529,000 rows, C = 128, p = 3, 49
@@ -278,10 +283,12 @@ const char* mi_joint_error_string(int code) { return cudaGetErrorString((cudaErr
 
 // The bf16 entry points take the launch plan's numbers and refuse
 // (cudaErrorInvalidValue) a plan whose shared memory or stages disagree with
-// the kernel's.
+// the kernel's. The *_bf16 ones take fp32 operands and round them to bf16 in
+// the conversion pass; the *_bf16in ones take bf16 operands (the model's
+// bf16 compute), which are already what the tensor cores read.
 
-// bf16: J[D, C, C] from A, B [N, C] fp32. a16, b16: scratch of N x 128 bf16;
-// partial: scratch of n_chunks x D x 128 x 128 floats.
+// bf16 products: J[D, C, C] fp32 from A, B [N, C] fp32. a16, b16: scratch of
+// N x 128 bf16; partial: scratch of n_chunks x D x 128 x 128 floats.
 int mi_joint_fwd_bf16(const float* a, const float* b, void* a16, void* b16, float* partial,
                       float* out, long long n_rows, int c, int p, int wp,
                       long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
@@ -290,8 +297,7 @@ int mi_joint_fwd_bf16(const float* a, const float* b, void* a16, void* b16, floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* A16 = static_cast<__nv_bfloat16*>(a16);
   auto* B16 = static_cast<__nv_bfloat16*>(b16);
-  const int vec4 = (c % 4 == 0) && aligned16(a) && aligned16(b);
-  const CastRows rows{a, A16, b, B16, n_rows, c, vec4};
+  const CastRows<float> rows{a, A16, b, B16, n_rows, c, cast_vec<float>(c, a, b)};
   joint_prep<<<prep_blocks(2 * n_rows * (LANES / 8)), PREP_THREADS, 0, s>>>(rows, nullptr,
                                                                            nullptr, c, 0, 0);
   const cudaError_t err = cudaGetLastError();
@@ -300,9 +306,40 @@ int mi_joint_fwd_bf16(const float* a, const float* b, void* a16, void* b16, floa
                       wp, rows_per_chunk);
 }
 
-// bf16: out[N, C] = sum_d src[n + o_d] @ g[d] (transpose_g = 0) or
-// sum_d src[n - o_d] @ g[d]^T (transpose_g = 1). s16: scratch of N x 128 bf16;
-// h16: scratch of D x 128 x 128 bf16.
+// bf16 operands: J[D, C, C] fp32 from A, B [N, C] bf16. With a16 == b16 ==
+// null, A and B must be rows of 128 lanes, 16-byte aligned, and the kernels
+// read them as they are: no conversion pass (2 launches). Otherwise a16, b16
+// are N x 128 bf16 scratch that the pass pads the rows into (3 launches).
+int mi_joint_fwd_bf16in(const void* a, const void* b, void* a16, void* b16, float* partial,
+                        float* out, long long n_rows, int c, int p, int wp,
+                        long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
+                        void* stream) {
+  if (!fwd_plan_ok(c, p, dx_group, smem_bytes)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* A = static_cast<const __nv_bfloat16*>(a);
+  auto* B = static_cast<const __nv_bfloat16*>(b);
+  if (a16 == nullptr || b16 == nullptr) {
+    if (a16 != b16 || c != LANES || !aligned16(a) || !aligned16(b))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    auto* A16 = static_cast<__nv_bfloat16*>(a16);
+    auto* B16 = static_cast<__nv_bfloat16*>(b16);
+    const CastRows<__nv_bfloat16> rows{A, A16, B, B16, n_rows, c,
+                                       cast_vec<__nv_bfloat16>(c, a, b)};
+    joint_prep<<<prep_blocks(2 * n_rows * (LANES / 8)), PREP_THREADS, 0, s>>>(rows, nullptr,
+                                                                             nullptr, c, 0, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    A = A16;
+    B = B16;
+  }
+  return (int)run_fwd(dx_group, n_chunks, smem_bytes, s, A, B, partial, out, n_rows, c, p, wp,
+                      rows_per_chunk);
+}
+
+// bf16 products: out[N, C] fp32 = sum_d src[n + o_d] @ g[d] (transpose_g = 0)
+// or sum_d src[n - o_d] @ g[d]^T (transpose_g = 1), src fp32. s16: scratch of
+// N x 128 bf16; h16: scratch of D x 128 x 128 bf16.
 int mi_joint_bwd_bf16(const float* src, const float* g, void* s16, void* h16, float* out,
                       long long n_rows, int c, int p, int wp, int transpose_g, int stages,
                       int smem_bytes, void* stream) {
@@ -312,13 +349,45 @@ int mi_joint_bwd_bf16(const float* src, const float* g, void* s16, void* h16, fl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* S16 = static_cast<__nv_bfloat16*>(s16);
   auto* H16 = static_cast<__nv_bfloat16*>(h16);
-  const int vec4 = (c % 4 == 0) && aligned16(src);
-  const CastRows rows{src, S16, nullptr, nullptr, n_rows, c, vec4};
+  const CastRows<float> rows{src, S16, nullptr, nullptr, n_rows, c,
+                             cast_vec<float>(c, src, nullptr)};
   joint_prep<<<prep_blocks(n_rows * (LANES / 8) + h_units(D)), PREP_THREADS, 0, s>>>(
       rows, g, H16, c, D, transpose_g);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, S16, H16, StoreRows{out, c});
+  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, S16, H16, StoreRows<float>{out, c});
+}
+
+// bf16 operands: the same product from src [N, C] bf16; g stays fp32 (the
+// cotangent of the fp32 J). out is [N, C] bf16 (out_bf16 = 1: each fp32 sum
+// over all displacements rounded once) or fp32 (out_bf16 = 0: a lane block of
+// a wider head, summed with the others in fp32 by the caller). With s16 ==
+// null, src must be rows of 128 lanes, 16-byte aligned: the conversion pass
+// then converts g alone; otherwise it also pads src into s16 [N, 128] bf16.
+int mi_joint_bwd_bf16in(const void* src, const float* g, void* s16, void* h16, void* out,
+                        int out_bf16, long long n_rows, int c, int p, int wp, int transpose_g,
+                        int stages, int smem_bytes, void* stream) {
+  if (!bwd_plan_ok(c, p, stages, smem_bytes)) return (int)cudaErrorInvalidValue;
+  const int T = 2 * p + 1;
+  const int D = T * T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* S = static_cast<const __nv_bfloat16*>(src);
+  auto* S16 = static_cast<__nv_bfloat16*>(s16);
+  auto* H16 = static_cast<__nv_bfloat16*>(h16);
+  if (S16 == nullptr && (c != LANES || !aligned16(src))) return (int)cudaErrorInvalidValue;
+  const long long rows_n = S16 == nullptr ? 0 : n_rows;  // no rows to convert
+  const CastRows<__nv_bfloat16> rows{S, S16, nullptr, nullptr, rows_n, c,
+                                     cast_vec<__nv_bfloat16>(c, src, nullptr)};
+  joint_prep<<<prep_blocks(rows_n * (LANES / 8) + h_units(D)), PREP_THREADS, 0, s>>>(
+      rows, g, H16, c, D, transpose_g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const __nv_bfloat16* operand = S16 == nullptr ? S : S16;
+  if (out_bf16)
+    return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, operand, H16,
+                        StoreRows<__nv_bfloat16>{static_cast<__nv_bfloat16*>(out), c});
+  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, operand, H16,
+                      StoreRows<float>{static_cast<float*>(out), c});
 }
 
 // fp32 parity mode: J[D, C, C] from A, B [N, C]; partial is scratch of

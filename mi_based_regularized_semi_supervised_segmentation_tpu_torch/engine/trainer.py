@@ -92,19 +92,27 @@ def resolve_device(device: str) -> torch.device:
 
 def _check_defaults(cfg: Dict[str, Any]) -> None:
     """Keys the port does not implement yet must keep their defaults."""
-    arch = cfg.get("Arch") or {}
-    precision = cfg.get("Precision") or {}
     parallel = cfg.get("Parallel") or {}
-    unported = {
-        "Arch.stem": (arch.get("stem", "conv"), "conv"),
-        "Arch.remat": (bool(arch.get("remat", False)), False),
-        "Precision.compute_dtype": (precision.get("compute_dtype", "float32"), "float32"),
-        "Precision.bn_dtype": (precision.get("bn_dtype", "float32"), "float32"),
-        "Parallel.num_devices": (parallel.get("num_devices") in (None, 1), True),
-    }
-    for key, (value, default) in unported.items():
-        if value != default:
-            raise NotImplementedError(f"{key}={value!r} {_ROADMAP}")
+    if parallel.get("num_devices") not in (None, 1):
+        raise NotImplementedError(f"Parallel.num_devices={parallel['num_devices']!r} {_ROADMAP}")
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def precision_dtypes(cfg: Dict[str, Any]) -> Tuple[torch.dtype, torch.dtype]:
+    """(compute dtype, BN dtype) of the ``Precision`` section; parameters,
+    optimizer state and checkpoints stay fp32 whatever they are. An unknown
+    name raises ``ValueError`` (the JAX package: ``KeyError``)."""
+    precision = cfg.get("Precision") or {}
+    out = []
+    for key in ("compute_dtype", "bn_dtype"):
+        name = precision.get(key, "float32")
+        if name not in DTYPES:
+            raise ValueError(f"Precision.{key}={name!r}: expected "
+                             + " | ".join(repr(d) for d in DTYPES))
+        out.append(DTYPES[name])
+    return out[0], out[1]
 
 
 def _warn(msg: str) -> None:
@@ -169,6 +177,7 @@ class SemiTrainer:
         **kwargs,
     ) -> None:
         _check_defaults(configuration)
+        self._dtypes = precision_dtypes(configuration)
         self._kernel_options = kernel_options(configuration)
         self._config = configuration
         self._device = resolve_device(device)
@@ -212,7 +221,10 @@ class SemiTrainer:
             raise ValueError("Trainer.feature_importance and feature_names differ in length")
 
         torch.manual_seed(seed)  # weights are a function of RandomSeed
-        self._model = UNet(self._input_dim, self._num_classes).to(self._device)
+        dtype, bn_dtype = self._dtypes
+        self._model = UNet(self._input_dim, self._num_classes, dtype=dtype, bn_dtype=bn_dtype,
+                           stem=str(arch.get("stem", "conv")),
+                           remat=bool(arch.get("remat", False))).to(self._device)
         self._projector = None
         self._step_kwargs: Dict[str, Any] = {}
         self._with_ema = False
@@ -718,8 +730,10 @@ def _per_position(config: Dict[str, Any], feature_names, key: str, default) -> l
     return [(enc if name in ENCODER_NAMES else dec).get(key, default) for name in feature_names]
 
 
-def _make_projector(config: Dict[str, Any], feature_names,
-                    fused_ok: bool = False) -> ProjectorWrapper:
+def _make_projector(config: Dict[str, Any], feature_names, fused_ok: bool = False,
+                    local_dtype: torch.dtype = torch.float32) -> ProjectorWrapper:
+    """The cluster heads; the decoder heads compute in ``local_dtype`` (the
+    compute dtype), the encoder heads in fp32."""
     per_position = lambda key, default: _per_position(config, feature_names, key, default)
     return ProjectorWrapper(
         feature_names=tuple(feature_names),
@@ -728,6 +742,7 @@ def _make_projector(config: Dict[str, Any], feature_names,
         head_types=per_position("head_types", "linear"),
         normalize=per_position("normalize", False),
         local_emit_logits=fused_ok,
+        local_dtype=local_dtype,
     )
 
 
@@ -750,7 +765,8 @@ class IICTrainer(SemiTrainer):
             fused_ok = unmet is None
             if unmet:
                 _warn(f"Kernel.backend=pallas_fused: {unmet}; training the unfused path.")
-        self._projector = _make_projector(cfg, self._feature_names, fused_ok)
+        self._projector = _make_projector(cfg, self._feature_names, fused_ok,
+                                          local_dtype=self._dtypes[0])
         self._step_kwargs = dict(
             reg_weight=float(cfg["weight"]),
             paddings=loss_cfg.get("paddings", 1),

@@ -5,8 +5,11 @@ Subheads are one batched linear layer producing S*K outputs. Layout NHWC,
 clusters on the last axis. Decoder heads emit flat probabilities
 [B, H, W, C] with C = S*K rounded up to 128 lanes and the dead lanes exactly
 zero, which is the layout the displaced-MI kernel consumes; with
-``emit_logits`` they emit the logits instead, dead lanes at float32 min, for
+``emit_logits`` they emit the logits instead, dead lanes at float32 min
+rounded to the head's dtype (-inf in bf16, as ``jnp.pad`` rounds it), for
 the fused softmax + mask + joint kernels (``Kernel.backend=pallas_fused``).
+A decoder head computes in its ``dtype`` (the trainer's
+``Precision.compute_dtype``); encoder heads stay fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,12 +41,24 @@ def _check_head(head_type: str, normalize: bool) -> None:
 def group_softmax_flat(z: torch.Tensor, S: int, K: int, T: float = 1.0) -> torch.Tensor:
     """Per-subhead softmax over the flat [..., C] layout, C >= S*K: lanes
     [s*K, (s+1)*K) form group s; the dead lanes beyond S*K come out as exact
-    zeros (with zero gradient)."""
+    zeros (with zero gradient). fp32 (and any non-bf16 input): a softmax per
+    group in fp32. bf16: the JAX package's rounding points (its
+    ``group_softmax_flat``): the max over all live lanes of the pixel, the
+    exps in bf16, each group's sum of the bf16 exps in fp32 rounded to bf16
+    once, the quotient in bf16."""
     c = z.shape[-1]
     if c < S * K:
         raise ValueError(f"{c} lanes cannot hold {S} x {K} clusters")
-    live = z[..., :S * K].reshape(*z.shape[:-1], S, K)
-    probs = torch.softmax(live.float() / T, dim=-1).reshape(*z.shape[:-1], S * K)
+    live = z[..., :S * K]
+    if z.dtype == torch.bfloat16:
+        live = live / torch.tensor(T, dtype=z.dtype)  # T rounded to bf16 first, as jnp does
+        e = torch.exp(live - live.amax(-1, keepdim=True).detach())
+        groups = e.reshape(*z.shape[:-1], S, K)
+        denom = groups.float().sum(-1, keepdim=True).to(torch.bfloat16)
+        probs = (groups / denom).reshape(*z.shape[:-1], S * K)
+    else:
+        probs = torch.softmax(live.reshape(*z.shape[:-1], S, K).float() / T, dim=-1)
+        probs = probs.reshape(*z.shape[:-1], S * K)
     return F.pad(probs, (0, c - S * K))
 
 
@@ -67,14 +82,17 @@ class ClusterHead(nn.Module):
 class LocalClusterHead(nn.Module):
     """Per-pixel (decoder) head: a 1x1 linear map -> per-subhead softmax ->
     probabilities lane-padded with zeros to a multiple of ``lane_multiple``.
-    Output [B, H, W, C]. The JAX head pads the logits with float32 min and
-    then softmaxes; the probabilities are the same. With ``emit_logits`` the
-    softmax is skipped and the logits come out lane-padded with float32 min,
-    as the JAX head emits them (T = 1 only)."""
+    Output [B, H, W, C] in ``dtype``: features, kernel and bias are cast to
+    it and the map is ``x @ W + b`` (two roundings in bf16). The JAX head pads
+    the logits with float32 min and then softmaxes; the probabilities are the
+    same. With ``emit_logits`` the softmax is skipped and the logits come out
+    lane-padded with float32 min rounded to ``dtype`` (-inf in bf16), as the
+    JAX head emits them (T = 1 only)."""
 
     def __init__(self, input_dim: int, num_clusters: int = 10, num_subheads: int = 5,
                  head_type: str = "linear", T: float = 1.0, normalize: bool = False,
-                 lane_multiple: int = 128, emit_logits: bool = False) -> None:
+                 lane_multiple: int = 128, emit_logits: bool = False,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         _check_head(head_type, normalize)
         if emit_logits and T != 1.0:
@@ -82,14 +100,17 @@ class LocalClusterHead(nn.Module):
         self.S, self.K, self.T = num_subheads, num_clusters, T
         self.lane_multiple = lane_multiple
         self.emit_logits = emit_logits
+        self.dtype = dtype
         self.linear = _linear(input_dim, num_subheads * num_clusters)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
-        out = self.linear(features.float())
+        dt = self.dtype
+        out = features.to(dt) @ self.linear.weight.to(dt).T + self.linear.bias.to(dt)
         sk = self.S * self.K
         lanes = (0, -(-sk // self.lane_multiple) * self.lane_multiple - sk)
         if self.emit_logits:
-            return F.pad(out, lanes, value=torch.finfo(torch.float32).min)
+            dead = float(torch.tensor(torch.finfo(torch.float32).min).to(dt))
+            return F.pad(out, lanes, value=dead)
         return F.pad(group_softmax_flat(out, self.S, self.K, self.T), lanes)
 
 
@@ -97,11 +118,13 @@ class ProjectorWrapper(nn.Module):
     """Cluster heads keyed by U-Net feature name: ClusterHead at encoder taps,
     LocalClusterHead at decoder taps. Per-head settings may be scalars or
     per-position lists. ``local_emit_logits``: the decoder heads emit logits
-    (the fused path); the parameters are the same either way."""
+    (the fused path); the parameters are the same either way. ``local_dtype``:
+    the decoder heads' compute and output dtype."""
 
     def __init__(self, feature_names: Sequence[str], num_clusters=20, num_subheads=5,
                  head_types="linear", normalize=False, local_lane_multiple: int = 128,
-                 local_emit_logits: bool = False) -> None:
+                 local_emit_logits: bool = False,
+                 local_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.feature_names = tuple(feature_names)
         self.local_emit_logits = bool(local_emit_logits)
@@ -116,7 +139,8 @@ class ProjectorWrapper(nn.Module):
                 heads[name] = ClusterHead(**kwargs)
             else:
                 heads[name] = LocalClusterHead(**kwargs, lane_multiple=local_lane_multiple,
-                                               emit_logits=self.local_emit_logits)
+                                               emit_logits=self.local_emit_logits,
+                                               dtype=local_dtype)
             self._shapes[name] = (kwargs["num_subheads"], kwargs["num_clusters"])
         self.heads = nn.ModuleDict(heads)
 

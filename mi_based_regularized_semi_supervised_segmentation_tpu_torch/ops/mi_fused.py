@@ -4,8 +4,9 @@ their wrappers and their plain PyTorch version.
 Counterpart of the JAX package's ``ops/pallas/mi_fused.py``
 (``displaced_joint_softmax_pallas``, ``Kernel.backend=pallas_fused``). Inputs
 are two pre-padded logit canvases [B, Hp, Wp, 128], with the dead lanes from
-S*K on at float32 min as ``LocalClusterHead(emit_logits=True)`` emits them,
-flattened row-major to [N, 128]. For a row n:
+S*K on at float32 min as ``LocalClusterHead(emit_logits=True)`` emits them
+(-inf when the heads compute in bf16: bf16 logits, which the kernels read
+and convert to fp32), flattened row-major to [N, 128]. For a row n:
 
     valid(n) = (y, x) of n lies in [p, Hp - p) x [p, Wp - p)   (conv zero padding)
     z  = l / T on the live lanes, -inf on the dead ones
@@ -22,7 +23,8 @@ with g = dL/dJ rounded to dot_dtype:
     dq2[n] = valid(n) * sum_d pm1[n + o_d] @ g[d]
     dq1[m] = valid(m) * sum_d pm2[m - o_d] @ g[d]^T
     t = p * dq;  s = per-group sum of t (of bf16-rounded t in bf16 mode)
-    dl = (t - p * s) / T, 0 on the dead lanes
+    dl = (t - p * s) / T, 0 on the dead lanes, in the logits' dtype (bf16
+         logits: rounded once, the TPU kernel's ``out_dtype = l.dtype``)
 
 Products are summed in fp32. On the kernel path no fp32 probability tensor
 and no dq is ever allocated: in bf16 mode the joint's conversion pass forms
@@ -34,7 +36,10 @@ with bf16 rounding at exactly those points; its backward is written out, not
 left to autograd, which would round elsewhere.
 
 Dispatch: CUDA tensors go to the kernels (or the call raises), CPU tensors to
-the plain version. ``LAUNCHES`` counts kernel launches by (kernel, padding).
+the plain version. ``LAUNCHES`` counts kernel launches by (kernel, padding),
+one a wrapper call, a call on bf16 logits under the name with
+``mi_joint.BF16_OPERANDS`` appended; each call launches 3 device kernels in
+the forward and 2 in each backward, whatever the logits' dtype.
 """
 
 from __future__ import annotations
@@ -47,8 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .mi_joint import (JointPlan, ScratchSpec, _check_operand, _offsets, _sm_count,
-                       alloc_scratch, bf16_scratch, fwd_chunking, launch_plan)
+from .mi_joint import (JointPlan, ScratchSpec, _check_modes, _check_operand, _offsets, _sm_count,
+                       alloc_scratch, bf16_scratch, fwd_chunking, kernel_name, launch_plan)
 
 KERNEL_SOURCE = "mi_fused"
 FWD, BWD_DL2, BWD_DL1 = "mi_fused_fwd", "mi_fused_bwd_dl2", "mi_fused_bwd_dl1"
@@ -134,9 +139,10 @@ def fused_bwd_side_plain(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, 
                          wp: int, padding: int, S: int, K: int, T: float = 1.0,
                          dot_dtype: torch.dtype = torch.bfloat16,
                          transpose_g: bool = False) -> torch.Tensor:
-    """d(own logits) [N, C] fp32, what one backward kernel launch computes:
-    dl2 (src = l1, own = l2, transpose_g False) or dl1 (src = l2, own = l1,
-    transpose_g True) for the cotangent g [D, C, C] of J."""
+    """d(own logits) [N, C] in own's dtype (fp32, or bf16 rounded once), what
+    one backward kernel launch computes: dl2 (src = l1, own = l2, transpose_g
+    False) or dl1 (src = l2, own = l1, transpose_g True) for the cotangent g
+    [D, C, C] of J."""
     bf16 = dot_dtype == torch.bfloat16
     n = src.shape[0]
     pm_src = _probs(src, hp, wp, padding, S, K, T, bf16)[0]
@@ -150,14 +156,15 @@ def fused_bwd_side_plain(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, 
                  for d, off in enumerate(offsets))
     else:
         dq = sum(padded[off:off + n] @ g[d] for d, off in enumerate(offsets))
-    return _softmax_vjp(p_own, dq * v_own, S, K, T, bf16)
+    return _softmax_vjp(p_own, dq * v_own, S, K, T, bf16).to(own.dtype)
 
 
 def fused_bwd_plain(l1: torch.Tensor, l2: torch.Tensor, g: torch.Tensor, hp: int, wp: int,
                     padding: int, S: int, K: int, T: float = 1.0,
                     dot_dtype: torch.dtype = torch.bfloat16
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dl1, dl2) [N, C] fp32 for the cotangent g [D, C, C] of J."""
+    """(dl1, dl2) [N, C], each in its logits' dtype, for the cotangent g
+    [D, C, C] of J."""
     args = (hp, wp, padding, S, K, T, dot_dtype)
     return (fused_bwd_side_plain(l2, l1, g, *args, transpose_g=True),
             fused_bwd_side_plain(l1, l2, g, *args, transpose_g=False))
@@ -195,8 +202,10 @@ def _library() -> ctypes.CDLL:
                                           vp]
         lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, ll, i, vp]
         lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, i, vp]
+        lib.mi_fused_fwd_bf16in.argtypes = lib.mi_fused_fwd_bf16.argtypes
+        lib.mi_fused_bwd_bf16in.argtypes = lib.mi_fused_bwd_bf16.argtypes
         for fn in (lib.mi_fused_fwd_bf16, lib.mi_fused_bwd_bf16, lib.mi_fused_fwd_fp32,
-                   lib.mi_fused_bwd_fp32):
+                   lib.mi_fused_bwd_fp32, lib.mi_fused_fwd_bf16in, lib.mi_fused_bwd_bf16in):
             fn.restype = i
         lib.mi_fused_error_string.argtypes = [i]
         lib.mi_fused_error_string.restype = ctypes.c_char_p
@@ -234,11 +243,13 @@ def launch_setup(n: int, wp: int, padding: int, sm_count: int,
 
 def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: int,
                  S: int, K: int, T: float = 1.0, bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: J [D, 128, 128] fp32 from flat logit canvases [N, 128]."""
+    """Kernel launch: J [D, 128, 128] fp32 from flat logit canvases [N, 128]
+    (fp32, or bf16 with bf16 products)."""
     _check_operand(l1, "l1")
-    _check_operand(l2, "l2", l1.shape)
+    _check_operand(l2, "l2", l1.shape, (l1.dtype,))
     if l1.device != l2.device:
         raise ValueError(f"l1 on {l1.device}, l2 on {l2.device}")
+    _check_modes(l1, bf16)
     n, c = l1.shape
     _check_layout(n, c, hp, wp, padding, S, K, T, l1, l2)
     d = (2 * padding + 1) ** 2
@@ -251,52 +262,56 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
         if bf16:
             plan, spec = launch_setup(n, wp, padding, sms, backward=False)
             buf = alloc_scratch(spec, l1.device)
-            rc = lib.mi_fused_fwd_bf16(l1.data_ptr(), l2.data_ptr(), buf["a16"].data_ptr(),
-                                       buf["b16"].data_ptr(), buf["partial"].data_ptr(),
-                                       out.data_ptr(), *geometry, plan.fwd_rows_per_chunk,
-                                       plan.fwd_chunks, plan.fwd_dx_group, plan.fwd_smem, stream)
+            fn = lib.mi_fused_fwd_bf16in if l1.dtype == torch.bfloat16 else lib.mi_fused_fwd_bf16
+            rc = fn(l1.data_ptr(), l2.data_ptr(), buf["a16"].data_ptr(), buf["b16"].data_ptr(),
+                    buf["partial"].data_ptr(), out.data_ptr(), *geometry,
+                    plan.fwd_rows_per_chunk, plan.fwd_chunks, plan.fwd_dx_group, plan.fwd_smem,
+                    stream)
         else:
             rows, chunks = fwd_chunking(n, c, padding, sms)
             partial = torch.empty((chunks, d, c, c), dtype=torch.float32, device=l1.device)
             rc = lib.mi_fused_fwd_fp32(l1.data_ptr(), l2.data_ptr(), partial.data_ptr(),
                                        out.data_ptr(), *geometry, rows, chunks, stream)
-    _check(rc, FWD)
-    LAUNCHES[(FWD, padding)] += 1
+    name = kernel_name(FWD, l1.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, padding)] += 1
     return out
 
 
 def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int, wp: int,
                  padding: int, S: int, K: int, T: float = 1.0, transpose_g: bool = False,
                  bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: d(own logits) [N, 128] fp32.
+    """Kernel launch: d(own logits) [N, 128] in the logits' dtype (fp32, or
+    bf16 with bf16 products); g [D, 128, 128] fp32.
 
     transpose_g=False: dl2 (src = l1, own = l2), dq[n] = sum_d pm1[n + o_d] @ g[d]
     transpose_g=True:  dl1 (src = l2, own = l1), dq[m] = sum_d pm2[m - o_d] @ g[d]^T
     """
     _check_operand(src, "src")
-    _check_operand(own, "own", src.shape)
+    _check_operand(own, "own", src.shape, (src.dtype,))
     n, c = src.shape
     d = (2 * padding + 1) ** 2
-    _check_operand(g, "g", (d, c, c))
+    _check_operand(g, "g", (d, c, c), (torch.float32,))
     if not src.device == own.device == g.device:
         raise ValueError(f"src on {src.device}, own on {own.device}, g on {g.device}")
+    _check_modes(src, bf16)
     _check_layout(n, c, hp, wp, padding, S, K, T, src, own, g)
     lib = _library()
     with torch.cuda.device(src.device):
-        out = torch.empty((n, c), dtype=torch.float32, device=src.device)
+        out = torch.empty((n, c), dtype=src.dtype, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
         geometry = (n, hp, wp, padding, S, K, float(T), int(transpose_g))
         if bf16:
             plan, spec = launch_setup(n, wp, padding, _sm_count(src.device.index), backward=True)
             buf = alloc_scratch(spec, src.device)
-            rc = lib.mi_fused_bwd_bf16(src.data_ptr(), own.data_ptr(), g.data_ptr(),
-                                       buf["s16"].data_ptr(), buf["h16"].data_ptr(),
-                                       out.data_ptr(), *geometry, plan.bwd_stages, plan.bwd_smem,
-                                       stream)
+            fn = lib.mi_fused_bwd_bf16in if src.dtype == torch.bfloat16 else lib.mi_fused_bwd_bf16
+            rc = fn(src.data_ptr(), own.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
+                    buf["h16"].data_ptr(), out.data_ptr(), *geometry, plan.bwd_stages,
+                    plan.bwd_smem, stream)
         else:
             rc = lib.mi_fused_bwd_fp32(src.data_ptr(), own.data_ptr(), g.data_ptr(),
                                        out.data_ptr(), *geometry, stream)
-    name = BWD_DL1 if transpose_g else BWD_DL2
+    name = kernel_name(BWD_DL1 if transpose_g else BWD_DL2, src.dtype)
     _check(rc, name)
     LAUNCHES[(name, padding)] += 1
     return out

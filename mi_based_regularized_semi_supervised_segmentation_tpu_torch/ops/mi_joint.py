@@ -12,7 +12,11 @@ zero-padded by p (or arrives pre-padded) and flattened row-major into an
 The backward is two products of the same shape (see the kernel source).
 ``dot_dtype=torch.bfloat16`` rounds both operands (and, in the backward, the
 incoming cotangent) to bf16 and accumulates in fp32, as the TPU kernel does;
-``torch.float32`` is the parity mode. A bf16 launch takes C <= 128 lanes
+``torch.float32`` is the parity mode. The operands are fp32, or bf16 when the
+model computes in bf16 (``Precision.compute_dtype``; bf16 products only): J
+is fp32 either way and the gradients come back in the operands' dtype, each
+fp32 sum over all displacements (and lane blocks) rounded once, as the TPU
+kernel's VJP returns ``dx.astype(x.dtype)``. A bf16 launch takes C <= 128 lanes
 (zero-padded to 128 on the card); a wider C = 128 t is tiled into 128-lane
 blocks (``lane_tiled_fwd``, ``lane_tiled_bwd``), one launch per block pair.
 The launch geometry comes from ``launch_plan`` and the scratch from
@@ -20,8 +24,13 @@ The launch geometry comes from ``launch_plan`` and the scratch from
 
 Dispatch: CUDA tensors go to the kernel (or the call raises), CPU tensors to
 ``displaced_joint_plain_flat``. ``LAUNCHES`` counts kernel launches by
-(kernel, padding); ``chip_smoke.py`` reads it to show the training path ran
-through the kernels.
+(kernel, padding), one a wrapper call; a call on bf16 operands counts under
+the name with ``BF16_OPERANDS`` appended. ``chip_smoke.py`` reads it to show
+the training path ran through the kernels. Device kernels a call, at 128
+lanes: fp32 operands 3 forward (conversion pass, product, chunk sum) and 2
+backward (conversion of the source and g, product); bf16 operands 2 forward
+(no conversion pass) and 2 backward (the pass converts g alone). A udaiic
+step with two decoder taps makes 6 calls either way.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from . import build
 
 KERNEL_SOURCE = "mi_joint"
 FWD, BWD_DX_TF, BWD_DX = "mi_joint_fwd", "mi_joint_bwd_dx_tf", "mi_joint_bwd_dx"
+BF16_OPERANDS = "_bf16in"  # suffix of the launches on bf16 operands
 LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
 
 _KT = 32    # rows per staged slice of the fp32 kernel (rows_per_chunk is a multiple)
@@ -61,6 +71,11 @@ def reset_launch_counts() -> None:
 
 def launch_count(name: str) -> int:
     return sum(v for (k, _), v in LAUNCHES.items() if k == name)
+
+
+def kernel_name(base: str, dtype: torch.dtype) -> str:
+    """The launch name of kernel ``base`` on operands of ``dtype``."""
+    return base + BF16_OPERANDS if dtype == torch.bfloat16 else base
 
 
 def _offsets(wp: int, padding: int):
@@ -95,7 +110,9 @@ def displaced_joint_plain_flat(a: torch.Tensor, b: torch.Tensor, wp: int, paddin
                                dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[N, C] x2 -> [D, C, C]: one shifted-slice product per displacement, in
     fp32, with autograd giving the backward. With bf16 ``dot_dtype`` the
-    operands and the cotangent are rounded as the kernel rounds them."""
+    operands and the cotangent are rounded as the kernel rounds them. bf16
+    operands are taken exactly; their gradients are the fp32 sums over all
+    displacements, rounded to bf16 once (at the upcast)."""
     n, _ = a.shape
     shift = padding * wp + padding
     bf16 = dot_dtype == torch.bfloat16
@@ -123,8 +140,10 @@ def _library() -> ctypes.CDLL:
         lib.mi_joint_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, vp]
         lib.mi_joint_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, ll, i, vp]
         lib.mi_joint_bwd_fp32.argtypes = [vp, vp, vp, ll, i, i, i, i, vp]
+        lib.mi_joint_fwd_bf16in.argtypes = lib.mi_joint_fwd_bf16.argtypes
+        lib.mi_joint_bwd_bf16in.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, i, i, i, i, vp]
         for fn in (lib.mi_joint_fwd_bf16, lib.mi_joint_bwd_bf16, lib.mi_joint_fwd_fp32,
-                   lib.mi_joint_bwd_fp32):
+                   lib.mi_joint_bwd_fp32, lib.mi_joint_fwd_bf16in, lib.mi_joint_bwd_bf16in):
             fn.restype = i
         lib.mi_joint_error_string.argtypes = [i]
         lib.mi_joint_error_string.restype = ctypes.c_char_p
@@ -138,11 +157,14 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def _check_operand(t: torch.Tensor, name: str, shape=None) -> None:
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_operand(t: torch.Tensor, name: str, shape=None, dtypes=OPERAND_DTYPES) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -265,17 +287,29 @@ def launch_plan(n: int, c: int, padding: int, wp: int, sm_count: int) -> JointPl
 ScratchSpec = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 
 
-def bf16_scratch(plan: JointPlan, backward: bool) -> ScratchSpec:
+def bf16_scratch(plan: JointPlan, backward: bool, rows: bool = True) -> ScratchSpec:
     """The scratch of one bf16 call, name -> (shape, dtype): the conversion
     pass's bf16 copies of the operands ([N, 128] each: two in the forward,
-    the source in the backward), the backward's g as H [D, 128, 128] bf16 and
-    the forward's chunk partials (fp32 J tiles). No [N, 128] fp32 buffer."""
+    the source in the backward; none with ``rows`` off, for bf16 operands of
+    128 lanes that the kernels read in place), the backward's g as H
+    [D, 128, 128] bf16 and the forward's chunk partials (fp32 J tiles). No
+    [N, 128] fp32 buffer."""
     d = plan.taps ** 2
-    rows = ((plan.n, LANES), torch.bfloat16)
+    copy = ((plan.n, LANES), torch.bfloat16)
     if backward:
-        return {"s16": rows, "h16": ((d, LANES, LANES), torch.bfloat16)}
-    return {"a16": rows, "b16": rows,
-            "partial": ((plan.fwd_chunks, d, LANES, LANES), torch.float32)}
+        spec = {"s16": copy, "h16": ((d, LANES, LANES), torch.bfloat16)}
+    else:
+        spec = {"a16": copy, "b16": copy,
+                "partial": ((plan.fwd_chunks, d, LANES, LANES), torch.float32)}
+    return spec if rows else {k: v for k, v in spec.items() if k not in ("a16", "b16", "s16")}
+
+
+def converts_rows(*operands: torch.Tensor) -> bool:
+    """Whether a bf16 call's conversion pass copies the operand rows: always
+    for fp32 operands; for bf16 ones unless they are rows of exactly 128
+    lanes at 16-byte aligned addresses, which the kernels read in place."""
+    return any(t.dtype != torch.bfloat16 or t.shape[-1] != LANES or t.data_ptr() % 16
+               for t in operands)
 
 
 def alloc_scratch(spec: ScratchSpec, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -302,10 +336,13 @@ def lane_tiled_bwd(src: torch.Tensor, g: torch.Tensor,
                    bwd: Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor],
                    transpose_g: bool) -> torch.Tensor:
     """The backward products of ``mi_joint_bwd`` for any width from one that
-    takes at most 128 lanes (``bwd(src_k, g_k, transpose_g)``):
+    takes at most 128 lanes (``bwd(src_k, g_k, transpose_g)``, returning
+    fp32):
       transpose_g=False (src = A): dx_tf_j = sum_i bwd(A_i, g_ij, False)
       transpose_g=True  (src = B): dx_i    = sum_j bwd(B_j, g_ij, True)
-    with g_ij the (i, j) lane block of g [D, C, C]."""
+    with g_ij the (i, j) lane block of g [D, C, C]. The block results are
+    summed in fp32 and the result is cast to ``src``'s dtype once, so bf16
+    operands get a gradient rounded once, as at 128 lanes."""
     tiles = _lane_tiles(src.shape[1])
     src_t = [src[:, t].contiguous() for t in tiles]
     out = []
@@ -313,7 +350,7 @@ def lane_tiled_bwd(src: torch.Tensor, g: torch.Tensor,
         parts = [bwd(src_t[k], (g[:, o, t] if transpose_g else g[:, t, o]).contiguous(),
                      transpose_g) for k, t in enumerate(tiles)]
         out.append(functools.reduce(torch.add, parts))
-    return torch.cat(out, dim=1)
+    return torch.cat(out, dim=1).to(src.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -321,14 +358,22 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _check_modes(operand: torch.Tensor, bf16: bool) -> None:
+    if operand.dtype == torch.bfloat16 and not bf16:
+        raise TypeError("bf16 operands take the bf16 products (bf16=True); the fp32 mode "
+                        "takes fp32 operands")
+
+
 def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
                  bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: J [D, C, C] fp32 from flat canvases a, b [N, C]; in
-    bf16 one launch per pair of 128-lane blocks."""
+    """Kernel launch: J [D, C, C] fp32 from flat canvases a, b [N, C] (fp32,
+    or bf16 with bf16 products); in bf16 one launch per pair of 128-lane
+    blocks."""
     _check_operand(a, "a")
-    _check_operand(b, "b", a.shape)
+    _check_operand(b, "b", a.shape, (a.dtype,))
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
+    _check_modes(a, bf16)
     _check_geometry(wp, padding)
     if bf16 and a.shape[1] > LANES:
         return lane_tiled_fwd(a, b, lambda x, y: _launch_fwd(x, y, wp, padding, bf16))
@@ -345,26 +390,34 @@ def _launch_fwd(a, b, wp, padding, bf16):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if bf16:
             plan = launch_plan(n, c, padding, wp, sms)
-            buf = alloc_scratch(bf16_scratch(plan, backward=False), a.device)
-            rc = lib.mi_joint_fwd_bf16(a.data_ptr(), b.data_ptr(), buf["a16"].data_ptr(),
-                                       buf["b16"].data_ptr(), buf["partial"].data_ptr(),
-                                       out.data_ptr(), n, c, padding, wp,
-                                       plan.fwd_rows_per_chunk, plan.fwd_chunks,
-                                       plan.fwd_dx_group, plan.fwd_smem, stream)
+            buf = alloc_scratch(bf16_scratch(plan, backward=False, rows=converts_rows(a, b)),
+                                a.device)
+            fn = lib.mi_joint_fwd_bf16in if a.dtype == torch.bfloat16 else lib.mi_joint_fwd_bf16
+            rc = fn(a.data_ptr(), b.data_ptr(), _ptr(buf, "a16"), _ptr(buf, "b16"),
+                    buf["partial"].data_ptr(), out.data_ptr(), n, c, padding, wp,
+                    plan.fwd_rows_per_chunk, plan.fwd_chunks, plan.fwd_dx_group, plan.fwd_smem,
+                    stream)
         else:
             rows, chunks = fwd_chunking(n, c, padding, sms)
             partial = torch.empty((chunks, d, c, c), dtype=torch.float32, device=a.device)
             rc = lib.mi_joint_fwd_fp32(a.data_ptr(), b.data_ptr(), partial.data_ptr(),
                                        out.data_ptr(), n, c, padding, wp, rows, chunks, stream)
-    _check(rc, FWD)
-    LAUNCHES[(FWD, padding)] += 1
+    name = kernel_name(FWD, a.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, padding)] += 1
     return out
+
+
+def _ptr(buf: Dict[str, torch.Tensor], name: str):
+    """A scratch buffer's address, None (NULL) where the call has none."""
+    return buf[name].data_ptr() if name in buf else None
 
 
 def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
                  transpose_g: bool, bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: out [N, C] fp32; in bf16 one launch per pair of 128-lane
-    blocks.
+    """Kernel launch: out [N, C] in src's dtype (fp32, or bf16 with bf16
+    products); in bf16 one launch per pair of 128-lane blocks, summed in fp32.
+    g [D, C, C] is fp32 (the cotangent of J).
 
     transpose_g=False: dx_tf[n] = sum_d src[n + o_d] @ g[d]     (src = A)
     transpose_g=True:  dx[m]    = sum_d src[m - o_d] @ g[d]^T   (src = B)
@@ -372,38 +425,49 @@ def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
     _check_operand(src, "src")
     n, c = src.shape
     d = (2 * padding + 1) ** 2
-    _check_operand(g, "g", (d, c, c))
+    _check_operand(g, "g", (d, c, c), (torch.float32,))
     if src.device != g.device:
         raise ValueError(f"src on {src.device}, g on {g.device}")
+    _check_modes(src, bf16)
     _check_geometry(wp, padding)
     if bf16 and c > LANES:
-        return lane_tiled_bwd(src, g, lambda s, h, tr: _launch_bwd(s, h, wp, padding, tr, bf16),
-                              transpose_g)
-    return _launch_bwd(src, g, wp, padding, transpose_g, bf16)
+        return lane_tiled_bwd(
+            src, g, lambda s, h, tr: _launch_bwd(s, h, wp, padding, tr, bf16, torch.float32),
+            transpose_g)
+    return _launch_bwd(src, g, wp, padding, transpose_g, bf16, src.dtype)
 
 
-def _launch_bwd(src, g, wp, padding, transpose_g, bf16):
+def _launch_bwd(src, g, wp, padding, transpose_g, bf16, out_dtype):
     n, c = src.shape
     lib = _library()
     with torch.cuda.device(src.device):
-        out = torch.empty((n, c), dtype=torch.float32, device=src.device)
+        out = torch.empty((n, c), dtype=out_dtype, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
         if bf16:
             plan = launch_plan(n, c, padding, wp, _sm_count(src.device.index))
-            buf = alloc_scratch(bf16_scratch(plan, backward=True), src.device)
-            rc = lib.mi_joint_bwd_bf16(src.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
-                                       buf["h16"].data_ptr(), out.data_ptr(), n, c, padding, wp,
-                                       int(transpose_g), plan.bwd_stages, plan.bwd_smem, stream)
+            buf = alloc_scratch(bf16_scratch(plan, backward=True, rows=converts_rows(src)),
+                                src.device)
+            geometry = (n, c, padding, wp, int(transpose_g), plan.bwd_stages, plan.bwd_smem,
+                        stream)
+            if src.dtype == torch.bfloat16:
+                rc = lib.mi_joint_bwd_bf16in(src.data_ptr(), g.data_ptr(), _ptr(buf, "s16"),
+                                             buf["h16"].data_ptr(), out.data_ptr(),
+                                             int(out_dtype == torch.bfloat16), *geometry)
+            else:
+                rc = lib.mi_joint_bwd_bf16(src.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
+                                           buf["h16"].data_ptr(), out.data_ptr(), *geometry)
         else:
             rc = lib.mi_joint_bwd_fp32(src.data_ptr(), g.data_ptr(), out.data_ptr(), n, c,
                                        padding, wp, int(transpose_g), stream)
-    name = BWD_DX if transpose_g else BWD_DX_TF
+    name = kernel_name(BWD_DX if transpose_g else BWD_DX_TF, src.dtype)
     _check(rc, name)
     LAUNCHES[(name, padding)] += 1
     return out
 
 
 class _DisplacedJointCUDA(torch.autograd.Function):
+    """The kernels' autograd: J fp32; the gradients in the operands' dtype."""
+
     @staticmethod
     def forward(ctx, a, b, wp, padding, bf16):
         ctx.save_for_backward(a, b)

@@ -15,18 +15,10 @@ same arrays. Tolerances, each with its reason:
   the logit gradients.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mi_based_regularized_semi_supervised_segmentation_tpu.ops.iic_local import (
-    iid_segmentation_loss_fused_logits as jax_loss_fused_logits,
-)
-from mi_based_regularized_semi_supervised_segmentation_tpu.ops.pallas.mi_fused import (
-    displaced_joint_softmax_pallas,
-)
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.models import group_softmax_flat
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_fused
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.iic_local import (
@@ -36,10 +28,24 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.mi_joint im
     displaced_joint_plain_flat,
 )
 
+try:  # the JAX side; a card's machine without JAX runs only the cuda-marked test
+    import jax
+    import jax.numpy as jnp
+
+    from mi_based_regularized_semi_supervised_segmentation_tpu.ops.iic_local import (
+        iid_segmentation_loss_fused_logits as jax_loss_fused_logits,
+    )
+    from mi_based_regularized_semi_supervised_segmentation_tpu.ops.pallas.mi_fused import (
+        displaced_joint_softmax_pallas,
+    )
+    DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+except ImportError:
+    jax = jnp = jax_loss_fused_logits = displaced_joint_softmax_pallas = None
+    DTYPES = {"fp32": (torch.float32, None), "bf16": (torch.bfloat16, None)}
+
 S, K = 2, 3
 SK = S * K
 C = 128
-DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 BF16_BOUND = 2e-4
 
 
@@ -211,25 +217,32 @@ def test_launch_setup_is_the_joints_plan_and_scratch(n, wp, padding):
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(rng):
-    """The CUDA kernels against the plain version, both operand modes, on a
-    small canvas (padding 3, S x K = 5 x 20): 1e-4 of the largest entry,
-    except the bf16 logit gradients at 1e-2. There t is rounded to bf16
-    before its group sum, so a last-bit difference in dq (another summation
-    order) can move a rounded t by one bf16 step, which reaches dl scaled by
-    p; the fp32 mode of the same kernels holds at 1e-4."""
+def test_kernels_match_plain_on_card():
+    """The CUDA kernels against the plain version on a small canvas (padding
+    3, S x K = 5 x 20): fp32 logits in both operand modes, then bf16 logits
+    with -inf dead lanes (the bf16 heads' output), 1e-4 of the largest entry,
+    except the logit gradients of the bf16 products at 1e-2. There t is
+    rounded to bf16 before its group sum, so a last-bit difference in dq
+    (another summation order) can move a rounded t by one bf16 step, which
+    reaches dl scaled by p; the fp32 mode of the same kernels holds at 1e-4.
+    bf16 logits get bf16 gradients, finite, 0 in the dead lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (a CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(0)
     l1, l2 = _logits(rng, 2, 20, 19, 100), _logits(rng, 2, 20, 19, 100)
     g = _cotangent(rng, 3) * 1e-2
-    for dot in (torch.float32, torch.bfloat16):
+    for dtype, dot in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.bfloat16)):
         outs = []
         for dev in ("cpu", "cuda"):
-            t1 = torch.tensor(l1, device=dev, requires_grad=True)
-            t2 = torch.tensor(l2, device=dev, requires_grad=True)
+            t1 = torch.tensor(l1, device=dev).to(dtype).requires_grad_(True)
+            t2 = torch.tensor(l2, device=dev).to(dtype).requires_grad_(True)
             joint = mi_fused.displaced_joint_softmax(t1, t2, 3, 5, 20, 1.0, dot)
             (joint * torch.tensor(g, device=dev)).sum().backward()
-            outs.append([t.detach().cpu().numpy() for t in (joint, t1.grad, t2.grad)])
+            assert t1.grad.dtype == t2.grad.dtype == dtype
+            assert torch.all(t1.grad[..., 100:] == 0) and torch.all(t2.grad[..., 100:] == 0)
+            outs.append([t.detach().float().cpu().numpy() for t in (joint, t1.grad, t2.grad)])
         for i, (want, got) in enumerate(zip(*outs)):
+            assert np.isfinite(got).all()
             tol = 1e-2 if i and dot == torch.bfloat16 else 1e-4
             np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
