@@ -44,7 +44,12 @@ Phases, each printing JSON lines:
            beside one bf16 step of the output's rounding; the fused kernels
            on bf16 logits with -inf dead lanes, exactly on dyadic logits and
            within their tolerances on random ones; each bf16in row timed
-           beside its bound (operand bytes halved) and F.conv2d on bf16
+           beside its bound (operand bytes halved) and F.conv2d on bf16.
+           Then the joint at the tile shapes of patch 32 (10 tiles of 32^2
+           with their own zero border: [10, 34, 34, 100] at p = 1,
+           [10, 38, 38, 100] at p = 3; C = S*K = 100 lanes) on fp32 and bf16
+           operands: exactly on integer inputs, within TOL on probability
+           maps, timed beside its bound and F.conv2d
   step     one small udaiic train step on the card against the same step on
            the CPU (plain joint), same weights, batch and flip mask
   step_fused  the same with the decoder heads emitting logits (fused kernels
@@ -60,10 +65,24 @@ Phases, each printing JSON lines:
            closer to it than the CPU's fp32 step, the heads' at
            STEP_BF16_HEADS_LOOSE
   step_s2d the step phase with Arch.stem=s2d (fp32), at STEPS_TOL
+  step_heads  the step phase with mlp heads, normalized, and patch 8 (9 tiles
+           of the 16^2 map, 49 of the 32^2 one: a joint launch a tile and
+           product), at STEPS_TOL
   train    the headline udaiic trainer through ``main.main`` on synthetic data
            (U-Net 16..256, 224^2 crops, 4 labeled + 10 unlabeled, taps Conv5 /
            Up_conv3 / Up_conv2, 5 x 20 clusters, paddings [1, 3]), with the
            kernel launch counts of that run, set to 0 just before it
+  train_tiled  the same with IICRegParameters.LossParams.patch_sizes=32, 3
+           steps: (36 + 169) x 3 joint launches a step, exactly; the step's
+           device time by kind (profiler) and the joint's share of it
+  train_heads  the same with mlp heads at every position and normalized
+           decoder heads, 3 steps, 6 joint launches a step, fp32 and bf16,
+           each then profiled (device time by kind)
+  train_backends  the same with Kernel.backend = auto, pallas, xla,
+           xla_banded, xla_scan from one seed, 2 steps each on one batch:
+           pallas gives auto's losses and launches, the xla* backends launch
+           no kernel and give the first step's losses within BACKEND_TOL of
+           auto's; peak memory of each, xla_scan's below xla's
   train_fused  the same with Kernel.backend=pallas_fused: 2 fused forward and
            4 fused backward launches a step, no mi_joint launch, and a peak
            of device memory below the train phase's
@@ -132,6 +151,8 @@ ROTATIONS = (("labeled", 4, 256), ("unlabeled", 10, 256))
 SWEEP_ANGLES = 4096  # shift sweep: this many even angles, as many random ones, 5 edge cases
 # decoder taps of the headline udaiic config: (name, batch, map edge, padding)
 TAPS = (("Up_conv2", 10, 224, 3), ("Up_conv3", 10, 112, 1))
+# the tiles of patch 32 at those taps: (name, batch, tile edge, padding)
+TILES = (("Up_conv3", 10, 32, 1), ("Up_conv2", 10, 32, 3))
 # ragged joint shapes for the exact check: (batch, Hp, Wp, padding); N is no
 # multiple of the kernels' 256-row output tile or 64-row stage, Wp no
 # multiple of 8; from one partial tile to several forward chunks; padding 2
@@ -173,6 +194,15 @@ STEP_BF16_LOOSE = 0.2
 STEP_BF16_LIVENESS = 0.75
 STEP_BF16_HEADS_LOOSE = 0.1
 BF16 = ("Precision.compute_dtype=bfloat16", "Precision.bn_dtype=bfloat16")
+# train_heads: mlp heads at every position, the decoder heads normalized
+HEADS = ("IICRegParameters.EncoderParams.head_types=mlp",
+         "IICRegParameters.DecoderParams.head_types=mlp",
+         "IICRegParameters.DecoderParams.normalize=true")
+TILE_PATCH = 32      # train_tiled: the original project's default patch size
+# train_backends: the first step's losses of each xla* backend (fp32 products)
+# against auto's (bf16 operands, fp32 sums), relative; tests/test_pallas_mi.py
+# holds bf16 against fp32 joints at 5e-3. pallas is auto's kernel: bit for bit.
+BACKEND_TOL = 5e-3
 ZOO_STEPS = 4        # steps of each resume / train_zoo run
 
 
@@ -376,14 +406,74 @@ def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool) -> dict:
     }
 
 
+def _joint_rows(mj, cases: dict, dtype, where: dict, n: int, c: int, p: int, flops: float,
+                nbytes: float, bf16: bool, reps: int, extra=None) -> list:
+    """Check and time the joint's three products (``_joint_cases``) on
+    operands of ``dtype``: each kernel call within TOL of the plain version
+    (a bf16 gradient beside one bf16 step of its own rounding), two calls
+    bit-identical; its time beside the plain version's, the library call's
+    and the bound. ``where``: the keys that place the rows (phase, tap,
+    label, mode); ``extra``: more keys of every row."""
+    import torch
+
+    replaces = {mj.FWD: f"{JAX_KERNELS}:178", mj.BWD_DX_TF: f"{JAX_KERNELS}:230",
+                mj.BWD_DX: f"{JAX_KERNELS}:249"}
+    peak = PEAK_FLOPS["bf16" if bf16 else "fp32"]
+    rows = []
+    for base, case in cases.items():
+        name = mj.kernel_name(base, dtype)
+        got = case["kernel"]()
+        want = case["want"]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        scale = float(want.float().abs().max())
+        # a bf16 gradient adds its output's rounding: an fp32 sum that lies
+        # within the summation-order difference of a rounding midpoint
+        # rounds the other way, one bf16 step (of the exponent of |want|)
+        bf16_steps = None
+        if got.dtype == torch.bfloat16:
+            step = torch.exp2(torch.floor(torch.log2(want.float().abs())) - 7)
+            # the reading behind the allowance: the largest error, in
+            # steps of its own entry, among entries off by more than TOL
+            off = diff > TOL * scale
+            bf16_steps = float((diff / step)[off].max()) if bool(off.any()) else 0.0
+            diff = (diff - step).clamp_min(0)
+        label = f"{where['label']} {where['mode']} {name}"
+        check(math.isfinite(err) and float(diff.max()) <= TOL * scale,
+              f"{label}: max err {err} vs max |ref| {scale}")
+        check(bool(torch.equal(case["kernel"](), got)),
+              f"{label}: two calls on the same inputs differ")
+        lib_err = float((case["unpack"](case["library"]()).float()
+                         - want.float()).abs().max())
+        by_ops = flops / peak >= nbytes / HBM_BYTES_PER_S
+        row = {**where, "name": name, "route": "cuda", "source": f"{PORT}/csrc/mi_joint.cu",
+               "replaces": replaces[base], "shape": [n, c], "padding": p,
+               "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL,
+               "max_bf16_steps": bf16_steps,
+               "ms": cuda_ms(case["kernel"], reps),
+               "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
+               "library_ms": cuda_ms(case["library"], max(3, reps // 3), warmup=1),
+               "library_rel_err": lib_err / scale,
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
+               "bound_by": "operations" if by_ops else "bytes",
+               "gflop": flops / 1e9}
+        row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        if bf16:  # the wrapper's kernels: (conversion,) product(, chunk sum)
+            row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
+        row.update(extra or {})
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def phase_kernels(reps: int) -> list:
     import torch
 
     mj = port("ops.mi_joint")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    replaces = {mj.FWD: f"{JAX_KERNELS}:178", mj.BWD_DX_TF: f"{JAX_KERNELS}:230",
-                mj.BWD_DX: f"{JAX_KERNELS}:249"}
     rows = []
     for batch, hp, wp, p in RAGGED:
         n = batch * hp * wp
@@ -410,56 +500,57 @@ def phase_kernels(reps: int) -> list:
                     "bf16in": (a.to(torch.bfloat16), b.to(torch.bfloat16))}
         for mode, (ma, mb) in operands.items():
             bf16 = mode != "fp32"
-            peak = PEAK_FLOPS["fp32" if mode == "fp32" else "bf16"]
             # fwd: A, B in, J out; bwd: S, g in, [N, C] out (operands in their type)
             nbytes = 2.0 * ma.element_size() * n * c + 4.0 * d * c * c
             cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16)
-            for base, case in cases.items():
-                name = mj.kernel_name(base, ma.dtype)
-                got = case["kernel"]()
-                want = case["want"]
-                diff = (got.float() - want.float()).abs()
-                err = float(diff.max())
-                scale = float(want.float().abs().max())
-                # a bf16 gradient adds its output's rounding: an fp32 sum that lies
-                # within the summation-order difference of a rounding midpoint
-                # rounds the other way, one bf16 step (of the exponent of |want|)
-                bf16_steps = None
-                if got.dtype == torch.bfloat16:
-                    step = torch.exp2(torch.floor(torch.log2(want.float().abs())) - 7)
-                    # the reading behind the allowance: the largest error, in
-                    # steps of its own entry, among entries off by more than TOL
-                    off = diff > TOL * scale
-                    bf16_steps = float((diff / step)[off].max()) if bool(off.any()) else 0.0
-                    diff = (diff - step).clamp_min(0)
-                check(math.isfinite(err) and float(diff.max()) <= TOL * scale,
-                      f"{tap} {mode} {name}: max err {err} vs max |ref| {scale}")
-                check(bool(torch.equal(case["kernel"](), got)),
-                      f"{tap} {mode} {name}: two calls on the same inputs differ")
-                lib_err = float((case["unpack"](case["library"]()).float()
-                                 - want.float()).abs().max())
-                by_ops = flops / peak >= nbytes / HBM_BYTES_PER_S
-                row = {"phase": "kernels", "name": name, "tap": tap, "label": tap, "mode": mode,
-                       "route": "cuda", "source": f"{PORT}/csrc/mi_joint.cu",
-                       "replaces": replaces[base], "shape": [n, c], "padding": p,
-                       "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL,
-                       "max_bf16_steps": bf16_steps,
-                       "ms": cuda_ms(case["kernel"], reps),
-                       "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
-                       "library_ms": cuda_ms(case["library"], max(3, reps // 3), warmup=1),
-                       "library_rel_err": lib_err / scale,
-                       "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
-                       "bound_by": "operations" if by_ops else "bytes",
-                       "gflop": flops / 1e9}
-                row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-                row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
-                row["vs_library"] = row["ms"] / row["library_ms"]
-                if bf16:  # the wrapper's kernels: (conversion,) product(, chunk sum)
-                    row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
-                emit(row)
-                rows.append(row)
+            rows += _joint_rows(mj, cases, ma.dtype,
+                                {"phase": "kernels", "tap": tap, "label": tap, "mode": mode},
+                                n, c, p, flops, nbytes, bf16, reps)
             del cases
         del a, b, g, operands
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_tiles(reps: int) -> list:
+    """The joint at the tile shapes of patch 32 (``IICRegParameters.LossParams.
+    patch_sizes=32``, the train_tiled phase): 10 tiles of 32^2 each with its
+    own zero border (34^2 at Up_conv3's p = 1, 38^2 at Up_conv2's p = 3) and
+    C = S*K = 100 lanes, no dead ones; exactly on integer inputs, then on
+    probability maps within TOL, on fp32 operands (bf16 products, the fp32
+    model's) and bf16 operands. The bound counts the function's 100 lanes
+    (``bound_ms_128``: the 128 lanes the kernels compute)."""
+    import torch
+
+    mj = port("ops.mi_joint")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    rows = []
+    for tap, batch, edge, p in TILES:
+        hp = edge + 2 * p
+        d = (2 * p + 1) ** 2
+        n = batch * hp * hp
+        c = SUBHEADS * CLUSTERS
+        _exact_check(mj, n, hp, p, gen, lanes=c)
+        _exact_check(mj, n, hp, p, gen, lanes=c, dtype=torch.bfloat16)
+        emit({"phase": "kernels", "tile": tap, "exact_check": "passed",
+              "exact_check_bf16in": "passed", "shape": [n, c], "padding": p})
+        a = _tap_inputs(batch, edge, p, gen, lanes=c)
+        b = _tap_inputs(batch, edge, p, gen, lanes=c)
+        g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
+        flops = 2.0 * n * c * c * d
+        for mode, (ma, mb) in {"bf16": (a, b), "bf16in": (a.to(torch.bfloat16),
+                                                          b.to(torch.bfloat16))}.items():
+            nbytes = 2.0 * ma.element_size() * n * c + 4.0 * d * c * c
+            cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16=True)
+            where = {"phase": "kernels", "tap": f"tile_{tap}", "label": f"{tap} tile {edge}",
+                     "mode": mode}
+            bound_128 = max(nbytes / HBM_BYTES_PER_S,
+                            flops * (LANES / c) ** 2 / PEAK_FLOPS["bf16"]) * 1e3
+            rows += _joint_rows(mj, cases, ma.dtype, where, n, c, p, flops, nbytes, True, reps,
+                                extra={"bound_ms_128": bound_128})
+            del cases
+        del a, b, g
         torch.cuda.empty_cache()
     return rows
 
@@ -925,11 +1016,12 @@ def phase_kernels_fused(reps: int) -> list:
     return rows
 
 
-def _step_run(device: str, dtype, fused: bool, stem: str):
+def _step_run(device: str, dtype, fused: bool, stem: str, heads=None, patch: int = 1024):
     """One udaiic step (crop 32, 2 + 3 slices, 3 classes, 2 x 5 clusters,
     paddings [1, 3]) on ``device`` from the weights of seed 0: its losses,
     each parameter's move, the (mi_joint, mi_fused) launches and the names of
-    the kernels launched."""
+    the kernels launched. ``heads``: the projector's head options
+    (head_types, normalize); ``patch``: patch_sizes."""
     import numpy as np
     import torch
 
@@ -944,7 +1036,7 @@ def _step_run(device: str, dtype, fused: bool, stem: str):
     torch.manual_seed(0)
     model = models.UNet(1, 3, dtype=dtype, bn_dtype=dtype, stem=stem)
     proj = models.ProjectorWrapper(feats, num_clusters=5, num_subheads=2,
-                                   local_emit_logits=fused, local_dtype=dtype)
+                                   local_emit_logits=fused, local_dtype=dtype, **(heads or {}))
     model.to(device)
     proj.to(device)
     params = list(chain(model.named_parameters(), proj.named_parameters(prefix="proj")))
@@ -953,7 +1045,7 @@ def _step_run(device: str, dtype, fused: bool, stem: str):
     step = steps.build_train_step(
         model, opt, "udaiic", num_classes=3, generator=torch.Generator(device=device),
         feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj, uda_weight=10.0,
-        iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024)
+        iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=patch)
     before = {k: p.detach().cpu().clone() for k, p in params}
     mj.reset_launch_counts()
     mf.reset_launch_counts()
@@ -975,13 +1067,23 @@ def _loose_share(moves, ref, keys=None) -> float:
     return float(np.mean(diffs > 0.05 * 1e-3)) if diffs.size else 0.0
 
 
+def joint_calls(edges, patch: int) -> int:
+    """The joint's kernel calls a step (forward and two backward products a
+    tile) over decoder maps of the given edges at ``patch``."""
+    tiles = port("ops.iic_local")._tiles
+    return 3 * sum(len(tiles(e, e, patch)) for e in edges)
+
+
 def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "conv",
-               tol: float = STEPS_TOL) -> None:
+               tol: float = STEPS_TOL, heads=None, patch: int = 1024) -> None:
     """One udaiic step (``_step_run``) on the card and on the CPU from the
     same weights; with ``fused`` the decoder heads emit logits (the fused
     kernels on the card). ``dtype``: the compute and BN dtype (bf16: the
     kernels' bf16-operand variants on the card, losses at ``tol``, the
-    parameter moves as STEP_BF16_* says); ``stem``: the U-Net's stem."""
+    parameter moves as STEP_BF16_* says); ``stem``: the U-Net's stem;
+    ``heads``, ``patch``: head options and patch_sizes (step_heads: mlp,
+    normalized, patch 8 on the 16^2 and 32^2 maps, one joint launch a tile
+    and product)."""
     import numpy as np
     import torch
 
@@ -989,8 +1091,8 @@ def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "co
     phase = phase or ("step_fused" if fused else "step")
     mj = port("ops.mi_joint")
     (l_cpu, d_cpu, n_cpu, _), (l_gpu, d_gpu, n_gpu, names) = (
-        _step_run(device, dtype, fused, stem) for device in ("cpu", "cuda"))
-    want = (0, 6) if fused else (6, 0)
+        _step_run(device, dtype, fused, stem, heads, patch) for device in ("cpu", "cuda"))
+    want = (0, 6) if fused else (joint_calls((16, 32), patch), 0)
     check(n_cpu == (0, 0) and n_gpu == want,
           f"{phase} launches (mi_joint, mi_fused) cpu={n_cpu} cuda={n_gpu} (want (0, 0), {want})")
     bf16_in = dtype == torch.bfloat16
@@ -1002,7 +1104,8 @@ def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "co
     # noise the two sides may step opposite ways (<= 2 lr); the bulk agrees
     diffs = np.concatenate([(d_gpu[k] - d_cpu[k]).abs().flatten().numpy() for k in d_cpu])
     loose = _loose_share(d_gpu, d_cpu)
-    out = {"phase": phase, "dtype": str(dtype), "stem": stem, "losses_cpu": l_cpu,
+    out = {"phase": phase, "dtype": str(dtype), "stem": stem, "heads": heads, "patch": patch,
+           "losses_cpu": l_cpu,
            "losses_cuda": l_gpu, "rel_err": rel, "tol_rel": tol,
            "param_delta_max_diff": float(diffs.max()), "param_delta_loose_share": loose,
            "launches_cuda": dict(zip(("mi_joint", "mi_fused"), n_gpu)), "kernels": names}
@@ -1144,13 +1247,15 @@ def phase_step_meanteacher() -> None:
           "teacher_param_max_abs_diff": float(diffs.max()), "teacher_param_loose_share": loose})
 
 
-def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", run_tag: str = ""):
+def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", run_tag: str = "",
+                calls: int = 6):
     """The headline trainer on the host path; with backend pallas_fused the
     fused kernels (2 forward and 4 backward launches a step) replace the
     mi_joint ones. ``extra``: more config overrides (BF16: the kernels'
-    bf16-operand variants, 2 launches of each a step, none on fp32
-    operands). Returns the trainer, the launch counts of this run of the
-    kernels it uses (all counts set to 0 just before) and the phase's line."""
+    bf16-operand variants, none on fp32 operands). ``calls``: the joint's
+    launches a step, a third of them each product's (6: one tile a tap).
+    Returns the trainer, the launch counts of this run of the kernels it
+    uses (all counts set to 0 just before) and the phase's line."""
     import torch
 
     main_mod, mj, mf = port("main"), port("ops.mi_joint"), port("ops.mi_fused")
@@ -1181,14 +1286,12 @@ def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", ru
                     for name in (mf.FWD, mf.BWD_DL2, mf.BWD_DL1)}
         check(per_step == {mf.FWD: 2, mf.BWD_DL2: 2, mf.BWD_DL1: 2},
               f"fused launches per step {per_step} (want 2 forward, 2 + 2 backward)")
-    elif dtype == torch.bfloat16:
+    else:
         per_step = {name: mj.launch_count(mj.kernel_name(name, dtype)) / steps
                     for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
-        check(per_step == {mj.FWD: 2, mj.BWD_DX: 2, mj.BWD_DX_TF: 2},
-              f"bf16-operand joint launches per step {per_step} (want 2 of each)")
-    else:
-        check(launches >= 6 * steps,
-              f"{launches} kernel launches in {steps} steps (want >= 6 per step)")
+        check(per_step == dict.fromkeys(per_step, calls / 3) and launches == calls * steps,
+              f"{phase}: joint launches per step {per_step} on {dtype} (want {calls // 3} of "
+              "each)")
     check(all(name.endswith(mj.BF16_OPERANDS) == (dtype == torch.bfloat16)
               for name, _ in used.LAUNCHES), f"{phase}: {dict(used.LAUNCHES)} on {dtype}")
     row = trainer._storage._rows[0]
@@ -1199,7 +1302,7 @@ def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", ru
     check(0.0 <= val_dsc <= 1.0, f"val DSC {val_dsc}")
     step_ms = statistics.median(trainer.step_times_ms[1:])
     out = {"phase": phase, "backend": backend, "dtype": str(dtype), "steps": steps,
-           "batch": [4, 10], "crop": 224,
+           "batch": [4, 10], "crop": 224, "extra": list(extra),
            "launches": counts, "launches_per_step": launches / steps, "losses": losses,
            "val_dsc_mean": val_dsc, "first_step_ms": trainer.step_times_ms[0],
            "median_step_ms": step_ms, "step_ms": trainer.step_times_ms,
@@ -1208,6 +1311,110 @@ def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", ru
            "wall_s": wall}
     emit(out)
     return trainer, dict(used.LAUNCHES), out
+
+
+def phase_train_tiled(steps: int = 3):
+    """The headline trainer with patch_sizes=32: each decoder map in tiles of
+    32^2 at stride 16, each its own joint (6 x 6 tiles of Up_conv3's 112^2, 13
+    x 13 of Up_conv2's 224^2), the kernel launched (36 + 169) x 3 times a
+    step, no other joint launch; then the step's device time by kind
+    (profile) and the joint's share of it. Returns the trainer and the
+    launch counts of its run (set to 0 just before it)."""
+    calls = joint_calls((112, 224), TILE_PATCH)
+    check(calls == 3 * (36 + 169), f"train_tiled: {calls} joint calls a step, want 615")
+    trainer, launches, out = phase_train(
+        steps, extra=(f"IICRegParameters.LossParams.patch_sizes={TILE_PATCH}",),
+        phase="train_tiled", run_tag="_tiled", calls=calls)
+    prof = phase_profile(trainer, steps=steps, path="tiled")
+    joint_ms = prof["by_kind_ms_per_step"].get(_kernel_kind("joint_fwd"), 0.0)
+    emit({"phase": "train_tiled_split", "launches_per_step": calls,
+          "median_step_ms": out["median_step_ms"],
+          "profile_wall_ms_per_step": prof["wall_ms_per_step"],
+          "device_ms_per_step": prof["device_ms_per_step"], "joint_device_ms_per_step": joint_ms,
+          "joint_share_of_device": joint_ms / prof["device_ms_per_step"]})
+    return trainer, launches
+
+
+def phase_train_heads(steps: int = 3) -> None:
+    """The headline trainer with mlp heads at every position and normalized
+    decoder heads (one full-map tile: 6 joint launches a step), in fp32 and
+    in bf16 compute, each then profiled (device time by kind)."""
+    for tag, extra in (("fp32", ()), ("bf16", BF16)):
+        trainer, _, _ = phase_train(steps, extra=HEADS + extra, phase="train_heads",
+                                    run_tag=f"_heads_{tag}")
+        heads = trainer._projector.heads
+        check(all(h.head_type == "mlp" for h in heads.values())
+              and heads["Up_conv3"].normalize and heads["Up_conv2"].normalize
+              and not heads["Conv5"].normalize, f"train_heads {tag}: heads not as configured")
+        phase_profile(trainer, steps=steps, path=f"heads_{tag}")
+        del trainer
+
+
+def phase_train_backends(steps: int = 2) -> None:
+    """The headline trainer (one full-map tile) with each Kernel.backend from
+    the same seed, ``steps`` steps on one batch: pallas launches auto's
+    kernels (6 a step) and gives auto's first-step losses bit for bit, the
+    later ones within STEPS_TOL; xla, xla_banded
+    and xla_scan launch none and give the first step's losses within
+    BACKEND_TOL of auto's; the peak of device memory above the start, with
+    xla_scan's below xla's (its reason to exist)."""
+    import torch
+
+    main_mod, mj = port("main"), port("ops.mi_joint")
+    batch, results = None, {}
+    for backend in ("auto", "pallas", "xla", "xla_banded", "xla_scan"):
+        trainer = main_mod.main([
+            "Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic", "Trainer.max_epoch=0",
+            "Trainer.device=cuda", f"Kernel.backend={backend}",
+            f"Trainer.save_dir=chip_smoke_backend_{backend}"])
+        if batch is None:
+            lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
+            batch = {"labeled_image": trainer._to_device(lab["image"]),
+                     "labeled_target": trainer._to_device(lab["target"]),
+                     "unlabeled_image": trainer._to_device(unlab["image"])}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mj.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            metrics = trainer._train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")})
+        check(all(math.isfinite(v) for step in losses for v in step.values()),
+              f"train_backends {backend}: losses {losses}")
+        results[backend] = {"losses": losses, "step_ms": times,
+                            "launches_per_step": sum(mj.LAUNCHES.values()) / steps,
+                            "peak_above_start_gib": (torch.cuda.max_memory_allocated() - base)
+                            / 2 ** 30}
+        del trainer, metrics
+        torch.cuda.empty_cache()
+    ref = results["auto"]
+    check(ref["launches_per_step"] == 6 and results["pallas"]["launches_per_step"] == 6,
+          f"train_backends: joint launches a step auto {ref['launches_per_step']}, pallas "
+          f"{results['pallas']['launches_per_step']} (want 6)")
+    # the first step bit for bit (the same forward and kernels); later ones
+    # within STEPS_TOL, as cuDNN may sum a weight gradient in another order
+    pallas = results["pallas"]["losses"]
+    rel = max(abs(q[k] - r[k]) / max(abs(r[k]), 1e-12) for q, r in zip(pallas, ref["losses"])
+              for k in r)
+    check(pallas[0] == ref["losses"][0] and rel <= STEPS_TOL,
+          f"train_backends: pallas {pallas} vs auto {ref['losses']}")
+    for backend in ("xla", "xla_banded", "xla_scan"):
+        got = results[backend]
+        rel = {k: abs(got["losses"][0][k] - v) / max(abs(v), 1e-12)
+               for k, v in ref["losses"][0].items()}
+        got["first_step_rel_err"] = rel
+        check(got["launches_per_step"] == 0 and max(rel.values()) <= BACKEND_TOL,
+              f"train_backends {backend}: {got['launches_per_step']} joint launches a step, "
+              f"first-step losses off auto's by {rel}")
+    scan, unrolled = (results[b]["peak_above_start_gib"] for b in ("xla_scan", "xla"))
+    check(scan < unrolled, f"train_backends: xla_scan peak {scan} GiB >= xla's {unrolled} GiB")
+    emit({"phase": "train_backends", "steps": steps, "tol_rel": BACKEND_TOL,
+          "backends": results})
 
 
 def phase_train_device(steps: int, geometry: str, chunk: int = 4, extra=(), phase: str = "",
@@ -1536,7 +1743,8 @@ def phase_profile(trainer, steps: int, path: str = "host", expect=(), forbid=())
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="device,build,kernels,step,step_fused,step_device,"
-                                              "step_meanteacher,step_bf16,step_s2d,train,"
+                                              "step_meanteacher,step_bf16,step_s2d,step_heads,"
+                                              "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_device,train_bf16,train_remat,"
                                               "resume,inference,train_zoo,profile")
     parser.add_argument("--reps", type=int, default=10)
@@ -1561,11 +1769,12 @@ def main(argv=None) -> int:
     if "build" in phases:
         with timed(walls, "build"):
             phase_build()
-    kernel_rows, rotation_rows, fused_rows = [], [], []
+    kernel_rows, tile_rows, rotation_rows, fused_rows = [], [], [], []
     if "kernels" in phases:
         with timed(walls, "kernels_joint"):
             kernel_rows = phase_kernels(args.reps)
             phase_kernels_wide(args.reps)
+            tile_rows = phase_kernels_tiles(args.reps)
         with timed(walls, "kernels_rotate"):
             rotation_rows = phase_kernels_rotate(args.reps)
         with timed(walls, "kernels_fused"):
@@ -1575,7 +1784,9 @@ def main(argv=None) -> int:
                       ("step_meanteacher", phase_step_meanteacher),
                       ("step_bf16", partial(phase_step, phase="step_bf16", dtype=torch.bfloat16,
                                             tol=STEPS_TOL_BF16)),
-                      ("step_s2d", partial(phase_step, phase="step_s2d", stem="s2d"))):
+                      ("step_s2d", partial(phase_step, phase="step_s2d", stem="s2d")),
+                      ("step_heads", partial(phase_step, phase="step_heads", patch=8,
+                                             heads={"head_types": "mlp", "normalize": True}))):
         if name in phases:
             with timed(walls, name):
                 run()
@@ -1583,6 +1794,17 @@ def main(argv=None) -> int:
     if "train" in phases:
         with timed(walls, "train"):
             trainer, launches, train_out = phase_train(args.steps)
+    tiled_launches = {}
+    if "train_tiled" in phases:
+        with timed(walls, "train_tiled"):
+            tiled_trainer, tiled_launches = phase_train_tiled()
+            del tiled_trainer
+    if "train_heads" in phases:
+        with timed(walls, "train_heads"):
+            phase_train_heads()
+    if "train_backends" in phases:
+        with timed(walls, "train_backends"):
+            phase_train_backends()
     fused_trainer, fused_launches, fused_out = None, {}, None
     if "train_fused" in phases:
         with timed(walls, "train_fused"):
@@ -1661,6 +1883,12 @@ def main(argv=None) -> int:
                     launches=launches.get((r["name"], r["padding"])),
                     resume_launches=resume_launches.get((r["name"], r["padding"]), 0))
                for r in kernel_rows if r["mode"] == "bf16"]
+    # the joint at the tile shapes of patch 32 (fp32 operands, the tiled run's)
+    summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
+                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
+                     bound_ms_128=r["bound_ms_128"],
+                     launches=tiled_launches.get((r["name"], r["padding"]), 0))
+                for r in tile_rows if r["mode"] == "bf16"]
     # the bf16-operand variants (Precision.compute_dtype=bfloat16): launches
     # from the train_bf16 runs (host path; the fused ones from its fused run)
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},

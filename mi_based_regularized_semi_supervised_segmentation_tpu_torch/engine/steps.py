@@ -43,6 +43,7 @@ from ..ops.iic import iid_loss
 from ..ops.iic_local import (
     iid_segmentation_loss_fused_logits,
     iid_segmentation_small_patch_loss_flat,
+    iid_segmentation_small_patch_loss_subheads,
 )
 from ..ops.losses import entropy, kl_div, mse_consistency
 from ..utils.general import class2one_hot
@@ -83,7 +84,10 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
     positions pair them directly (pooling is flip-invariant); decoder
     positions re-apply the flips to the plain half and pad both halves by the
     position's displacement radius, so the head's probabilities are born on
-    the padded canvas the joint kernel reads; the border is then zeroed. With
+    the padded canvas the joint kernel reads; the border is then zeroed. The
+    decoder heads' probabilities are flat [B, Hp, Wp, C] (the trainer's) or
+    [B, Hp, Wp, S, K] (``local_flat`` off), each with its front door; the
+    tiling and the joint follow ``patch_sizes`` and ``backend``. With
     ``projector.local_emit_logits`` (the fused path) the decoder heads emit
     logits and the fused kernels apply the softmax and the border mask."""
     dec_idx = 0
@@ -122,11 +126,17 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
                                  f"map {hp - 2 * padding}x{wp - 2 * padding} at {name}")
             losses[name] = iid_segmentation_loss_fused_logits(p1, p2, S, K, padding=padding)
             continue
-        valid = torch.zeros((1, hp, wp, 1), dtype=p1.dtype, device=p1.device)
+        valid = torch.zeros((1, hp, wp) + (1,) * (p1.dim() - 3), dtype=p1.dtype,
+                            device=p1.device)
         valid[:, padding:hp - padding, padding:wp - padding] = 1.0
-        losses[name] = iid_segmentation_small_patch_loss_flat(
-            p1 * valid, p2 * valid, S, K, padding=padding, patch_size=patch,
-            backend=backend, pre_padded=True)
+        if p1.dim() == 5:  # [B, Hp, Wp, S, K] (local_flat off)
+            losses[name] = iid_segmentation_small_patch_loss_subheads(
+                p1 * valid, p2 * valid, padding=padding, patch_size=patch, backend=backend,
+                pre_padded=True)
+        else:
+            losses[name] = iid_segmentation_small_patch_loss_flat(
+                p1 * valid, p2 * valid, S, K, padding=padding, patch_size=patch,
+                backend=backend, pre_padded=True)
     return losses
 
 

@@ -40,6 +40,7 @@ from ..data.device_pipeline import DeviceDataStore, DeviceIndexLoader, DevicePat
 from ..models import ProjectorWrapper, UNet
 from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import GEOMETRIES
+from ..ops.iic_local import BACKENDS as IIC_LOCAL_BACKENDS
 from ..ops.mi_fused import LANES as FUSED_LANES
 from ..utils import (
     AverageValueMeter,
@@ -74,8 +75,8 @@ from .steps import (
 
 INFERENCE_NAME = "inference.json"
 _ROADMAP = "is not ported yet; see ROADMAP.md"
-BACKENDS = ("auto", "plain", "pallas_fused")
-_JAX_ONLY_BACKENDS = ("pallas", "xla", "xla_banded", "xla_scan")
+# the joint's backends (ops/iic_local.py) and the fused path
+BACKENDS = IIC_LOCAL_BACKENDS + ("pallas_fused",)
 
 
 def resolve_device(device: str) -> torch.device:
@@ -127,9 +128,6 @@ def kernel_options(cfg: Dict[str, Any]) -> Tuple[str, str, str]:
     backend = kernel.get("backend", "auto")
     geometry = kernel.get("geometry", "fused")
     augment = kernel.get("augment", "draw")
-    if backend in _JAX_ONLY_BACKENDS:
-        raise NotImplementedError(f"Kernel.backend={backend!r} {_ROADMAP} (the port has "
-                                  + " | ".join(repr(b) for b in BACKENDS) + ")")
     if backend not in BACKENDS:
         raise ValueError(f"Kernel.backend={backend!r}: expected one of "
                          + " | ".join(repr(b) for b in BACKENDS))
@@ -267,8 +265,9 @@ class SemiTrainer:
             feature_importance=self._feature_importance,
             projector=self._projector,
             # pallas_fused is selected on the projector (local_emit_logits);
-            # a decoder tap that gets probabilities takes the joint kernel
-            backend="auto" if backend == "pallas_fused" else backend,
+            # a decoder tap that gets probabilities takes the joint kernel,
+            # as the JAX trainer's unfused tier takes pallas
+            backend="pallas" if backend == "pallas_fused" else backend,
             data_store=step_stores,
             crop=self._crop_size,
             geometry=geometry,
@@ -732,8 +731,9 @@ def _per_position(config: Dict[str, Any], feature_names, key: str, default) -> l
 
 def _make_projector(config: Dict[str, Any], feature_names, fused_ok: bool = False,
                     local_dtype: torch.dtype = torch.float32) -> ProjectorWrapper:
-    """The cluster heads; the decoder heads compute in ``local_dtype`` (the
-    compute dtype), the encoder heads in fp32."""
+    """The cluster heads, linear or mlp, normalized or not; the decoder
+    heads emit the flat layout (as the JAX trainer's) and compute in
+    ``local_dtype`` (the compute dtype), the encoder heads in fp32."""
     per_position = lambda key, default: _per_position(config, feature_names, key, default)
     return ProjectorWrapper(
         feature_names=tuple(feature_names),

@@ -6,6 +6,7 @@ neither JAX nor flax. Maps:
   conv kernel [kh, kw, in, out]          -> Conv2d.weight [out, in, kh, kw]
   BN scale / bias + batch_stats mean/var -> weight / bias / running_mean / running_var
   Dense / head kernel [dim, S*K], bias   -> Linear.weight [S*K, dim], bias
+  mlp head w1, b1, w2, b2                -> the same names and shapes
 A decoder head that emits logits (``local_emit_logits``, the fused path) has
 the same parameters as one that emits probabilities, so the same map serves.
 """
@@ -57,10 +58,17 @@ def unet_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
     return sd
 
 
+MLP_PARAMS = ("w1", "b1", "w2", "b2")
+
+
 def projector_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ProjectorWrapper ``params`` (linear heads) -> ``ProjectorWrapper.state_dict()``."""
+    """flax ProjectorWrapper ``params`` (linear or mlp heads) ->
+    ``ProjectorWrapper.state_dict()``."""
     sd: Dict[str, torch.Tensor] = {}
     for name, p in params.items():
+        if "w1" in p:  # mlp head, encoder or decoder: the JAX names and shapes
+            sd.update({f"heads.{name}.{k}": _t(p[k]) for k in MLP_PARAMS})
+            continue
         dense = p["linear"] if name in ENCODER_NAMES else p
         sd[f"heads.{name}.linear.weight"] = _t(np.asarray(dense["kernel"]).T)
         sd[f"heads.{name}.linear.bias"] = _t(dense["bias"])

@@ -164,6 +164,34 @@ def test_resume_restores_every_tensor_and_counter(loaders, tmp_path, mode, stric
     assert int(resumed._step_counter) == 2 + 1 + 2
 
 
+def test_mlp_heads_run_saves_and_loads_strictly(loaders, tmp_path):
+    """A udaiic run with mlp, normalized heads at every position and tiled
+    patches (patch 8: 9 tiles of the 16^2 Up_conv3 map, 49 of the 32^2
+    Up_conv2 one) trains, saves, and a fresh trainer of the same config
+    loads its checkpoint strictly: every tensor, the mlp weights among them."""
+    cfg = make_config("udaiic")
+    for part in ("EncoderParams", "DecoderParams"):
+        cfg["IICRegParameters"][part].update(head_types="mlp", normalize=True)
+    cfg["IICRegParameters"]["LossParams"]["patch_sizes"] = 8
+
+    def build(save_dir):
+        t = trainer_zoos["udaiic"](configuration=json.loads(json.dumps(cfg)), save_dir=save_dir,
+                                   max_epoch=1, num_batches=2, device="cpu", crop_size=CROP,
+                                   run_dir=str(tmp_path), **loaders)
+        t.init()
+        return t
+
+    first = build("mlp")
+    first.start_training()
+    assert np.isfinite(first._storage._rows[0]["tra_mi_mean"])
+    saved = torch.load(tmp_path / "mlp" / LAST_NAME, weights_only=True)
+    assert {f"heads.{n}.{k}" for n in ("Conv5", "Up_conv3", "Up_conv2")
+            for k in ("w1", "b1", "w2", "b2")} <= set(saved["projector"])
+    resumed = build("mlp_resumed")
+    resumed.load_state_dict_from_path(str(tmp_path / "mlp"), strict=True)
+    _assert_same(resumed.state_dict(), first.state_dict())
+
+
 def test_lenient_load_of_partial_into_udaiic_leaves_the_projector_at_init(loaders, tmp_path,
                                                                          capsys):
     partial = _trainer("partial", loaders, tmp_path, save_dir="partial")

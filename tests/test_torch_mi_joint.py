@@ -16,7 +16,7 @@ import torch
 
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.iic_local import (
-    displaced_joint_plain,
+    displaced_joint_xla,
     iid_segmentation_small_patch_loss_flat,
 )
 
@@ -109,11 +109,11 @@ def test_joint_matches_pallas_values_and_grads(rng, padding, pre_padded, lanes, 
 
 @pytest.mark.parametrize("padding", [1, 3])
 def test_plain_per_displacement_matches_flat_form(rng, padding):
-    """displaced_joint_plain (sliced, fp32) == the flat-offset form."""
+    """displaced_joint_xla (sliced, fp32) == the flat-offset form."""
     x = _maps(rng, (2, 11, 10, 5))
     y = _maps(rng, (2, 11, 10, 5))
     flat = mi_joint.displaced_joint(torch.tensor(x), torch.tensor(y), padding, torch.float32)
-    sliced = displaced_joint_plain(torch.tensor(x), torch.tensor(y), padding)
+    sliced = displaced_joint_xla(torch.tensor(x), torch.tensor(y), padding)
     np.testing.assert_allclose(sliced.numpy(), flat.numpy(), rtol=1e-5, atol=1e-6)
 
 
@@ -136,9 +136,17 @@ def test_flat_loss_matches_jax(rng, ours, theirs, rtol):
 
 
 def test_flat_loss_unported_paths_raise(rng):
-    x = torch.tensor(_maps(rng, (1, 12, 12, 128), 20, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        iid_segmentation_small_patch_loss_flat(x, x, 2, 10, 1, 4, pre_padded=True)
+    """Multi-tile (patch 8 on a 12 x 12 interior: 4 tiles, each its own
+    joint on 20 live lanes) against the JAX package, bf16 products at the
+    joint tolerance above; pallas_fused is no backend of the joint."""
+    x_np = _maps(rng, (1, 14, 14, 128), 20, 1)
+    y_np = _maps(rng, (1, 14, 14, 128), 20, 1)
+    want = float(jax_loss_flat(jnp.asarray(x_np), jnp.asarray(y_np), 2, 10, 1, 8,
+                               backend="pallas", pre_padded=True))
+    got = float(iid_segmentation_small_patch_loss_flat(
+        torch.tensor(x_np), torch.tensor(y_np), 2, 10, 1, 8, backend="pallas", pre_padded=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    x = torch.tensor(x_np)
     with pytest.raises(ValueError, match="unknown backend 'pallas_fused'"):
         iid_segmentation_small_patch_loss_flat(x, x, 2, 10, 1, 1024, backend="pallas_fused",
                                                pre_padded=True)

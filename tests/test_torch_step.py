@@ -78,21 +78,28 @@ def _port_state(params, stats):
     return sd
 
 
-def _run_both(mode, jax_backend, port_backend, seed=0, emit_logits=False):
+def _run_both(mode, jax_backend, port_backend, seed=0, emit_logits=False, heads=None,
+              jax_flat=True, port_flat=True, crop=CROP, clusters=K, **mode_kw):
+    """One step of each side from the same weights, batch and flip mask.
+    ``heads``: head options of both projectors (head_types, normalize);
+    ``clusters``: K of every head;
+    ``jax_flat`` / ``port_flat``: each side's decoder-head layout (flat or
+    [.., S, K]); ``mode_kw``: step options over MODE_KW's (patch_sizes)."""
     rng = np.random.default_rng(seed)
-    batch = {"labeled_image": rng.random((BL, CROP, CROP, 1), dtype=np.float32),
-             "labeled_target": rng.integers(0, C, (BL, CROP, CROP)).astype(np.int32),
-             "unlabeled_image": rng.random((BU, CROP, CROP, 1), dtype=np.float32)}
+    batch = {"labeled_image": rng.random((BL, crop, crop, 1), dtype=np.float32),
+             "labeled_target": rng.integers(0, C, (BL, crop, crop)).astype(np.int32),
+             "unlabeled_image": rng.random((BU, crop, crop, 1), dtype=np.float32)}
     needs_iic = mode in ("iic", "udaiic")
+    heads = heads or {}
     common = dict(num_classes=C, feature_names=FEATS, feature_importance=IMPORTANCE,
-                  **MODE_KW[mode])
+                  **dict(MODE_KW[mode], **mode_kw))
 
     # --- JAX: init, snapshot, one step ---------------------------------
     jmodel = JUNet(input_dim=1, num_classes=C)
-    jproj = JProjector(feature_names=FEATS, num_clusters=K, num_subheads=S,
-                       local_flat=True, local_emit_logits=emit_logits) if needs_iic else None
+    jproj = JProjector(feature_names=FEATS, num_clusters=clusters, num_subheads=S, **heads,
+                       local_flat=jax_flat, local_emit_logits=emit_logits) if needs_iic else None
     tx = j_build_optimizer({"name": "Adam", "lr": LR, "weight_decay": WD})
-    state = init_train_state(jmodel, tx, (1, CROP, CROP, 1), seed=0, projector=jproj,
+    state = init_train_state(jmodel, tx, (1, crop, crop, 1), seed=0, projector=jproj,
                              projector_feature_names=FEATS if needs_iic else None)
     params0, stats0 = _np_tree(state.params), _np_tree(state.batch_stats)
     _, flip_key = jax.random.split(state.rng)  # the draw the JAX step makes
@@ -109,8 +116,8 @@ def _run_both(mode, jax_backend, port_backend, seed=0, emit_logits=False):
     proj = None
     params = list(model.parameters())
     if needs_iic:
-        proj = ProjectorWrapper(FEATS, num_clusters=K, num_subheads=S,
-                                local_emit_logits=emit_logits)
+        proj = ProjectorWrapper(FEATS, num_clusters=clusters, num_subheads=S, **heads,
+                                local_emit_logits=emit_logits, local_flat=port_flat)
         proj.load_state_dict({k[5:]: v for k, v in before.items() if k.startswith("proj.")})
         params = list(chain(params, proj.parameters()))
     opt = build_optimizer(params, {"name": "Adam", "lr": LR, "weight_decay": WD})
