@@ -109,6 +109,20 @@ Phases, each printing JSON lines:
            Kernel.geometry=shear: 2 rotation launches a step; the teacher moved
            from init and unlike the student), entropy and uda with
            UDARegCriterion.name=kl (host path)
+  pretrain the contrastive pretrain pipeline through ``pretrain_main.main``
+           at pretrain.yaml's widths (crop 224, 4 patients x 3 partitions, two
+           views; projector mlp; IIC heads 10 x 10 on Conv5, 10 x 20 on
+           Up_conv3 at padding 0): Trainer.name=iiccontrast, 3 steps in each
+           phase (encoder, decoder, finetune): CSV and last.pth each, finite
+           losses, frozen components bit-equal across each pretrain phase,
+           the joint launched only in the decoder phase, 12 times a step (3
+           products, each 4 launches: 200 lanes in two 128-lane blocks, the
+           second zero-padded), each phase's step ms and peak; contrastMT's
+           finetune alone (its CSV's val DSC the teacher's); one decoder-IIC
+           step on the card against the CPU at crop 32 (STEPS_TOL); the
+           joint at the decoder's shape ([150528, 200], p = 0) exactly on
+           integer inputs, within TOL on probability maps, timed beside its
+           bound and torch.matmul
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
            trainer (torch.profiler), and the device's busy share of the wall;
@@ -204,6 +218,11 @@ TILE_PATCH = 32      # train_tiled: the original project's default patch size
 # holds bf16 against fp32 joints at 5e-3. pallas is auto's kernel: bit for bit.
 BACKEND_TOL = 5e-3
 ZOO_STEPS = 4        # steps of each resume / train_zoo run
+PRETRAIN_STEPS = 3   # pretrain: batches an epoch, one epoch a phase
+# the pretrain decoder's IIC map (pretrain.yaml): Up_conv3 of 4 patients x 3
+# partitions at crop 224, padding 0; IICHead.Decoder's 10 x 20 clusters
+PRETRAIN_TAP = ("Up_conv3", 12, 112, 0)
+PRETRAIN_HEAD = (10, 20)
 
 
 @contextmanager
@@ -316,16 +335,16 @@ def phase_build() -> None:
 
 
 def _tap_inputs(batch: int, edge: int, padding: int, gen, clusters: int = CLUSTERS,
-                lanes: int = LANES):
+                lanes: int = LANES, subheads: int = SUBHEADS):
     """Probabilities as the training path feeds the joint: per-subhead
-    softmax in 5 x clusters of `lanes` lanes, dead lanes 0, a zero border of
-    width p."""
+    softmax in subheads x clusters of `lanes` lanes, dead lanes 0, a zero
+    border of width p."""
     import torch
 
     hp = edge + 2 * padding
-    z = torch.randn((batch, hp, hp, SUBHEADS, clusters), generator=gen, device="cuda")
-    probs = torch.softmax(z, -1).reshape(batch, hp, hp, SUBHEADS * clusters)
-    probs = torch.nn.functional.pad(probs, (0, lanes - SUBHEADS * clusters))
+    z = torch.randn((batch, hp, hp, subheads, clusters), generator=gen, device="cuda")
+    probs = torch.softmax(z, -1).reshape(batch, hp, hp, subheads * clusters)
+    probs = torch.nn.functional.pad(probs, (0, lanes - subheads * clusters))
     valid = torch.zeros((1, hp, hp, 1), device="cuda")
     valid[:, padding:hp - padding, padding:hp - padding] = 1.0
     return (probs * valid).reshape(-1, lanes).contiguous()
@@ -1675,6 +1694,275 @@ def phase_train_remat(steps: int = 3) -> None:
           "peak_above_start_gib_remat": rem_peak, "step_ms": plain_ms, "step_ms_remat": rem_ms})
 
 
+def _pretrain_argv(name: str, save_dir: str, *extra: str) -> list:
+    """``pretrain_main`` on the card at pretrain.yaml's widths (crop 224,
+    4 patients x 3 partitions a contrastive batch, the default heads),
+    PRETRAIN_STEPS steps an epoch, one epoch a phase."""
+    return ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", f"Trainer.name={name}", "Trainer.device=cuda",
+            f"Trainer.num_batches={PRETRAIN_STEPS}", "Trainer.max_epoch_train_encoder=1",
+            "Trainer.max_epoch_train_decoder=1", "Trainer.max_epoch_train_finetune=1",
+            f"Trainer.save_dir={save_dir}", "Trainer.step_timing=true", *extra]
+
+
+@contextmanager
+def _watch_phases(cls, record: dict):
+    """While it is open, each phase method of the trainer class ``cls`` runs
+    with the joint's launch counts set to 0 and the peak memory reset just
+    before it; ``record[phase]`` then holds that phase's launches, peak,
+    wall and the model's parameters before and after it."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import torch
+
+    mj = port("ops.mi_joint")
+
+    def watched(phase, method):
+        def run(self, *args, **kwargs):
+            params = lambda: {k: p.detach().clone() for k, p in self._model.named_parameters()}
+            before = params()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mj.reset_launch_counts()
+            t0 = time.perf_counter()
+            method(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            record[phase] = {"launches": dict(mj.LAUNCHES), "wall_s": time.perf_counter() - t0,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                             "before": before, "after": params()}
+        return run
+
+    with ExitStack() as stack:
+        for phase in ("pretrain_encoder", "pretrain_decoder", "finetune"):
+            stack.enter_context(mock.patch.object(cls, phase, watched(phase,
+                                                                      getattr(cls, phase))))
+        yield
+
+
+def _phase_rows(run: Path, phase: str) -> list:
+    import csv
+
+    with open(run / phase / f"{phase}.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def phase_pretrain(steps: int = PRETRAIN_STEPS) -> dict:
+    """``Trainer.name=iiccontrast`` through ``pretrain_main.main``, one epoch
+    of ``steps`` batches in each phase: each phase's CSV and last.pth, its
+    losses finite; the frozen components' parameters bit-equal across each
+    pretrain phase (and the trainable ones moved); the joint launched in the
+    decoder phase exactly as its lane tiling says (3 products a step, each
+    one launch per pair of 128-lane blocks of the 200 lanes, all at padding
+    0) and in no other phase; each phase's median step ms (each step
+    synchronised) and peak memory. Returns the decoder phase's launches."""
+    import torch
+
+    pm, pre, mj = port("pretrain_main"), port("engine.pretrain"), port("ops.mi_joint")
+    subheads, clusters = PRETRAIN_HEAD
+    per_product = len(mj._lane_tiles(subheads * clusters)) ** 2
+    record: dict = {}
+    with _watch_phases(pre.IICContrastTrainer, record):
+        trainer = pm.main(_pretrain_argv("iiccontrast", "chip_smoke_pretrain_iic"))
+    run = Path(trainer._save_dir)
+    trainable = {"pretrain_encoder": pre.component_range("Conv1", "Conv5"),
+                 "pretrain_decoder": pre.component_range("Up5", "Up_conv3")}
+    losses = {"pretrain_encoder": ("PRETRAIN_ENCODER_contrastive_loss_mean",
+                                   "PRETRAIN_ENCODER_iic_loss_mean"),
+              "pretrain_decoder": ("PRETRAIN_DECODER_contrastive_loss_mean",
+                                   "PRETRAIN_DECODER_iic_loss_mean"),
+              "finetune": ("finetune_sup_loss_mean", "val_ds_DSC_mean")}
+    check(sorted(record) == sorted(losses), f"pretrain: phases run {sorted(record)}")
+    for phase, rec in record.items():
+        (row,) = _phase_rows(run, phase)
+        values = {k: float(row[k]) for k in losses[phase]}
+        check(all(math.isfinite(v) for v in values.values()), f"pretrain {phase}: {values}")
+        check((run / phase / "last.pth").is_file(), f"pretrain {phase}: no last.pth")
+        out = {"phase": "pretrain", "trainer": "iiccontrast", "stage": phase, "steps": steps,
+               "crop": 224, "losses": values, "wall_s": rec["wall_s"],
+               "step_ms": trainer.step_times_ms[phase],
+               "median_step_ms": statistics.median(trainer.step_times_ms[phase][1:]),
+               "max_memory_allocated_gib": rec["peak_gib"],
+               "launches": {f"{k}/p{p}": v for (k, p), v in sorted(rec["launches"].items())}}
+        if phase in trainable:
+            same = {k for k in rec["before"] if torch.equal(rec["before"][k], rec["after"][k])}
+            frozen = {k for k, t in pre.freeze_mask(trainer._model, trainable[phase]).items()
+                      if not t}
+            check(same == frozen, f"pretrain {phase}: unchanged {sorted(same ^ frozen)[:5]} "
+                                  "(want exactly the frozen components' parameters)")
+            out["frozen_params_bit_equal"] = len(frozen)
+        want = {}
+        if phase == "pretrain_decoder":
+            want = {(name, 0): steps * per_product for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
+            out["launches_per_step"] = 3 * per_product
+        check(rec["launches"] == want, f"pretrain {phase}: joint launches {rec['launches']} "
+                                       f"(want {want})")
+        emit(out)
+    decoder_launches = record["pretrain_decoder"]["launches"]
+    del trainer, record
+    torch.cuda.empty_cache()
+    return decoder_launches
+
+
+def phase_pretrain_mt(steps: int = PRETRAIN_STEPS) -> None:
+    """``Trainer.name=contrastMT`` with ``train_encoder`` and
+    ``train_decoder`` false: ``steps`` finetune steps with the mean teacher.
+    The val DSC in its CSV is the teacher's (the teacher of last.pth,
+    evaluated again, within 1e-6); the teacher moved from init and is unlike
+    the student; the losses finite; no joint launch."""
+    import torch
+
+    pm, mj, models = port("pretrain_main"), port("ops.mi_joint"), port("models")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mj.reset_launch_counts()
+    trainer = pm.main(_pretrain_argv("contrastMT", "chip_smoke_pretrain_mt",
+                                     "Trainer.train_encoder=false",
+                                     "Trainer.train_decoder=false"))
+    check(sum(mj.LAUNCHES.values()) == 0, f"pretrain_mt: joint launches {dict(mj.LAUNCHES)}")
+    run = Path(trainer._save_dir)
+    (row,) = _phase_rows(run, "finetune")
+    losses = {k: float(row[f"finetune_{k}_mean"]) for k in ("sup_loss", "reg_loss")}
+    check(all(math.isfinite(v) for v in losses.values()), f"pretrain_mt: losses {losses}")
+    dev = trainer._device
+    state = torch.load(run / "finetune" / "last.pth", map_location=dev, weights_only=False)
+    scores = {}
+    for who in ("teacher", "model"):
+        net = models.UNet(1, 4).to(dev)
+        net.load_state_dict(state[who])
+        scores[who] = trainer._eval_phase(net)[1]
+    csv_score = float(row["val_ds_DSC_mean"])
+    check(abs(scores["teacher"] - csv_score) <= 1e-6,
+          f"pretrain_mt: CSV val DSC {csv_score}, the teacher's {scores['teacher']}")
+    torch.manual_seed(int(trainer._config["RandomSeed"]))
+    init = models.UNet(1, 4).state_dict()
+    names = [k for k, _ in models.UNet(1, 4).named_parameters()]
+    teacher = {k: state["teacher"][k].cpu() for k in names}
+    student = {k: state["model"][k].cpu() for k in names}
+    check(all(not torch.equal(teacher[k], init[k]) and not torch.equal(teacher[k], student[k])
+              for k in names), "pretrain_mt: a teacher parameter at init or equal to the student's")
+    emit({"phase": "pretrain_mt", "trainer": "contrastMT", "steps": steps, "losses": losses,
+          "val_dsc_teacher": scores["teacher"], "val_dsc_student": scores["model"],
+          "step_ms": trainer.step_times_ms["finetune"],
+          "median_step_ms": statistics.median(trainer.step_times_ms["finetune"][1:]),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+
+def _pretrain_step_run(device: str):
+    """One decoder-IIC pretrain step (crop 32, 4 slices a view, the pretrain
+    heads: 10 x 20 clusters, padding 0) on ``device`` from the weights of
+    seed 0, the same batch and flip mask: its losses, each trainable
+    parameter's move and the joint's launches."""
+    import numpy as np
+    import torch
+
+    models, pre, mj = port("models"), port("engine.pretrain"), port("ops.mi_joint")
+    subheads, clusters = PRETRAIN_HEAD
+    rng = np.random.default_rng(0)
+    b = 4
+    batch = {"image": rng.random((b, 32, 32, 1), dtype=np.float32),
+             "image_tf": rng.random((b, 32, 32, 1), dtype=np.float32),
+             "labels": pre.local_labels(["0", "1", "2", "0"], ["p1", "p1", "p2", "p2"],
+                                        pre.unfold_locations((4, 4), b))}
+    flip_mask = torch.from_numpy(rng.random((b, 2)) < 0.5)
+    torch.manual_seed(0)
+    model = models.UNet(1, 4).to(device)
+    heads = torch.nn.ModuleDict({
+        "projector": models.LocalProjectionHead(32),
+        "iic": models.LocalClusterHead(32, clusters, subheads, "mlp", flat_output=False)})
+    phase = pre._Phase(model, heads, pre.component_range("Up5", "Up_conv3"), 1e-3, 0.0,
+                       torch.device(device), 11)
+    step = pre.build_pretrain_decoder_step(model, phase.heads["projector"], phase.optimizer,
+                                           generator=phase.generator,
+                                           iic_head=phase.heads["iic"])
+    params = list(chain(model.named_parameters(), heads.named_parameters(prefix="heads")))
+    before = {k: p.detach().cpu().clone() for k, p in params}
+    mj.reset_launch_counts()
+    metrics = step({k: torch.as_tensor(v).to(device) for k, v in batch.items()},
+                   flip_mask=flip_mask)
+    launches = sum(mj.LAUNCHES.values())
+    phase.close()
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.detach().cpu() - before[k] for k, p in params}, launches)
+
+
+def phase_pretrain_step() -> None:
+    """The decoder-IIC pretrain step on the card (the joint kernels,
+    lane-tiled) against the CPU (their plain version): losses within
+    STEPS_TOL (relative), the parameter moves as in the step phase."""
+    import numpy as np
+
+    mj = port("ops.mi_joint")
+    subheads, clusters = PRETRAIN_HEAD
+    (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = (_pretrain_step_run(dev)
+                                                    for dev in ("cpu", "cuda"))
+    want = 3 * len(mj._lane_tiles(subheads * clusters)) ** 2
+    check(n_cpu == 0 and n_gpu == want, f"pretrain_step launches cpu={n_cpu} cuda={n_gpu} "
+                                        f"(want 0, {want})")
+    rel = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
+    check(all(v <= STEPS_TOL for v in rel.values()), f"pretrain_step losses differ: {rel}")
+    diffs = np.concatenate([(d_gpu[k] - d_cpu[k]).abs().flatten().numpy() for k in d_cpu])
+    loose = _loose_share(d_gpu, d_cpu)
+    check(diffs.max() <= 2.05e-3 and loose < 0.005,
+          f"pretrain_step param deltas: max {diffs.max()}, loose share {loose}")
+    emit({"phase": "pretrain_step", "losses_cpu": l_cpu, "losses_cuda": l_gpu, "rel_err": rel,
+          "tol_rel": STEPS_TOL, "param_delta_max_diff": float(diffs.max()),
+          "param_delta_loose_share": loose, "launches_cuda": n_gpu})
+
+
+def phase_pretrain_joint(reps: int) -> list:
+    """The joint at the pretrain decoder's shape ([12 * 112^2, 200] fp32
+    probability maps, padding 0, bf16 products, lane-tiled): exactly on
+    integer inputs at a ragged shape and at this one (fp32 and bf16
+    operands), then within TOL on probability maps, timed beside the plain
+    version, its bound and one torch.matmul (at padding 0 the joint is one
+    [N, C]^T [N, C] product): bf16 casts of the fp32 inputs included, with
+    the fp32 matmul beside it (``library_fp32_ms``)."""
+    import torch
+
+    mj = port("ops.mi_joint")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    subheads, clusters = PRETRAIN_HEAD
+    c = subheads * clusters
+    tap, batch, edge, p = PRETRAIN_TAP
+    n = batch * edge * edge
+    for shape in (RAGGED[5], (batch, edge, edge, p)):
+        rows_n = shape[0] * shape[1] * shape[2]
+        _exact_check(mj, rows_n, shape[2], shape[3], gen, c)
+        _exact_check(mj, rows_n, shape[2], shape[3], gen, c, dtype=torch.bfloat16)
+        emit({"phase": "pretrain_joint", "shape": list(shape), "lanes": c,
+              "exact_check": "passed", "exact_check_bf16in": "passed"})
+    a = _tap_inputs(batch, edge, p, gen, clusters, c, subheads)
+    b = _tap_inputs(batch, edge, p, gen, clusters, c, subheads)
+    g = torch.randn((1, c, c), generator=gen, device="cuda") * 1e-3
+    cases = _joint_cases(mj, a, b, g, batch, edge, p, bf16=True)
+    bf = lambda t: t.to(torch.bfloat16)
+    # at padding 0: J = A^T B, dx = B g^T, dx_tf = A g
+    matmuls = {mj.FWD: (lambda: torch.matmul(bf(a).T, bf(b)), lambda: torch.matmul(a.T, b)),
+               mj.BWD_DX: (lambda: torch.matmul(bf(b), bf(g[0]).T),
+                           lambda: torch.matmul(b, g[0].T)),
+               mj.BWD_DX_TF: (lambda: torch.matmul(bf(a), bf(g[0])),
+                              lambda: torch.matmul(a, g[0]))}
+    extra = {}
+    for name, (lib, lib32) in matmuls.items():
+        cases[name]["library"] = lib
+        cases[name]["unpack"] = (lambda o: o[None]) if name == mj.FWD else (lambda o: o)
+        extra[name] = cuda_ms(lib32, max(3, reps // 3), warmup=1)
+    nbytes = 2.0 * 4 * n * c + 4.0 * c * c
+    rows = []
+    for name, case in cases.items():
+        rows += _joint_rows(mj, {name: case}, a.dtype,
+                            {"phase": "pretrain_joint", "tap": tap, "label": f"pretrain {tap}",
+                             "mode": "bf16"}, n, c, p, 2.0 * n * c * c, nbytes, True, reps,
+                            extra={"library": "torch.matmul, bf16 casts included",
+                                   "library_fp32_ms": extra[name],
+                                   "launches_per_call": len(mj._lane_tiles(c)) ** 2})
+    del a, b, g, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
@@ -1746,7 +2034,7 @@ def main(argv=None) -> int:
                                               "step_meanteacher,step_bf16,step_s2d,step_heads,"
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_device,train_bf16,train_remat,"
-                                              "resume,inference,train_zoo,profile")
+                                              "resume,inference,train_zoo,pretrain,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -1843,6 +2131,13 @@ def main(argv=None) -> int:
     if "train_zoo" in phases:
         with timed(walls, "train_zoo"):
             zoo_rot_launches = phase_train_zoo()
+    pretrain_rows, pretrain_launches = [], {}
+    if "pretrain" in phases:
+        with timed(walls, "pretrain"):
+            pretrain_launches = phase_pretrain()
+            phase_pretrain_mt()
+            phase_pretrain_step()
+            pretrain_rows = phase_pretrain_joint(args.reps)
     profiles = {}
     t0 = time.perf_counter()
     if "profile" in phases:
@@ -1906,6 +2201,13 @@ def main(argv=None) -> int:
                      launches=(bf16_fused_launches if r["mode"] == "bf16in" else fused_launches)
                      .get((r["name"], r["padding"]), 0))
                 for r in fused_rows if r["mode"] in ("bf16", "bf16in")]
+    # the joint at the pretrain decoder's shape (p = 0, 200 lanes): launches
+    # from the decoder phase of the pretrain run; the library is torch.matmul
+    summary += [dict(name=f"{r['name']}@pretrain", **{k: r[k] for k in keys},
+                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
+                     library_fp32_ms=r["library_fp32_ms"],
+                     launches=pretrain_launches.get((r["name"], r["padding"]), 0))
+                for r in pretrain_rows]
     emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})

@@ -20,6 +20,9 @@ Two data paths:
   on the card (``Kernel.geometry``). With ``Trainer.epoch_scan`` (default)
   the epoch runs in chunks of at most ``scan_chunk`` steps, each given its
   indices in one upload and read back once.
+On either path ``Trainer.profile`` (true, or an epoch number) writes a
+``torch.profiler`` trace of that epoch's first steps under
+``<save_dir>/profile`` (``EpochTrace``).
 """
 
 from __future__ import annotations
@@ -91,11 +94,23 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-def _check_defaults(cfg: Dict[str, Any]) -> None:
-    """Keys the port does not implement yet must keep their defaults."""
-    parallel = cfg.get("Parallel") or {}
-    if parallel.get("num_devices") not in (None, 1):
-        raise NotImplementedError(f"Parallel.num_devices={parallel['num_devices']!r} {_ROADMAP}")
+# the JAX package's Parallel section: each key's accepted values (its default
+# first); the port trains on one device with no mesh
+PARALLEL_DEFAULTS = {"data_axis": ("data",), "num_devices": (None, 1), "space_size": (1,),
+                     "multihost": (False,), "coordinator_address": (None,),
+                     "num_processes": (None,), "process_id": (None,)}
+
+
+def check_parallel(cfg: Dict[str, Any]) -> None:
+    """The ``Parallel`` section must keep its defaults: any other value raises
+    ``NotImplementedError`` naming the key (the port has no mesh, spatial
+    axis or multi-host run yet); an unknown key raises ``ValueError``.
+    ``main.py``, ``pretrain_main.py`` and the trainers call it."""
+    for key, value in (cfg.get("Parallel") or {}).items():
+        if key not in PARALLEL_DEFAULTS:
+            raise ValueError(f"Parallel.{key}: expected one of {sorted(PARALLEL_DEFAULTS)}")
+        if value not in PARALLEL_DEFAULTS[key]:
+            raise NotImplementedError(f"Parallel.{key}={value!r} {_ROADMAP}")
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -151,6 +166,66 @@ def kernel_options(cfg: Dict[str, Any]) -> Tuple[str, str, str]:
     return backend, geometry, augment
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` (through pinned memory to a card)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+PROFILE_STEPS = 11  # Trainer.profile traces an epoch's steps 0..10, as the JAX trainer
+
+
+class EpochTrace:
+    """``Trainer.profile``: true (every epoch) or an epoch number. When it
+    selects ``epoch``, a ``torch.profiler`` trace (host activity, and the
+    card's on cuda) runs from the epoch's first step until ``steps_done``
+    reports ``steps`` steps (or the block ends), then is written as a Chrome
+    trace to ``<save_dir>/profile/epoch_<epoch>.json``; a trace that cannot
+    be written raises. Otherwise it does nothing."""
+
+    def __init__(self, setting, epoch: int, save_dir: str, device: torch.device,
+                 steps: int) -> None:
+        self.path = Path(save_dir) / "profile" / f"epoch_{epoch:03d}.json"
+        self._device, self._steps, self._prof = device, steps, None
+        on = setting if isinstance(setting, bool) else (
+            setting is not None and int(setting) == epoch)
+        if on:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+
+    def steps_done(self, n: int) -> None:
+        if self._prof is not None and n >= self._steps:
+            self._write()
+
+    def _write(self) -> None:
+        prof, self._prof = self._prof, None
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        prof.stop()
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(self.path))
+        if not self.path.is_file() or self.path.stat().st_size == 0:
+            raise RuntimeError(f"Trainer.profile: no trace written to {self.path}")
+
+    def __enter__(self) -> "EpochTrace":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        if self._prof is not None:
+            if exc_type is None:
+                self._write()
+            else:
+                self._prof.stop()
+        return False
+
+
 class SemiTrainer:
     """'partial' mode: supervised-only on the labeled loader."""
 
@@ -172,9 +247,10 @@ class SemiTrainer:
         crop_size: int = 224,
         run_dir: Optional[str] = None,
         step_timing: bool = False,
+        profile=None,
         **kwargs,
     ) -> None:
-        _check_defaults(configuration)
+        check_parallel(configuration)
         self._dtypes = precision_dtypes(configuration)
         self._kernel_options = kernel_options(configuration)
         self._config = configuration
@@ -191,6 +267,7 @@ class SemiTrainer:
         # time / its size) and keep the times (ms) in step_times_ms; off by
         # default, as it stalls the queue
         self._step_timing = bool(step_timing)
+        self._profile = profile  # Trainer.profile (EpochTrace)
         self.step_times_ms: list = []
         self.epoch_times_s: list = []  # wall time of each epoch, eval and saving included
         self._save_dir = str(Path(run_dir or self.RUN_DIR) / save_dir)
@@ -357,10 +434,7 @@ class SemiTrainer:
         return meters
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self._device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self._device, non_blocking=True)
+        return to_device(arr, self._device)
 
     # --- epoch loops ----------------------------------------------------
     def _run_epoch(self, epoch: int) -> Dict[str, Dict[str, float]]:
@@ -384,24 +458,26 @@ class SemiTrainer:
                        for lab, unlab in zip(self._labeled_loader, self._unlabeled_loader))
         pending = []
         progress_every = max(self._num_batches // 5, 1)
-        for i in range(self._num_batches):
-            batch = next(batches)
-            groups = batch.pop("group")
-            t0 = time.perf_counter()
-            metrics = self._train_step(batch)
-            if self._step_timing:
-                if self._device.type == "cuda":
-                    torch.cuda.synchronize(self._device)
-                self.step_times_ms.append((time.perf_counter() - t0) * 1e3)
-            pending.append((metrics, groups))
-            if self._progress and self._device_data and (i + 1) % progress_every == 0:
-                live = ""
-                if self._live_metrics:  # opt-in: reads the newest step back
-                    live = (f"  sup_loss={float(metrics['sup_loss']):.4f}"
-                            f" reg_loss={float(metrics['reg_loss']):.4f}")
-                print(f"\r[{self.mode}] epoch {epoch:03d}: {i + 1}/{self._num_batches} steps "
-                      f"dispatched{live}", end="" if i + 1 < self._num_batches else "\n",
-                      flush=True)
+        with self._trace(epoch) as trace:
+            for i in range(self._num_batches):
+                batch = next(batches)
+                groups = batch.pop("group")
+                t0 = time.perf_counter()
+                metrics = self._train_step(batch)
+                if self._step_timing:
+                    if self._device.type == "cuda":
+                        torch.cuda.synchronize(self._device)
+                    self.step_times_ms.append((time.perf_counter() - t0) * 1e3)
+                pending.append((metrics, groups))
+                trace.steps_done(i + 1)
+                if self._progress and self._device_data and (i + 1) % progress_every == 0:
+                    live = ""
+                    if self._live_metrics:  # opt-in: reads the newest step back
+                        live = (f"  sup_loss={float(metrics['sup_loss']):.4f}"
+                                f" reg_loss={float(metrics['reg_loss']):.4f}")
+                    print(f"\r[{self.mode}] epoch {epoch:03d}: {i + 1}/{self._num_batches} "
+                          f"steps dispatched{live}",
+                          end="" if i + 1 < self._num_batches else "\n", flush=True)
 
         for metrics, groups in pending:  # one device sync per epoch
             metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
@@ -410,6 +486,10 @@ class SemiTrainer:
                     f"non-finite loss at epoch {epoch}: {float(metrics['total_loss'])}")
             self._add_step_metrics(meters, metrics, groups)
         return meters.tracking_status()
+
+    def _trace(self, epoch: int) -> EpochTrace:
+        return EpochTrace(self._profile, epoch, self._save_dir, self._device,
+                          min(PROFILE_STEPS, self._num_batches))
 
     def _add_step_metrics(self, meters, metrics: Dict[str, np.ndarray], groups) -> None:
         meters["sup_loss"].add(float(metrics["sup_loss"]))
@@ -449,25 +529,27 @@ class SemiTrainer:
             group_lists.append(lab["group"])
         lab_all, unlab_all = np.stack(lab_idx), np.stack(unlab_idx)
         chunks, done = [], 0
-        for size in self._epoch_chunks:
-            if self._progress:
-                print(f"\r[{self.mode}] epoch {epoch:03d}: scan {done}/{self._num_batches} "
-                      "steps …", end="", flush=True)
-            t0 = time.perf_counter()
-            batches = {"labeled_indices": self._to_device(lab_all[done:done + size]),
-                       "unlabeled_indices": self._to_device(unlab_all[done:done + size])}
-            fn = self._epoch_fns[size]
-            part = (fn(batches, int(self._aug_seeds.integers(1 << 62))) if self._pipelined
-                    else fn(batches))
-            chunks.append(self._readback(part))  # syncs
-            if self._step_timing:
-                self.step_times_ms.extend([(time.perf_counter() - t0) * 1e3 / size] * size)
-            done += size
-            if self._progress and self._live_metrics:  # free: the readback synced
-                sl = np.mean(np.concatenate([c["sup_loss"] for c in chunks]))
-                rl = np.mean(np.concatenate([c["reg_loss"] for c in chunks]))
-                print(f"\r[{self.mode}] epoch {epoch:03d}: scan {done}/{self._num_batches}  "
-                      f"sup_loss={sl:.4f} reg_loss={rl:.4f}", end="", flush=True)
+        with self._trace(epoch) as trace:  # whole chunks: up to the one with step 10
+            for size in self._epoch_chunks:
+                if self._progress:
+                    print(f"\r[{self.mode}] epoch {epoch:03d}: scan {done}/{self._num_batches} "
+                          "steps …", end="", flush=True)
+                t0 = time.perf_counter()
+                batches = {"labeled_indices": self._to_device(lab_all[done:done + size]),
+                           "unlabeled_indices": self._to_device(unlab_all[done:done + size])}
+                fn = self._epoch_fns[size]
+                part = (fn(batches, int(self._aug_seeds.integers(1 << 62))) if self._pipelined
+                        else fn(batches))
+                chunks.append(self._readback(part))  # syncs
+                if self._step_timing:
+                    self.step_times_ms.extend([(time.perf_counter() - t0) * 1e3 / size] * size)
+                done += size
+                trace.steps_done(done)
+                if self._progress and self._live_metrics:  # free: the readback synced
+                    sl = np.mean(np.concatenate([c["sup_loss"] for c in chunks]))
+                    rl = np.mean(np.concatenate([c["reg_loss"] for c in chunks]))
+                    print(f"\r[{self.mode}] epoch {epoch:03d}: scan {done}/{self._num_batches}  "
+                          f"sup_loss={sl:.4f} reg_loss={rl:.4f}", end="", flush=True)
         stacked = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
         total = stacked["total_loss"]
         if not np.all(np.isfinite(total)):

@@ -9,7 +9,8 @@
         Trainer.name=udaiic Trainer.save_dir=udaiic_run Checkpoint=runs/udaiic_run \
         Inference=true
 
-Flow: config (YAML + dotted-key overrides) -> seed -> matmul precision ->
+Flow: config (YAML + dotted-key overrides; a ``Parallel`` key off its
+default raises) -> seed -> matmul precision ->
 loaders (labeled / unlabeled / test, val carved from unlabeled) -> trainer
 from the registry -> init -> resume from ``Checkpoint`` (a checkpoint or a
 run directory: its ``last.pth``; entries matched by name and shape) ->
@@ -28,7 +29,7 @@ import torch
 from . import PROJECT_PATH
 from .config import ConfigManager
 from .data import create_val_loader, generate_synthetic_acdc, get_dataloaders
-from .engine import trainer_zoos
+from .engine import check_parallel, trainer_zoos
 from .utils import gethash, set_seed
 
 
@@ -44,6 +45,7 @@ def set_matmul_precision(name: str) -> None:
 
 def main(argv: Optional[List[str]] = None):
     config = ConfigManager(argv=argv if argv is not None else sys.argv[1:]).config
+    check_parallel(config)
     set_seed(int(config.get("RandomSeed", 1)))
     set_matmul_precision(str((config.get("Precision") or {}).get("matmul_precision", "highest")))
 

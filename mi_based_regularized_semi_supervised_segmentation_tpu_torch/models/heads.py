@@ -1,5 +1,8 @@
-"""Cluster heads over U-Net feature taps (counterpart of the JAX package's
-``models/heads.py``).
+"""Cluster and projection heads over U-Net feature taps (counterpart of the
+JAX package's ``models/heads.py``). The projection heads
+(``ProjectionHead``, ``LocalProjectionHead``) serve the contrastive pretrain
+pipeline (``engine/pretrain.py``); the rest of this docstring is about the
+cluster heads.
 
 Two head types, S subheads of K clusters each:
   linear  one batched linear layer producing S*K outputs
@@ -30,13 +33,13 @@ gradient is NaN at a zero logit vector; the port's is finite there.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .unet import ENCODER_NAMES, UNET_DIMENSIONS
+from .unet import DECODER_NAMES, ENCODER_NAMES, UNET_DIMENSIONS
 
 HEAD_TYPES = ("linear", "mlp")
 
@@ -52,6 +55,16 @@ def _dense_init(*shape: int) -> nn.Parameter:
     fan_in the product of every axis but the last."""
     bound = 1.0 / math.sqrt(math.prod(shape[:-1]))
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+
+
+def split_feature_names(feature_names: Sequence[str]) -> Tuple[List[str], List[str]]:
+    """(encoder, decoder) feature names, each in the given order; a name of
+    neither raises."""
+    enc = [f for f in feature_names if f in ENCODER_NAMES]
+    dec = [f for f in feature_names if f in DECODER_NAMES]
+    if len(enc) + len(dec) != len(feature_names):
+        raise ValueError(f"{list(feature_names)}: not all are U-Net components")
+    return enc, dec
 
 
 def _check_head(head_type: str) -> None:
@@ -243,3 +256,59 @@ class ProjectorWrapper(nn.Module):
 
     def forward(self, features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {name: self.heads[name](features[name]) for name in self.feature_names}
+
+
+class ProjectionHead(nn.Module):
+    """Global contrastive projection (the pretrain encoder phase): the
+    features' mean over H, W in fp32, then for ``mlp`` a linear layer to
+    ``interm_dim`` and LeakyReLU 0.01, then a linear layer to ``output_dim``.
+    Output [B, output_dim]."""
+
+    def __init__(self, input_dim: int, output_dim: int = 256, interm_dim: int = 256,
+                 head_type: str = "mlp") -> None:
+        super().__init__()
+        _check_head(head_type)
+        self.head_type = head_type
+        if head_type == "mlp":
+            self.hidden = _linear(input_dim, interm_dim)
+            input_dim = interm_dim
+        self.out = _linear(input_dim, output_dim)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = features.float().mean(dim=(1, 2))
+        if self.head_type == "mlp":
+            x = F.leaky_relu(self.hidden(x), 0.01)
+        return self.out(x)
+
+
+def _conv3x3(in_ch: int, out_ch: int) -> nn.Conv2d:
+    conv = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+    nn.init.zeros_(conv.bias)  # flax Conv: zero bias, U(+-1/sqrt(fan_in)) kernel
+    return conv
+
+
+class LocalProjectionHead(nn.Module):
+    """Local contrastive projection (the pretrain decoder phase): a 3x3
+    convolution (padding 1) to 64 channels, then for ``mlp`` LeakyReLU 0.01
+    and a 3x3 convolution to 32 channels, in fp32; then a max pool over
+    equal blocks to ``output_size`` (the map must divide into them). NHWC in
+    and out: [B, oh, ow, 64 or 32]."""
+
+    def __init__(self, input_dim: int, head_type: str = "mlp",
+                 output_size: Tuple[int, int] = (4, 4)) -> None:
+        super().__init__()
+        _check_head(head_type)
+        self.head_type, self.output_size = head_type, tuple(output_size)
+        self.conv0 = _conv3x3(input_dim, 64)
+        if head_type == "mlp":
+            self.conv1 = _conv3x3(64, 32)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        x = self.conv0(features.float().permute(0, 3, 1, 2))
+        if self.head_type == "mlp":
+            x = self.conv1(F.leaky_relu(x, 0.01))
+        b, c, h, w = x.shape
+        oh, ow = self.output_size
+        if h % oh or w % ow:
+            raise ValueError(f"a {h}x{w} map does not divide into {oh}x{ow} blocks")
+        return x.reshape(b, c, oh, h // oh, ow, w // ow).amax(dim=(3, 5)).permute(0, 2, 3, 1)

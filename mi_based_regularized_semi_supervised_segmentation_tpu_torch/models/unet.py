@@ -37,8 +37,9 @@ running statistics move on the first run only (flax's ``nn.remat``).
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from itertools import count
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -52,6 +53,8 @@ UNET_DIMENSIONS: Dict[str, int] = {
 ENCODER_NAMES = ["Conv1", "Conv2", "Conv3", "Conv4", "Conv5"]
 DECODER_NAMES = ["Up5", "Up_conv5", "Up4", "Up_conv4", "Up3", "Up_conv3", "Up2", "Up_conv2",
                  "DeConv_1x1"]
+# the top-level modules in forward order: the pretrain pipeline freezes by them
+COMPONENT_NAMES = ENCODER_NAMES + DECODER_NAMES
 TAP_NAMES = ["Conv1", "Conv2", "Conv3", "Conv4", "Conv5",
              "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2"]
 
@@ -224,3 +227,16 @@ class UNet(nn.Module):
         taps = {"Conv1": e1, "Conv2": e2, "Conv3": e3, "Conv4": e4, "Conv5": e5,
                 "Up_conv5": d5, "Up_conv4": d4, "Up_conv3": d3, "Up_conv2": d2}
         return logits, {k: v.permute(0, 2, 3, 1) for k, v in taps.items()}
+
+
+def weight_norm(model: nn.Module) -> "OrderedDict[str, float]":
+    """The L2 norm of each parameter, by its name (a debug dump)."""
+    return OrderedDict((name, float(torch.linalg.vector_norm(p.detach().float())))
+                       for name, p in model.named_parameters())
+
+
+def component_param_filter(names: Sequence[str]) -> Callable[[str], bool]:
+    """A predicate over parameter names (``Conv1.conv.0.weight``): true when
+    the name belongs to one of the components ``names``."""
+    names = set(names)
+    return lambda param_name: param_name.split(".", 1)[0] in names

@@ -17,8 +17,9 @@ model computes in bf16 (``Precision.compute_dtype``; bf16 products only): J
 is fp32 either way and the gradients come back in the operands' dtype, each
 fp32 sum over all displacements (and lane blocks) rounded once, as the TPU
 kernel's VJP returns ``dx.astype(x.dtype)``. A bf16 launch takes C <= 128 lanes
-(zero-padded to 128 on the card); a wider C = 128 t is tiled into 128-lane
-blocks (``lane_tiled_fwd``, ``lane_tiled_bwd``), one launch per block pair.
+(zero-padded to 128 on the card); a wider C is tiled into 128-lane blocks, the
+last one zero-padded when C is no multiple of 128 (``lane_tiled_fwd``,
+``lane_tiled_bwd``), one launch per block pair.
 The launch geometry comes from ``launch_plan`` and the scratch from
 ``bf16_scratch``, plain Python that the CPU tests check.
 
@@ -321,35 +322,49 @@ def _lane_tiles(c: int) -> List[slice]:
     return [slice(i, min(i + LANES, c)) for i in range(0, c, LANES)]
 
 
+def _lanes(x: torch.Tensor, *tiles: slice) -> torch.Tensor:
+    """``x``'s block at ``tiles`` (one per trailing axis), zero-padded to 128
+    on each and contiguous: the square 128-lane operands a launch takes."""
+    x = x[(Ellipsis,) + tiles]
+    widths = [LANES - (t.stop - t.start) for t in reversed(tiles)]
+    return F.pad(x, [w for width in widths for w in (0, width)]) if any(widths) \
+        else x.contiguous()
+
+
 def lane_tiled_fwd(a: torch.Tensor, b: torch.Tensor,
                    fwd: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """J [D, C, C] of [N, C] operands of any width from a forward that takes
-    at most 128 lanes (``fwd(A_i, B_j)`` -> [D, c_i, c_j]): block (i, j) of J
-    is fwd on the 128-lane blocks A_i, B_j, each copied contiguous once."""
+    128 lanes (``fwd(A_i, B_j)`` -> [D, 128, 128]): block (i, j) of J is fwd
+    on the 128-lane blocks A_i, B_j, each copied contiguous once, a last
+    partial block (C no multiple of 128) zero-padded to 128 lanes and its
+    rows and columns of J dropped."""
     tiles = _lane_tiles(a.shape[1])
-    a_t = [a[:, t].contiguous() for t in tiles]
-    b_t = [b[:, t].contiguous() for t in tiles]
-    return torch.cat([torch.cat([fwd(ai, bj) for bj in b_t], dim=2) for ai in a_t], dim=1)
+    a_t = [_lanes(a, t) for t in tiles]
+    b_t = [_lanes(b, t) for t in tiles]
+    w = [t.stop - t.start for t in tiles]
+    return torch.cat([torch.cat([fwd(ai, bj)[:, :w[i], :w[j]] for j, bj in enumerate(b_t)],
+                                dim=2) for i, ai in enumerate(a_t)], dim=1)
 
 
 def lane_tiled_bwd(src: torch.Tensor, g: torch.Tensor,
                    bwd: Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor],
                    transpose_g: bool) -> torch.Tensor:
     """The backward products of ``mi_joint_bwd`` for any width from one that
-    takes at most 128 lanes (``bwd(src_k, g_k, transpose_g)``, returning
-    fp32):
+    takes 128 lanes (``bwd(src_k, g_k, transpose_g)``, returning fp32):
       transpose_g=False (src = A): dx_tf_j = sum_i bwd(A_i, g_ij, False)
       transpose_g=True  (src = B): dx_i    = sum_j bwd(B_j, g_ij, True)
-    with g_ij the (i, j) lane block of g [D, C, C]. The block results are
-    summed in fp32 and the result is cast to ``src``'s dtype once, so bf16
-    operands get a gradient rounded once, as at 128 lanes."""
+    with g_ij the (i, j) lane block of g [D, C, C]; a last partial block is
+    zero-padded to 128 lanes (in src and g) and its padding dropped from the
+    result. The block results are summed in fp32 and the result is cast to
+    ``src``'s dtype once, so bf16 operands get a gradient rounded once, as
+    at 128 lanes."""
     tiles = _lane_tiles(src.shape[1])
-    src_t = [src[:, t].contiguous() for t in tiles]
+    src_t = [_lanes(src, t) for t in tiles]
     out = []
     for o in tiles:  # the output's lane block
-        parts = [bwd(src_t[k], (g[:, o, t] if transpose_g else g[:, t, o]).contiguous(),
+        parts = [bwd(src_t[k], _lanes(g, o, t) if transpose_g else _lanes(g, t, o),
                      transpose_g) for k, t in enumerate(tiles)]
-        out.append(functools.reduce(torch.add, parts))
+        out.append(functools.reduce(torch.add, parts)[:, :o.stop - o.start])
     return torch.cat(out, dim=1).to(src.dtype)
 
 

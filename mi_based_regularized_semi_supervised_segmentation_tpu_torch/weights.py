@@ -7,6 +7,7 @@ neither JAX nor flax. Maps:
   BN scale / bias + batch_stats mean/var -> weight / bias / running_mean / running_var
   Dense / head kernel [dim, S*K], bias   -> Linear.weight [S*K, dim], bias
   mlp head w1, b1, w2, b2                -> the same names and shapes
+  projection heads' Dense_i / Conv_i     -> hidden / out Linear, conv0 / conv1
 A decoder head that emits logits (``local_emit_logits``, the fused path) has
 the same parameters as one that emits probabilities, so the same map serves.
 """
@@ -18,7 +19,6 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from .models.unet import ENCODER_NAMES
 
 BLOCKS = ("Conv1", "Conv2", "Conv3", "Conv4", "Conv5",
           "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2")
@@ -61,15 +61,40 @@ def unet_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 MLP_PARAMS = ("w1", "b1", "w2", "b2")
 
 
+def cluster_head_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``ClusterHead`` or ``LocalClusterHead`` ``params`` (a bare head:
+    linear, whose dense kernel sits under ``linear`` in the global head, or
+    mlp) -> the head's ``state_dict()``."""
+    if "w1" in params:  # mlp, encoder or decoder: the JAX names and shapes
+        return {k: _t(params[k]) for k in MLP_PARAMS}
+    dense = params.get("linear", params)
+    return {"linear.weight": _t(np.asarray(dense["kernel"]).T), "linear.bias": _t(dense["bias"])}
+
+
 def projector_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ProjectorWrapper ``params`` (linear or mlp heads) ->
     ``ProjectorWrapper.state_dict()``."""
+    return {f"heads.{name}.{k}": v for name, p in params.items()
+            for k, v in cluster_head_state_dict(p).items()}
+
+
+def projection_head_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``ProjectionHead`` ``params`` (``Dense_0``, and ``Dense_1`` for
+    mlp) -> ``ProjectionHead.state_dict()``."""
+    dense = [params[k] for k in sorted(params)]
+    names = ("hidden", "out") if len(dense) == 2 else ("out",)
     sd: Dict[str, torch.Tensor] = {}
-    for name, p in params.items():
-        if "w1" in p:  # mlp head, encoder or decoder: the JAX names and shapes
-            sd.update({f"heads.{name}.{k}": _t(p[k]) for k in MLP_PARAMS})
-            continue
-        dense = p["linear"] if name in ENCODER_NAMES else p
-        sd[f"heads.{name}.linear.weight"] = _t(np.asarray(dense["kernel"]).T)
-        sd[f"heads.{name}.linear.bias"] = _t(dense["bias"])
+    for name, p in zip(names, dense):
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def local_projection_head_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``LocalProjectionHead`` ``params`` (``Conv_0``, and ``Conv_1``
+    for mlp) -> ``LocalProjectionHead.state_dict()``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, key in enumerate(sorted(params)):
+        sd[f"conv{i}.weight"] = _conv(params[key]["kernel"])
+        sd[f"conv{i}.bias"] = _t(params[key]["bias"])
     return sd

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import mi_based_regularized_semi_supervised_segmentation_tpu_torch as port
+from mi_based_regularized_semi_supervised_segmentation_tpu_torch import pretrain_main
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer as port_trainer
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_fused, rotate
 
@@ -40,7 +41,8 @@ def _imported_roots(path: Path):
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
     for name in ("ops.mi_joint", "ops.mi_fused", "ops.rotate", "ops.augment_device",
-                 "data.device_pipeline", "engine.steps", "main"):
+                 "data.device_pipeline", "engine.steps", "engine.pretrain", "main",
+                 "pretrain_main"):
         assert f"{PORT_DIR.name}.{name}" in modules, name
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
@@ -81,6 +83,16 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
                                  configuration={"Trainer": {"device_data": True},
                                                 "Kernel": {"geometry": "shear"}})
     assert port_trainer.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pretrain_main_without_a_card_raises(monkeypatch, tmp_path):
+    """``pretrain_main`` asks for cuda by default (``config/pretrain.yaml``)
+    and refuses before it makes or reads any data."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="Trainer.device=cpu"):
+        pretrain_main.main([f"Trainer.save_dir={tmp_path / 'run'}", "Data.synthetic=false",
+                            f"Data.root_dir={tmp_path / 'absent'}"])
+    assert not (tmp_path / "run").exists()
 
 
 class _CudaLooking(torch.Tensor):

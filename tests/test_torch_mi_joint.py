@@ -311,6 +311,46 @@ def test_lane_tiling_matches_plain_joint_at_256_lanes(rng, padding, mode):
                                    atol=1e-5 * np.abs(want).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("padding", [0, 1])
+@pytest.mark.parametrize("mode", ["bf16", "fp32"])
+def test_lane_tiling_pads_a_partial_lane_block(rng, padding, mode):
+    """At 200 lanes (the pretrain decoder's 10 x 20 clusters, at padding 0)
+    the tiling makes a 128- and a 72-lane block. A launch reads square
+    128-lane operands, so the partial block must go zero-padded to 128: fed
+    a plain forward and backward that take nothing else, J and both
+    gradients against the plain joint at 200 lanes, 1e-5 of the largest
+    entry (summation order only)."""
+    tdot = DTYPES[mode][0]
+    shape = (2, 12 + 2 * padding, 9 + 2 * padding, 200)
+    wp = shape[2]
+    a = torch.tensor(_maps(rng, shape, padding=padding).reshape(-1, 200))
+    b = torch.tensor(_maps(rng, shape, padding=padding).reshape(-1, 200))
+    t = 2 * padding + 1
+    g = torch.tensor(rng.normal(size=(t * t, 200, 200)).astype(np.float32))
+    ap, bp = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    ref = mi_joint.displaced_joint_plain_flat(ap, bp, wp, padding, tdot)
+    ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), g)
+    plain_bwd = _plain_bwd_128(wp, padding, tdot)
+
+    def fwd(x, y):  # what a launch takes: two contiguous [N, 128] operands
+        assert x.shape[1] == y.shape[1] == 128 and x.is_contiguous() and y.is_contiguous()
+        return mi_joint.displaced_joint_plain_flat(x, y, wp, padding, tdot)
+
+    def bwd(src, h, transpose_g):
+        assert src.shape[1] == 128 and h.shape[1:] == (128, 128) and h.is_contiguous()
+        return plain_bwd(src, h, transpose_g)
+
+    assert [s.stop - s.start for s in mi_joint._lane_tiles(200)] == [128, 72]
+    got = {"joint": (mi_joint.lane_tiled_fwd(a, b, fwd), ref),
+           "dx": (mi_joint.lane_tiled_bwd(b, g, bwd, transpose_g=True), ref_da),
+           "dx_tf": (mi_joint.lane_tiled_bwd(a, g, bwd, transpose_g=False), ref_db)}
+    for name, (x, want) in got.items():
+        assert x.shape == want.shape, name
+        want = want.detach().numpy()
+        np.testing.assert_allclose(x.detach().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("n,padding,wp", PLAN_SHAPES[:2])
 def test_bf16_scratch_is_bf16_rows_and_no_fp32_rows(n, padding, wp):
     """A bf16 call's scratch at the taps: the operands' bf16 copies ([N, 128]
@@ -331,6 +371,7 @@ def test_bf16_scratch_is_bf16_rows_and_no_fp32_rows(n, padding, wp):
     ((1, 23, 17, 128), 1),   # ragged: n = 391
     ((3, 37, 43, 100), 3),   # ragged n = 4773, C < 128 lanes
     ((2, 13, 12, 256), 1),   # 256 lanes: tiled into four launches a product
+    ((4, 16, 16, 200), 0),   # the pretrain decoder's IIC: 200 lanes at padding 0
 ])
 def test_kernel_matches_plain_on_card(shape, padding):
     """The CUDA kernels against their plain version, on pre-padded canvases:
