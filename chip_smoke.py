@@ -123,6 +123,20 @@ Phases, each printing JSON lines:
            joint at the decoder's shape ([150528, 200], p = 0) exactly on
            integer inputs, within TOL on probability maps, timed beside its
            bound and torch.matmul
+  optim    the headline trainer through ``main.main`` under Optim.name=SGD
+           (momentum 0.9) and RAdam: 6 joint launches a step each, finite
+           losses; a resume under SGD equal to last.pth in every entry; then
+           every OPTIMIZERS name stepped 6 times on that trainer's parameters
+           (model and projector), card against CPU from the same values and
+           gradients within OPTIM_TOL of the largest move, with the card's
+           step time
+  arch_zoo every model family of ``get_arch`` (ENet, Attention U-Net,
+           DeepLabV2 / V3 / V3+, V3+ also at n_blocks (3, 4, 23, 3), VNet,
+           DenseNet3D) and VGG11 + ClassifyHead at full width on ACDC-shaped
+           input (14 x 1 x 224^2; volumes 2 x 1 x 16 x 224^2), fp32 and bf16:
+           a forward, backward and Adam step, median step ms, device ms
+           (profiler), busy share and peak memory; a small eval forward card
+           against CPU within ZOO_TOL
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
            trainer (torch.profiler), and the device's busy share of the wall;
@@ -223,6 +237,32 @@ PRETRAIN_STEPS = 3   # pretrain: batches an epoch, one epoch a phase
 # partitions at crop 224, padding 0; IICHead.Decoder's 10 x 20 clusters
 PRETRAIN_TAP = ("Up_conv3", 12, 112, 0)
 PRETRAIN_HEAD = (10, 20)
+# optim: main.main under these Optim sections (6 joint launches a step as
+# under Adam); every OPTIMIZERS name stepped OPTIM_STEPS times (past
+# Lookahead's sync at 5, Ranger's and RAdam's rectification at 6) on the
+# udaiic parameter set, card against CPU on the same gradients: each element
+# within OPTIM_TOL of the largest move plus OPTIM_ULPS of its own value's
+# fp32 spacing (both sides run the same ops, but a contracted multiply-add on
+# the card or a reduction summed in another order moves an update by an ulp,
+# and p + u then rounds to the neighbouring float)
+OPTIM_RUNS = {"SGD": ("Optim.name=SGD", "Optim.momentum=0.9"), "RAdam": ("Optim.name=RAdam",)}
+OPTIM_STEPS = 6
+OPTIM_TOL, OPTIM_ULPS = 1e-4, 2.0
+# arch_zoo: every family at full width on ACDC-shaped input (2-D: 14 slices of
+# 224^2, the headline step's 4 + 10; 3-D: an ACDC volume's slices padded to 16,
+# a multiple of VNet's three stride-2 stages), a forward, backward and Adam
+# step each in fp32 and bf16; and a small eval forward card against CPU within
+# ZOO_TOL of the largest logit (cuDNN and the CPU sum in other orders)
+ZOO_2D, ZOO_3D = (14, 1, 224, 224), (2, 1, 16, 224, 224)
+ZOO_ACDC = {"input_dim": 1, "num_classes": 4}
+ZOO_RUNS = (("enet", ZOO_ACDC, ZOO_2D), ("attention_unet", ZOO_ACDC, ZOO_2D),
+            ("deeplabv2", ZOO_ACDC, ZOO_2D), ("deeplabv3", ZOO_ACDC, ZOO_2D),
+            ("deeplabv3plus", ZOO_ACDC, ZOO_2D),
+            ("deeplabv3plus", dict(ZOO_ACDC, n_blocks=(3, 4, 23, 3)), ZOO_2D),
+            ("vgg11", {"input_dim": 1}, ZOO_2D),
+            ("vnet", ZOO_ACDC, ZOO_3D), ("densenet3d", {"input_dim": 1}, ZOO_3D))
+ZOO_STEPS_TIMED = 3
+ZOO_TOL = 1e-4
 
 
 @contextmanager
@@ -1511,22 +1551,23 @@ def _state_leaves(tree, path=""):
         yield path, tree
 
 
-def phase_resume():
-    """One epoch of the headline trainer, then two resumes from its run dir:
-    one with no epoch left (the state just after the load, held against
-    last.pth bit for bit; the load timed again on it), one that trains epoch
-    1. Returns the run dir and the joint launches of the resumed epoch."""
+def _resume_loaded(save_dir: str, *extra: str):
+    """One epoch of the headline trainer (``extra``: more overrides), then a
+    resume from its run dir with no epoch left: the state just after the
+    load held against last.pth bit for bit, the load timed again on it.
+    Returns the run dir, the loaded trainer, the load seconds and the
+    counts of tensors and entries held."""
     import torch
 
-    main_mod, mj = port("main"), port("ops.mi_joint")
-    save_dir = "chip_smoke_resume"
+    main_mod = port("main")
     shutil.rmtree(Path(port("engine.trainer").SemiTrainer.RUN_DIR) / save_dir, ignore_errors=True)
-    first = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=1"))
+    first = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=1", *extra))
     run = Path(first._save_dir)
     saved = torch.load(run / "last.pth", map_location="cpu", weights_only=True)
     meta = saved.pop("meta")
 
-    loaded = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=1", f"Checkpoint={run}"))
+    loaded = main_mod.main(_zoo_argv(save_dir, "Trainer.max_epoch=1", f"Checkpoint={run}",
+                                     *extra))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loaded.load_state_dict_from_path(str(run), strict=False)
@@ -1544,6 +1585,18 @@ def phase_resume():
           and loaded._storage.state_dict() == meta["storage"],
           f"resume: start epoch {loaded._start_epoch}, best {loaded._best_score}")
     check(int(loaded._step_counter) == ZOO_STEPS, f"resume: step {int(loaded._step_counter)}")
+    return run, loaded, load_s, n_tensors, len(want)
+
+
+def phase_resume():
+    """One epoch of the headline trainer, then two resumes from its run dir:
+    one with no epoch left (``_resume_loaded``), one that trains epoch 1.
+    Returns the run dir and the joint launches of the resumed epoch."""
+    import torch
+
+    main_mod, mj = port("main"), port("ops.mi_joint")
+    save_dir = "chip_smoke_resume"
+    run, _, load_s, n_tensors, n_entries = _resume_loaded(save_dir)
 
     torch.cuda.synchronize()
     mj.reset_launch_counts()
@@ -1561,7 +1614,7 @@ def phase_resume():
     check(all(math.isfinite(row[k]) for k in ("tra_sup_loss_mean", "tra_mi_mean")),
           f"resume: epoch 1 losses {row}")
     emit({"phase": "resume", "steps_per_epoch": ZOO_STEPS, "load_s": load_s,
-          "tensors_equal_bit_for_bit": n_tensors, "entries_equal": len(want),
+          "tensors_equal_bit_for_bit": n_tensors, "entries_equal": n_entries,
           "start_epoch": resumed._start_epoch, "storage_rows": len(resumed._storage._rows),
           "joint_launches_per_step": n_joint / ZOO_STEPS,
           "joint_launches": {f"{n}/p{p}": v for (n, p), v in sorted(launches.items())},
@@ -1963,6 +2016,175 @@ def phase_pretrain_joint(reps: int) -> list:
     return rows
 
 
+def phase_optim(steps: int) -> None:
+    """``main.main`` udaiic at full width under each of OPTIM_RUNS (``phase_train``:
+    6 joint launches a step, finite losses), a resume under SGD equal to
+    last.pth in every entry, then every OPTIMIZERS name on that trainer's
+    parameter set (model and projector), card against CPU from the same
+    values and gradients, with the card's step time."""
+    import torch
+
+    for name, extra in OPTIM_RUNS.items():
+        trainer, _, _ = phase_train(steps, extra=extra, phase=f"optim_{name}",
+                                    run_tag=f"_{name.lower()}")
+        check(type(trainer._optimizer).__name__ == name,
+              f"optim: Optim.name={name} built {type(trainer._optimizer).__name__}")
+    _, loaded, load_s, n_tensors, n_entries = _resume_loaded("chip_smoke_resume_sgd",
+                                                              *OPTIM_RUNS["SGD"])
+    check(type(loaded._optimizer).__name__ == "SGD", "optim: the resumed trainer's optimizer")
+    emit({"phase": "optim_resume", "optimizer": "SGD", "load_s": load_s,
+          "tensors_equal_bit_for_bit": n_tensors, "entries_equal": n_entries})
+
+    _optim_names([p.detach().cpu().clone()
+                  for p in chain(trainer._model.parameters(), trainer._projector.parameters())])
+
+
+def _optim_names(params0, device: str = "cuda") -> None:
+    """Every OPTIMIZERS name stepped OPTIM_STEPS times from ``params0`` on the
+    CPU and on ``device`` with the same gradients (lr changed after step 2):
+    the two within OPTIM_TOL of the largest move; ``device``'s step time."""
+    import torch
+
+    optim = port("engine.optim")
+    gen = torch.Generator().manual_seed(0)
+    grads = [[torch.randn(p.shape, generator=gen) for p in params0] for _ in range(OPTIM_STEPS)]
+    rows = {}
+    for name in sorted(optim.OPTIMIZERS):
+        cfg = {"name": name, "lr": 1e-3, "weight_decay": 1e-4, "momentum": 0.9}
+        after, step_ms = {}, []
+        for dev in ("cpu", device):
+            params = [torch.nn.Parameter(p.to(dev, copy=True)) for p in params0]
+            opt = optim.build_optimizer(params, cfg)
+            optim.init_optimizer_state(opt)
+            for i, g in enumerate(grads):
+                if i == 2:
+                    optim.set_learning_rate(opt, 3e-4)
+                for p, gi in zip(params, g):
+                    p.grad = gi.to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt.step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            after[dev] = [p.detach().cpu() for p in params]
+        moved = max(float((a - p0).abs().max()) for a, p0 in zip(after["cpu"], params0))
+        err = max(float((a - b).abs().max()) for a, b in zip(after[device], after["cpu"]))
+        # beyond OPTIM_TOL of the largest move, in units of each parameter's
+        # fp32 spacing (Adadelta moves ~1e-5 on parameters ~1e-2)
+        fp32 = torch.finfo(torch.float32)
+        ulps = max(float(((a - b).abs() - OPTIM_TOL * moved)
+                         .div(fp32.eps * b.abs().clamp_min(fp32.tiny)).max())
+                   for a, b in zip(after[device], after["cpu"]))
+        check(moved > 0 and ulps <= OPTIM_ULPS,
+              f"optim {name}: card vs CPU {err:.3e} of a {moved:.3e} move ({ulps:.2f} ulps over)")
+        rows[name] = {"class": type(opt).__name__, "max_abs_err": err, "largest_move": moved,
+                      "ulps_beyond_tol": ulps,
+                      "median_step_ms": statistics.median(step_ms[OPTIM_STEPS + 1:])}
+    emit({"phase": "optim", "device": device, "parameters": sum(p.numel() for p in params0),
+          "tensors": len(params0), "steps": OPTIM_STEPS, "tol": OPTIM_TOL, "names": rows})
+
+
+def _zoo_model(arch: str, kw: dict, dtype):
+    """The family from ``get_arch`` (VGG11: the backbone with ClassifyHead)
+    in ``dtype`` compute (VNet has no BN dtype)."""
+    import torch
+
+    models = port("models")
+    if arch == "vgg11":
+        return torch.nn.ModuleDict({"vgg": models.VGG11(kw["input_dim"], dtype=dtype),
+                                    "head": models.ClassifyHead(512, 4)})
+    extra = {"dtype": dtype} if arch == "vnet" else {"dtype": dtype, "bn_dtype": dtype}
+    return models.get_arch(arch, dict(kw, **extra))
+
+
+def _zoo_forward(model, x):
+    """The logits of a zoo model (VGG11 through its ClassifyHead)."""
+    import torch
+
+    if isinstance(model, torch.nn.ModuleDict):
+        return model["head"](model["vgg"](x))[1]
+    return model(x)
+
+
+def phase_arch_zoo(device: str = "cuda") -> None:
+    """Every ZOO_RUNS family at full width, fp32 then bf16: a train step
+    (forward, cross-entropy against random labels, backward, Adam) timed by
+    the host clock around synchronised steps (median of ZOO_STEPS_TIMED after
+    one warm-up), its device time (profiler, one step) and its peak memory
+    (parameters, input, gradients, Adam state and activations: the peak
+    above what was allocated before the model was built); the fp32 model
+    then in a small eval forward, card against CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    optim = port("engine.optim")
+    for arch, kw, shape in ZOO_RUNS:
+        tag = arch + ("_101" if kw.get("n_blocks") else "")
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()  # what earlier phases still hold
+            torch.manual_seed(0)
+            with torch.device(device):  # parameters made on the card
+                model = _zoo_model(arch, kw, dtype)
+            opt = optim.build_optimizer(model.parameters(), {"name": "Adam", "lr": 1e-4})
+            gen = torch.Generator(device=device).manual_seed(1)
+            x = torch.randn(shape, generator=gen, device=device)
+            with torch.no_grad():  # the logits' shape, without moving the BN statistics
+                out_shape = _zoo_forward(model.eval(), x[:1]).shape
+            model.train()
+            target = torch.randint(0, out_shape[1], (shape[0],) + tuple(out_shape[2:]),
+                                   generator=gen, device=device)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                loss = F.cross_entropy(_zoo_forward(model, x), target)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            loss = float(step())  # warm-up (cuDNN's first calls)
+            check(math.isfinite(loss), f"arch_zoo {tag} {dtype}: loss {loss}")
+            times = []
+            for _ in range(ZOO_STEPS_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            device_ms = sum(ms for ms, _ in device_profile(step, reps=1, warmup=0).values())
+            step_ms = statistics.median(times)
+            emit({"phase": "arch_zoo", "arch": tag, "dtype": str(dtype),
+                  "input": list(shape), "kwargs": {k: list(v) if isinstance(v, tuple) else v
+                                                   for k, v in kw.items()},
+                  "parameters": sum(p.numel() for p in model.parameters()),
+                  "median_step_ms": step_ms, "step_ms": times, "device_ms_per_step": device_ms,
+                  "device_busy_share": device_ms / step_ms, "peak_gib": peak,
+                  "loss": loss})
+            if dtype == torch.float32:
+                _zoo_card_vs_cpu(tag, model.eval(), shape, device)
+            del model, opt, x, target
+            torch.cuda.empty_cache()
+
+
+def _zoo_card_vs_cpu(tag: str, model, shape, device: str) -> None:
+    """A small fp32 eval forward of ``model`` on ``device``, then on the CPU:
+    within ZOO_TOL of the largest logit."""
+    import torch
+
+    small = (2, 1, 64, 64) if len(shape) == 4 else (2, 1, 8, 32, 32)
+    x = torch.randn(small, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got = _zoo_forward(model, x.to(device)).cpu()
+        want = _zoo_forward(model.cpu(), x)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    check(got.dtype == want.dtype == torch.float32 and err <= ZOO_TOL * scale,
+          f"arch_zoo {tag}: card vs CPU {err:.3e} of {scale:.3e}")
+    emit({"phase": "arch_zoo_check", "arch": tag, "input": list(small), "max_abs_err": err,
+          "max_abs": scale, "tol": ZOO_TOL})
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
@@ -2034,7 +2256,8 @@ def main(argv=None) -> int:
                                               "step_meanteacher,step_bf16,step_s2d,step_heads,"
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_device,train_bf16,train_remat,"
-                                              "resume,inference,train_zoo,pretrain,profile")
+                                              "resume,inference,train_zoo,pretrain,optim,arch_zoo,"
+                                              "profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -2138,6 +2361,12 @@ def main(argv=None) -> int:
             phase_pretrain_mt()
             phase_pretrain_step()
             pretrain_rows = phase_pretrain_joint(args.reps)
+    if "optim" in phases:
+        with timed(walls, "optim"):
+            phase_optim(args.steps)
+    if "arch_zoo" in phases:
+        with timed(walls, "arch_zoo"):
+            phase_arch_zoo()
     profiles = {}
     t0 = time.perf_counter()
     if "profile" in phases:

@@ -2,8 +2,8 @@
 
 One train step: draw the flip mask, build the twin view, ONE U-Net forward
 over [labeled, unlabeled, unlabeled_tf] (BN statistics over the mixed batch),
-supervised KL (= cross-entropy), the mode's regularizer, backward and an Adam
-step. Modes:
+supervised KL (= cross-entropy), the mode's regularizer, backward and an
+optimizer step (``Optim.name``). Modes:
 - partial: reg = 0
 - uda:     reg_weight * consistency(softmax(f(Tx)), softmax(T f(x)).detach()),
            consistency = mse or kl (``uda_criterion``)
@@ -14,7 +14,7 @@ step. Modes:
 - entropy: reg_weight * mean entropy of softmax([f(x), f(Tx)])
 - meanteacher: reg_weight * consistency(softmax(f(Tx)), softmax(T g(x))),
            g the EMA teacher: a no-grad train-mode forward on its own BN
-           running statistics; after the Adam step its parameters move to
+           running statistics; after the optimizer step its parameters move to
            (g * a + (1 - a) * f) * (1 - weight_decay),
            a = min(1 - 1 / (t + 1), alpha), t the global step
 

@@ -6,9 +6,10 @@ Per epoch: set the epoch's learning rate, run ``num_batches`` train steps,
 read the metrics back, evaluate the val and test patients (volume dice),
 append to ``storage.csv`` and the event log, and save ``last.pth`` (and
 ``best.pth`` when val DSC improves; ``engine/checkpoints.py``). A resume
-(``load_state_dict_from_path``) restores the model, projector, Adam state,
-step counter, step generator, mean teacher, best score, ``Storage`` and
-epoch; the data samplers start afresh, as in the JAX package. ``inference``
+(``load_state_dict_from_path``) restores the model, projector, optimizer
+state (the configured ``Optim.name``'s), step counter, step generator, mean
+teacher, best score, ``Storage`` and epoch; the data samplers start afresh,
+as in the JAX package. ``inference``
 evaluates ``best.pth`` on the test patients with dice and Hausdorff and
 writes PNG dumps.
 
@@ -64,7 +65,14 @@ from .checkpoints import (
     load_checkpoint,
     save_checkpoint,
 )
-from .optim import build_optimizer, init_optimizer_state, lr_at_epoch, set_learning_rate
+from .optim import (
+    LOOKAHEAD_NAMES,
+    OPTIMIZERS,
+    build_optimizer,
+    init_optimizer_state,
+    lr_at_epoch,
+    set_learning_rate,
+)
 from .steps import (
     build_augment_fn,
     build_epoch_scan,
@@ -111,6 +119,21 @@ def check_parallel(cfg: Dict[str, Any]) -> None:
             raise ValueError(f"Parallel.{key}: expected one of {sorted(PARALLEL_DEFAULTS)}")
         if value not in PARALLEL_DEFAULTS[key]:
             raise NotImplementedError(f"Parallel.{key}={value!r} {_ROADMAP}")
+
+
+def check_optimizer(cfg: Dict[str, Any]) -> None:
+    """``Optim.name`` must be one of the optimizer names (``KeyError``, as
+    ``build_optimizer`` raises) and not ``Lookahead`` / ``Ranger``
+    (``ValueError``): optax's lookahead needs ``LookaheadParams``, so the JAX
+    trainers cannot step them either. ``main.py`` and the trainers call it
+    before any data is staged."""
+    name = (cfg.get("Optim") or {}).get("name", "Adam")
+    if name not in OPTIMIZERS:
+        raise KeyError(f"unknown optimizer {name!r}; available: {sorted(OPTIMIZERS)}")
+    if name in LOOKAHEAD_NAMES:
+        raise ValueError(f"Optim.name={name!r}: the trainers step a flat parameter tree, and "
+                         "optax's lookahead needs LookaheadParams (the JAX trainers cannot "
+                         "step it either); build it with engine.optim.build_optimizer")
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -251,6 +274,7 @@ class SemiTrainer:
         **kwargs,
     ) -> None:
         check_parallel(configuration)
+        check_optimizer(configuration)
         self._dtypes = precision_dtypes(configuration)
         self._kernel_options = kernel_options(configuration)
         self._config = configuration
@@ -311,7 +335,7 @@ class SemiTrainer:
             self._projector.to(self._device)
             params = chain(params, self._projector.parameters())
         self._optimizer = build_optimizer(params, cfg["Optim"])
-        init_optimizer_state(self._optimizer)  # so a checkpoint holds Adam's entries from init
+        init_optimizer_state(self._optimizer)  # so a checkpoint holds every entry from init
         self._step_counter = torch.zeros((), dtype=torch.int64)  # global step (EMA schedule)
         self._base_lr = float(cfg["Optim"].get("lr", 1e-3))
         scheduler = cfg.get("Scheduler") or {}
@@ -628,7 +652,7 @@ class SemiTrainer:
     # --- checkpointing --------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         """The tensors a resume restores (the JAX package's ``TrainState``):
-        model (BN statistics included), projector, Adam state, the global
+        model (BN statistics included), projector, optimizer state, the global
         step, the step generator's state and the mean teacher."""
         return {
             "model": self._model.state_dict(),

@@ -63,10 +63,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d whose running variance follows the biased batch variance,
     with fp32 statistics and a ``dtype`` output (flax's ``_normalize``).
     ``update_stats`` off leaves the running statistics alone (a remat
-    block's recompute)."""
+    block's recompute). It takes any rank from [B, C] up (the statistics
+    over every axis but the channels'): the zoo's 3-D models use it too."""
 
-    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32) -> None:
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-5) -> None:
+        super().__init__(num_features, eps=eps, momentum=0.1)
         self.out_dtype = dtype
         self.update_stats = True
 
@@ -80,7 +82,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             return y.to(self.out_dtype)
         if self.update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                dims = (0,) + tuple(range(2, x.dim()))
+                var, mean = torch.var_mean(x.to(self.running_var.dtype), dim=dims, unbiased=False)
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked.add_(1)

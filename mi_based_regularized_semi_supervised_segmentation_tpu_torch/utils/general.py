@@ -4,10 +4,22 @@ from __future__ import annotations
 
 import random
 import subprocess
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
+
+
+def simplex(probs: torch.Tensor, axis: int = 1, atol: float = 1e-4) -> bool:
+    """True if ``probs`` sums to 1 along ``axis`` within ``atol``."""
+    s = torch.as_tensor(probs).sum(dim=axis).double()
+    return bool(torch.allclose(s, torch.ones_like(s), rtol=1e-5, atol=atol))
+
+
+def one_hot(t: torch.Tensor, axis: int = 1, atol: float = 1e-4) -> bool:
+    """True if ``t`` is a simplex along ``axis`` whose entries are 0 or 1."""
+    t = torch.as_tensor(t)
+    return simplex(t, axis, atol) and bool(((t == 0) | (t == 1)).all())
 
 
 def class2one_hot(labels: torch.Tensor, num_classes: int, class_axis: int = 1) -> torch.Tensor:
@@ -17,6 +29,27 @@ def class2one_hot(labels: torch.Tensor, num_classes: int, class_axis: int = 1) -
     if class_axis in (-1, oh.dim() - 1):
         return oh
     return oh.movedim(-1, class_axis)
+
+
+def probs2one_hot(probs: torch.Tensor, class_axis: int = 1) -> torch.Tensor:
+    """The argmax along ``class_axis`` as an int32 one-hot along that axis."""
+    return class2one_hot(probs.argmax(dim=class_axis), probs.shape[class_axis],
+                         class_axis=class_axis)
+
+
+def logit2one_hot(logits: torch.Tensor, class_axis: int = 1) -> torch.Tensor:
+    return probs2one_hot(logits, class_axis=class_axis)
+
+
+def average_iter(values: Iterable[Any]):
+    values = list(values)
+    return sum(values) / float(len(values))
+
+
+def weighted_average_iter(values: Sequence[Any], weights: Sequence[float]):
+    if len(values) != len(weights):
+        raise ValueError(f"{len(values)} values, {len(weights)} weights")
+    return sum(v * w for v, w in zip(values, weights)) / float(sum(weights))
 
 
 def flatten_dict(d: Mapping[str, Any], parent_key: str = "", sep: str = "/") -> Dict[str, Any]:

@@ -8,13 +8,18 @@ neither JAX nor flax. Maps:
   Dense / head kernel [dim, S*K], bias   -> Linear.weight [S*K, dim], bias
   mlp head w1, b1, w2, b2                -> the same names and shapes
   projection heads' Dense_i / Conv_i     -> hidden / out Linear, conv0 / conv1
+  zoo and VGG modules (the same names)   -> the same path: 3-D kernels
+                                            [kd, kh, kw, in, out] -> [out, in, kd, kh, kw],
+                                            ConvTranspose kernels flipped in their
+                                            spatial axes -> [in, out, kd, kh, kw],
+                                            Dense kernels transposed, PReLU slopes [1]
 A decoder head that emits logits (``local_emit_logits``, the fused path) has
 the same parameters as one that emits probabilities, so the same map serves.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -39,9 +44,10 @@ def _bn(prefix: str, params: Mapping[str, Any], stats: Mapping[str, Any]) -> Dic
             f"{prefix}.num_batches_tracked": torch.tensor(0)}
 
 
-def unet_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
-                    ) -> Dict[str, torch.Tensor]:
-    """flax UNet ``params``/``batch_stats`` -> ``UNet.state_dict()`` layout."""
+def _unet_blocks(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                 ) -> Dict[str, torch.Tensor]:
+    """The ConvBlocks and UpConvs of a flax U-Net skeleton -> the port's
+    ``ConvBlock`` (``conv.{0,1,3,4}``) / ``UpConv`` (``up.{1,2}``) names."""
     sd: Dict[str, torch.Tensor] = {}
     for name in BLOCKS:
         p, s = params[name], batch_stats[name]
@@ -53,9 +59,78 @@ def unet_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
         p, s = params[name], batch_stats[name]
         sd[f"{name}.up.1.weight"] = _conv(p["conv"]["kernel"])
         sd.update(_bn(f"{name}.up.2", p["bn"], s["bn"]))
+    return sd
+
+
+def unet_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """flax UNet ``params``/``batch_stats`` -> ``UNet.state_dict()`` layout."""
+    sd = _unet_blocks(params, batch_stats)
     sd["DeConv_1x1.weight"] = _conv(params["DeConv_1x1"]["kernel"])
     sd["DeConv_1x1.bias"] = _t(params["DeConv_1x1"]["bias"])
     return sd
+
+
+def _kernel(kernel, transposed: bool) -> torch.Tensor:
+    k = np.asarray(kernel)
+    if k.ndim == 2:  # Dense [in, out] -> Linear [out, in]
+        return _t(k.T)
+    spatial = tuple(range(k.ndim - 2))
+    if transposed:  # flax does not flip a ConvTranspose kernel; conv_transpose does
+        return _t(np.transpose(np.flip(k, spatial), (k.ndim - 2, k.ndim - 1) + spatial))
+    return _t(np.transpose(k, (k.ndim - 1, k.ndim - 2) + spatial))
+
+
+def zoo_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any] | None = None,
+                   transposed: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """flax ``params`` / ``batch_stats`` of a module whose port has the same
+    names (``models/zoo.py``, ``models/vgg.py``) -> its ``state_dict()``:
+    each conv / dense ``kernel`` and ``bias``, BN ``scale`` / ``bias`` with
+    its statistics, PReLU ``negative_slope``. ``transposed``: the paths
+    (``up1``) of ``nn.ConvTranspose`` modules."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str) -> None:
+        if "scale" in p:
+            sd.update(_bn(prefix, p, s))
+        elif "negative_slope" in p:
+            sd[f"{prefix}.weight"] = _t(np.reshape(p["negative_slope"], (1,)))
+        elif "kernel" in p:
+            sd[f"{prefix}.weight"] = _kernel(p["kernel"], prefix in transposed)
+            if "bias" in p:
+                sd[f"{prefix}.bias"] = _t(p["bias"])
+        else:
+            for name, child in p.items():
+                walk(child, s.get(name, {}), f"{prefix}.{name}" if prefix else name)
+
+    walk(params, batch_stats or {}, "")
+    return sd
+
+
+def attention_unet_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """flax ``AttentionUNet``: its U-Net blocks as ``unet_state_dict`` maps
+    them, the gates and the head by name."""
+    blocks = set(BLOCKS) | set(UPS)
+    sd = _unet_blocks(params, batch_stats)
+    sd.update(zoo_state_dict({k: v for k, v in params.items() if k not in blocks}))
+    return sd
+
+
+VNET_TRANSPOSED = ("up1", "up2", "up3")
+
+
+def arch_state_dict(arch: str, params: Mapping[str, Any],
+                    batch_stats: Mapping[str, Any] | None = None) -> Dict[str, torch.Tensor]:
+    """flax variables of the model ``get_arch(arch, ...)`` builds -> the
+    port model's ``state_dict()``."""
+    arch = arch.lower()
+    if arch in ("unet", "contrastunet"):
+        return unet_state_dict(params, batch_stats)
+    if arch == "attention_unet":
+        return attention_unet_state_dict(params, batch_stats)
+    return zoo_state_dict(params, batch_stats,
+                          transposed=VNET_TRANSPOSED if arch == "vnet" else ())
 
 
 MLP_PARAMS = ("w1", "b1", "w2", "b2")

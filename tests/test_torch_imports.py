@@ -41,7 +41,8 @@ def _imported_roots(path: Path):
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
     for name in ("ops.mi_joint", "ops.mi_fused", "ops.rotate", "ops.augment_device",
-                 "data.device_pipeline", "engine.steps", "engine.pretrain", "main",
+                 "ops.affine", "data.device_pipeline", "engine.steps", "engine.pretrain",
+                 "engine.optim", "models.zoo", "models.vgg", "utils.general", "weights", "main",
                  "pretrain_main"):
         assert f"{PORT_DIR.name}.{name}" in modules, name
     code = ("import importlib, sys\n"

@@ -79,8 +79,9 @@ def _port_state(params, stats):
 
 
 def _run_both(mode, jax_backend, port_backend, seed=0, emit_logits=False, heads=None,
-              jax_flat=True, port_flat=True, crop=CROP, clusters=K, **mode_kw):
+              jax_flat=True, port_flat=True, crop=CROP, clusters=K, optim=None, **mode_kw):
     """One step of each side from the same weights, batch and flip mask.
+    ``optim``: both sides' ``Optim`` section (default Adam at LR, WD);
     ``heads``: head options of both projectors (head_types, normalize);
     ``clusters``: K of every head;
     ``jax_flat`` / ``port_flat``: each side's decoder-head layout (flat or
@@ -98,7 +99,8 @@ def _run_both(mode, jax_backend, port_backend, seed=0, emit_logits=False, heads=
     jmodel = JUNet(input_dim=1, num_classes=C)
     jproj = JProjector(feature_names=FEATS, num_clusters=clusters, num_subheads=S, **heads,
                        local_flat=jax_flat, local_emit_logits=emit_logits) if needs_iic else None
-    tx = j_build_optimizer({"name": "Adam", "lr": LR, "weight_decay": WD})
+    optim = optim or {"name": "Adam", "lr": LR, "weight_decay": WD}
+    tx = j_build_optimizer(optim)
     state = init_train_state(jmodel, tx, (1, crop, crop, 1), seed=0, projector=jproj,
                              projector_feature_names=FEATS if needs_iic else None)
     params0, stats0 = _np_tree(state.params), _np_tree(state.batch_stats)
@@ -120,7 +122,7 @@ def _run_both(mode, jax_backend, port_backend, seed=0, emit_logits=False, heads=
                                 local_emit_logits=emit_logits, local_flat=port_flat)
         proj.load_state_dict({k[5:]: v for k, v in before.items() if k.startswith("proj.")})
         params = list(chain(params, proj.parameters()))
-    opt = build_optimizer(params, {"name": "Adam", "lr": LR, "weight_decay": WD})
+    opt = build_optimizer(params, optim)
     step = build_train_step(model, opt, mode, generator=torch.Generator(), projector=proj,
                             backend=port_backend, **common)
     metrics = step({k: torch.from_numpy(v) for k, v in batch.items()},
