@@ -137,6 +137,21 @@ Phases, each printing JSON lines:
            a forward, backward and Adam step, median step ms, device ms
            (profiler), busy share and peak memory; a small eval forward card
            against CPU within ZOO_TOL
+  host_tier  the host tier on the card's host (its CPU model and count
+           beside the card): the native host library (built by the build
+           phase with g++) decodes every synthetic PNG as PIL does; native
+           against numpy on 50 draws, held to the CPU tests' pin (the labels
+           differ on seed 27 alone, by 2 pixels of a rotation tie; the jitter
+           by more than 0 and at most HOST_JITTER_GAP); the median ms of one ACDCStrongTransforms.pretrain
+           sample (HOST_DRAWS draws, one thread) and of one batch of each
+           headline loader (4 and 10 slices, 4 workers), native and numpy;
+           then the headline udaiic trainer through ``main.main`` on the host
+           path, fp32 and bf16, each with the native library and with
+           MISST_DISABLE_NATIVE=1: epoch wall, the wall between consecutive
+           steps (fetch included), the step's device time (profiler, one
+           batch) and busy share, 6 joint launches a step, the loaders (N + 3)
+           x 14 samples on after the prefetch, and one native augment_pair
+           call for every sample drawn (none with it off)
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
            trainer (torch.profiler), and the device's busy share of the wall;
@@ -154,11 +169,13 @@ import argparse
 import copy
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from functools import partial
 from importlib import import_module
@@ -263,6 +280,12 @@ ZOO_RUNS = (("enet", ZOO_ACDC, ZOO_2D), ("attention_unet", ZOO_ACDC, ZOO_2D),
             ("vnet", ZOO_ACDC, ZOO_3D), ("densenet3d", {"input_dim": 1}, ZOO_3D))
 ZOO_STEPS_TIMED = 3
 ZOO_TOL = 1e-4
+HOST_DRAWS = 200         # host_tier: per-sample draws of ACDCStrongTransforms.pretrain
+HOST_BATCHES = 5         # host_tier: timed batches of each headline loader (after one)
+# native vs numpy, pinned as in tests/test_torch_native.py: the jitter differs
+# (0 < gap <= HOST_JITTER_GAP) and the labels on seed 27 alone, by 2 pixels
+HOST_JITTER_GAP = 2.4e-7
+HOST_TIE_PIXELS = {27: 2}
 
 
 @contextmanager
@@ -366,12 +389,16 @@ def phase_build() -> None:
     build = port("ops.build")
     sources = sorted(p.stem for p in build.SOURCE_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    paths = build.build(sources)
+    with ThreadPoolExecutor(1) as pool:  # g++ for the host library while nvcc runs
+        host = pool.submit(build.build_host, "host_pipeline")
+        paths = build.build(sources)
+        host_path = host.result()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if any(k in ln for k in ("registers", "spill", "entry function", "wgmma"))]
-             for name, log in build.build_logs.items()}
+             for name, log in build.build_logs.items() if name in sources}
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
-          "libraries": {k: str(v) for k, v in paths.items()}, "ptxas": ptxas})
+          "libraries": {k: str(v) for k, v in paths.items()}, "ptxas": ptxas,
+          "host_library": str(host_path), "host_flags": list(build.HOST_FLAGS)})
 
 
 def _tap_inputs(batch: int, edge: int, padding: int, gen, clusters: int = CLUSTERS,
@@ -2185,6 +2212,185 @@ def _zoo_card_vs_cpu(tag: str, model, shape, device: str) -> None:
           "max_abs": scale, "tol": ZOO_TOL})
 
 
+def host_cpu() -> dict:
+    """The host's CPU: /proc/cpuinfo's first model name and os.cpu_count()."""
+    name = "not reported"
+    cpuinfo = Path("/proc/cpuinfo")
+    if cpuinfo.exists():
+        for line in cpuinfo.read_text().splitlines():
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    return {"model_name": name, "cpu_count": os.cpu_count()}
+
+
+@contextmanager
+def native_host(on: bool):
+    """The port's native host library on (it must build and load: a check)
+    or off (``MISST_DISABLE_NATIVE=1``) for the block, its call counts at 0
+    when the block starts."""
+    nat = port("data.native")
+    saved = os.environ.pop("MISST_DISABLE_NATIVE", None)
+    if not on:
+        os.environ["MISST_DISABLE_NATIVE"] = "1"
+    nat.reset()
+    try:
+        check(nat.available() == on, f"native host library available: {not on}, want {on}")
+        nat.reset_call_counts()
+        yield nat
+    finally:
+        os.environ.pop("MISST_DISABLE_NATIVE", None)
+        if saved is not None:
+            os.environ["MISST_DISABLE_NATIVE"] = saved
+        nat.reset()
+
+
+def _host_gap(nat, aug) -> dict:
+    """Native against numpy on this host: ACDCStrongTransforms.pretrain on a
+    uniform random 256^2 image with labels in 0..3, seeds 0..49 (the CPU
+    tests' inputs): label pixels that differ (rotation ties), and the largest
+    image difference on the seeds whose labels agree (the jitter)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    img = rng.random((256, 256), dtype=np.float32)
+    gt = rng.integers(0, 4, (256, 256)).astype(np.int32)
+    tf = aug.ACDCStrongTransforms.pretrain
+    tie_pixels, jitter = {}, 0.0
+    for seed in range(50):
+        a = tf(img, gt, np.random.default_rng(seed))
+        lib = nat._lib
+        nat._lib, nat._tried = None, True
+        try:
+            b = tf(img, gt, np.random.default_rng(seed))
+        finally:
+            nat._lib = lib
+        differ = int((a[1] != b[1]).sum())
+        if differ:
+            tie_pixels[seed] = differ
+        else:
+            jitter = max(jitter, float(np.abs(a[0] - b[0]).max()))
+    return {"seeds": 50, "label_pixels_by_seed": tie_pixels, "jitter_max_abs": jitter}
+
+
+def _host_run(steps: int, native: bool, extra, tag: str, device: str):
+    """The headline udaiic trainer through ``main.main`` on the host path,
+    the native library on or off, the joint's launch counts and the native
+    call counts set to 0 just before it. Returns the trainer and its line."""
+    import torch
+
+    main_mod, mj = port("main"), port("ops.mi_joint")
+    argv = ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
+            f"Trainer.num_batches={steps}", "Trainer.max_epoch=1", f"Trainer.device={device}",
+            f"Trainer.save_dir=chip_smoke_host_{tag}", "Trainer.step_timing=true", *extra]
+    with native_host(native) as nat:
+        mj.reset_launch_counts()
+        trainer = main_mod.main(argv)
+        calls = dict(nat.CALLS)
+    launches = sum(mj.LAUNCHES.values())
+    if device == "cuda":
+        check(launches == 6 * steps, f"host_tier {tag}: {launches} joint launches, want 6 a step")
+    loaders = {"labeled": trainer._labeled_loader, "unlabeled": trainer._unlabeled_loader}
+    drawn = sum(ld._draw for ld in loaders.values())
+    check(drawn == (steps + 3) * (4 + 10), f"host_tier {tag}: the train loaders drew {drawn} "
+          f"samples, want (N + 3) x 14 for N = {steps}")
+    samples = drawn + len(trainer._val_loader.dataset) + len(trainer._test_loader.dataset)
+    want = samples if native else 0
+    check(calls["augment_pair"] == want, f"host_tier {tag}: {calls['augment_pair']} native "
+          f"augment_pair calls for {samples} samples drawn, want {want}")
+    check(native == (calls["decode_png_gray8"] > 0), f"host_tier {tag}: decode calls {calls}")
+    row = trainer._storage._rows[0]
+    check(all(math.isfinite(row[k]) for k in ("tra_sup_loss_mean", "tra_mi_mean")),
+          f"host_tier {tag}: losses {row}")
+    walls = trainer.step_walls_ms
+    out = {"phase": "host_tier", "run": tag, "native": native, "steps": steps,
+           "dtype": str(trainer._model.dtype), "epoch_wall_s": trainer.epoch_times_s[0],
+           "step_wall_ms": walls, "median_step_wall_ms": statistics.median(walls[1:] or walls),
+           "median_step_ms": statistics.median(trainer.step_times_ms[1:] or trainer.step_times_ms),
+           "joint_launches_per_step": launches / steps, "samples_drawn": samples,
+           "native_calls": calls, "loader_draws": {k: ld._draw for k, ld in loaders.items()}}
+    if device == "cuda":  # device time of a step on one batch already on the card
+        lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
+        batch = {"labeled_image": trainer._to_device(lab["image"]),
+                 "labeled_target": trainer._to_device(lab["target"]),
+                 "unlabeled_image": trainer._to_device(unlab["image"])}
+        dev_ms = sum(ms for ms, _ in device_profile(lambda: trainer._train_step(batch), 3,
+                                                    warmup=1).values())
+        out.update(device_ms_per_step=dev_ms,
+                   device_busy_share=dev_ms / out["median_step_wall_ms"])
+        torch.cuda.synchronize()
+    emit(out)
+    return trainer, out
+
+
+def phase_host_tier(steps: int, device: str = "cuda") -> list:
+    """The host tier on the card's host: the native library decodes and
+    augments every sample (its call counts say so), native against numpy at
+    each level (a sample, a loader batch, the trainer's step and epoch), the
+    background prefetch leaving the loaders N + 3 batches on."""
+    import numpy as np
+    from PIL import Image
+
+    pkg, data, aug = import_module(PORT), port("data"), port("data.augment")
+    data.generate_synthetic_acdc(pkg.DATA_PATH)
+    head = {"phase": "host_tier", "host_cpu": host_cpu(),
+            "nvidia_smi": nvidia_smi() if device == "cuda" else None}
+    with native_host(True) as nat:
+        pngs = sorted(Path(pkg.DATA_PATH, "ACDC_contrast").rglob("*.png"))
+        for path in pngs:
+            with Image.open(path) as im:
+                check(np.array_equal(nat.decode_png_gray8(path.read_bytes()), np.asarray(im)),
+                      f"native decode != PIL on {path}")
+        head["decode_equal_to_pil"] = len(pngs)
+        gap = _host_gap(nat, aug)
+    check(0.0 < gap["jitter_max_abs"] <= HOST_JITTER_GAP, f"native vs numpy jitter {gap}")
+    check(gap["label_pixels_by_seed"] == HOST_TIE_PIXELS,
+          f"native vs numpy label pixels {gap}, want {HOST_TIE_PIXELS}")
+    head["native_vs_numpy"] = gap
+
+    # one sample (one thread) and one batch of each headline loader (4 workers)
+    lab_set, unlab_set, _ = data.ACDCSemiInterface(
+        pkg.DATA_PATH, 0.25, 0.75).create_semi_supervised_datasets()
+    img, gt, _ = lab_set.load_raw(0)
+    head["sample_shape"] = list(img.shape)
+    for native in (True, False):
+        key = "native" if native else "numpy"
+        with native_host(native):
+            times = []
+            for seed in range(HOST_DRAWS):
+                t0 = time.perf_counter()
+                aug.ACDCStrongTransforms.pretrain(img, gt, np.random.default_rng(seed))
+                times.append((time.perf_counter() - t0) * 1e3)
+            head[f"sample_ms_{key}"] = statistics.median(times)
+            for name, dset, bs in (("labeled", lab_set, 4), ("unlabeled", unlab_set, 10)):
+                loader = data.SegmentationLoader(dset, aug.ACDCStrongTransforms.pretrain, bs,
+                                                 seed=10, num_workers=4)
+                it = iter(loader)
+                next(it)
+                times = []
+                for _ in range(HOST_BATCHES):
+                    t0 = time.perf_counter()
+                    next(it)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                head[f"batch_ms_{name}_{key}"] = statistics.median(times)
+                loader._pool.shutdown()
+    emit(head)
+
+    rows = []
+    for precision, extra in (("fp32", ()), ("bf16", BF16)):
+        for native in (True, False):
+            tag = f"{precision}_{'native' if native else 'numpy'}"
+            trainer, out = _host_run(steps, native, extra, tag, device)
+            rows.append(out)
+            del trainer
+    emit({"phase": "host_tier", "summary": [
+        {k: r.get(k) for k in ("run", "epoch_wall_s", "median_step_wall_ms", "median_step_ms",
+                               "device_ms_per_step", "device_busy_share")} for r in rows],
+        "host_cpu": head["host_cpu"], "nvidia_smi": head["nvidia_smi"]})
+    return rows
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
@@ -2257,7 +2463,7 @@ def main(argv=None) -> int:
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_device,train_bf16,train_remat,"
                                               "resume,inference,train_zoo,pretrain,optim,arch_zoo,"
-                                              "profile")
+                                              "host_tier,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -2367,6 +2573,9 @@ def main(argv=None) -> int:
     if "arch_zoo" in phases:
         with timed(walls, "arch_zoo"):
             phase_arch_zoo()
+    if "host_tier" in phases:
+        with timed(walls, "host_tier"):
+            phase_host_tier(args.steps)
     profiles = {}
     t0 = time.perf_counter()
     if "profile" in phases:

@@ -1,5 +1,6 @@
 from .acdc import ACDCDataset, ACDCSemiInterface, create_val_split, train_test_split
 from .augment import ACDCStrongTransforms, PairedTransform, TwiceTransform
+from . import native, pil_augment
 from .sampler import InfiniteRandomSampler, PatientSampler, ContrastBatchSampler
 from .loader import SegmentationLoader, PatientEvalLoader, TwiceLoader, get_dataloaders, create_val_loader
 from .synthetic import generate_synthetic_acdc
@@ -12,6 +13,8 @@ __all__ = [
     "ACDCStrongTransforms",
     "PairedTransform",
     "TwiceTransform",
+    "native",
+    "pil_augment",
     "InfiniteRandomSampler",
     "PatientSampler",
     "ContrastBatchSampler",

@@ -1,9 +1,9 @@
 """ACDC PNG-slice dataset, patient metadata, and semi-supervised splits.
 
-A copy of the JAX package's ``data/acdc.py`` for the PyTorch port. Changes:
-PNGs are decoded with PIL only (the JAX package's native decoder stays
-there), and the patient split reproduces sklearn's ``train_test_split`` with
-numpy, so the port does not need sklearn.
+A copy of the JAX package's ``data/acdc.py`` for the PyTorch port. PNGs are
+decoded by the native host library (``data/native.py``) where it is there,
+else with PIL, as in the JAX package. Change: the patient split reproduces
+sklearn's ``train_test_split`` with numpy, so the port does not need sklearn.
 
 Capability parity:
 - ACDCDataset: the original project's contrastyou/dataloader/acdc_dataset.py:14-52
@@ -38,6 +38,13 @@ _index_re = re.compile(r"\d+")
 
 
 def _load_png(path: str) -> np.ndarray:
+    from . import native
+
+    if native.available():
+        with open(path, "rb") as f:
+            decoded = native.decode_png_gray8(f.read())
+        if decoded is not None:
+            return decoded
     from PIL import Image
 
     with Image.open(path) as im:

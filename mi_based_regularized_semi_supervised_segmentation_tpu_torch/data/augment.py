@@ -1,8 +1,12 @@
 """Host-side paired augmentation — keyed, deterministic, numpy-native.
 
-A copy of the JAX package's ``data/augment.py`` for the PyTorch port, without
-its native fused fast path (which is bit-compatible with the numpy path kept
-here).
+A copy of the JAX package's ``data/augment.py`` for the PyTorch port, with
+its native fused fast path (``data/native.py``): ``PairedTransform`` with a
+crop augments in one pass of the native host library where it is there. That
+path is not bit-compatible with the numpy one, in the JAX package either: the
+jitter differs by up to ~1.2e-7 and a nearest-neighbour tie of the rotation
+now and then lands on the neighbouring pixel (``csrc/host_pipeline.cpp``).
+Each path equals its JAX counterpart bit for bit.
 
 Capability parity with the reference's PIL pipeline
 (the original project's semi_seg/augment.py:7-53 ACDCStrongTransforms;
@@ -128,6 +132,27 @@ class PairedTransform:
     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """img: [H, W] float32 in [0,1]; target: [H, W] int or None."""
         p = self.sample_params(rng, img.shape)
+
+        # the native fused path; the draws in the numpy path's order
+        # (geometry, brightness, contrast)
+        if self.crop is not None:
+            from . import native
+
+            if native.available():
+                if self.jitter is not None:
+                    lo, hi = self.jitter
+                    brightness = float(rng.uniform(lo, hi))
+                    contrast = float(rng.uniform(lo, hi))
+                else:
+                    brightness, contrast = -1.0, 1.0
+                out = native.augment_pair(
+                    img, target, p.angle, p.vflip, p.hflip, p.crop_y, p.crop_x,
+                    self.crop, brightness, contrast,
+                )
+                if out is not None:
+                    n_img, n_gt = out
+                    return n_img[..., None], n_gt
+
         out_img = self.apply_geometry(img.astype(np.float32), p)
         out_tgt = None
         if target is not None:

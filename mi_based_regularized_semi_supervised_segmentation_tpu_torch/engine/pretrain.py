@@ -33,7 +33,9 @@ JAX package. A parameter of the phase's Adam that the loss does not reach
 ``jax.grad`` gives it, so its coupled weight decay still moves it.
 
 Each epoch: the learning rate of ``lr_at_epoch`` (eta_min 0 in the pretrain
-phases, 5e-7 in finetune), ``num_batches`` steps, the meters, the phase's
+phases, 5e-7 in finetune), ``num_batches`` steps on batches prefetched by a
+background thread (``parallel/mesh.py``; one loader iterator a phase, left 3
+batches past the epoch's last, as in the JAX package), the meters, the phase's
 CSV under ``<save_dir>/<phase>/`` and its ``last.pth``; finetune also
 evaluates the val patients and keeps ``best.pth`` by their DSC.
 ``Checkpoint=<run dir>`` resumes each phase from ``<dir>/<phase>/last.pth``
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import copy
 import time
+from contextlib import closing
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -60,6 +63,7 @@ from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
 from ..ops.iic_local import iid_segmentation_small_patch_loss_subheads
 from ..ops.losses import kl_div, mse_consistency, supcon_loss
+from ..parallel import prefetch_to_device
 from ..utils import AverageValueMeter, MeterInterface, Storage, StorageIncomeDict, SummaryWriter, \
     UniversalDice
 from ..utils.general import class2one_hot
@@ -392,13 +396,12 @@ class _Phase:
         self.model.requires_grad_(True)
 
 
-def _host_batches(loader, make: Callable[[Dict[str, Any]], Dict[str, Any]],
-                  device: torch.device) -> Iterator[Dict[str, Any]]:
-    """The loader's batches through ``make`` (numpy), then on ``device``;
-    ``group`` stays a host list."""
+def _host_batches(loader, make: Callable[[Dict[str, Any]], Dict[str, Any]]
+                  ) -> Iterator[Dict[str, Any]]:
+    """The loader's batches through ``make`` (numpy): one iterator a phase,
+    shared by its epochs, as in the JAX package."""
     for batch in loader:
-        out = make(batch)
-        yield {k: (v if k == "group" else to_device(v, device)) for k, v in out.items()}
+        yield make(batch)
 
 
 def _refuse(options: Dict[str, Any], why: str) -> None:
@@ -489,7 +492,10 @@ class ContrastTrainer:
                    meter_names: Sequence[str], income_key: str, writer,
                    eval_model: Optional[nn.Module] = None) -> None:
         """The phase's epochs from ``_start_epoch``; ``eval_model``: evaluate
-        it on the val patients each epoch and keep ``best.pth`` (finetune)."""
+        it on the val patients each epoch and keep ``best.pth`` (finetune).
+        ``batches``: the phase's host batches, prefetched on a background
+        thread each epoch, which leaves them N + 3 batches on for N steps (the
+        3 surplus batches are lost, as in the JAX package)."""
         phase_dir = Path(self._save_dir) / name
         max_epoch = self._max_epochs[name]
         storage = self._storages[name]
@@ -507,16 +513,18 @@ class ContrastTrainer:
                 set_learning_rate(phase.optimizer, epoch_lr)
                 meters["lr"].add(epoch_lr)
                 pending = []
-                for _ in range(self._num_batches):
-                    batch = next(batches)
-                    groups = batch.pop("group")
-                    t0 = time.perf_counter()
-                    metrics = step(batch)
-                    if self._step_timing:
-                        if self._device.type == "cuda":
-                            torch.cuda.synchronize(self._device)
-                        times.append((time.perf_counter() - t0) * 1e3)
-                    pending.append((metrics, groups))
+                with closing(prefetch_to_device(batches, self._device)) as prefetched:
+                    for _ in range(self._num_batches):
+                        batch = next(prefetched)
+                        groups = batch.pop("group")
+                        batch = {k: to_device(v, self._device) for k, v in batch.items()}
+                        t0 = time.perf_counter()
+                        metrics = step(batch)
+                        if self._step_timing:
+                            if self._device.type == "cuda":
+                                torch.cuda.synchronize(self._device)
+                            times.append((time.perf_counter() - t0) * 1e3)
+                        pending.append((metrics, groups))
                 for metrics, groups in pending:  # one device sync per epoch
                     for m in meter_names:
                         meters[m].add(float(metrics[m]))
@@ -594,8 +602,7 @@ class ContrastTrainer:
             **extra)
         batches = _host_batches(self._pretrain_loader, lambda b: {
             "image": b["image"], "image_tf": b["image_tf"], "group": b["group"],
-            "labels": global_labels(b["partition"], b["group"], on_patient, on_partition)},
-            self._device)
+            "labels": global_labels(b["partition"], b["group"], on_patient, on_partition)})
         self._resume(phase, "pretrain_encoder", checkpoint)
         self._run_phase("pretrain_encoder", phase, step, batches, lr, multiplier, warmup_max,
                         0.0, ["contrastive_loss"] + (["iic_loss"] if iic_head else []),
@@ -621,8 +628,7 @@ class ContrastTrainer:
         batches = _host_batches(self._pretrain_loader, lambda b: {
             "image": b["image"], "image_tf": b["image_tf"], "group": b["group"],
             "labels": local_labels(b["partition"], b["group"],
-                                   unfold_locations((4, 4), len(b["group"])))},
-            self._device)
+                                   unfold_locations((4, 4), len(b["group"])))})
         self._resume(phase, "pretrain_decoder", checkpoint)
         self._run_phase("pretrain_decoder", phase, step, batches, lr, multiplier, warmup_max,
                         0.0, ["contrastive_loss"] + (["iic_loss"] if iic_head else []),
@@ -644,7 +650,7 @@ class ContrastTrainer:
             return out
 
         self._resume(phase, "finetune", checkpoint)
-        self._run_phase("finetune", phase, step, _host_batches(labeled, make, self._device), lr,
+        self._run_phase("finetune", phase, step, _host_batches(labeled, make), lr,
                         multiplier, warmup_max, 5e-7,
                         ["sup_loss"] + (["reg_loss"] if teacher is not None else []),
                         "finetune", writer,

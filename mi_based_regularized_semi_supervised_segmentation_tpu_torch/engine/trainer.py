@@ -14,13 +14,17 @@ evaluates ``best.pth`` on the test patients with dice and Hausdorff and
 writes PNG dumps.
 
 Two data paths:
-- host loader (default): numpy augmentation in loader threads, one batch
-  upload per step, one metrics readback per epoch;
+- host loader (default): PNG decode and augmentation in the native host
+  library (``data/native.py``; numpy where it is missing) in loader threads,
+  run one to three batches ahead of the step on a background thread
+  (``parallel/mesh.py:prefetch_to_device``), one batch upload per step, one
+  metrics readback per epoch;
 - ``Trainer.device_data: true``: the datasets are staged on the card once
   (``data/device_pipeline.py``), each step takes slice indices and augments
   on the card (``Kernel.geometry``). With ``Trainer.epoch_scan`` (default)
   the epoch runs in chunks of at most ``scan_chunk`` steps, each given its
-  indices in one upload and read back once.
+  indices in one upload and read back once; without it the index loaders
+  go through the same prefetch as the host loaders.
 On either path ``Trainer.profile`` (true, or an epoch number) writes a
 ``torch.profiler`` trace of that epoch's first steps under
 ``<save_dir>/profile`` (``EpochTrace``).
@@ -31,6 +35,7 @@ from __future__ import annotations
 import copy
 import json
 import time
+from contextlib import closing
 from itertools import chain
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -46,6 +51,7 @@ from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import GEOMETRIES
 from ..ops.iic_local import BACKENDS as IIC_LOCAL_BACKENDS
 from ..ops.mi_fused import LANES as FUSED_LANES
+from ..parallel import prefetch_to_device
 from ..utils import (
     AverageValueMeter,
     ExceptionIgnorer,
@@ -189,10 +195,11 @@ def kernel_options(cfg: Dict[str, Any]) -> Tuple[str, str, str]:
     return backend, geometry, augment
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` (through pinned memory to a card)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host array (or CPU tensor, pinned by ``prefetch_to_device``) on
+    ``device``, through pinned memory to a card."""
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda" and not t.is_pinned():
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
 
@@ -289,10 +296,13 @@ class SemiTrainer:
         # step_timing: synchronize after every train step (on the epoch-scan
         # path, after every chunk: each of its steps gets the chunk's wall
         # time / its size) and keep the times (ms) in step_times_ms; off by
-        # default, as it stalls the queue
+        # default, as it stalls the queue. On the per-step path it also keeps
+        # step_walls_ms: from the previous step's end (the epoch's first: the
+        # loop's start) to this step's end, the batch's fetch and upload included
         self._step_timing = bool(step_timing)
         self._profile = profile  # Trainer.profile (EpochTrace)
         self.step_times_ms: list = []
+        self.step_walls_ms: list = []
         self.epoch_times_s: list = []  # wall time of each epoch, eval and saving included
         self._save_dir = str(Path(run_dir or self.RUN_DIR) / save_dir)
         Path(self._save_dir).mkdir(parents=True, exist_ok=True)
@@ -469,29 +479,33 @@ class SemiTrainer:
         if self._epoch_scan:
             return self._run_epoch_scan(epoch, meters)
         if self._device_data:
-            batches = ({"labeled_indices": self._to_device(lab["indices"]),
-                        "unlabeled_indices": self._to_device(unlab["indices"]),
-                        "group": lab["group"]}
-                       for lab, unlab in zip(self._labeled_index_loader,
-                                             self._unlabeled_index_loader))
+            host_batches = ({"labeled_indices": lab["indices"],
+                             "unlabeled_indices": unlab["indices"], "group": lab["group"]}
+                            for lab, unlab in zip(self._labeled_index_loader,
+                                                  self._unlabeled_index_loader))
         else:
-            batches = ({"labeled_image": self._to_device(lab["image"]),
-                        "labeled_target": self._to_device(lab["target"]),
-                        "unlabeled_image": self._to_device(unlab["image"]),
-                        "group": lab["group"]}
-                       for lab, unlab in zip(self._labeled_loader, self._unlabeled_loader))
+            host_batches = ({"labeled_image": lab["image"], "labeled_target": lab["target"],
+                             "unlabeled_image": unlab["image"], "group": lab["group"]}
+                            for lab, unlab in zip(self._labeled_loader, self._unlabeled_loader))
         pending = []
         progress_every = max(self._num_batches // 5, 1)
-        with self._trace(epoch) as trace:
+        # the loaders run on a background thread, as the JAX package's epoch
+        # does, and are left N + 3 batches on for the epoch's N steps
+        with closing(prefetch_to_device(host_batches, self._device)) as batches, \
+                self._trace(epoch) as trace:
+            t_end = time.perf_counter()
             for i in range(self._num_batches):
                 batch = next(batches)
                 groups = batch.pop("group")
+                batch = {k: self._to_device(v) for k, v in batch.items()}
                 t0 = time.perf_counter()
                 metrics = self._train_step(batch)
                 if self._step_timing:
                     if self._device.type == "cuda":
                         torch.cuda.synchronize(self._device)
-                    self.step_times_ms.append((time.perf_counter() - t0) * 1e3)
+                    t_prev, t_end = t_end, time.perf_counter()
+                    self.step_times_ms.append((t_end - t0) * 1e3)
+                    self.step_walls_ms.append((t_end - t_prev) * 1e3)
                 pending.append((metrics, groups))
                 trace.steps_done(i + 1)
                 if self._progress and self._device_data and (i + 1) % progress_every == 0:

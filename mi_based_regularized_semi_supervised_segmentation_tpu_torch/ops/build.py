@@ -1,9 +1,14 @@
-"""Build the port's CUDA sources (``csrc/*.cu``) with nvcc and load them.
+"""Build the port's CUDA sources (``csrc/*.cu``) with nvcc and load them,
+and its host C++ sources (``csrc/*.cpp``) with the host compiler.
 
 Each source has a plain C interface and is compiled at first use into a
-shared library under ``<repo>/build/torch_kernels/``, named after the source
-and a hash of its text, of every header it includes from ``csrc/`` and of the
-flags, then loaded with ``ctypes``. Nothing is compiled at import time.
+shared library under ``<repo>/build/torch_kernels/`` (CUDA) or
+``<repo>/build/torch_host/`` (host), named after the source and a hash of its
+text, of every header it includes from ``csrc/``, of the flags (and for the
+host, of the compiler and the CPU), then loaded with ``ctypes``. A library is written to a
+temporary file and renamed into place, so processes that build at the same
+moment do not read each other's half-written files. Nothing is compiled at
+import time.
 """
 
 from __future__ import annotations
@@ -11,7 +16,9 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import re
+import shlex
 import shutil
 import subprocess
 import threading
@@ -24,6 +31,12 @@ SOURCE_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(PROJECT_PATH) / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_BUILD_DIR = Path(PROJECT_PATH) / "build" / "torch_host"
+# native/Makefile's flags: ISO C++17 (not gnu++17) keeps floating-point
+# contraction off, which the host pipeline's bits rely on
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
+HOST_LIBS = ("-lz",)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -96,3 +109,52 @@ def load(name: str) -> ctypes.CDLL:
             path = build([name])[name]
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]
+
+
+def cxx() -> list:
+    """The host compiler: ``$CXX`` (split as a shell would), else g++."""
+    return shlex.split(os.environ.get("CXX") or "g++")
+
+
+def host_cpu() -> str:
+    """The CPU that ``-march=native`` compiles for: the machine type and
+    /proc/cpuinfo's first model name and flags (``Features`` on Arm) lines."""
+    lines = [platform.machine()]
+    cpuinfo = Path("/proc/cpuinfo")
+    if cpuinfo.exists():
+        for key in ("model name", "flags", "Features"):
+            lines += [line for line in cpuinfo.read_text().splitlines()
+                      if line.split(":", 1)[0].strip() == key][:1]
+    return "\n".join(lines)
+
+
+def host_library_path(name: str) -> Path:
+    """``build/torch_host/lib<name>_<hash>.so`` for ``csrc/<name>.cpp``: the
+    hash covers the source, the compiler, the flags and the host CPU, so a
+    ``-march=native`` library is never loaded on another CPU."""
+    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cpp").read_bytes())
+    digest.update(" ".join([*cxx(), *HOST_FLAGS, *HOST_LIBS]).encode())
+    digest.update(host_cpu().encode())
+    return HOST_BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with the host compiler unless its library
+    is there; raises ``RuntimeError`` with the compiler's output if it fails."""
+    path = host_library_path(name)
+    if path.exists():
+        return path
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [*cxx(), *HOST_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cpp"), *HOST_LIBS]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except OSError as error:  # no such compiler
+        raise RuntimeError(f"{' '.join(cmd)}: {error}") from error
+    build_logs[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{' '.join(cmd)} exited with {proc.returncode}: "
+                           f"{build_logs[name].strip() or '(no output)'}")
+    os.replace(tmp, path)
+    return path
