@@ -152,6 +152,29 @@ Phases, each printing JSON lines:
            batch) and busy share, 6 joint launches a step, the loaders (N + 3)
            x 14 samples on after the prefetch, and one native augment_pair
            call for every sample drawn (none with it off)
+  parallel data parallelism on the one card: 4 gloo ranks on cuda:0, each the
+           headline udaiic step (fp32, crop 224) on its rows of the 4 + 10
+           batch padded to 4 + 12 (pad-and-mask), its losses and BN
+           statistics at STEPS_TOL and its parameter moves at the step
+           phase's bound and its summed gradients within PAR_GRAD_TOL
+           (relative L2; the Conv5 head's, at noise, reported only) against
+           the one-process card step on the unpadded batch, 6 joint launches
+           a rank; then the dry run on those ranks
+           (parallel/dryrun.py: the flagship step padded, the device-data
+           epoch loop, Kernel.augment=epoch, the eval scan over the ranks'
+           slices, a checkpoint saved by rank 0 and reloaded by all); between
+           the two, in the same spawn, two groups of 2 ranks side by side:
+           the fused step (4 + 8, 2 + 4 fused launches a rank, no joint
+           launch) and the device-path step (shear, 2 rotation launches a
+           rank), each against one process. Any rank's failure fails the
+           phase; a rank's step ms is that of ranks time-sharing one card
+  train_parallel  the train phase's run through main.main under an NCCL
+           group of world 1 set up as torchrun sets it: no data group (a
+           rank that holds the whole batch runs the one-process step), the
+           losses within STEPS_TOL of the train phase's, the step wall beside
+           it, a profile with no collective and as many device events a
+           step as without the group (within 1%: the profiler can lose a
+           few), the group left at the end
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
            trainer (torch.profiler), and the device's busy share of the wall;
@@ -286,6 +309,7 @@ HOST_BATCHES = 5         # host_tier: timed batches of each headline loader (aft
 # (0 < gap <= HOST_JITTER_GAP) and the labels on seed 27 alone, by 2 pixels
 HOST_JITTER_GAP = 2.4e-7
 HOST_TIE_PIXELS = {27: 2}
+IMPORTED_AT = time.time()  # a spawned rank's import of this file: its startup's first part
 
 
 @contextmanager
@@ -2391,6 +2415,382 @@ def phase_host_tier(steps: int, device: str = "cuda") -> list:
     return rows
 
 
+# --- data parallelism: gloo ranks sharing the one card (parallel/mesh.py) ----
+PAR_WORLD = 4            # parallel: ranks of the headline step, 4 + 10 padded to 4 + 12
+PAR_TIMEOUT = 600.0      # seconds until any rank still running fails the phase
+PAR_TIMED_STEPS = 2      # parallel: steps timed after the checked one, on the same batch
+# parallel: a rank's summed gradient against one process's, relative L2 per tensor. The
+# step's fp32 noise at 224^2 reads up to 1.5e-2 (a BN shift's gradient); a gradient W x
+# too large reads W - 1, a rank's own rows alone about 0.9, a mean in place of the sum 1 - 1/W
+PAR_GRAD_TOL = 5e-2
+# ... except the Conv5 head's, which sits at noise (norm ~7e-10 at random init: a 1e-7
+# change of the inputs moves it by as much, scripts/torch_step_noise.py)
+PAR_GRAD_NOISE = "proj.heads.Conv5."
+# train_parallel: device events a step under the world-1 context against none, relative.
+# The same step reads 1536.33-1539 events a step from run to run and from step to step
+# (library kernels, copies and memsets); the data group's path would add ~1000 (+65%)
+PAR_EVENTS_TOL = 1e-2
+
+
+def _par_batch(n_lab: int, n_unlab: int, crop: int, seed: int = 0):
+    """A numpy batch (4 classes) and flip mask of the given global sizes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return ({"labeled_image": rng.random((n_lab, crop, crop, 1), dtype=np.float32),
+             "labeled_target": rng.integers(0, 4, (n_lab, crop, crop)).astype(np.int32),
+             "unlabeled_image": rng.random((n_unlab, crop, crop, 1), dtype=np.float32)},
+            rng.random((n_unlab, 2)) < 0.8)
+
+
+def _par_build(device, ctx, valid=(None, None), fused: bool = False, store=None):
+    """(model, named parameters, step) of the headline udaiic config (3
+    taps, 5 x 20 clusters, paddings [1, 3]; Adam at 1e-3) from the weights of
+    seed 0 on ``device`` under ``ctx``; ``valid``: the real rows of a padded
+    batch; ``store``: the device-data path (crop 32, geometry shear)."""
+    import torch
+
+    models, optim, steps = port("models"), port("engine.optim"), port("engine.steps")
+    feats = ["Conv5", "Up_conv3", "Up_conv2"]
+    torch.manual_seed(0)
+    model = models.UNet(1, 4).to(device)
+    proj = models.ProjectorWrapper(feats, num_clusters=20, num_subheads=5,
+                                   local_emit_logits=fused).to(device)
+    params = list(chain(model.named_parameters(), proj.named_parameters(prefix="proj")))
+    opt = optim.build_optimizer([p for _, p in params],
+                                {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
+    step = steps.build_train_step(
+        model, opt, "udaiic", num_classes=4, generator=torch.Generator(device=device),
+        feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
+        uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024,
+        data_store=store, crop=32 if store is not None else 224, geometry="shear",
+        n_labeled_valid=valid[0], n_unlabeled_valid=valid[1], context=ctx)
+    return model, params, step
+
+
+def _group_profile(ctx, steps: int = 3) -> dict:
+    """The headline step (4 + 10 at 224^2, fp32) without a context and under
+    ``ctx``, each warmed by one step and then profiled over ``steps`` steps
+    (host and device activity): wall and device ms a step, device kernels a
+    step (in all and by event name), the device ms by kernel kind and the host
+    ops that take the most self time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch_np, flips = _par_batch(4, 10, 224)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    flip_mask = torch.from_numpy(flips).cuda()
+    out = {}
+    for name, c in (("no context", None), ("nccl world 1", ctx)):
+        _, _, step = _par_build("cuda", c)
+        step(batch, flip_mask=flip_mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(batch, flip_mask=flip_mask)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        events = prof.key_averages()
+        device = [(e.key, e.self_device_time_total / 1e3 / steps) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        by_kind: dict = {}
+        for key, ms in device:
+            by_kind[_kernel_kind(key)] = by_kind.get(_kernel_kind(key), 0.0) + ms
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+                       for e in events if e.self_cpu_time_total > 0), key=lambda t: -t[1])
+        counts = {e.key: e.count / steps for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        out[name] = {"wall_ms_per_step": wall, "device_kernels_per_step": sum(counts.values()),
+                     "device_events_by_key": counts,
+                     "device_ms_per_step": sum(ms for _, ms in device),
+                     "by_kind_ms_per_step": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                     "host_self_ms_per_step_top": [{"op": k[:80], "ms": ms, "calls": n}
+                                                   for k, ms, n in host[:10]]}
+    return out
+
+
+def _par_run(device, ctx, batch_np, flips, padded=None, fused: bool = False, store=None,
+             aug=None) -> dict:
+    """One headline udaiic step (3 taps, 5 x 20 clusters, paddings [1, 3];
+    Adam at 1e-3, so the first move shows) from the weights of seed 0 on
+    ``device`` under ``ctx`` (None: one process): a tensor batch padded to
+    ``padded`` = (labeled, unlabeled) global rows, of which the rank keeps
+    its own; an index batch (``store``, crop 32, geometry shear, ``aug`` the
+    injected draws) passed whole. Its losses, parameter moves, gradients, BN
+    running statistics and kernel launches, then the wall ms of
+    PAR_TIMED_STEPS more steps on the same batch."""
+    import torch
+
+    mj, mf, rot = port("ops.mi_joint"), port("ops.mi_fused"), port("ops.rotate")
+    n_real = tuple(len(v) for k, v in batch_np.items() if not k.endswith("_target"))
+    padded = padded or n_real
+    model, params, step = _par_build(device, ctx, n_real if padded != n_real else (None, None),
+                                     fused, store)
+    pad_rows = port("engine.trainer").pad_rows
+    full = {k: pad_rows(v, padded[0] if k.startswith("labeled") else padded[1])
+            for k, v in batch_np.items()}
+    if store is None and ctx is not None:
+        full = {k: v[ctx.rows(len(v))] for k, v in full.items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in full.items()}
+    flip_mask = torch.from_numpy(pad_rows(flips, padded[1])).to(device)
+    before = {k: p.detach().cpu().clone() for k, p in params}
+    for mod in (mj, mf, rot):
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch, flip_mask=flip_mask, aug_params=aug)
+    torch.cuda.synchronize()
+    out = {"losses": {k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")},
+           "moves": {k: p.detach().cpu() - before[k] for k, p in params},
+           "grads": {k: p.grad.detach().cpu() for k, p in params if p.grad is not None},
+           "bn_stats": torch.cat([v.detach().cpu().flatten() for k, v in
+                                  model.state_dict().items() if "running_" in k]),
+           "launches": {"mi_joint": sum(mj.LAUNCHES.values()),
+                        "mi_fused": sum(mf.LAUNCHES.values()),
+                        "rotate": rot.launch_count(rot.ROTATE)},
+           "first_step_ms": (time.perf_counter() - t0) * 1e3,
+           "rank": None if ctx is None else ctx.rank, "step_ms": []}
+    for _ in range(PAR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(batch, flip_mask=flip_mask, aug_params=aug)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _full_fp32() -> None:
+    """fp32 matmuls and convolutions in full fp32 (TF32 off), as ``main``
+    sets them for the parent: a spawned rank starts with torch's defaults,
+    which let cuDNN convolve in TF32."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _par_rank(ctx, spawned_at: float, headline, pair, dry_root: str) -> dict:
+    """A rank of the PAR_WORLD-rank run: the padded headline step; then, in
+    two pairs of ranks (each its own group of 2, side by side), ranks 0-1 the
+    fused step and ranks 2-3 the device-path step with geometry shear (the
+    whole store staged on the rank's card); then the dry run
+    (``parallel/dryrun.py:dryrun_rank``) on all ranks."""
+    import torch.distributed as dist
+
+    ready = time.time()
+    _full_fp32()
+    mesh, data, dp = port("parallel.mesh"), port("data"), port("data.device_pipeline")
+    out = {"startup_s": {"to_import": IMPORTED_AT - spawned_at,
+                         "import_to_ready": ready - IMPORTED_AT},
+           "headline": _par_run(ctx.device, ctx, *headline)}
+    groups = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    half = ctx.rank // 2
+    sub = mesh.DistContext(world=2, rank=ctx.rank % 2, local_rank=ctx.local_rank,
+                           device=ctx.device, group=groups[half])
+    fused_np, fused_flips, store_root, index_np, dev_flips, aug = pair
+    if half == 0:
+        out["fused"] = _par_run(ctx.device, sub, fused_np, fused_flips, fused=True)
+    else:
+        store = dp.DeviceDataStore(data.ACDCDataset(store_root, "train"), device=ctx.device,
+                                   pack=True)
+        aug = {k: {n: None if t is None else t.to(ctx.device) for n, t in v.items()}
+               for k, v in aug.items()}
+        out["device"] = _par_run(ctx.device, sub, index_np, dev_flips, store=store, aug=aug)
+    t0 = time.perf_counter()
+    out["dryrun"] = port("parallel.dryrun").dryrun_rank(ctx, dry_root)
+    out["dryrun"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _par_compare(what: str, ref: dict, got: dict, launches: dict) -> dict:
+    """A rank's step against the one-process step: its launches exactly,
+    losses and BN statistics at STEPS_TOL (relative), parameter moves to the
+    step phase's two-tier bound, the summed gradient of every tensor within
+    PAR_GRAD_TOL (relative L2) but the Conv5 head's (PAR_GRAD_NOISE),
+    whose distance is reported only."""
+    import numpy as np
+
+    rel = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in ref["losses"].items()}
+    diffs = np.concatenate([(got["moves"][k] - m).abs().flatten().numpy()
+                            for k, m in ref["moves"].items()])
+    loose = float(np.mean(diffs > 0.05 * 1e-3))
+    rel_stats = float((got["bn_stats"] - ref["bn_stats"]).norm() / ref["bn_stats"].norm())
+    grad_rel = {k: float((got["grads"][k] - g).norm() / max(float(g.norm()), 1e-30))
+                for k, g in ref["grads"].items()}
+    held = {k: v for k, v in grad_rel.items() if not k.startswith(PAR_GRAD_NOISE)}
+    grads_ok = set(got["grads"]) == set(ref["grads"]) and max(held.values()) <= PAR_GRAD_TOL
+    out = {"rank": got["rank"], "rel_err": rel, "param_delta_max_diff": float(diffs.max()),
+           "param_delta_loose_share": loose, "bn_stats_rel_err": rel_stats,
+           "grad_rel_l2_worst": sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3],
+           "grad_rel_l2_worst_held": max(held.items(), key=lambda kv: kv[1]),
+           "launches": got["launches"], "rank_first_step_ms": got["first_step_ms"],
+           "rank_step_ms": got["step_ms"]}
+    ok = (got["launches"] == launches and all(v <= STEPS_TOL for v in rel.values())
+          and diffs.max() <= 2.05e-3 and loose < 0.005 and rel_stats <= STEPS_TOL
+          and grads_ok)
+    if not ok:
+        emit({"phase": "parallel_mismatch", "what": what, **out})
+    check(got["launches"] == launches, f"{what}: launches {got['launches']} (want {launches})")
+    check(all(v <= STEPS_TOL for v in rel.values()), f"{what} losses differ: {rel}")
+    check(diffs.max() <= 2.05e-3 and loose < 0.005,
+          f"{what} parameter moves: max {diffs.max()}, loose share {loose}")
+    check(rel_stats <= STEPS_TOL, f"{what} BN statistics differ by {rel_stats}")
+    check(grads_ok, f"{what} summed gradients: {out['grad_rel_l2_worst_held']} "
+                    f"(bound {PAR_GRAD_TOL}), tensors {len(got['grads'])} of {len(ref['grads'])}")
+    return out
+
+
+def phase_parallel() -> dict:
+    """Data parallelism on the one card, PAR_WORLD gloo ranks on cuda:0 in one
+    spawn: each the headline udaiic step (fp32, crop 224) on its rows of the
+    4 + 10 batch padded to 4 + 12, against the one-process card step on the
+    unpadded batch (same weights, flip mask), 6 joint launches a rank; two
+    pairs of ranks (W = 2 each) the fused step (4 + 8, no pad: 2 + 4 fused
+    launches a rank, no joint launch) and the device-path step (shear, 4 + 10
+    indices of the small store: 2 rotation launches a rank), each against
+    one process; then the dry run on all ranks. A rank's step ms is that of
+    PAR_WORLD processes time-sharing one card through gloo (which stages
+    CUDA tensors on the host), not a scaling figure. Returns each kernel's
+    launches on one rank."""
+    import numpy as np
+    import torch
+
+    dryrun = port("parallel.dryrun")
+    data, dp, aug_mod = port("data"), port("data.device_pipeline"), port("ops.augment_device")
+    build_dir = Path(import_module(PORT).PROJECT_PATH) / "build"
+    batch, flips = _par_batch(4, 10, 224)
+    padded = (-(-4 // PAR_WORLD) * PAR_WORLD, -(-10 // PAR_WORLD) * PAR_WORLD)
+    fused_np, fused_flips = _par_batch(4, 8, 224, seed=1)
+    root = build_dir / "chip_smoke_small"
+    data.generate_synthetic_acdc(str(root), num_train_patients=3, num_val_patients=1,
+                                 slices_per_patient=4, size=64)
+    cpu_store = dp.DeviceDataStore(data.ACDCDataset(str(root), "train"), pack=True)
+    rng = np.random.default_rng(2)
+    index_np = {"labeled_indices": rng.integers(0, len(cpu_store), 4),
+                "unlabeled_indices": rng.integers(0, len(cpu_store), 10)}
+    gen = torch.Generator().manual_seed(5)
+    aug = {k[:-len("_indices")]: aug_mod.sample_augment_params(
+               gen, len(v), cpu_store.shape, crop=32, valid_hw=cpu_store.valid_hw_dev[v],
+               offsets=cpu_store.offsets_dev[v]) for k, v in index_np.items()}
+    dev_flips = rng.random((10, 2)) < 0.8
+    dry_root = build_dir / "chip_smoke_dryrun"
+    shutil.rmtree(dry_root, ignore_errors=True)
+    spawned_at = time.time()
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(
+        _par_rank, PAR_WORLD, spawned_at, (batch, flips, padded),
+        (fused_np, fused_flips, str(root), index_np, dev_flips, aug), str(dry_root),
+        device="cuda:0", timeout=PAR_TIMEOUT, threads=2)
+    spawn_wall = time.perf_counter() - t0
+    # the one-process references, after the ranks have left the card
+    ref = _par_run("cuda", None, batch, flips)
+    fused_ref = _par_run("cuda", None, fused_np, fused_flips, fused=True)
+    store = dp.DeviceDataStore(data.ACDCDataset(str(root), "train"), device="cuda", pack=True)
+    dev_aug = {k: {n: None if t is None else t.cuda() for n, t in v.items()}
+               for k, v in aug.items()}
+    dev_ref = _par_run("cuda", None, index_np, dev_flips, store=store, aug=dev_aug)
+    # parallel/dryrun.py:entry, the headline step and its arguments at full width
+    entry_step, entry_args = dryrun.entry("cuda")
+    entry_loss = float(entry_step(*entry_args)["total_loss"])
+    check(math.isfinite(entry_loss), f"entry(): total loss {entry_loss}")
+    joint, fused, shear = ({"mi_joint": 6, "mi_fused": 0, "rotate": 0},
+                           {"mi_joint": 0, "mi_fused": 6, "rotate": 0},
+                           {"mi_joint": 6, "mi_fused": 0, "rotate": 2})
+    rows = [_par_compare(f"parallel rank {r['headline']['rank']}", ref, r["headline"], joint)
+            for r in ranks]
+    fused_rows = [_par_compare(f"parallel fused rank {r['fused']['rank']}", fused_ref,
+                               r["fused"], fused) for r in ranks if "fused" in r]
+    device_rows = [_par_compare(f"parallel device rank {r['device']['rank']}", dev_ref,
+                                r["device"], shear) for r in ranks if "device" in r]
+    emit({"phase": "parallel", "world": PAR_WORLD, "batch": [4, 10], "padded": list(padded),
+          "crop": 224, "backend": "gloo", "device": "cuda:0", "nvidia_smi": nvidia_smi(),
+          "note": ("rank_*step_ms: a rank's step while all ranks time-share one card through "
+                   "gloo (not a scaling figure); step_ms: the steps after the first"),
+          "one_process": {"first_step_ms": ref["first_step_ms"], "step_ms": ref["step_ms"],
+                          "losses": ref["losses"]},
+          "entry_total_loss": entry_loss,
+          "ranks": rows, "rank_startup_s": [r["startup_s"] for r in ranks],
+          "dryrun": [r["dryrun"] for r in ranks][0], "spawn_wall_s": spawn_wall,
+          "pairs": {"world": 2, "fused_batch": [4, 8], "fused": fused_rows,
+                    "fused_one_process_step_ms": fused_ref["step_ms"],
+                    "device_batch": [4, 10], "device_crop": 32, "geometry": "shear",
+                    "device": device_rows, "device_one_process_step_ms": dev_ref["step_ms"]}})
+    return {"mi_joint": rows[0]["launches"]["mi_joint"],
+            "mi_fused": fused_rows[0]["launches"]["mi_fused"],
+            "rotate": device_rows[0]["launches"]["rotate"]}
+
+
+def phase_train_parallel(steps: int, train_out) -> None:
+    """The train phase's run through ``main.main`` under an NCCL group of
+    world 1, set up as ``torchrun`` sets it (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR / MASTER_PORT): the context has no data group, so the rank
+    runs the one-process step (cuDNN BN, no collective); the losses within
+    STEPS_TOL of the train phase's, the step time beside it, and a profile
+    of the headline step under that context with no collective and as many
+    device events a step as without one, within PAR_EVENTS_TOL (the events
+    whose counts differ are printed); the group is left at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    main_mod = port("main")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        free = s.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free), "RANK": "0",
+           "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    seen = {}
+    real_init = main_mod.init_distributed
+
+    def spy(*args, **kwargs):
+        ctx = real_init(*args, **kwargs)
+        seen.update(backend=dist.get_backend(), world=ctx.world, device=str(ctx.device),
+                    group=ctx.group is not None)
+        return ctx
+
+    main_mod.init_distributed = spy
+    os.environ.update(env)
+    try:
+        _, _, out = phase_train(steps, phase="train_parallel", run_tag="_parallel")
+        ctx = real_init("cuda")  # the same group again, for the profile
+        try:
+            profile_out = _group_profile(ctx)
+        finally:
+            ctx.close()
+    finally:
+        main_mod.init_distributed = real_init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(seen == {"backend": "nccl", "world": 1, "device": "cuda:0", "group": False},
+          f"train_parallel ran under {seen}")
+    by_key = {k: v.pop("device_events_by_key") for k, v in profile_out.items()}
+    kernels = {k: v["device_kernels_per_step"] for k, v in profile_out.items()}
+    differ = {key: [by_key["nccl world 1"].get(key, 0.0), by_key["no context"].get(key, 0.0)]
+              for key in set(by_key["nccl world 1"]) | set(by_key["no context"])
+              if by_key["nccl world 1"].get(key) != by_key["no context"].get(key)}
+    nccl = [key for key in by_key["nccl world 1"] if _kernel_kind(key) == "collectives (NCCL)"]
+    check(not nccl, f"train_parallel: collectives at world 1: {nccl}")
+    check(abs(kernels["nccl world 1"] - kernels["no context"])
+          <= PAR_EVENTS_TOL * kernels["no context"],
+          f"train_parallel: device events a step {kernels}, differing {differ}")
+    check(not dist.is_initialized(), "train_parallel: main.main left the group joined")
+    line = {"phase": "train_parallel_vs_train", "group": seen,
+            "profile": profile_out, "events_differing": differ,
+            "median_step_ms": [out["median_step_ms"], train_out and train_out["median_step_ms"]],
+            "order": ["nccl world 1", "no context"]}
+    if train_out is not None:
+        rel = {k: abs(v - train_out["losses"][k]) / max(abs(train_out["losses"][k]), 1e-12)
+               for k, v in out["losses"].items()}
+        check(all(v <= STEPS_TOL for v in rel.values()), f"train_parallel losses differ: {rel}")
+        line["rel_err"] = rel
+    emit(line)
+
+
 def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
@@ -2399,6 +2799,8 @@ def _kernel_kind(name: str) -> str:
         return "displaced-MI joint kernels (this port's CUDA: mi_joint, mi_fused)"
     if "rotate_shear" in lowered or "lane_roll" in lowered:
         return "rotation (this port's CUDA)"
+    if "nccl" in lowered:
+        return "collectives (NCCL)"
     if any(k in lowered for k in ("batch_norm", "batchnorm", "bn_", "welford")):
         return "batch norm"
     if any(k in lowered for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "wgrad", "dgrad",
@@ -2463,7 +2865,7 @@ def main(argv=None) -> int:
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_device,train_bf16,train_remat,"
                                               "resume,inference,train_zoo,pretrain,optim,arch_zoo,"
-                                              "host_tier,profile")
+                                              "host_tier,parallel,train_parallel,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -2576,6 +2978,13 @@ def main(argv=None) -> int:
     if "host_tier" in phases:
         with timed(walls, "host_tier"):
             phase_host_tier(args.steps)
+    par_launches = {}
+    if "parallel" in phases:
+        with timed(walls, "parallel"):
+            par_launches = phase_parallel()
+    if "train_parallel" in phases:
+        with timed(walls, "train_parallel"):
+            phase_train_parallel(args.steps, train_out)
     profiles = {}
     t0 = time.perf_counter()
     if "profile" in phases:
@@ -2614,7 +3023,8 @@ def main(argv=None) -> int:
     summary = [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
                     launches=launches.get((r["name"], r["padding"])),
-                    resume_launches=resume_launches.get((r["name"], r["padding"]), 0))
+                    resume_launches=resume_launches.get((r["name"], r["padding"]), 0),
+                    parallel_rank_launches_all_joints=par_launches.get("mi_joint"))
                for r in kernel_rows if r["mode"] == "bf16"]
     # the joint at the tile shapes of patch 32 (fp32 operands, the tiled run's)
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
@@ -2632,12 +3042,15 @@ def main(argv=None) -> int:
                      pct_of_bound=r["pct_of_bound"], l2_warm_ms=r["l2_warm_ms"],
                      launches=rot_launches.get((r["name"], r["batch"]), 0),
                      meanteacher_launches=zoo_rot_launches.get((r["name"], r["batch"]), 0),
+                     parallel_rank_launches_all_rotations=par_launches.get("rotate")
+                     if r["name"] == "rotate_shear" else None,
                      on_main_path=r["name"] == "rotate_shear")
                 for r in rotation_rows]
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], unfused_path_ms=r["unfused_path_ms"],
                      launches=(bf16_fused_launches if r["mode"] == "bf16in" else fused_launches)
-                     .get((r["name"], r["padding"]), 0))
+                     .get((r["name"], r["padding"]), 0),
+                     parallel_rank_launches_all_fused=par_launches.get("mi_fused"))
                 for r in fused_rows if r["mode"] in ("bf16", "bf16in")]
     # the joint at the pretrain decoder's shape (p = 0, 200 lanes): launches
     # from the decoder phase of the pretrain run; the library is torch.matmul

@@ -11,8 +11,11 @@ slice's valid window (size and offset) is kept beside it, so the random crop
 samples inside the window (pad-if-needed when the slice is narrower than the
 crop), as the original project's RandomCrop does.
 
-The JAX package's ``mesh`` argument (replicating the store over a device mesh)
-has no counterpart here: the port runs on one device.
+The JAX package's ``mesh`` argument replicates the store over a device
+mesh. Here each rank of a data-parallel run builds its own store on its
+device (``device``), whole, and the steps gather the rank's rows of each
+global index batch. ``DevicePatientEvalLoader``'s ``pad_multiple`` is the
+data world there, so each rank takes an equal share of a patient's slices.
 """
 
 from __future__ import annotations

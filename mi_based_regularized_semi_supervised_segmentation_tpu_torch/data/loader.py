@@ -54,6 +54,10 @@ class SegmentationLoader:
     def dataset(self) -> ACDCDataset:
         return self._dataset
 
+    @property
+    def batch_size(self) -> int:
+        return self._batch_size
+
     def _make_sample(self, index: int, draw_id: int):
         img, gt, stem = self._dataset.load_raw(index)
         rng = np.random.default_rng(np.random.SeedSequence([self._seed, draw_id]))
@@ -227,9 +231,12 @@ class PatientEvalLoader:
             }
 
 
-def get_dataloaders(config: Dict[str, Any], data_root: Optional[str] = None):
+def get_dataloaders(config: Dict[str, Any], data_root: Optional[str] = None,
+                    eval_pad_multiple: int = 8):
     """Reference surface (semi_seg/dataloader_helper.py:23-68): returns
-    (labeled_loader, unlabeled_loader, test_loader)."""
+    (labeled_loader, unlabeled_loader, test_loader). ``eval_pad_multiple``:
+    the test loader pads each patient to a multiple of it (the data world
+    under data parallelism, so each rank takes an equal share of slices)."""
     from .. import DATA_PATH
 
     root = data_root or config.get("Data", {}).get("root_dir") or DATA_PATH
@@ -258,12 +265,15 @@ def get_dataloaders(config: Dict[str, Any], data_root: Optional[str] = None):
         seed=seed + 1,
         num_workers=config["UnlabeledData"].get("num_workers", 4),
     )
-    test_loader = PatientEvalLoader(test_set, ACDCStrongTransforms.val)
+    test_loader = PatientEvalLoader(test_set, ACDCStrongTransforms.val,
+                                    pad_multiple=eval_pad_multiple)
     return labeled_loader, unlabeled_loader, test_loader
 
 
-def create_val_loader(unlabeled_loader: SegmentationLoader, test_loader: PatientEvalLoader):
+def create_val_loader(unlabeled_loader: SegmentationLoader, test_loader: PatientEvalLoader,
+                      pad_multiple: int = 8):
     """Reference surface (dataloader_helper.py:79-109): 5 patients carved from
-    the unlabeled split, eval transform, patient-grouped."""
+    the unlabeled split, eval transform, patient-grouped, each padded to a
+    multiple of ``pad_multiple``."""
     val_set = create_val_split(unlabeled_loader.dataset)
-    return PatientEvalLoader(val_set, ACDCStrongTransforms.val)
+    return PatientEvalLoader(val_set, ACDCStrongTransforms.val, pad_multiple=pad_multiple)

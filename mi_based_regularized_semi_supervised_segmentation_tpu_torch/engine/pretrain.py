@@ -70,7 +70,7 @@ from ..utils.general import class2one_hot
 from .checkpoints import BEST_NAME, LAST_NAME, load_checkpoint, save_checkpoint
 from .optim import build_optimizer, init_optimizer_state, lr_at_epoch, set_learning_rate
 from .steps import _ema_update, build_eval_step, dice_stats
-from .trainer import check_parallel, resolve_device, to_device
+from .trainer import refuse_parallel, resolve_device, to_device
 
 __all__ = [
     "global_labels",
@@ -437,7 +437,7 @@ class ContrastTrainer:
         run_dir: Optional[str] = None,
         step_timing: bool = False,
     ) -> None:
-        check_parallel(configuration)
+        refuse_parallel(configuration)
         self._device = resolve_device(device)
         self._config = configuration
         self._pretrain_loader = pretrain_loader

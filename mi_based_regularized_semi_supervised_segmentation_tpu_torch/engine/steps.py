@@ -26,6 +26,30 @@ With a ``DeviceDataStore`` the batch is slice indices only and the step
 gathers and augments on the card. The JAX package's epoch programs
 (``lax.scan`` over the step) become Python loops over the step that keep the
 metrics on the device, stacked, for one readback per chunk of steps.
+
+Pad-and-mask (``n_labeled_valid`` / ``n_unlabeled_valid``, the JAX step's):
+the global sub-batches carry pad rows at their ends, and only the leading
+rows are real. The BN mask covers the whole forward ([lab, unlab, unlab];
+the teacher's forward gets the unlabeled one), every loss mean is a masked
+sum over the real count, the IIC probabilities are zeroed on pad rows
+(detached) before every joint, and the dice sums are masked: the numerics
+are the unpadded batch's.
+
+Data parallelism (``context``, a ``parallel.DistContext``): a tensor batch
+holds the rank's rows of the global batch; an index batch holds the global
+indices, and the step keeps its rows after drawing. Flip masks and
+augmentation parameters are drawn for the whole padded global batch from
+the step generator (seeded alike on every rank), then each rank keeps its
+rows, so the draws are the same on every rank. Every reduction over the
+batch is global: BN statistics (``models/unet.py``), the joints
+(``ops/iic.py``, ``ops/iic_local.py``), and each mean, whose rank's masked
+sum is divided by the global count. A term that every rank computes alike
+from global sums (the MI) enters each rank's loss times 1 / W, so the
+objective is the sum of the ranks' losses; the parameter gradients are
+summed over the data group in one flat ``all_reduce`` (the metrics ride in
+it), never averaged. Reported losses and dice sums are the global values.
+The eval steps sum each patient's masked loss and I/U over the ranks'
+slices.
 """
 
 from __future__ import annotations
@@ -45,7 +69,8 @@ from ..ops.iic_local import (
     iid_segmentation_small_patch_loss_flat,
     iid_segmentation_small_patch_loss_subheads,
 )
-from ..ops.losses import entropy, kl_div, mse_consistency
+from ..ops.losses import entropy, kl_div
+from ..parallel.mesh import DistContext, reduce_grads_, reduce_sum_, single_context
 from ..utils.general import class2one_hot
 
 MODES = ("partial", "uda", "iic", "udaiic", "entropy", "meanteacher")
@@ -77,7 +102,8 @@ def dice_stats(pred_labels: torch.Tensor, target: torch.Tensor, num_classes: int
 def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: torch.Tensor,
                        n_labeled: int, n_unlabeled: int, feature_names: Sequence[str],
                        paddings: Sequence[int], patch_sizes: Sequence[int],
-                       backend: str) -> Dict[str, torch.Tensor]:
+                       backend: str, row_mask: Optional[torch.Tensor] = None,
+                       group=None) -> Dict[str, torch.Tensor]:
     """Per-position subhead-mean MI losses, {name: loss}.
 
     Each position's last 2*B_u feature rows split into (plain, tf). Encoder
@@ -89,7 +115,13 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
     [B, Hp, Wp, S, K] (``local_flat`` off), each with its front door; the
     tiling and the joint follow ``patch_sizes`` and ``backend``. With
     ``projector.local_emit_logits`` (the fused path) the decoder heads emit
-    logits and the fused kernels apply the softmax and the border mask."""
+    logits and the fused kernels apply the softmax and the border mask.
+    ``row_mask`` [B_u] zeroes the pad rows' probabilities before every
+    joint (detached; not on the fused path, whose logits it cannot reach);
+    ``group`` sums every joint over its ranks."""
+    if row_mask is not None and projector.local_emit_logits:
+        raise ValueError("a padded batch needs the unfused path: the fused kernels take "
+                         "logits, which the row mask cannot reach")
     dec_idx = 0
     half1: Dict[str, torch.Tensor] = {}
     half2: Dict[str, torch.Tensor] = {}
@@ -114,7 +146,8 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
         p1, p2 = probs1[name], probs2[name]
         if name in ENCODER_NAMES:
             losses[name] = torch.stack(
-                [iid_loss(p1[:, s], p2[:, s])[0] for s in range(p1.shape[1])]).mean()
+                [iid_loss(p1[:, s], p2[:, s], mask=row_mask, group=group)[0]
+                 for s in range(p1.shape[1])]).mean()
             continue
         padding, patch = loss_cfg[name]
         hp, wp = p1.shape[1], p1.shape[2]
@@ -124,19 +157,22 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
             if patch < hp - 2 * padding or patch < wp - 2 * padding:
                 raise ValueError(f"the fused path covers one full-map tile: patch {patch} < "
                                  f"map {hp - 2 * padding}x{wp - 2 * padding} at {name}")
-            losses[name] = iid_segmentation_loss_fused_logits(p1, p2, S, K, padding=padding)
+            losses[name] = iid_segmentation_loss_fused_logits(p1, p2, S, K, padding=padding,
+                                                              group=group)
             continue
         valid = torch.zeros((1, hp, wp) + (1,) * (p1.dim() - 3), dtype=p1.dtype,
                             device=p1.device)
         valid[:, padding:hp - padding, padding:wp - padding] = 1.0
+        if row_mask is not None:
+            valid = valid * row_mask.detach().to(p1.dtype).reshape((-1,) + (1,) * (p1.dim() - 1))
         if p1.dim() == 5:  # [B, Hp, Wp, S, K] (local_flat off)
             losses[name] = iid_segmentation_small_patch_loss_subheads(
                 p1 * valid, p2 * valid, padding=padding, patch_size=patch, backend=backend,
-                pre_padded=True)
+                pre_padded=True, group=group)
         else:
             losses[name] = iid_segmentation_small_patch_loss_flat(
                 p1 * valid, p2 * valid, S, K, padding=padding, patch_size=patch,
-                backend=backend, pre_padded=True)
+                backend=backend, pre_padded=True, group=group)
     return losses
 
 
@@ -165,6 +201,9 @@ def build_train_step(
     ema_alpha: float = 0.999,
     ema_weight_decay: float = 1e-6,
     step_counter: Optional[torch.Tensor] = None,
+    n_labeled_valid: Optional[int] = None,
+    n_unlabeled_valid: Optional[int] = None,
+    context: Optional[DistContext] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, flip_mask=None, aug_params=None) -> metrics.
 
@@ -175,10 +214,15 @@ def build_train_step(
     [Bu]}: the step gathers those slices and augments them on the store's
     device (``geometry``, ``crop``).
     Each step draws, from ``generator``, the labeled augmentation, the
-    unlabeled augmentation (device-data path) and the flip mask. Tests inject
-    them: ``flip_mask`` [Bu, 2] bool, ``aug_params`` {"labeled": params,
-    "unlabeled": params} as ``ops.augment_device.sample_augment_params``
-    returns them.
+    unlabeled augmentation (device-data path) and the flip mask, each over
+    the whole global batch. Tests inject them: ``flip_mask`` [Bu, 2] bool,
+    ``aug_params`` {"labeled": params, "unlabeled": params} as
+    ``ops.augment_device.sample_augment_params`` returns them, for the global
+    batch (Bu its unlabeled rows, padded).
+    ``n_labeled_valid`` / ``n_unlabeled_valid``: how many leading rows of
+    each global sub-batch are real (pad-and-mask; None: all).
+    ``context``: the data-parallel context (None: one process). With it a
+    tensor batch holds the rank's rows, an index batch the global indices.
     ``teacher`` (meanteacher only): the EMA model, a copy of ``model``.
     ``step_counter``: a 0-d int64 CPU tensor, the global step, incremented
     in place by every step (the EMA schedule reads it); the caller keeps it
@@ -194,13 +238,17 @@ def build_train_step(
     needs_uda = mode in ("uda", "udaiic", "meanteacher")
     if step_counter is None:
         step_counter = torch.zeros((), dtype=torch.int64)
+    ctx = context or single_context()
+    group, world = ctx.group, ctx.data_world
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def consistency(p_tf: torch.Tensor, p_target: torch.Tensor) -> torch.Tensor:
-        """The UDA / mean-teacher term between two softmax maps; the target
-        is detached."""
+        """The UDA / mean-teacher term between two softmax maps, per
+        element; the target is detached."""
         if uda_criterion == "mse":
-            return mse_consistency(p_tf, p_target)
-        return kl_div(p_tf, p_target)
+            diff = p_tf.float() - p_target.detach().float()
+            return diff * diff
+        return kl_div(p_tf, p_target, reduction="none")
 
     if needs_iic:
         if projector is None:
@@ -216,59 +264,89 @@ def build_train_step(
         if data_store is not None:
             lab_store, unlab_store = _stores(data_store)
             aug_params = aug_params or {}
+            n_lab, n_unlab = (len(batch[k]) for k in ("labeled_indices", "unlabeled_indices"))
             labeled_image, labeled_target = augment_from_store(
                 lab_store, batch["labeled_indices"], crop, geometry, generator,
-                aug_params.get("labeled"))
+                aug_params.get("labeled"), rows=ctx.rows(n_lab))
             unlabeled_image, _ = augment_from_store(
                 unlab_store, batch["unlabeled_indices"], crop, geometry, generator,
-                aug_params.get("unlabeled"), with_labels=False)
+                aug_params.get("unlabeled"), with_labels=False, rows=ctx.rows(n_unlab))
         else:
             labeled_image = batch["labeled_image"]
             labeled_target = batch["labeled_target"]
             unlabeled_image = batch["unlabeled_image"]
+            n_lab, n_unlab = labeled_image.shape[0] * world, unlabeled_image.shape[0] * world
+        lab_rows, unlab_rows = ctx.rows(n_lab), ctx.rows(n_unlab)
+        # the rank's rows from here on
         n_labeled, n_unlabeled = labeled_image.shape[0], unlabeled_image.shape[0]
         if flip_mask is None:
-            flip_mask = sample_flip_mask(generator, n_unlabeled, flip_threshold)
-        flip_mask = flip_mask.to(unlabeled_image.device)
+            flip_mask = sample_flip_mask(generator, n_unlab, flip_threshold)
+        elif flip_mask.shape[0] != n_unlab:
+            raise ValueError(f"flip_mask has {flip_mask.shape[0]} rows for a global unlabeled "
+                             f"batch of {n_unlab}")
+        flip_mask = flip_mask[unlab_rows].to(unlabeled_image.device)
         unlabeled_image_tf = apply_flips(unlabeled_image, flip_mask)
+
+        dev = unlabeled_image.device
+        n_lab_valid = n_lab if n_labeled_valid is None else int(n_labeled_valid)
+        n_unlab_valid = n_unlab if n_unlabeled_valid is None else int(n_unlabeled_valid)
+        lab_mask = unlab_mask = bn_mask = None
+        if (n_lab_valid, n_unlab_valid) != (n_lab, n_unlab):
+            lab_mask = (torch.arange(n_lab, device=dev) < n_lab_valid)[lab_rows].float()
+            unlab_mask = (torch.arange(n_unlab, device=dev) < n_unlab_valid)[unlab_rows].float()
+            bn_mask = torch.cat([lab_mask, unlab_mask, unlab_mask])
+
+        def mean(per_row: torch.Tensor, mask: Optional[torch.Tensor], n_valid: int):
+            """The global mean over the real rows of this rank's share: its
+            masked sum over the global element count."""
+            if mask is not None:
+                per_row = per_row * mask.reshape((-1,) + (1,) * (per_row.dim() - 1))
+            return per_row.sum() / (n_valid * per_row[0].numel())
 
         if teacher is not None:
             teacher.train()
             with torch.no_grad():  # its BN running statistics move here
-                teacher_logits_tf = apply_flips(teacher(unlabeled_image), flip_mask)
+                teacher_logits_tf = apply_flips(
+                    teacher(unlabeled_image, bn_mask=unlab_mask, bn_group=group), flip_mask)
 
         model.train()
         if projector is not None:
             projector.train()
         optimizer.zero_grad(set_to_none=True)
         inputs = torch.cat([labeled_image, unlabeled_image, unlabeled_image_tf])
-        logits, features = model(inputs, return_features=True)
+        logits, features = model(inputs, return_features=True, bn_mask=bn_mask, bn_group=group)
         label_logits = logits[:n_labeled]
         unlabel_logits = logits[n_labeled:n_labeled + n_unlabeled]
         unlabel_tf_logits = logits[n_labeled + n_unlabeled:]
 
         onehot = class2one_hot(labeled_target, num_classes, class_axis=-1)
-        sup_loss = kl_div(torch.softmax(label_logits, -1), onehot)
+        sup_loss = mean(kl_div(torch.softmax(label_logits, -1), onehot, reduction="none"),
+                        lab_mask, n_lab_valid)
         metrics: Dict[str, torch.Tensor] = {"sup_loss": sup_loss}
         reg_loss = torch.zeros((), device=logits.device)
         total_weight = reg_weight
         if needs_uda:
             target_logits = (teacher_logits_tf if teacher is not None
                              else apply_flips(unlabel_logits, flip_mask))
-            uda_loss = consistency(torch.softmax(unlabel_tf_logits, -1),
-                                   torch.softmax(target_logits, -1))
+            uda_loss = mean(consistency(torch.softmax(unlabel_tf_logits, -1),
+                                        torch.softmax(target_logits, -1)),
+                            unlab_mask, n_unlab_valid)
             metrics["uda"] = uda_loss
         if mode == "entropy":
-            ent = entropy(torch.softmax(torch.cat([unlabel_logits, unlabel_tf_logits]), -1))
+            ent = mean(entropy(torch.softmax(torch.cat([unlabel_logits, unlabel_tf_logits]), -1),
+                               reduction="none"),
+                       None if unlab_mask is None else torch.cat([unlab_mask, unlab_mask]),
+                       2 * n_unlab_valid)
             metrics["entropy"] = ent
         if needs_iic:
             iic_losses = iic_regularization(projector, features, flip_mask, n_labeled,
                                             n_unlabeled, feature_names, paddings, patch_sizes,
-                                            backend)
-            iic_loss_val = sum(w * iic_losses[n] for n, w in zip(feature_names, importance))
+                                            backend, row_mask=unlab_mask, group=group)
+            # every rank holds the global MI: its share of the objective is 1 / W
+            iic_loss_val = sum(w * iic_losses[n] for n, w in zip(feature_names, importance)) / world
             metrics["mi"] = -iic_loss_val
             for n in feature_names:
-                metrics[f"individual_mis/{n}"] = -iic_losses[n]
+                metrics[f"individual_mis/{n}"] = -iic_losses[n] / world
         if mode in ("uda", "meanteacher"):
             reg_loss = uda_loss
         elif mode == "entropy":
@@ -282,16 +360,27 @@ def build_train_step(
         metrics["reg_loss"] = reg_loss
         metrics["total_loss"] = total
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        with torch.no_grad():
+            inter, union = dice_stats(label_logits.argmax(-1), labeled_target, num_classes,
+                                      mask=lab_mask)
+        if group is not None:  # the gradients, with every rank's shares of the metrics
+            keys = list(metrics)
+            rows = [inter.new_zeros((n_lab, num_classes)) for _ in range(2)]
+            rows[0][lab_rows], rows[1][lab_rows] = inter, union
+            riders = reduce_grads_(params, group, torch.cat(
+                [torch.stack([metrics[k].float() for k in keys])]
+                + [r.reshape(-1).float() for r in rows]))
+            metrics = dict(zip(keys, riders[:len(keys)].unbind()))
+            inter, union = (r.reshape(n_lab, num_classes).to(inter.dtype)
+                            for r in riders[len(keys):].split(n_lab * num_classes))
         optimizer.step()
         if teacher is not None:
             _ema_update(teacher, model, int(step_counter), ema_alpha, ema_weight_decay)
         step_counter.add_(1)
-
-        with torch.no_grad():
-            inter, union = dice_stats(label_logits.argmax(-1), labeled_target, num_classes)
         metrics["sup_dice_inter"] = inter
         metrics["sup_dice_union"] = union
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step
 
@@ -311,34 +400,59 @@ def _ema_update(teacher: torch.nn.Module, student: torch.nn.Module, step: int, a
     torch._foreach_mul_(params, float(decay))
 
 
+def _eval_sums(model: torch.nn.Module, num_classes: int, image: torch.Tensor,
+               target: torch.Tensor, mask: torch.Tensor):
+    """One patient's rows: ([masked loss sum, valid rows, inter [C],
+    union [C]] as one fp32 vector, the per-pixel loss's H * W, pred)."""
+    model.eval()
+    logits = model(image)
+    per_pixel = kl_div(torch.softmax(logits, -1), class2one_hot(target, num_classes, class_axis=-1),
+                       reduction="none")
+    valid = mask.float()
+    pred = logits.argmax(-1)
+    inter, union = dice_stats(pred, target, num_classes, mask=valid)
+    sums = torch.cat([(per_pixel * valid[:, None, None]).sum().reshape(1), valid.sum().reshape(1),
+                      inter.sum(0), union.sum(0)])
+    return sums, per_pixel.shape[1] * per_pixel.shape[2], pred
+
+
+def _eval_out(sums: torch.Tensor, hw: int, num_classes: int) -> Dict[str, torch.Tensor]:
+    """{loss, inter [..., C], union [..., C]} from ``_eval_sums`` vectors
+    [..., 2 + 2C]."""
+    return {"loss": sums[..., 0] / (sums[..., 1].clamp_min(1.0) * hw),
+            "inter": sums[..., 2:2 + num_classes], "union": sums[..., 2 + num_classes:]}
+
+
+def _store_batch(data_store, crop: int, indices, mask, rows: slice):
+    """The centre-cropped slices ``indices[rows]`` of the store, with their
+    target and mask, on its device."""
+    idx = torch.as_tensor(indices, device=data_store.device).long()[rows]
+    image = center_crop_batch(data_store.images[idx].float() / 255.0, crop)[..., None]
+    target = center_crop_batch(data_store.labels[idx].to(torch.int32), crop)
+    return image, target, torch.as_tensor(mask, device=data_store.device)[rows]
+
+
 def build_eval_step(model: torch.nn.Module, *, num_classes: int, data_store=None,
-                    crop: int = 224):
+                    crop: int = 224, context: Optional[DistContext] = None):
     """Returns evaluate(image, target, mask) -> {loss, inter [1, C],
     union [1, C], pred}: one padded patient volume per call, dice sums pooled
     over its valid slices (volume dice). With ``data_store`` the signature is
     evaluate(indices, mask): the slices are gathered and centre-cropped on
-    the store's device."""
+    the store's device. Under ``context`` the image, target and mask are the
+    rank's rows (with a store, the indices and mask are the whole patient's
+    and the step keeps its rows); the loss and I/U are summed over the
+    ranks, ``pred`` holds the rank's rows (``parallel.gather_rows``)."""
+    ctx = context or single_context()
 
     @torch.no_grad()
     def evaluate(image: torch.Tensor, target: torch.Tensor, mask: torch.Tensor):
-        model.eval()
-        logits = model(image)
-        probs = torch.softmax(logits, -1)
-        onehot = class2one_hot(target, num_classes, class_axis=-1)
-        per_pixel = kl_div(probs, onehot, reduction="none")
-        valid = mask.float()
-        denom = valid.sum().clamp_min(1.0) * per_pixel.shape[1] * per_pixel.shape[2]
-        loss = (per_pixel * valid[:, None, None]).sum() / denom
-        pred = logits.argmax(-1)
-        inter, union = dice_stats(pred, target, num_classes, mask=valid)
-        return {"loss": loss, "inter": inter.sum(0, keepdim=True),
-                "union": union.sum(0, keepdim=True), "pred": pred}
+        sums, hw, pred = _eval_sums(model, num_classes, image, target, mask)
+        out = _eval_out(reduce_sum_(sums, ctx.group)[None], hw, num_classes)
+        return {"loss": out["loss"][0], "inter": out["inter"], "union": out["union"],
+                "pred": pred}
 
     def evaluate_device(indices: torch.Tensor, mask: torch.Tensor):
-        idx = torch.as_tensor(indices, device=data_store.device).long()
-        image = center_crop_batch(data_store.images[idx].float() / 255.0, crop)[..., None]
-        target = center_crop_batch(data_store.labels[idx].to(torch.int32), crop)
-        return evaluate(image, target, torch.as_tensor(mask, device=data_store.device))
+        return evaluate(*_store_batch(data_store, crop, indices, mask, ctx.rows(len(indices))))
 
     return evaluate if data_store is None else evaluate_device
 
@@ -364,19 +478,25 @@ def _rows(t: torch.Tensor, idx: Optional[torch.Tensor]) -> torch.Tensor:
 def augment_from_store(store, indices, crop: int, geometry: str,
                        generator: Optional[torch.Generator] = None,
                        params: Optional[Dict[str, Any]] = None,
-                       with_labels: bool = True):
+                       with_labels: bool = True, rows: Optional[slice] = None):
     """Gathers the slices ``indices`` (None: the whole store) on the store's
     device and augments them, with the injected ``params`` or with draws from
-    ``generator``. A packed store is gathered as one plane. Returns (image
-    [B, crop, crop, 1] float32, label [B, crop, crop] int32 or None)."""
+    ``generator``, both for all of ``indices``; ``rows``: only those rows of
+    the indices and the draws are gathered and augmented (a rank's). A
+    packed store is gathered as one plane. Returns (image [B, crop, crop, 1]
+    float32, label [B, crop, crop] int32 or None)."""
     idx = None if indices is None else torch.as_tensor(indices, device=store.device).long()
+    if params is None:
+        n = len(store) if idx is None else idx.shape[0]
+        params = sample_augment_params(
+            generator, n, store.shape, crop=crop,
+            valid_hw=_rows(store.valid_hw_dev, idx), offsets=_rows(store.offsets_dev, idx))
+    if rows is not None:
+        idx = idx[rows]
+        params = {k: None if v is None else v[rows] for k, v in params.items()}
     packed = with_labels and store.packed is not None
     images = _rows(store.packed if packed else store.images, idx)
     labels = None if packed or not with_labels else _rows(store.labels, idx)
-    if params is None:
-        params = sample_augment_params(
-            generator, images.shape[0], store.shape, crop=crop,
-            valid_hw=_rows(store.valid_hw_dev, idx), offsets=_rows(store.offsets_dev, idx))
     return apply_augment(images, labels, params, crop=crop, geometry=geometry, packed=packed)
 
 
@@ -404,20 +524,24 @@ def _fold_in(seed: int, i: int) -> int:
     return (int(seed) * 1_000_003 + int(i)) % (1 << 63)
 
 
-def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused"):
+def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused",
+                     context: Optional[DistContext] = None):
     """aug(seed, i, index_batch) -> {"labeled_image", "labeled_target",
     "unlabeled_image"}: the device augmentation alone, drawn from a generator
     seeded from (seed, i) rather than from the step's generator, so batch
-    i + 1 can be augmented before step i runs."""
+    i + 1 can be augmented before step i runs. Under ``context`` the draws
+    cover the global index batch and the rank's rows are augmented."""
     lab_store, unlab_store = _stores(data_store)
+    ctx = context or single_context()
 
     def aug(seed: int, i: int, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=lab_store.device)
         gen.manual_seed(_fold_in(seed, i))
-        image, target = augment_from_store(lab_store, batch["labeled_indices"], crop, geometry,
-                                           gen)
-        unlabeled, _ = augment_from_store(unlab_store, batch["unlabeled_indices"], crop,
-                                          geometry, gen, with_labels=False)
+        lab, unlab = batch["labeled_indices"], batch["unlabeled_indices"]
+        image, target = augment_from_store(lab_store, lab, crop, geometry, gen,
+                                           rows=ctx.rows(len(lab)))
+        unlabeled, _ = augment_from_store(unlab_store, unlab, crop, geometry, gen,
+                                          with_labels=False, rows=ctx.rows(len(unlab)))
         return {"labeled_image": image, "labeled_target": target, "unlabeled_image": unlabeled}
 
     return aug
@@ -444,13 +568,17 @@ def build_epoch_scan_pipelined(aug_fn, step_fn, num_batches: int):
 
 def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 224,
                             geometry: str = "fused",
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            context: Optional[DistContext] = None):
     """``Kernel.augment=epoch``: every stored slice is augmented once per
     call, with draws from ``generator``, and each step takes its rows of the
     augmented stores; the step's flip mask stays drawn per step. Within one
     call the repeats of a slice share one transform (the original project
-    draws one per sample). ``step_fn`` is a tensor-batch step (no store)."""
+    draws one per sample). ``step_fn`` is a tensor-batch step (no store).
+    Under ``context`` every rank augments the whole store alike and each
+    step takes the rank's rows of the global index batch."""
     lab_store, unlab_store = _stores(data_store)
+    ctx = context or single_context()
 
     def epoch(batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         lab_img, lab_tgt = augment_from_store(lab_store, None, crop, geometry, generator)
@@ -460,6 +588,7 @@ def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 2
         for i in range(num_batches):
             li = batches["labeled_indices"][i].long()
             ui = batches["unlabeled_indices"][i].long()
+            li, ui = li[ctx.rows(len(li))], ui[ctx.rows(len(ui))]
             out.append(step_fn({"labeled_image": lab_img[li], "labeled_target": lab_tgt[li],
                                 "unlabeled_image": unlab_img[ui]}))
         return _stack(out)
@@ -467,16 +596,22 @@ def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 2
     return epoch
 
 
-def build_eval_scan(model: torch.nn.Module, *, num_classes: int, data_store, crop: int = 224):
+def build_eval_scan(model: torch.nn.Module, *, num_classes: int, data_store, crop: int = 224,
+                    context: Optional[DistContext] = None):
     """eval_all(indices [P, padded], masks [P, padded]) -> {loss [P],
     inter [P, C], union [P, C]} over every patient of ``data_store``, kept on
-    the device."""
-    eval_one = build_eval_step(model, num_classes=num_classes, data_store=data_store, crop=crop)
+    the device. Under ``context`` each rank forwards its rows of every
+    patient and the sums of all patients are summed over the ranks in one
+    collective."""
+    ctx = context or single_context()
 
+    @torch.no_grad()
     def eval_all(indices: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
-        outs = [eval_one(indices[i], masks[i]) for i in range(indices.shape[0])]
-        return {"loss": torch.stack([o["loss"] for o in outs]),
-                "inter": torch.stack([o["inter"][0] for o in outs]),
-                "union": torch.stack([o["union"][0] for o in outs])}
+        rows = ctx.rows(indices.shape[1])
+        sums = [_eval_sums(model, num_classes,
+                           *_store_batch(data_store, crop, indices[i], masks[i], rows))
+                for i in range(indices.shape[0])]
+        stacked = reduce_sum_(torch.stack([v for v, _, _ in sums]), ctx.group)
+        return _eval_out(stacked, sums[0][1], num_classes)
 
     return eval_all

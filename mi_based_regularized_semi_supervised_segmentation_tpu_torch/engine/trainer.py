@@ -28,6 +28,18 @@ Two data paths:
 On either path ``Trainer.profile`` (true, or an epoch number) writes a
 ``torch.profiler`` trace of that epoch's first steps under
 ``<save_dir>/profile`` (``EpochTrace``).
+
+Data parallelism (``context``, a ``parallel.DistContext``; ``main.py`` makes
+it from the launcher): one process per device, each running the same
+loaders with the same seeds. Each sub-batch is rounded up to a multiple of
+the data world with pad rows that repeat the last real one (pad-and-mask,
+``engine/steps.py``); the host path keeps the rank's rows of each batch,
+the device-data path hands the step the global indices (each rank stages
+the whole store) and the step keeps its rows. Eval batches are padded to a
+multiple of the data world and split the same way. Every rank computes the
+same global metrics; only rank 0 writes ``config.yaml``, ``storage.csv``,
+the event log, checkpoints (then a barrier), traces, PNG dumps and
+progress lines. Every rank loads the same checkpoint.
 """
 
 from __future__ import annotations
@@ -51,7 +63,14 @@ from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import GEOMETRIES
 from ..ops.iic_local import BACKENDS as IIC_LOCAL_BACKENDS
 from ..ops.mi_fused import LANES as FUSED_LANES
-from ..parallel import prefetch_to_device
+from ..parallel import (
+    DistContext,
+    gather_rows,
+    local_rows,
+    prefetch_to_device,
+    replicate_state,
+    single_context,
+)
 from ..utils import (
     AverageValueMeter,
     ExceptionIgnorer,
@@ -108,21 +127,57 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-# the JAX package's Parallel section: each key's accepted values (its default
-# first); the port trains on one device with no mesh
+# the JAX package's Parallel section: each key's single-device values (its
+# default first), which the pretrain pipeline keeps
 PARALLEL_DEFAULTS = {"data_axis": ("data",), "num_devices": (None, 1), "space_size": (1,),
                      "multihost": (False,), "coordinator_address": (None,),
                      "num_processes": (None,), "process_id": (None,)}
+LAUNCH = ("torchrun --nproc_per_node={n} -m "
+          "mi_based_regularized_semi_supervised_segmentation_tpu_torch.main ...")
 
 
-def check_parallel(cfg: Dict[str, Any]) -> None:
-    """The ``Parallel`` section must keep its defaults: any other value raises
-    ``NotImplementedError`` naming the key (the port has no mesh, spatial
-    axis or multi-host run yet); an unknown key raises ``ValueError``.
-    ``main.py``, ``pretrain_main.py`` and the trainers call it."""
-    for key, value in (cfg.get("Parallel") or {}).items():
+def _check_parallel_keys(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    section = cfg.get("Parallel") or {}
+    for key in section:
         if key not in PARALLEL_DEFAULTS:
             raise ValueError(f"Parallel.{key}: expected one of {sorted(PARALLEL_DEFAULTS)}")
+    return section
+
+
+def check_parallel(cfg: Dict[str, Any], world: int = 1) -> None:
+    """The ``Parallel`` section against the launcher's ``world`` size (one
+    process per device): ``ValueError`` for an unknown key, a
+    ``num_devices`` other than null or the world size (naming both and the
+    ``torchrun`` line), a ``space_size`` that does not divide the world, or
+    ``multihost`` without its coordinator, process count and id.
+    ``data_axis`` names the data axis (any string); ``coordinator_address``,
+    ``num_processes`` and ``process_id`` are read under ``multihost`` only,
+    as the JAX package reads them. ``main.py`` and the trainers call it."""
+    section = _check_parallel_keys(cfg)
+    n = section.get("num_devices")
+    if n is not None and int(n) != world:
+        raise ValueError(
+            f"Parallel.num_devices={n} but the world size is {world}: the port runs one "
+            f"process per device; launch {LAUNCH.format(n=n)} (or set "
+            "Parallel.num_devices=null to take the world size)")
+    space = int(section.get("space_size", 1) or 1)
+    if space < 1 or world % space:
+        raise ValueError(f"Parallel.space_size={space} does not divide the world size {world}")
+    if section.get("multihost"):
+        missing = [k for k in ("coordinator_address", "num_processes", "process_id")
+                   if section.get(k) is None]
+        if missing:
+            raise ValueError("Parallel.multihost=true needs Parallel."
+                             + ", Parallel.".join(missing))
+
+
+def refuse_parallel(cfg: Dict[str, Any]) -> None:
+    """The pretrain pipeline's check: the ``Parallel`` section must keep its
+    single-device values; any other raises ``NotImplementedError`` naming
+    the key (its losses are not yet global over ranks); an unknown key
+    raises ``ValueError``. ``pretrain_main.py`` and the pretrain trainers
+    call it."""
+    for key, value in _check_parallel_keys(cfg).items():
         if value not in PARALLEL_DEFAULTS[key]:
             raise NotImplementedError(f"Parallel.{key}={value!r} {_ROADMAP}")
 
@@ -204,6 +259,37 @@ def to_device(arr, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def pad_rows(arr: np.ndarray, target: int, repeat: bool = True) -> np.ndarray:
+    """``arr`` with rows appended up to ``target``: copies of its last row
+    (pad-and-mask: the step masks them out of every statistic), or zeros
+    with ``repeat`` off (eval: the mask row of a pad is False)."""
+    n = arr.shape[0]
+    if n >= target:
+        return arr
+    fill = np.repeat(arr[-1:], target - n, axis=0) if repeat else np.zeros(
+        (target - n,) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, fill])
+
+
+def eval_pad_multiple(data_world: int) -> int:
+    """The multiple each patient's eval batch is padded to: the data world
+    (8, the loaders' default, for one process)."""
+    return data_world if data_world > 1 else 8
+
+
+class _NullWriter:
+    """The event log of a rank other than 0: writes nothing."""
+
+    def add_scalars_from_income_dict(self, *args) -> None:
+        pass
+
+    def __enter__(self) -> "_NullWriter":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
 PROFILE_STEPS = 11  # Trainer.profile traces an epoch's steps 0..10, as the JAX trainer
 
 
@@ -278,14 +364,19 @@ class SemiTrainer:
         run_dir: Optional[str] = None,
         step_timing: bool = False,
         profile=None,
+        context: Optional[DistContext] = None,
         **kwargs,
     ) -> None:
-        check_parallel(configuration)
+        ctx = context or single_context(device)
+        check_parallel(configuration, ctx.world)
         check_optimizer(configuration)
         self._dtypes = precision_dtypes(configuration)
         self._kernel_options = kernel_options(configuration)
         self._config = configuration
         self._device = resolve_device(device)
+        if ctx.world > 1 and ctx.device.type == self._device.type:
+            self._device = ctx.device  # the rank's card
+        self._ctx = ctx
         self._labeled_loader = labeled_loader
         self._unlabeled_loader = unlabeled_loader
         self._val_loader = val_loader
@@ -300,14 +391,15 @@ class SemiTrainer:
         # step_walls_ms: from the previous step's end (the epoch's first: the
         # loop's start) to this step's end, the batch's fetch and upload included
         self._step_timing = bool(step_timing)
-        self._profile = profile  # Trainer.profile (EpochTrace)
+        self._profile = profile if ctx.is_main else None  # Trainer.profile (EpochTrace)
         self.step_times_ms: list = []
         self.step_walls_ms: list = []
         self.epoch_times_s: list = []  # wall time of each epoch, eval and saving included
         self._save_dir = str(Path(run_dir or self.RUN_DIR) / save_dir)
         Path(self._save_dir).mkdir(parents=True, exist_ok=True)
-        with open(Path(self._save_dir) / "config.yaml", "w") as f:
-            yaml.safe_dump(configuration, f, default_flow_style=False, sort_keys=False)
+        if ctx.is_main:
+            with open(Path(self._save_dir) / "config.yaml", "w") as f:
+                yaml.safe_dump(configuration, f, default_flow_style=False, sort_keys=False)
         self._storage = Storage()
         self._start_epoch = 0
         self._cur_epoch = 0
@@ -329,6 +421,8 @@ class SemiTrainer:
         if len(self._feature_importance) != len(self._feature_names):
             raise ValueError("Trainer.feature_importance and feature_names differ in length")
 
+        self._device_data = bool(trainer_cfg.get("device_data", False))
+        self._batch_sizes(cfg)
         torch.manual_seed(seed)  # weights are a function of RandomSeed
         dtype, bn_dtype = self._dtypes
         self._model = UNet(self._input_dim, self._num_classes, dtype=dtype, bn_dtype=bn_dtype,
@@ -346,6 +440,7 @@ class SemiTrainer:
             params = chain(params, self._projector.parameters())
         self._optimizer = build_optimizer(params, cfg["Optim"])
         init_optimizer_state(self._optimizer)  # so a checkpoint holds every entry from init
+        replicate_state([self._model, self._projector, self._teacher], self._optimizer, self._ctx)
         self._step_counter = torch.zeros((), dtype=torch.int64)  # global step (EMA schedule)
         self._base_lr = float(cfg["Optim"].get("lr", 1e-3))
         scheduler = cfg.get("Scheduler") or {}
@@ -357,7 +452,6 @@ class SemiTrainer:
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
         backend, geometry, augment = self._kernel_options
-        self._device_data = bool(trainer_cfg.get("device_data", False))
         self._epoch_scan = self._device_data and bool(trainer_cfg.get("epoch_scan", True))
         self._pipelined = self._epoch_scan and bool(trainer_cfg.get("pipelined_scan", False))
         self._preaug = self._epoch_scan and augment == "epoch"
@@ -384,20 +478,26 @@ class SemiTrainer:
             geometry=geometry,
             teacher=self._teacher,
             step_counter=self._step_counter,
+            n_labeled_valid=self._lab_bs if self._batch_padded else None,
+            n_unlabeled_valid=self._unlab_bs if self._batch_padded else None,
+            context=self._ctx,
             **self._step_kwargs,
         )
-        self._eval_step = build_eval_step(self._model, num_classes=self._num_classes)
+        ctx = self._ctx
+        self._eval_step = build_eval_step(self._model, num_classes=self._num_classes, context=ctx)
         if self._device_data:
             self._eval_steps_dev = {
                 "val": build_eval_step(self._model, num_classes=self._num_classes,
-                                       data_store=self._val_store, crop=self._crop_size),
+                                       data_store=self._val_store, crop=self._crop_size,
+                                       context=ctx),
                 "test": build_eval_step(self._model, num_classes=self._num_classes,
-                                        data_store=self._test_store, crop=self._crop_size)}
+                                        data_store=self._test_store, crop=self._crop_size,
+                                        context=ctx)}
         if self._epoch_scan:
             self._scan_chunk = max(int(trainer_cfg.get("scan_chunk", 100)), 1)
             self._epoch_chunks = self._chunk_sizes(self._num_batches, self._scan_chunk)
-            aug_fn = (build_augment_fn(stores, crop=self._crop_size, geometry=geometry)
-                      if self._pipelined else None)
+            aug_fn = (build_augment_fn(stores, crop=self._crop_size, geometry=geometry,
+                                       context=ctx) if self._pipelined else None)
             # host seeds of the pipelined loop's augmentation, one per chunk
             self._aug_seeds = np.random.default_rng(seed + 2)
 
@@ -405,7 +505,7 @@ class SemiTrainer:
                 if self._preaug:
                     return build_epoch_scan_preaug(self._train_step, stores, size,
                                                    crop=self._crop_size, geometry=geometry,
-                                                   generator=self._generator)
+                                                   generator=self._generator, context=ctx)
                 if self._pipelined:
                     return build_epoch_scan_pipelined(aug_fn, self._train_step, size)
                 return build_epoch_scan(self._train_step, size)
@@ -413,25 +513,45 @@ class SemiTrainer:
             self._epoch_fns = {size: make_epoch_fn(size) for size in set(self._epoch_chunks)}
             self._eval_scans = {
                 "val": build_eval_scan(self._model, num_classes=self._num_classes,
-                                       data_store=self._val_store, crop=self._crop_size),
+                                       data_store=self._val_store, crop=self._crop_size,
+                                       context=ctx),
                 "test": build_eval_scan(self._model, num_classes=self._num_classes,
-                                        data_store=self._test_store, crop=self._crop_size)}
+                                        data_store=self._test_store, crop=self._crop_size,
+                                        context=ctx)}
+
+    def _batch_sizes(self, cfg: Dict[str, Any]) -> None:
+        """The global sub-batch sizes (the host loaders' own, else the
+        config's; the index loaders are built from the config's), each
+        rounded up to a multiple of the data world (pad-and-mask)."""
+        sizes = []
+        for section, loader, default in (("LabeledData", self._labeled_loader, 4),
+                                         ("UnlabeledData", self._unlabeled_loader, 10)):
+            size = int((cfg.get(section) or {}).get("batch_size", default))
+            if not self._device_data:
+                size = int(getattr(loader, "batch_size", size))
+            sizes.append(size)
+        dw = self._ctx.data_world
+        self._lab_bs, self._unlab_bs = sizes
+        self._lab_bs_padded, self._unlab_bs_padded = (-(-b // dw) * dw for b in sizes)
+        self._batch_padded = (self._lab_bs_padded, self._unlab_bs_padded) != tuple(sizes)
 
     def _setup_device_data(self, cfg: Dict[str, Any], seed: int) -> None:
         """Stage the four datasets on the device (the labeled one as the
-        packed uint16 plane) and build their index loaders."""
+        packed uint16 plane; each rank stages them whole) and build their
+        index loaders."""
         dev = self._device
         lab_store = DeviceDataStore(self._labeled_loader.dataset, device=dev, pack=True)
         unlab_store = DeviceDataStore(self._unlabeled_loader.dataset, device=dev)
         self._data_stores = {"labeled": lab_store, "unlabeled": unlab_store}
-        lab_bs = int((cfg.get("LabeledData") or {}).get("batch_size", 4))
-        unlab_bs = int((cfg.get("UnlabeledData") or {}).get("batch_size", 10))
-        self._labeled_index_loader = DeviceIndexLoader(lab_store, lab_bs, seed=seed)
-        self._unlabeled_index_loader = DeviceIndexLoader(unlab_store, unlab_bs, seed=seed + 1)
+        self._labeled_index_loader = DeviceIndexLoader(lab_store, self._lab_bs, seed=seed)
+        self._unlabeled_index_loader = DeviceIndexLoader(unlab_store, self._unlab_bs,
+                                                         seed=seed + 1)
         self._val_store = DeviceDataStore(self._val_loader.dataset, device=dev)
         self._test_store = DeviceDataStore(self._test_loader.dataset, device=dev)
-        self._eval_index_loaders = {"val": DevicePatientEvalLoader(self._val_store),
-                                    "test": DevicePatientEvalLoader(self._test_store)}
+        multiple = eval_pad_multiple(self._ctx.data_world)
+        self._eval_index_loaders = {
+            "val": DevicePatientEvalLoader(self._val_store, pad_multiple=multiple),
+            "test": DevicePatientEvalLoader(self._test_store, pad_multiple=multiple)}
 
     @staticmethod
     def _chunk_sizes(total: int, chunk: int) -> list:
@@ -478,20 +598,27 @@ class SemiTrainer:
         meters["lr"].add(lr)
         if self._epoch_scan:
             return self._run_epoch_scan(epoch, meters)
-        if self._device_data:
-            host_batches = ({"labeled_indices": lab["indices"],
-                             "unlabeled_indices": unlab["indices"], "group": lab["group"]}
+        lab_p, unlab_p = self._lab_bs_padded, self._unlab_bs_padded
+        if self._device_data:  # the global indices: the step keeps the rank's rows
+            host_batches = ({"labeled_indices": pad_rows(lab["indices"], lab_p),
+                             "unlabeled_indices": pad_rows(unlab["indices"], unlab_p),
+                             "group": lab["group"]}
                             for lab, unlab in zip(self._labeled_index_loader,
                                                   self._unlabeled_index_loader))
+            rows_of = None
         else:
-            host_batches = ({"labeled_image": lab["image"], "labeled_target": lab["target"],
-                             "unlabeled_image": unlab["image"], "group": lab["group"]}
+            host_batches = ({"labeled_image": pad_rows(lab["image"], lab_p),
+                             "labeled_target": pad_rows(lab["target"], lab_p),
+                             "unlabeled_image": pad_rows(unlab["image"], unlab_p),
+                             "group": lab["group"]}
                             for lab, unlab in zip(self._labeled_loader, self._unlabeled_loader))
+            rows_of = self._ctx
         pending = []
         progress_every = max(self._num_batches // 5, 1)
+        progress = self._progress and self._device_data and self._ctx.is_main
         # the loaders run on a background thread, as the JAX package's epoch
         # does, and are left N + 3 batches on for the epoch's N steps
-        with closing(prefetch_to_device(host_batches, self._device)) as batches, \
+        with closing(prefetch_to_device(host_batches, self._device, rows_of)) as batches, \
                 self._trace(epoch) as trace:
             t_end = time.perf_counter()
             for i in range(self._num_batches):
@@ -508,7 +635,7 @@ class SemiTrainer:
                     self.step_walls_ms.append((t_end - t_prev) * 1e3)
                 pending.append((metrics, groups))
                 trace.steps_done(i + 1)
-                if self._progress and self._device_data and (i + 1) % progress_every == 0:
+                if progress and (i + 1) % progress_every == 0:
                     live = ""
                     if self._live_metrics:  # opt-in: reads the newest step back
                         live = (f"  sup_loss={float(metrics['sup_loss']):.4f}"
@@ -532,7 +659,8 @@ class SemiTrainer:
     def _add_step_metrics(self, meters, metrics: Dict[str, np.ndarray], groups) -> None:
         meters["sup_loss"].add(float(metrics["sup_loss"]))
         meters["reg_loss"].add(float(metrics["reg_loss"]))
-        meters["sup_dice"].add_stats(metrics["sup_dice_inter"], metrics["sup_dice_union"],
+        n = len(groups)  # the real rows; pad rows' sums are 0
+        meters["sup_dice"].add_stats(metrics["sup_dice_inter"][:n], metrics["sup_dice_union"][:n],
                                      group_name=groups)
         if "uda" in meters:
             meters["uda"].add(float(metrics["uda"]))
@@ -565,11 +693,13 @@ class SemiTrainer:
             lab_idx.append(lab["indices"])
             unlab_idx.append(unlab["indices"])
             group_lists.append(lab["group"])
-        lab_all, unlab_all = np.stack(lab_idx), np.stack(unlab_idx)
+        lab_all = np.stack([pad_rows(i, self._lab_bs_padded) for i in lab_idx])
+        unlab_all = np.stack([pad_rows(i, self._unlab_bs_padded) for i in unlab_idx])
         chunks, done = [], 0
+        progress = self._progress and self._ctx.is_main
         with self._trace(epoch) as trace:  # whole chunks: up to the one with step 10
             for size in self._epoch_chunks:
-                if self._progress:
+                if progress:
                     print(f"\r[{self.mode}] epoch {epoch:03d}: scan {done}/{self._num_batches} "
                           "steps …", end="", flush=True)
                 t0 = time.perf_counter()
@@ -583,7 +713,7 @@ class SemiTrainer:
                     self.step_times_ms.extend([(time.perf_counter() - t0) * 1e3 / size] * size)
                 done += size
                 trace.steps_done(done)
-                if self._progress and self._live_metrics:  # free: the readback synced
+                if progress and self._live_metrics:  # free: the readback synced
                     sl = np.mean(np.concatenate([c["sup_loss"] for c in chunks]))
                     rl = np.mean(np.concatenate([c["reg_loss"] for c in chunks]))
                     print(f"\r[{self.mode}] epoch {epoch:03d}: scan {done}/{self._num_batches}  "
@@ -630,9 +760,7 @@ class SemiTrainer:
                 pending.append((out, batch["group"]))
         else:
             for batch in loader:
-                out = self._eval_step(self._to_device(batch["image"]),
-                                      self._to_device(batch["target"]),
-                                      self._to_device(batch["mask"]))
+                out = self._eval_step(*self._eval_rows(batch))
                 pending.append((out, batch["group"]))
         for out, group in pending:
             meters["loss"].add(float(out["loss"]))
@@ -641,9 +769,19 @@ class SemiTrainer:
         report = meters.tracking_status()
         return report, report["dice"]["DSC_mean"]
 
+    def _eval_rows(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+        """A host eval batch's image, target and mask: the rank's rows, on the
+        device (padded to a multiple of the data world first when the loader
+        did not)."""
+        arrays = {k: batch[k] for k in ("image", "target", "mask")}
+        padded = -(-len(arrays["mask"]) // self._ctx.data_world) * self._ctx.data_world
+        arrays = {k: pad_rows(v, padded, repeat=False) for k, v in arrays.items()}
+        return tuple(self._to_device(v) for v in local_rows(arrays, self._ctx).values())
+
     # --- training loop --------------------------------------------------
     def start_training(self) -> float:
-        with SummaryWriter(self._save_dir) as writer:
+        main = self._ctx.is_main
+        with (SummaryWriter(self._save_dir) if main else _NullWriter()) as writer:
             for self._cur_epoch in range(self._start_epoch, self._max_epoch):
                 t0 = time.perf_counter()
                 train_result = self._run_epoch(self._cur_epoch)
@@ -653,8 +791,11 @@ class SemiTrainer:
                 self._storage.put_from_dict(income, self._cur_epoch)
                 writer.add_scalars_from_income_dict(income, self._cur_epoch)
                 self.save(cur_score)
-                self._storage.to_csv(self._save_dir)
+                if main:
+                    self._storage.to_csv(self._save_dir)
                 self.epoch_times_s.append(time.perf_counter() - t0)
+                if not main:
+                    continue
                 print(f"\r[{self.mode}] epoch {self._cur_epoch:03d} "
                       f"({self.epoch_times_s[-1]:.1f}s): "
                       f"sup_loss={train_result['sup_loss']['mean']:.4f} "
@@ -697,10 +838,12 @@ class SemiTrainer:
         is_best = cur_score > self._best_score
         if is_best:
             self._best_score = float(cur_score)
-        state, meta = self.state_dict(), self._meta()
-        save_checkpoint(Path(self._save_dir) / LAST_NAME, state, meta)
-        if is_best:
-            save_checkpoint(Path(self._save_dir) / BEST_NAME, state, meta)
+        if self._ctx.is_main:  # every rank holds the same state
+            state, meta = self.state_dict(), self._meta()
+            save_checkpoint(Path(self._save_dir) / LAST_NAME, state, meta)
+            if is_best:
+                save_checkpoint(Path(self._save_dir) / BEST_NAME, state, meta)
+        self._ctx.barrier()  # no rank reads a checkpoint before it is whole
 
     def load_state_dict_from_path(self, path: str, strict: bool = True) -> None:
         """Resume from ``path`` (a checkpoint, or a run directory: its
@@ -732,7 +875,9 @@ class SemiTrainer:
         ``inference.json``. On ``Trainer.device_data`` the forward runs from
         the device store; the host test loader supplies the pixels and names
         for the dumps and the Hausdorff targets, and the predictions are
-        realigned to its slices by filename."""
+        realigned to its slices by filename. Under a context every rank
+        evaluates its rows and holds the gathered predictions; rank 0 writes
+        the dumps and the report."""
         state, _ = load_checkpoint(checkpoint or self._save_dir, self.state_dict(), BEST_NAME)
         self.load_state_dict(state)
         meters = self._eval_meters()
@@ -746,24 +891,27 @@ class SemiTrainer:
             if ib is not None:
                 out = self._eval_steps_dev["test"](self._to_device(ib["indices"]),
                                                    self._to_device(ib["mask"]))
-                rows = dict(zip(ib["filename"], out["pred"].cpu().numpy()))
+                preds = gather_rows(out["pred"], self._ctx).cpu().numpy()
+                rows = dict(zip(ib["filename"], preds))
                 pred = np.stack([rows[fn] for fn in batch["filename"][:n_valid]])
             else:
-                out = self._eval_step(self._to_device(batch["image"]),
-                                      self._to_device(batch["target"]),
-                                      self._to_device(batch["mask"]))
-                pred = out["pred"].cpu().numpy()[:n_valid]
+                out = self._eval_step(*self._eval_rows(batch))
+                pred = gather_rows(out["pred"], self._ctx).cpu().numpy()[:n_valid]
             meters["loss"].add(float(out["loss"]))
             meters["dice"].add_stats(out["inter"].cpu().numpy(), out["union"].cpu().numpy(),
                                      group_name=batch["group"])
             target = batch["target"][:n_valid]
             with ExceptionIgnorer(RuntimeError):  # a class absent from pred or target
                 meters["hd"].add(pred, target)
-            write_img_target(batch["image"][:n_valid], target, self._save_dir, batch["filename"])
-            write_predict(pred, self._save_dir, batch["filename"])
+            if self._ctx.is_main:
+                write_img_target(batch["image"][:n_valid], target, self._save_dir,
+                                 batch["filename"])
+                write_predict(pred, self._save_dir, batch["filename"])
         report = meters.tracking_status()
-        with open(Path(self._save_dir) / INFERENCE_NAME, "w") as f:
-            json.dump(report, f, indent=1)
+        if self._ctx.is_main:
+            with open(Path(self._save_dir) / INFERENCE_NAME, "w") as f:
+                json.dump(report, f, indent=1)
+        self._ctx.barrier()
         return report, report["dice"]["DSC_mean"]
 
 
@@ -817,14 +965,14 @@ class MeanTeacherTrainer(SemiTrainer):
 
 def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
                      decoder_heads: Sequence[Tuple[str, bool]],
-                     live_lanes: Sequence[int]) -> Optional[str]:
+                     live_lanes: Sequence[int], padded: bool = False) -> Optional[str]:
     """None when ``Kernel.backend=pallas_fused`` can take the fused path,
     else the first unmet condition. ``decoder_heads``: (head_type, normalize)
     of each decoder position; ``live_lanes``: S*K of each. The port's fused
     kernels take one 128-lane tile (the JAX kernel any multiple of 128 lanes;
-    see ROADMAP.md). The JAX package's gate also requires a batch that needs
-    no padding to divide the mesh; the port has no mesh, so that always holds
-    here."""
+    see ROADMAP.md). ``padded``: the batch needs pad rows to divide the data
+    ranks (the JAX gate's condition): the fused kernels take logits, which
+    the row mask cannot reach."""
     wide = [sk for sk in live_lanes if sk > FUSED_LANES]
     if wide:
         return (f"decoder heads with S*K={wide[0]} live lanes (the fused kernels take "
@@ -839,6 +987,9 @@ def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
                 "one full-map tile)")
     if any(head_type != "linear" or normalize for head_type, normalize in decoder_heads):
         return f"decoder heads {list(decoder_heads)} are not all linear and unnormalized"
+    if padded:
+        return ("the batch needs pad rows to divide the data ranks (the fused kernels take "
+                "logits, which the pad-and-mask row mask cannot reach)")
     return None
 
 
@@ -881,7 +1032,8 @@ class IICTrainer(SemiTrainer):
                 per_position("head_types", "linear"), per_position("normalize", False))]
             lanes = [int(s) * int(k) for s, k in zip(
                 per_position("num_subheads", 5), per_position("num_clusters", 10))]
-            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads, lanes)
+            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads, lanes,
+                                     self._batch_padded)
             fused_ok = unmet is None
             if unmet:
                 _warn(f"Kernel.backend=pallas_fused: {unmet}; training the unfused path.")

@@ -33,18 +33,27 @@ the JAX package's, ``(ry * r + rx) * C + c`` (``space_to_depth``), not
 ``torch.utils.checkpoint`` (non-reentrant) while gradients are recorded; its
 forward runs again in the backward, with the same numerics, and the BN
 running statistics move on the first run only (flax's ``nn.remat``).
+
+Pad-and-mask and data parallelism: ``forward(..., bn_mask=, bn_group=)``
+reaches every train-mode BN layer. ``bn_mask`` [B] marks the real rows (pad
+rows are normalized but enter no statistic, flax's ``BatchNorm(mask=)``);
+``bn_group`` sums the statistics' sums and counts over the ranks of a
+process group (``parallel/mesh.py:all_reduce_sum``), so every rank
+normalizes with, and keeps running statistics of, the global batch.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
 from itertools import count
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.mesh import all_reduce_sum
 
 UNET_DIMENSIONS: Dict[str, int] = {
     "Conv1": 16, "Conv2": 32, "Conv3": 64, "Conv4": 128, "Conv5": 256,
@@ -64,7 +73,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     with fp32 statistics and a ``dtype`` output (flax's ``_normalize``).
     ``update_stats`` off leaves the running statistics alone (a remat
     block's recompute). It takes any rank from [B, C] up (the statistics
-    over every axis but the channels'): the zoo's 3-D models use it too."""
+    over every axis but the channels'): the zoo's 3-D models use it too.
+    ``mask`` [B] / ``group``: see ``_masked_forward``."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-5) -> None:
@@ -72,7 +82,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.out_dtype = dtype
         self.update_stats = True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         # a bf16 input with a bf16 output normalizes in fp32 inside batch_norm;
         # any other pair normalizes the fp32 input
         x_in = x if x.dtype == self.out_dtype else x.float()
@@ -80,6 +91,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(x_in, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
             return y.to(self.out_dtype)
+        if mask is not None or group is not None:
+            return self._masked_forward(x, mask, group)
         if self.update_stats:
             with torch.no_grad():
                 dims = (0,) + tuple(range(2, x.dim()))
@@ -88,6 +101,38 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked.add_(1)
         y = F.batch_norm(x_in, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y.to(self.out_dtype)
+
+    def _masked_forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                        group) -> torch.Tensor:
+        """Train-mode BN over the rows ``mask`` marks (all without one), of
+        this rank and, with ``group``, of every rank of it: fp32 sums and
+        counts summed over the group, mean, then the biased variance of the
+        same rows (two passes). Gradients reach every rank's rows through
+        ``all_reduce_sum``."""
+        dims = (0,) + tuple(range(2, x.dim()))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        x32 = x.float()
+        per_row = x[0, 0].numel()
+        if mask is None:
+            w = None
+            count = x32.new_full((1,), float(x.shape[0] * per_row))
+        else:
+            w = mask.detach().to(x32.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+            count = (w.sum() * per_row).reshape(1)
+        sums = all_reduce_sum(torch.cat([(x32 if w is None else x32 * w).sum(dims), count]),
+                              group)
+        mean = sums[:-1] / sums[-1]
+        d = x32 - mean.view(view)
+        sq = d * d
+        var = all_reduce_sum((sq if w is None else sq * w).sum(dims), group) / sums[-1]
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
+        y = d * torch.rsqrt(var + self.eps).view(view) * self.weight.view(view) \
+            + self.bias.view(view)
         return y.to(self.out_dtype)
 
 
@@ -115,8 +160,9 @@ class ConvBlock(nn.Module):
             Conv2d(out_ch, out_ch, dtype), BatchNorm2d(out_ch, bn_dtype), nn.ReLU(inplace=True),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        return _run_layers(self.conv, x, mask, group)
 
 
 class UpConv(nn.Module):
@@ -130,14 +176,27 @@ class UpConv(nn.Module):
             Conv2d(in_ch, out_ch, dtype), BatchNorm2d(out_ch, bn_dtype), nn.ReLU(inplace=True),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.up(x)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        return _run_layers(self.up, x, mask, group)
 
 
-def _remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``block(x)`` under non-reentrant ``torch.utils.checkpoint``: only the
-    input is kept, and the backward runs the forward again with the BN
-    running statistics left alone."""
+def _run_layers(layers: nn.Sequential, x: torch.Tensor, mask: Optional[torch.Tensor],
+                group) -> torch.Tensor:
+    """``layers(x)``, with ``mask`` and ``group`` handed to each BN layer."""
+    if mask is None and group is None:
+        return layers(x)
+    for layer in layers:
+        x = layer(x, mask, group) if isinstance(layer, BatchNorm2d) else layer(x)
+    return x
+
+
+def _remat(block: nn.Module, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+           group=None) -> torch.Tensor:
+    """``block(x, mask, group)`` under non-reentrant
+    ``torch.utils.checkpoint``: only the input is kept, and the backward runs
+    the forward again (its BN sums over ``group`` too, on every rank alike)
+    with the BN running statistics left alone."""
     runs = count()
     norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
 
@@ -146,7 +205,7 @@ def _remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         for m in norms:
             m.update_stats = first
         try:
-            return block(inp)
+            return block(inp, mask, group)
         finally:
             for m in norms:
                 m.update_stats = True
@@ -198,18 +257,21 @@ class UNet(nn.Module):
         self.DeConv_1x1 = nn.Conv2d(16, num_classes * r2, 1)
         nn.init.zeros_(self.DeConv_1x1.bias)
 
-    def forward(self, x: torch.Tensor, return_features: bool = False
+    def forward(self, x: torch.Tensor, return_features: bool = False,
+                bn_mask: Optional[torch.Tensor] = None, bn_group=None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
         """x: [B, H, W, input_dim]. Returns fp32 logits [B, H, W, C] and, with
-        ``return_features``, the nine named taps, each [B, h, w, c]."""
+        ``return_features``, the nine named taps, each [B, h, w, c].
+        ``bn_mask`` [B] (the real rows) and ``bn_group`` (a process group)
+        reach every train-mode BN layer (``BatchNorm2d._masked_forward``)."""
         x = x.to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 2)
         x = x.permute(0, 3, 1, 2)
         if self.remat and self.training and torch.is_grad_enabled():
-            blk = _remat
+            blk = lambda block, inp: _remat(block, inp, bn_mask, bn_group)
         else:
-            blk = lambda block, inp: block(inp)
+            blk = lambda block, inp: block(inp, bn_mask, bn_group)
         e1 = blk(self.Conv1, x)
         e2 = blk(self.Conv2, F.max_pool2d(e1, 2))
         e3 = blk(self.Conv3, F.max_pool2d(e2, 2))

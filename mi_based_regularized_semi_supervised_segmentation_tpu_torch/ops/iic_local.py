@@ -45,6 +45,12 @@ subhead-mean MI. With ``pre_padded`` maps (the trainer's: the zero border of
 width p is already there) the border is stripped before tiling; a single
 full-map tile keeps it on the kernel backends, whose flatten is then a free
 reshape.
+
+Data parallelism: every front door takes ``group``, a process group. The
+raw joint of each displacement (each tile's, the fused forward's J
+included) is summed over its ranks before ``mi_from_joint``, on every
+backend; the sum's backward sums the gradient too, so each kernel's backward
+receives the global dL/dJ. Every rank then holds the MI of the global batch.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import all_reduce_sum
 from . import mi_joint
 from .mi_fused import displaced_joint_softmax
 
@@ -182,10 +189,10 @@ def mi_from_joint(joint: torch.Tensor, lamb: float = 1.0) -> torch.Tensor:
     return loss.sum(dim=whole) / (t * t)
 
 
-def _subhead_mi(joint: torch.Tensor, lamb: float) -> torch.Tensor:
+def _subhead_mi(joint: torch.Tensor, lamb: float, group=None) -> torch.Tensor:
     """[..., T, T, S, K, K] -> the subhead-mean MI, averaged over the leading
-    axes (tiles)."""
-    return mi_from_joint(joint.movedim(-3, 0), lamb).mean()
+    axes (tiles), of the joint summed over ``group``."""
+    return mi_from_joint(all_reduce_sum(joint, group).movedim(-3, 0), lamb).mean()
 
 
 def _block_diagonal_subheads(flat_joint: torch.Tensor, s: int, k: int) -> torch.Tensor:
@@ -235,19 +242,20 @@ def _strip(x: torch.Tensor, padding: int) -> torch.Tensor:
 
 def iid_segmentation_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor, padding: int = 7,
                           lamb: float = 1.0, mask: Optional[torch.Tensor] = None,
-                          backend: str = "auto") -> torch.Tensor:
+                          backend: str = "auto", group=None) -> torch.Tensor:
     """Displaced-MI loss over per-pixel cluster simplexes [B, H, W, K]; the
     ``mask`` multiplies both maps and takes no gradient."""
     if mask is not None:
         mask = mask.detach()
         x_out, x_tf_out = x_out * mask, x_tf_out * mask
-    return mi_from_joint(displaced_joint(x_out, x_tf_out, padding, backend), lamb)
+    return mi_from_joint(all_reduce_sum(displaced_joint(x_out, x_tf_out, padding, backend), group),
+                         lamb)
 
 
 def iid_segmentation_small_patch_loss(x_out: torch.Tensor, x_tf_out: torch.Tensor,
                                       padding: int = 7, patch_size: int = 32, lamb: float = 1.0,
                                       mask: Optional[torch.Tensor] = None,
-                                      backend: str = "auto") -> torch.Tensor:
+                                      backend: str = "auto", group=None) -> torch.Tensor:
     """``iid_segmentation_loss`` averaged over the tiles of [B, H, W, K] maps
     (one full-map tile when ``patch_size`` covers the map): the subhead
     front door with one subhead."""
@@ -256,7 +264,8 @@ def iid_segmentation_small_patch_loss(x_out: torch.Tensor, x_tf_out: torch.Tenso
         mask = mask.detach()
         x_out, x_tf_out = x_out * mask, x_tf_out * mask
     return iid_segmentation_small_patch_loss_subheads(
-        x_out[..., None, :], x_tf_out[..., None, :], padding, patch_size, lamb, backend)
+        x_out[..., None, :], x_tf_out[..., None, :], padding, patch_size, lamb, backend,
+        group=group)
 
 
 def _subhead_joint(x: torch.Tensor, x_tf: torch.Tensor, padding: int, backend: str,
@@ -284,12 +293,13 @@ def _subhead_joint(x: torch.Tensor, x_tf: torch.Tensor, padding: int, backend: s
 
 def iid_segmentation_loss_subheads(x_out: torch.Tensor, x_tf_out: torch.Tensor, padding: int,
                                    lamb: float = 1.0, backend: str = "auto",
-                                   pre_padded: bool = False) -> torch.Tensor:
+                                   pre_padded: bool = False, group=None) -> torch.Tensor:
     """Mean over subheads of the displaced-MI loss of [B, H, W, S, K] maps
     (one tile). ``pre_padded``: the maps carry the zero border of width
     ``padding``."""
     _check_maps(x_out, x_tf_out, 5)
-    return _subhead_mi(_subhead_joint(x_out, x_tf_out, padding, backend, pre_padded), lamb)
+    return _subhead_mi(_subhead_joint(x_out, x_tf_out, padding, backend, pre_padded), lamb,
+                       group)
 
 
 def iid_segmentation_small_patch_loss_subheads(
@@ -300,6 +310,7 @@ def iid_segmentation_small_patch_loss_subheads(
     lamb: float = 1.0,
     backend: str = "auto",
     pre_padded: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """The tiled subhead loss over [B, H, W, S, K] maps: the mean over tiles
     of each tile's subhead-mean loss. A pre-padded map that one tile covers
@@ -310,11 +321,11 @@ def iid_segmentation_small_patch_loss_subheads(
         interior = (x_out.shape[1] - 2 * padding, x_out.shape[2] - 2 * padding)
         if patch_size >= max(interior):
             return iid_segmentation_loss_subheads(x_out, x_tf_out, padding, lamb, backend,
-                                                  pre_padded=True)
+                                                  pre_padded=True, group=group)
         x_out, x_tf_out = _strip(x_out, padding), _strip(x_tf_out, padding)
     joints = [_subhead_joint(a, b, padding, backend, pre_padded=True) for a, b in zip(
         _tile_canvases(x_out, patch_size, padding), _tile_canvases(x_tf_out, patch_size, padding))]
-    return _subhead_mi(torch.stack(joints), lamb)
+    return _subhead_mi(torch.stack(joints), lamb, group)
 
 
 def iid_segmentation_small_patch_loss_flat(
@@ -327,6 +338,7 @@ def iid_segmentation_small_patch_loss_flat(
     lamb: float = 1.0,
     backend: str = "auto",
     pre_padded: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Subhead-mean displaced-MI loss over flat [B, H, W, C] maps, C >= S*K
     (trailing lanes dead). A single tile on a kernel backend takes the joint
@@ -340,17 +352,21 @@ def iid_segmentation_small_patch_loss_flat(
     edge = 2 * padding if pre_padded else 0
     if backend in KERNEL_BACKENDS and patch_size >= max(h - edge, w - edge):
         flat = mi_joint.displaced_joint(x_out, x_tf_out, padding, torch.bfloat16, pre_padded)
-        return _subhead_mi(_block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K), lamb)
+        return _subhead_mi(_block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K), lamb,
+                           group)
     five = lambda t: t[..., :S * K].reshape(b, h, w, S, K)
     return iid_segmentation_small_patch_loss_subheads(
-        five(x_out), five(x_tf_out), padding, patch_size, lamb, backend, pre_padded)
+        five(x_out), five(x_tf_out), padding, patch_size, lamb, backend, pre_padded, group)
 
 
 def iid_segmentation_loss_fused_logits(l1: torch.Tensor, l2: torch.Tensor, S: int, K: int,
                                        padding: int, lamb: float = 1.0,
-                                       T: float = 1.0) -> torch.Tensor:
+                                       T: float = 1.0, group=None) -> torch.Tensor:
     """Subhead-mean displaced-MI loss straight from pre-padded 128-lane logit
     canvases [B, Hp, Wp, 128] (one full-map tile): the row-max group softmax,
-    the interior mask and the joint in the fused kernels, bf16 operands."""
+    the interior mask and the joint in the fused kernels, bf16 operands. The
+    fused forward's J is summed over ``group``; its backward gets the global
+    gradient."""
     flat = displaced_joint_softmax(l1, l2, padding, S, K, T)
-    return _subhead_mi(_block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K), lamb)
+    return _subhead_mi(_block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K), lamb,
+                       group)

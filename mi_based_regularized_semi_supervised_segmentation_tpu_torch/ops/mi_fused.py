@@ -35,6 +35,13 @@ the joint's (``launch_setup``). The plain version computes the same in fp32
 with bf16 rounding at exactly those points; its backward is written out, not
 left to autograd, which would round elsewhere.
 
+Data parallelism: each rank's call returns the J of its rows; the loss front
+door (``ops/iic_local.py:iid_segmentation_loss_fused_logits``) sums J over
+the ranks before the MI, and that sum's backward hands every rank the global
+g, so the kernels run unchanged at the per-rank shapes. A padded batch never
+reaches them: its pad rows would need a row mask inside the softmax, and the
+trainer sends such a batch to the unfused path.
+
 Dispatch: CUDA tensors go to the kernels (or the call raises), CPU tensors to
 the plain version. ``LAUNCHES`` counts kernel launches by (kernel, padding),
 one a wrapper call, a call on bf16 logits under the name with

@@ -7,8 +7,10 @@
     python -m mi_based_regularized_semi_supervised_segmentation_tpu_torch.pretrain_main \
         Trainer.name=iiccontrast Trainer.save_dir=iic_run Checkpoint=runs/iic_run
 
-Flow: config (a ``Parallel`` key off its default raises, and so does cuda
-without a card) -> seed -> matmul precision -> the labeled / unlabeled /
+Flow: config (a ``Parallel`` key off its single-device value raises
+``NotImplementedError``: the pretrain losses, ``supcon_loss`` over the
+global batch above all, are not yet summed over ranks; see ROADMAP.md; and
+cuda without a card raises) -> seed -> matmul precision -> the labeled / unlabeled /
 test split -> the contrastive loader
 (``ContrastBatchSampler``: ``PretrainData.group_sample_num`` patients x one
 slice of each partition, two views each), the finetune loader and the val
@@ -38,7 +40,7 @@ from .data import (
     TwiceLoader,
     generate_synthetic_acdc,
 )
-from .engine import check_parallel, pretrain_zoos, resolve_device
+from .engine import pretrain_zoos, refuse_parallel, resolve_device
 from .main import set_matmul_precision
 from .utils import gethash, set_seed
 
@@ -49,7 +51,7 @@ FINETUNE_KEYS = ("lr", "weight_decay", "multiplier", "warmup_max")  # all but co
 def main(argv: Optional[List[str]] = None):
     config = ConfigManager(default_path=PRETRAIN_CONFIG_PATH,
                            argv=argv if argv is not None else sys.argv[1:]).config
-    check_parallel(config)
+    refuse_parallel(config)
     set_seed(int(config.get("RandomSeed", 1)))
     set_matmul_precision(str((config.get("Precision") or {}).get("matmul_precision", "highest")))
     trainer_cfg = dict(config["Trainer"])

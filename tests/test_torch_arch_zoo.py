@@ -69,6 +69,15 @@ FAMILIES = {  # registered name: (kwargs, input NHWC / NDHWC)
 }
 
 
+@pytest.fixture(autouse=True)
+def _restore_threads():
+    """Some tests here take two intra-op threads; the tests after them (in
+    this process, other files too) get the count back."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
 def _to_port(x):
     """NHWC / NDHWC -> NCHW / NCDHW."""
     return np.moveaxis(x, -1, 1)

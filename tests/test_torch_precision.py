@@ -62,7 +62,7 @@ test holds, and why at that tolerance:
   running statistics updated once per forward. ``Arch.stem=s2d``: logits and
   taps against JAX s2d at rtol 1e-4 (fp32).
 - A bf16 run's checkpoint holds fp32 parameters and Adam state; the trainer
-  refuses only ``Parallel.num_devices`` of the keys it once refused.
+  refuses a ``Parallel.num_devices`` other than its world size.
 """
 
 import copy
@@ -641,7 +641,7 @@ def test_precision_and_arch_keys_parse_and_only_num_devices_is_refused(tmp_path)
         bad = dict(cfg, Precision={key: value})
         with pytest.raises(ValueError, match=f"Precision.{key}"):
             precision_dtypes(bad)
-    with pytest.raises(NotImplementedError, match="Parallel.num_devices"):
+    with pytest.raises(ValueError, match="Parallel.num_devices=2 but the world size is 1"):
         trainer_zoos["udaiic"](labeled_loader=None, unlabeled_loader=None, val_loader=None,
                                test_loader=None, configuration=dict(cfg, Parallel={
                                    "num_devices": 2}), device="cpu", run_dir=str(tmp_path))

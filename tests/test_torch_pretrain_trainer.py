@@ -1,6 +1,7 @@
 """The port's pretrain trainers through ``pretrain_main`` on the CPU, and the
 two repairs that came with them: ``Trainer.profile`` writes a trace, and a
-``Parallel`` key off its default raises in ``main`` and ``pretrain_main``.
+``Parallel`` key off its single-device value raises in ``pretrain_main``
+(``main`` checks it against the world size).
 
 The trainers run end to end on a small synthetic ACDC set (64^2 slices, which
 the loaders pad and crop to 224), one batch an epoch, one patient a
@@ -210,14 +211,31 @@ def test_trainer_profile_raises_when_the_trace_cannot_be_written(tmp_path, data_
 ])
 @pytest.mark.parametrize("entry", ["main", "pretrain_main"])
 def test_parallel_keys_off_their_defaults_raise(tmp_path, entry, key, value, error):
-    """Before any data is made or loaded: the data root does not exist."""
+    """Before any data is made or loaded: the data root does not exist.
+    ``pretrain_main`` refuses every key off its single-device value (``error``).
+    ``main`` runs data parallel and checks the keys against the launcher's
+    world size (1 here, no launcher): a ``num_devices`` or ``space_size`` it
+    cannot run, ``multihost`` without its coordinator and an unknown key
+    raise ``ValueError``; ``data_axis`` (a name) and the keys it reads under
+    ``multihost`` only pass its check, and the run stops at the absent data."""
     run = pretrain_main.main if entry == "pretrain_main" else port_main.main
     argv = [f"Parallel.{key}={value}", "Trainer.device=cpu", "Data.synthetic=false",
             f"Data.root_dir={tmp_path / 'absent'}"]
-    with pytest.raises(error, match=f"Parallel.{key}" + ("" if error is ValueError
-                                                           else ".*ROADMAP")):
-        run(argv)
+    if entry == "main" and key in MAIN_ACCEPTS:
+        with pytest.raises(AssertionError, match="absent") as info:
+            run(argv)
+        assert "Parallel" not in str(info.value)
+    else:
+        if entry == "main":
+            error = ValueError
+        with pytest.raises(error, match=f"Parallel.{key}" + ("" if error is ValueError
+                                                               else ".*ROADMAP")):
+            run(argv)
     assert not (tmp_path / "absent").exists()
+
+
+# the Parallel keys that main.main takes at a world of 1 without a launcher
+MAIN_ACCEPTS = ("data_axis", "coordinator_address", "num_processes", "process_id")
 
 
 def test_parallel_defaults_pass(data_root, tmp_path):
