@@ -175,6 +175,19 @@ Phases, each printing JSON lines:
            it, a profile with no collective and as many device events a
            step as without the group (within 1%: the profiler can lose a
            few), the group left at the end
+  pretrain_parallel  the pretrain pipeline data parallel on the one card: 4
+           gloo ranks on cuda:0, each one step of the iiccontrast encoder and
+           decoder phases and of contrastMT's finetune on its 3 of the 12
+           slices at 224^2 (1 + 3 in finetune; pretrain.yaml's heads), against
+           the same steps in one process on the card: losses and BN
+           statistics (the teacher's too) at STEPS_TOL, parameter moves at
+           the step phase's bound, summed gradients within PAR_GRAD_TOL,
+           exactly 12 joint launches a rank in the decoder step (3 products
+           x 4 pairs of 128-lane blocks, p = 0, 37,632 rows) and none in the
+           others; each rank's step ms. Then pretrain_main under an NCCL group
+           of world 1 set up as torchrun sets it: no data group, no
+           collective call, 12 launches a decoder step, the losses within
+           STEPS_TOL of the pretrain phase's run
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
            trainer (torch.profiler), and the device's busy share of the wall;
@@ -1851,7 +1864,7 @@ def _phase_rows(run: Path, phase: str) -> list:
         return list(csv.DictReader(f))
 
 
-def phase_pretrain(steps: int = PRETRAIN_STEPS) -> dict:
+def phase_pretrain(steps: int = PRETRAIN_STEPS) -> tuple:
     """``Trainer.name=iiccontrast`` through ``pretrain_main.main``, one epoch
     of ``steps`` batches in each phase: each phase's CSV and last.pth, its
     losses finite; the frozen components' parameters bit-equal across each
@@ -1859,7 +1872,8 @@ def phase_pretrain(steps: int = PRETRAIN_STEPS) -> dict:
     decoder phase exactly as its lane tiling says (3 products a step, each
     one launch per pair of 128-lane blocks of the 200 lanes, all at padding
     0) and in no other phase; each phase's median step ms (each step
-    synchronised) and peak memory. Returns the decoder phase's launches."""
+    synchronised) and peak memory. Returns (the decoder phase's launches,
+    the run directory)."""
     import torch
 
     pm, pre, mj = port("pretrain_main"), port("engine.pretrain"), port("ops.mi_joint")
@@ -1905,7 +1919,7 @@ def phase_pretrain(steps: int = PRETRAIN_STEPS) -> dict:
     decoder_launches = record["pretrain_decoder"]["launches"]
     del trainer, record
     torch.cuda.empty_cache()
-    return decoder_launches
+    return decoder_launches, run
 
 
 def phase_pretrain_mt(steps: int = PRETRAIN_STEPS) -> None:
@@ -2721,6 +2735,45 @@ def phase_parallel() -> dict:
             "rotate": device_rows[0]["launches"]["rotate"]}
 
 
+@contextmanager
+def _torchrun_world1(module):
+    """The variables ``torchrun`` sets for a world of 1 (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR / MASTER_PORT at a free port), and
+    ``module.init_distributed`` spied on: yields what the entry's context
+    was (backend, world, device, whether it had a data group); both
+    restored at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        free = s.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free), "RANK": "0",
+           "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    seen = {}
+    real_init = module.init_distributed
+
+    def spy(*args, **kwargs):
+        ctx = real_init(*args, **kwargs)
+        seen.update(backend=dist.get_backend(), world=ctx.world, device=str(ctx.device),
+                    group=ctx.group is not None)
+        return ctx
+
+    module.init_distributed = spy
+    os.environ.update(env)
+    try:
+        yield seen
+    finally:
+        module.init_distributed = real_init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_train_parallel(steps: int, train_out) -> None:
     """The train phase's run through ``main.main`` under an NCCL group of
     world 1, set up as ``torchrun`` sets it (RANK, WORLD_SIZE, LOCAL_RANK,
@@ -2730,42 +2783,17 @@ def phase_train_parallel(steps: int, train_out) -> None:
     of the headline step under that context with no collective and as many
     device events a step as without one, within PAR_EVENTS_TOL (the events
     whose counts differ are printed); the group is left at the end."""
-    import socket
-
     import torch.distributed as dist
 
     main_mod = port("main")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        free = s.getsockname()[1]
-    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free), "RANK": "0",
-           "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
-    saved = {k: os.environ.get(k) for k in env}
-    seen = {}
     real_init = main_mod.init_distributed
-
-    def spy(*args, **kwargs):
-        ctx = real_init(*args, **kwargs)
-        seen.update(backend=dist.get_backend(), world=ctx.world, device=str(ctx.device),
-                    group=ctx.group is not None)
-        return ctx
-
-    main_mod.init_distributed = spy
-    os.environ.update(env)
-    try:
+    with _torchrun_world1(main_mod) as seen:
         _, _, out = phase_train(steps, phase="train_parallel", run_tag="_parallel")
         ctx = real_init("cuda")  # the same group again, for the profile
         try:
             profile_out = _group_profile(ctx)
         finally:
             ctx.close()
-    finally:
-        main_mod.init_distributed = real_init
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     check(seen == {"backend": "nccl", "world": 1, "device": "cuda:0", "group": False},
           f"train_parallel ran under {seen}")
     by_key = {k: v.pop("device_events_by_key") for k, v in profile_out.items()}
@@ -2788,6 +2816,306 @@ def phase_train_parallel(steps: int, train_out) -> None:
                for k, v in out["losses"].items()}
         check(all(v <= STEPS_TOL for v in rel.values()), f"train_parallel losses differ: {rel}")
         line["rel_err"] = rel
+    emit(line)
+
+
+# --- the pretrain pipeline on gloo ranks sharing the one card (engine/pretrain.py) ---
+PPAR_WORLD = 4        # pretrain_parallel: ranks, each 3 of the 12 contrastive slices
+PPAR_PATIENTS = 4     # pretrain.yaml's PretrainData.group_sample_num (x 3 partitions)
+PPAR_LABELED = 4      # pretrain.yaml's FineTuneData.batch_size (contrastMT's labeled rows)
+PPAR_PHASES = ("encoder", "decoder", "finetune_mt")
+# pretrain_parallel's encoder step: at random init on noise its IIC loss, an MI over 12
+# globally pooled slices, sits at 0 (-5e-9 on the card) and its head's gradient at the fp32
+# noise (relative L2 1.28 between a rank and one process, norm 1.5e-8), where a joint left
+# unsummed over the ranks would pass. So its two views are one slice at one intensity level
+# (drawn in [0, PPAR_LEVEL)) under two draws of noise, and its IIC head's weights are scaled
+# by PPAR_HEAD_SCALE: the MI reads -0.18 nats and the head's gradient norm 0.1 (a CPU run at
+# 64^2), and every loss and gradient is held without a floor or an exclusion
+PPAR_LEVEL = 4.0
+PPAR_HEAD_SCALE = 30.0
+# pretrain_main at world 1 against the pretrain phase's run: a loss's error is taken
+# relative to max(|loss|, PPAR_LOSS_FLOOR). That run's encoder IIC loss sits at 0 (random
+# init), where the fp32 sums' order alone moves it; an MI's own scale is log(10) = 2.3 nats
+PPAR_LOSS_FLOOR = 1e-2
+
+
+def _ppar_data(seed: int = 3) -> dict:
+    """The global batch of each phase at pretrain.yaml's widths (crop 224):
+    12 slices in two views (4 patients x 3 partitions) with the encoder's
+    and the decoder's contrastive labels, the decoder's flip draw; the
+    encoder's two views of the 12 slices (see PPAR_LEVEL); 4 labeled slices
+    with targets and 12 unlabeled, the finetune flip draw."""
+    import numpy as np
+
+    pre = port("engine.pretrain")
+    rng = np.random.default_rng(seed)
+    n = 3 * PPAR_PATIENTS
+    parts = [str(i % 3) for i in range(n)]
+    groups = [f"patient{i // 3}" for i in range(n)]
+    level = rng.random((n, 1, 1, 1), dtype=np.float32) * PPAR_LEVEL
+    return {"enc_image": level + rng.random((n, 224, 224, 1), dtype=np.float32),
+            "enc_image_tf": level + rng.random((n, 224, 224, 1), dtype=np.float32),
+            "image": rng.random((n, 224, 224, 1), dtype=np.float32),
+            "image_tf": rng.random((n, 224, 224, 1), dtype=np.float32),
+            "labels_encoder": pre.global_labels(parts, groups),
+            "labels_decoder": pre.local_labels(parts, groups, pre.unfold_locations((4, 4), n)),
+            "flips": rng.random((n, 2)) < 0.5,
+            "labeled": rng.random((PPAR_LABELED, 224, 224, 1), dtype=np.float32),
+            "target": rng.integers(0, 4, (PPAR_LABELED, 224, 224)).astype(np.int32),
+            "mt_flips": rng.random((n, 2)) < 0.5}
+
+
+def _ppar_step(phase: str, device):
+    """(model, ``engine/pretrain.py:_Phase``) of one pretrain phase at
+    pretrain.yaml's widths (projector mlp; IIC heads 10 x 10 linear on
+    Conv5, 10 x 20 mlp on Up_conv3; the mean teacher), the U-Net of seed 0,
+    the heads of seed 1 (the encoder's IIC head's weights times
+    PPAR_HEAD_SCALE), Adam at 1e-3 (so the first move shows) with
+    pretrain.yaml's weight decays, the trainer's freeze."""
+    import torch
+
+    models, pre = port("models"), port("engine.pretrain")
+    subheads, clusters = PRETRAIN_HEAD
+    torch.manual_seed(0)
+    model = models.UNet(1, 4).to(device)
+    torch.manual_seed(1)
+    teacher = None
+    if phase == "encoder":
+        heads = {"projector": models.ProjectionHead(256, output_dim=256, head_type="mlp"),
+                 "iic": models.ClusterHead(256, num_clusters=10, num_subheads=10,
+                                           head_type="linear")}
+        with torch.no_grad():
+            heads["iic"].linear.weight.mul_(PPAR_HEAD_SCALE)
+        comps, wd = pre.component_range("Conv1", "Conv5"), 1e-5
+    elif phase == "decoder":
+        heads = {"projector": models.LocalProjectionHead(32, head_type="mlp"),
+                 "iic": models.LocalClusterHead(32, num_clusters=clusters,
+                                                num_subheads=subheads, head_type="mlp",
+                                                flat_output=False)}
+        comps, wd = pre.component_range("Up5", "Up_conv3"), 0.0
+    else:
+        heads, comps, wd = {}, pre.COMPONENT_NAMES, 1e-5
+        teacher = copy.deepcopy(model).requires_grad_(False)
+    phase_state = pre._Phase(model, torch.nn.ModuleDict(heads), comps, 1e-3, wd,
+                             torch.device(device), 11, teacher)
+    return model, phase_state
+
+
+def _ppar_run(device, ctx, data: dict) -> dict:
+    """One step of each PPAR_PHASES phase (``engine/pretrain.py``'s builders)
+    on ``device`` under ``ctx`` (None: one process on the global batch):
+    the rank's rows of each batch, the labels whole, the flip draws
+    injected. For each: its losses, parameter moves, summed gradients, BN
+    running statistics (the teacher's too), the joint's launches, the first
+    step's ms, then the ms of PAR_TIMED_STEPS more steps on the same batch."""
+    import torch
+
+    pre, mj = port("engine.pretrain"), port("ops.mi_joint")
+    rows = (lambda a: a) if ctx is None else (lambda a: a[ctx.rows(len(a))])
+    t = lambda a: torch.from_numpy(rows(a)).to(device)
+    n = len(data["image"])
+    out = {}
+    for phase in PPAR_PHASES:
+        model, ph = _ppar_step(phase, device)
+        if phase == "encoder":
+            step = pre.build_pretrain_encoder_step(
+                model, ph.heads["projector"], ph.optimizer, iic_head=ph.heads["iic"],
+                step_counter=ph.counter, context=ctx)
+            batch = {"image": t(data["enc_image"]), "image_tf": t(data["enc_image_tf"]),
+                     "labels": torch.from_numpy(data["labels_encoder"]).to(device)}
+            kw = {"n_valid": n}
+        elif phase == "decoder":
+            step = pre.build_pretrain_decoder_step(
+                model, ph.heads["projector"], ph.optimizer, generator=ph.generator,
+                iic_head=ph.heads["iic"], step_counter=ph.counter, context=ctx)
+            batch = {"image": t(data["image"]), "image_tf": t(data["image_tf"]),
+                     "labels": torch.from_numpy(data["labels_decoder"]).to(device)}
+            kw = {"n_valid": n, "flip_mask": torch.from_numpy(data["flips"])}
+        else:
+            step = pre.build_finetune_mt_step(
+                model, ph.teacher, ph.optimizer, num_classes=4, generator=ph.generator,
+                step_counter=ph.counter, context=ctx)
+            batch = {"image": t(data["labeled"]), "target": t(data["target"]),
+                     "unlabeled_image": t(data["image"])}
+            kw = {"n_valid": PPAR_LABELED, "n_unlabeled_valid": n,
+                  "flip_mask": torch.from_numpy(data["mt_flips"])}
+        params = list(chain(model.named_parameters(), ph.heads.named_parameters(prefix="heads")))
+        before = {k: p.detach().cpu().clone() for k, p in params}
+        stats = lambda net: torch.cat([v.detach().cpu().flatten() for k, v in
+                                       net.state_dict().items() if "running_" in k])
+        mj.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch, **kw)
+        torch.cuda.synchronize()
+        rec = {"losses": {k: float(v) for k, v in metrics.items() if v.dim() == 0},
+               "moves": {k: p.detach().cpu() - before[k] for k, p in params},
+               "grads": {k: p.grad.detach().cpu() for k, p in params if p.grad is not None},
+               "bn_stats": stats(model),
+               "launches": {f"{k}/p{p}": v for (k, p), v in sorted(mj.LAUNCHES.items())},
+               "first_step_ms": (time.perf_counter() - t0) * 1e3, "step_ms": [],
+               "rank": None if ctx is None else ctx.rank}
+        if ph.teacher is not None:
+            rec["teacher_bn_stats"] = stats(ph.teacher)
+        for _ in range(PAR_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(batch, **kw)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        ph.close()
+        out[phase] = rec
+        del model, ph, step, batch
+    return out
+
+
+def _ppar_rank(ctx, spawned_at: float, data: dict) -> dict:
+    """A rank of the pretrain_parallel run: the three steps on its rows."""
+    ready = time.time()
+    _full_fp32()
+    out = _ppar_run(ctx.device, ctx, data)
+    out["startup_s"] = {"to_import": IMPORTED_AT - spawned_at,
+                        "import_to_ready": ready - IMPORTED_AT}
+    return out
+
+
+def _ppar_compare(phase: str, ref: dict, got: dict, launches: dict):
+    """A rank's step of ``phase`` against the one-process step: (the
+    readings, the checks as (ok, message) pairs). Held: the joint's launches
+    exactly, the losses and the BN statistics (the teacher's too) within
+    STEPS_TOL (relative), the parameter moves to the step phase's two-tier
+    bound, each tensor's summed gradient within PAR_GRAD_TOL (relative L2),
+    the worst reported with the reference's norm."""
+    import numpy as np
+
+    what = f"pretrain_parallel {phase} rank {got['rank']}"
+    rel = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in ref["losses"].items()}
+    diffs = np.concatenate([(got["moves"][k] - m).abs().flatten().numpy()
+                            for k, m in ref["moves"].items()])
+    loose = float(np.mean(diffs > 0.05 * 1e-3))
+    stats = {k: float((got[k] - ref[k]).norm() / ref[k].norm())
+             for k in ("bn_stats", "teacher_bn_stats") if k in ref}
+    grad_rel = {k: float((got["grads"][k] - g).norm() / max(float(g.norm()), 1e-30))
+                for k, g in ref["grads"].items()}
+    out = {"phase_step": phase, "rank": got["rank"], "rel_err": rel,
+           "param_delta_max_diff": float(diffs.max()), "param_delta_loose_share": loose,
+           "stats_rel_err": stats,
+           "grad_rel_l2_worst": [(k, v, float(ref["grads"][k].norm())) for k, v in
+                                 sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]],
+           "launches": got["launches"], "rank_first_step_ms": got["first_step_ms"],
+           "rank_step_ms": got["step_ms"]}
+    checks = [(got["launches"] == launches, f"launches {got['launches']} (want {launches})"),
+              (set(rel) == set(got["losses"]) and all(v <= STEPS_TOL for v in rel.values()),
+               f"losses differ: {rel}"),
+              (diffs.max() <= 2.05e-3 and loose < 0.005,
+               f"parameter moves: max {diffs.max()}, loose share {loose}"),
+              (all(v <= STEPS_TOL for v in stats.values()), f"BN statistics differ: {stats}"),
+              (set(got["grads"]) == set(ref["grads"]) and max(grad_rel.values()) <= PAR_GRAD_TOL,
+               f"summed gradients: {out['grad_rel_l2_worst']} (bound {PAR_GRAD_TOL})")]
+    return out, [(ok, f"{what}: {msg}") for ok, msg in checks]
+
+
+def phase_pretrain_parallel(pretrain_run) -> dict:
+    """The pretrain pipeline's steps data parallel on the one card:
+    PPAR_WORLD gloo ranks on cuda:0 in one spawn, each one step of the
+    ``iiccontrast`` encoder and decoder phases and of ``contrastMT``'s
+    finetune on its 3 of the 12 slices at 224^2 (1 + 3 in finetune), against
+    the same steps in one process on the card (``_ppar_compare``): exactly
+    12 joint launches a rank in the decoder step (3 products x 4 pairs of
+    128-lane blocks at p = 0 on 3 x 112^2 = 37,632 rows), none in the other
+    two. Then ``pretrain_main`` under an NCCL group of world 1 set up as
+    ``torchrun`` sets it: no data group and no collective call (each
+    ``torch.distributed`` collective counted), the decoder phase's 12
+    launches a step, the losses within STEPS_TOL of ``pretrain_run`` (the
+    pretrain phase's run directory, None when it did not run). A rank's step ms is that of ranks time-sharing one card
+    through gloo, not a scaling figure. Returns a rank's decoder launches."""
+    dryrun, mj = port("parallel.dryrun"), port("ops.mi_joint")
+    data = _ppar_data()
+    spawned_at = time.time()
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(_ppar_rank, PPAR_WORLD, spawned_at, data, device="cuda:0",
+                             timeout=PAR_TIMEOUT, threads=2)
+    spawn_wall = time.perf_counter() - t0
+    ref = _ppar_run("cuda", None, data)  # after the ranks have left the card
+    subheads, clusters = PRETRAIN_HEAD
+    per_step = {f"{name}/p0": len(mj._lane_tiles(subheads * clusters)) ** 2
+                for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
+    check(sum(per_step.values()) == 12, f"pretrain_parallel: {per_step} a decoder step")
+    compared = [_ppar_compare(phase, ref[phase], r[phase], per_step if phase == "decoder" else {})
+                for r in ranks for phase in PPAR_PHASES]
+    rows = [row for row, _ in compared]
+    emit({"phase": "pretrain_parallel", "world": PPAR_WORLD, "slices": len(data["image"]),
+          "labeled": PPAR_LABELED, "crop": 224, "backend": "gloo", "device": "cuda:0",
+          "nvidia_smi": nvidia_smi(),
+          "note": ("rank_*step_ms: a rank's step while all ranks time-share one card through "
+                   "gloo (not a scaling figure); step_ms: the steps after the first"),
+          "one_process": {phase: {"first_step_ms": ref[phase]["first_step_ms"],
+                                  "step_ms": ref[phase]["step_ms"],
+                                  "losses": ref[phase]["losses"],
+                                  "launches": ref[phase]["launches"]} for phase in PPAR_PHASES},
+          "ranks": rows, "rank_startup_s": [r["startup_s"] for r in ranks],
+          "spawn_wall_s": spawn_wall})
+    for _, checks in compared:  # every reading printed before the first failure
+        for ok, msg in checks:
+            check(ok, msg)
+    _ppar_main_world1(pretrain_run)
+    return {(k.rsplit("/p", 1)[0], int(k.rsplit("/p", 1)[1])): v
+            for k, v in ranks[0]["decoder"]["launches"].items()}
+
+
+def _ppar_main_world1(single) -> None:
+    """``pretrain_main.main`` (iiccontrast, PRETRAIN_STEPS steps a phase, as
+    the pretrain phase) with the torchrun variables of a world of 1 set:
+    an NCCL group whose context has no data group, no collective call, the
+    decoder phase's 12 launches a step, and the phase CSVs' losses within
+    STEPS_TOL of ``single``'s, the pretrain phase's run (relative to
+    PPAR_LOSS_FLOOR at least; the same seeds, data and card; None: not run);
+    the group left at the end."""
+    import torch.distributed as dist
+
+    pm, mj, pre = port("pretrain_main"), port("ops.mi_joint"), port("engine.pretrain")
+    calls = []
+    collectives = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+                   "reduce_scatter", "reduce_scatter_tensor", "barrier", "gather", "scatter")
+    originals = {name: getattr(dist, name) for name in collectives}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return originals[name](*args, **kwargs)
+        return call
+
+    record: dict = {}
+    for name in collectives:
+        setattr(dist, name, counted(name))
+    try:
+        with _torchrun_world1(pm) as seen, _watch_phases(pre.IICContrastTrainer, record):
+            trainer = pm.main(_pretrain_argv("iiccontrast", "chip_smoke_pretrain_world1"))
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    check(seen == {"backend": "nccl", "world": 1, "device": "cuda:0", "group": False},
+          f"pretrain_parallel world 1 ran under {seen}")
+    check(not calls, f"pretrain_parallel world 1: collectives called {sorted(set(calls))}")
+    check(not dist.is_initialized(), "pretrain_parallel: pretrain_main left the group joined")
+    subheads, clusters = PRETRAIN_HEAD
+    per_product = len(mj._lane_tiles(subheads * clusters)) ** 2
+    want = {(name, 0): PRETRAIN_STEPS * per_product for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
+    check(record["pretrain_decoder"]["launches"] == want,
+          f"pretrain_parallel world 1: decoder launches {record['pretrain_decoder']['launches']}")
+    run = Path(trainer._save_dir)
+    line = {"phase": "pretrain_parallel_world1", "group": seen, "collective_calls": len(calls),
+            "median_step_ms": {k: statistics.median(v[1:]) for k, v in
+                               trainer.step_times_ms.items()}}
+    if single is not None:
+        rel = {}
+        for phase in pre.PHASES:
+            (a,), (b,) = _phase_rows(run, phase), _phase_rows(single, phase)
+            for k in a:
+                if k.endswith("_loss_mean"):
+                    rel[f"{phase}/{k}"] = abs(float(a[k]) - float(b[k])) / max(
+                        abs(float(b[k])), PPAR_LOSS_FLOOR)
+        check(all(v <= STEPS_TOL for v in rel.values()), f"pretrain_parallel world 1: {rel}")
+        line["rel_err_vs_pretrain_phase"] = rel
     emit(line)
 
 
@@ -2865,7 +3193,8 @@ def main(argv=None) -> int:
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_device,train_bf16,train_remat,"
                                               "resume,inference,train_zoo,pretrain,optim,arch_zoo,"
-                                              "host_tier,parallel,train_parallel,profile")
+                                              "host_tier,parallel,train_parallel,"
+                                              "pretrain_parallel,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
     args = parser.parse_args(argv)
@@ -2962,10 +3291,10 @@ def main(argv=None) -> int:
     if "train_zoo" in phases:
         with timed(walls, "train_zoo"):
             zoo_rot_launches = phase_train_zoo()
-    pretrain_rows, pretrain_launches = [], {}
+    pretrain_rows, pretrain_launches, pretrain_run = [], {}, None
     if "pretrain" in phases:
         with timed(walls, "pretrain"):
-            pretrain_launches = phase_pretrain()
+            pretrain_launches, pretrain_run = phase_pretrain()
             phase_pretrain_mt()
             phase_pretrain_step()
             pretrain_rows = phase_pretrain_joint(args.reps)
@@ -2985,6 +3314,10 @@ def main(argv=None) -> int:
     if "train_parallel" in phases:
         with timed(walls, "train_parallel"):
             phase_train_parallel(args.steps, train_out)
+    ppar_launches = {}
+    if "pretrain_parallel" in phases:
+        with timed(walls, "pretrain_parallel"):
+            ppar_launches = phase_pretrain_parallel(pretrain_run)
     profiles = {}
     t0 = time.perf_counter()
     if "profile" in phases:
@@ -3057,7 +3390,9 @@ def main(argv=None) -> int:
     summary += [dict(name=f"{r['name']}@pretrain", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
                      library_fp32_ms=r["library_fp32_ms"],
-                     launches=pretrain_launches.get((r["name"], r["padding"]), 0))
+                     launches=pretrain_launches.get((r["name"], r["padding"]), 0),
+                     pretrain_parallel_rank_launches=ppar_launches.get(
+                         (r["name"], r["padding"])))
                 for r in pretrain_rows]
     emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail

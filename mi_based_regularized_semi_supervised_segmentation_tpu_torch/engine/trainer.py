@@ -110,7 +110,6 @@ from .steps import (
 )
 
 INFERENCE_NAME = "inference.json"
-_ROADMAP = "is not ported yet; see ROADMAP.md"
 # the joint's backends (ops/iic_local.py) and the fused path
 BACKENDS = IIC_LOCAL_BACKENDS + ("pallas_fused",)
 
@@ -127,38 +126,32 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-# the JAX package's Parallel section: each key's single-device values (its
-# default first), which the pretrain pipeline keeps
-PARALLEL_DEFAULTS = {"data_axis": ("data",), "num_devices": (None, 1), "space_size": (1,),
-                     "multihost": (False,), "coordinator_address": (None,),
-                     "num_processes": (None,), "process_id": (None,)}
+# the JAX package's Parallel section
+PARALLEL_KEYS = ("data_axis", "num_devices", "space_size", "multihost", "coordinator_address",
+                 "num_processes", "process_id")
 LAUNCH = ("torchrun --nproc_per_node={n} -m "
-          "mi_based_regularized_semi_supervised_segmentation_tpu_torch.main ...")
+          "mi_based_regularized_semi_supervised_segmentation_tpu_torch.{entry} ...")
 
 
-def _check_parallel_keys(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    section = cfg.get("Parallel") or {}
-    for key in section:
-        if key not in PARALLEL_DEFAULTS:
-            raise ValueError(f"Parallel.{key}: expected one of {sorted(PARALLEL_DEFAULTS)}")
-    return section
-
-
-def check_parallel(cfg: Dict[str, Any], world: int = 1) -> None:
+def check_parallel(cfg: Dict[str, Any], world: int = 1, entry: str = "main") -> None:
     """The ``Parallel`` section against the launcher's ``world`` size (one
     process per device): ``ValueError`` for an unknown key, a
     ``num_devices`` other than null or the world size (naming both and the
-    ``torchrun`` line), a ``space_size`` that does not divide the world, or
-    ``multihost`` without its coordinator, process count and id.
-    ``data_axis`` names the data axis (any string); ``coordinator_address``,
-    ``num_processes`` and ``process_id`` are read under ``multihost`` only,
-    as the JAX package reads them. ``main.py`` and the trainers call it."""
-    section = _check_parallel_keys(cfg)
+    ``torchrun`` line of the ``entry`` module), a ``space_size`` that does
+    not divide the world, or ``multihost`` without its coordinator, process
+    count and id. ``data_axis`` names the data axis (any string);
+    ``coordinator_address``, ``num_processes`` and ``process_id`` are read
+    under ``multihost`` only, as the JAX package reads them. ``main.py``,
+    ``pretrain_main.py`` and the trainers call it."""
+    section = cfg.get("Parallel") or {}
+    for key in section:
+        if key not in PARALLEL_KEYS:
+            raise ValueError(f"Parallel.{key}: expected one of {sorted(PARALLEL_KEYS)}")
     n = section.get("num_devices")
     if n is not None and int(n) != world:
         raise ValueError(
             f"Parallel.num_devices={n} but the world size is {world}: the port runs one "
-            f"process per device; launch {LAUNCH.format(n=n)} (or set "
+            f"process per device; launch {LAUNCH.format(n=n, entry=entry)} (or set "
             "Parallel.num_devices=null to take the world size)")
     space = int(section.get("space_size", 1) or 1)
     if space < 1 or world % space:
@@ -169,17 +162,6 @@ def check_parallel(cfg: Dict[str, Any], world: int = 1) -> None:
         if missing:
             raise ValueError("Parallel.multihost=true needs Parallel."
                              + ", Parallel.".join(missing))
-
-
-def refuse_parallel(cfg: Dict[str, Any]) -> None:
-    """The pretrain pipeline's check: the ``Parallel`` section must keep its
-    single-device values; any other raises ``NotImplementedError`` naming
-    the key (its losses are not yet global over ranks); an unknown key
-    raises ``ValueError``. ``pretrain_main.py`` and the pretrain trainers
-    call it."""
-    for key, value in _check_parallel_keys(cfg).items():
-        if value not in PARALLEL_DEFAULTS[key]:
-            raise NotImplementedError(f"Parallel.{key}={value!r} {_ROADMAP}")
 
 
 def check_optimizer(cfg: Dict[str, Any]) -> None:
@@ -269,6 +251,17 @@ def pad_rows(arr: np.ndarray, target: int, repeat: bool = True) -> np.ndarray:
     fill = np.repeat(arr[-1:], target - n, axis=0) if repeat else np.zeros(
         (target - n,) + arr.shape[1:], arr.dtype)
     return np.concatenate([arr, fill])
+
+
+def eval_rows(batch: Dict[str, Any], context: DistContext,
+              device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """A host eval batch's image, target and mask: the rank's rows, on
+    ``device`` (padded to a multiple of the data world first when the loader
+    did not; a pad row's mask is False)."""
+    arrays = {k: batch[k] for k in ("image", "target", "mask")}
+    padded = -(-len(arrays["mask"]) // context.data_world) * context.data_world
+    arrays = {k: pad_rows(v, padded, repeat=False) for k, v in arrays.items()}
+    return tuple(to_device(v, device) for v in local_rows(arrays, context).values())
 
 
 def eval_pad_multiple(data_world: int) -> int:
@@ -760,7 +753,7 @@ class SemiTrainer:
                 pending.append((out, batch["group"]))
         else:
             for batch in loader:
-                out = self._eval_step(*self._eval_rows(batch))
+                out = self._eval_step(*eval_rows(batch, self._ctx, self._device))
                 pending.append((out, batch["group"]))
         for out, group in pending:
             meters["loss"].add(float(out["loss"]))
@@ -768,15 +761,6 @@ class SemiTrainer:
                                      group_name=group)
         report = meters.tracking_status()
         return report, report["dice"]["DSC_mean"]
-
-    def _eval_rows(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
-        """A host eval batch's image, target and mask: the rank's rows, on the
-        device (padded to a multiple of the data world first when the loader
-        did not)."""
-        arrays = {k: batch[k] for k in ("image", "target", "mask")}
-        padded = -(-len(arrays["mask"]) // self._ctx.data_world) * self._ctx.data_world
-        arrays = {k: pad_rows(v, padded, repeat=False) for k, v in arrays.items()}
-        return tuple(self._to_device(v) for v in local_rows(arrays, self._ctx).values())
 
     # --- training loop --------------------------------------------------
     def start_training(self) -> float:
@@ -895,7 +879,7 @@ class SemiTrainer:
                 rows = dict(zip(ib["filename"], preds))
                 pred = np.stack([rows[fn] for fn in batch["filename"][:n_valid]])
             else:
-                out = self._eval_step(*self._eval_rows(batch))
+                out = self._eval_step(*eval_rows(batch, self._ctx, self._device))
                 pred = gather_rows(out["pred"], self._ctx).cpu().numpy()[:n_valid]
             meters["loss"].add(float(out["loss"]))
             meters["dice"].add_stats(out["inter"].cpu().numpy(), out["union"].cpu().numpy(),

@@ -107,12 +107,13 @@ class BatchNorm2d(nn.BatchNorm2d):
                         group) -> torch.Tensor:
         """Train-mode BN over the rows ``mask`` marks (all without one), of
         this rank and, with ``group``, of every rank of it: fp32 sums and
-        counts summed over the group, mean, then the biased variance of the
+        counts (float64 for a float64 input, as the one-process path keeps
+        them) summed over the group, mean, then the biased variance of the
         same rows (two passes). Gradients reach every rank's rows through
         ``all_reduce_sum``."""
         dims = (0,) + tuple(range(2, x.dim()))
         view = (1, -1) + (1,) * (x.dim() - 2)
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         per_row = x[0, 0].numel()
         if mask is None:
             w = None

@@ -18,6 +18,11 @@ on its rows of the global batch and the step sums over the ranks itself:
 - ``all_reduce_sum`` sums a tensor over the data group with a gradient:
   its backward sums the incoming gradients over the group too (SyncBN's
   rule: each rank's output depends on every rank's rows).
+- ``all_gather_rows`` puts the data ranks' rows together into the global
+  batch with a gradient: its backward gives each rank the gradient of its
+  own rows, summed over the ranks' losses (the contrastive loss's contrast
+  set, ``ops/losses.py:supcon_loss``). ``gather_rows`` does the same for
+  metrics, with no gradient.
 - ``reduce_grads_`` sums the parameter gradients (and any riders) over the
   group in one flat ``all_reduce``. Summed, not averaged: every loss term
   enters a rank's loss as its share of the global value, so the objective
@@ -91,7 +96,9 @@ class DistContext:
         return local_batch_slice(global_batch, self.data_rank, self.data_world)
 
     def barrier(self) -> None:
-        if dist.is_initialized():
+        """Waits for every rank of the world (nothing to wait for at a world
+        of 1, which then makes no collective at all)."""
+        if self.world > 1 and dist.is_initialized():
             dist.barrier()
 
     def close(self) -> None:
@@ -217,16 +224,20 @@ def _is_array(v) -> bool:
     return isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim >= 1
 
 
-def local_rows(batch: Dict[str, Any], context: Optional[DistContext]) -> Dict[str, Any]:
+def local_rows(batch: Dict[str, Any], context: Optional[DistContext],
+               whole: Sequence[str] = ()) -> Dict[str, Any]:
     """The batch with each array (numpy or tensor, rank >= 1) cut to the
-    rank's rows; other values pass through. An array whose leading dim does
-    not divide the data world is kept whole, with one warning per key (the
-    JAX ``shard_batch``'s replication fallback)."""
+    rank's rows; other values, and the arrays named in ``whole``, pass
+    through (a batch-level array whose rows are not the batch's slices, such
+    as the pretrain phases' contrastive labels, which every rank needs
+    whole). An array whose leading dim does not divide the data world is kept
+    whole, with one warning per key (the JAX ``shard_batch``'s replication
+    fallback)."""
     if context is None or context.data_world == 1:
         return batch
     out: Dict[str, Any] = {}
     for k, v in batch.items():
-        if not _is_array(v):
+        if not _is_array(v) or k in whole:
             out[k] = v
         elif v.shape[0] % context.data_world:
             if k not in _REPLICATION_WARNED:
@@ -342,6 +353,30 @@ def reduce_grads_(params: Sequence[torch.nn.Parameter], group,
     return None if riders is None else flat[at:]
 
 
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, context: DistContext) -> torch.Tensor:
+        ctx.context = context
+        return gather_rows(local.detach(), context)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        context = ctx.context
+        grad = reduce_sum_(grad.contiguous().clone(), context.group)
+        return grad[context.rows(grad.shape[0])], None
+
+
+def all_gather_rows(local: torch.Tensor, context: Optional[DistContext]) -> torch.Tensor:
+    """The global batch of ``local`` (each data rank's rows of it, the same
+    count on every rank), in global row order, with a gradient: every rank's
+    loss may depend on every row, so the backward sums the incoming
+    gradients over the group and gives each rank those of its own rows. At a
+    data world of 1 (or no context) it is ``local`` itself."""
+    if context is None or context.group is None or context.data_world == 1:
+        return local
+    return _AllGatherRows.apply(local, context)
+
+
 def gather_rows(local: torch.Tensor, context: Optional[DistContext]) -> torch.Tensor:
     """The global batch from each data rank's rows of it: each rank writes
     its rows into zeros and the group sums them (any backend that sums)."""
@@ -374,10 +409,12 @@ def _pin_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
 
 def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
                        device: Optional[torch.device] = None,
-                       context: Optional[DistContext] = None) -> Iterator[Dict[str, Any]]:
+                       context: Optional[DistContext] = None,
+                       whole: Sequence[str] = ()) -> Iterator[Dict[str, Any]]:
     """The batches of ``host_iter``, pulled on a background thread up to
-    ``DEPTH`` ahead, cut to the rank's rows (``local_rows``) under a
-    ``context``; pinned (``_pin_batch``) when ``device`` is a CUDA device.
+    ``DEPTH`` ahead, cut to the rank's rows (``local_rows``, the keys in
+    ``whole`` kept whole) under a ``context``; pinned (``_pin_batch``) when
+    ``device`` is a CUDA device.
 
     Close the generator (``contextlib.closing``) when the epoch is done: that
     waits until the host iterator has been pulled N + DEPTH + 1 times for the
@@ -410,7 +447,7 @@ def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
                 with cond:
                     pulls["n"] += 1
                     cond.notify_all()
-                item = local_rows(item, context)
+                item = local_rows(item, context, whole)
                 q.put(_pin_batch(item) if pin else item)
         except BaseException as error:  # handed to the consumer, raised there
             finish(_Failed(error))

@@ -7,9 +7,9 @@ Held:
   ``init_distributed`` without a launcher, ``launcher_world``;
 - ``shard_batch``: the rank's rows, non-arrays passed through, the whole
   array kept with one warning per key when its rows do not divide;
-- ``check_parallel`` and ``main.main`` refusing a ``num_devices`` other than
-  the world size (naming both and the ``torchrun`` line) before any data,
-  ``pretrain_main`` still refusing ``num_devices > 1``;
+- ``check_parallel``, ``main.main`` and ``pretrain_main.main`` refusing a
+  ``num_devices`` other than the world size (naming both and the entry's
+  ``torchrun`` line) before any data;
 - masked BN against plain BN over the real rows: outputs of the real rows
   and running statistics at rtol 1e-5;
 - the fused gate refusing a batch that needs pad rows, in the gate and in
@@ -50,7 +50,6 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import (
     build_optimizer,
     build_train_step,
     check_parallel,
-    refuse_parallel,
     trainer_zoos,
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer as trainer_mod
@@ -151,13 +150,12 @@ def test_check_parallel_and_main_refusals(tmp_path):
         check_parallel({"Parallel": {"multihost": True, "num_processes": 2}}, world=2)
     with pytest.raises(ValueError, match="Parallel.mesh"):
         check_parallel({"Parallel": {"mesh": 2}})
-    with pytest.raises(NotImplementedError, match="num_devices=2 .*ROADMAP"):
-        refuse_parallel({"Parallel": {"num_devices": 2}})
     absent = tmp_path / "absent"
     argv = ["Trainer.device=cpu", "Data.synthetic=false", f"Data.root_dir={absent}"]
     with pytest.raises(ValueError, match="num_devices=3 but the world size is 1"):
         port_main.main(argv + ["Parallel.num_devices=3"])
-    with pytest.raises(NotImplementedError, match="num_devices=2"):
+    with pytest.raises(ValueError, match=r"num_devices=2 but the world size is 1.*torchrun "
+                                         r"--nproc_per_node=2 -m \S*\.pretrain_main "):
         pretrain_main.main(argv + ["Parallel.num_devices=2"])
     assert not absent.exists()
 

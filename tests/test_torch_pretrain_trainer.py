@@ -1,7 +1,8 @@
 """The port's pretrain trainers through ``pretrain_main`` on the CPU, and the
-two repairs that came with them: ``Trainer.profile`` writes a trace, and a
-``Parallel`` key off its single-device value raises in ``pretrain_main``
-(``main`` checks it against the world size).
+two repairs that came with them: ``Trainer.profile`` writes a trace, and
+``pretrain_main`` and ``main`` check the ``Parallel`` keys against the world
+size before any data (the data-parallel runs are in
+tests/test_torch_pretrain_distributed.py).
 
 The trainers run end to end on a small synthetic ACDC set (64^2 slices, which
 the loaders pad and crop to 224), one batch an epoch, one patient a
@@ -202,39 +203,36 @@ def test_trainer_profile_raises_when_the_trace_cannot_be_written(tmp_path, data_
         trainer.start_training()
 
 
-@pytest.mark.parametrize("key,value,error", [
-    ("num_devices", 2, NotImplementedError), ("space_size", 2, NotImplementedError),
-    ("multihost", "true", NotImplementedError), ("data_axis", "batch", NotImplementedError),
-    ("coordinator_address", "10.0.0.1:1234", NotImplementedError),
-    ("num_processes", 2, NotImplementedError), ("process_id", 0, NotImplementedError),
-    ("mesh_shape", 4, ValueError),
+@pytest.mark.parametrize("key,value", [
+    ("num_devices", 2), ("space_size", 2), ("multihost", "true"), ("data_axis", "batch"),
+    ("coordinator_address", "10.0.0.1:1234"), ("num_processes", 2), ("process_id", 0),
+    ("mesh_shape", 4),
 ])
 @pytest.mark.parametrize("entry", ["main", "pretrain_main"])
-def test_parallel_keys_off_their_defaults_raise(tmp_path, entry, key, value, error):
-    """Before any data is made or loaded: the data root does not exist.
-    ``pretrain_main`` refuses every key off its single-device value (``error``).
-    ``main`` runs data parallel and checks the keys against the launcher's
+def test_parallel_keys_off_their_defaults_raise(tmp_path, entry, key, value):
+    """Before any data is made or loaded: the data root does not exist. Both
+    entries run data parallel and check the keys against the launcher's
     world size (1 here, no launcher): a ``num_devices`` or ``space_size`` it
     cannot run, ``multihost`` without its coordinator and an unknown key
-    raise ``ValueError``; ``data_axis`` (a name) and the keys it reads under
-    ``multihost`` only pass its check, and the run stops at the absent data."""
+    raise ``ValueError`` (``num_devices`` naming the entry's ``torchrun``
+    line); ``data_axis`` (a name) and the keys read under ``multihost`` only
+    pass the check, and the run stops at the absent data."""
     run = pretrain_main.main if entry == "pretrain_main" else port_main.main
     argv = [f"Parallel.{key}={value}", "Trainer.device=cpu", "Data.synthetic=false",
             f"Data.root_dir={tmp_path / 'absent'}"]
-    if entry == "main" and key in MAIN_ACCEPTS:
+    if key in MAIN_ACCEPTS:
         with pytest.raises(AssertionError, match="absent") as info:
             run(argv)
         assert "Parallel" not in str(info.value)
     else:
-        if entry == "main":
-            error = ValueError
-        with pytest.raises(error, match=f"Parallel.{key}" + ("" if error is ValueError
-                                                               else ".*ROADMAP")):
+        with pytest.raises(ValueError, match=f"Parallel.{key}") as info:
             run(argv)
+        if key == "num_devices":
+            assert f"torchrun --nproc_per_node=2 -m {run.__module__} " in str(info.value)
     assert not (tmp_path / "absent").exists()
 
 
-# the Parallel keys that main.main takes at a world of 1 without a launcher
+# the Parallel keys that both entries take at a world of 1 without a launcher
 MAIN_ACCEPTS = ("data_axis", "coordinator_address", "num_processes", "process_id")
 
 
