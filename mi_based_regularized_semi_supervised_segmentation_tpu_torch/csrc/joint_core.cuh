@@ -648,21 +648,29 @@ cudaError_t launch_fwd(dim3 grid, int smem_bytes, cudaStream_t s, const __nv_bfl
   return cudaGetLastError();
 }
 
-// joint_fwd_partial at a checked plan's displacement group, then the chunk
-// sum into out [D, C, C]
+// joint_fwd_partial at a checked plan's displacement group: the chunk
+// partials [n_chunks, D, 128, 128] of A and B ([N, 128] bf16 each)
+cudaError_t run_fwd_partial(int dx_group, int n_chunks, int smem_bytes, cudaStream_t s,
+                            const __nv_bfloat16* A, const __nv_bfloat16* B, float* partial,
+                            long long n, int p, int wp, long long rows_per_chunk) {
+  const int T = 2 * p + 1;
+  const dim3 grid(4 * (T / dx_group) * T, n_chunks);
+  switch (dx_group) {
+    case 1: return launch_fwd<1>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk);
+    case 3: return launch_fwd<3>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk);
+    case 5: return launch_fwd<5>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk);
+    default: return launch_fwd<7>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk);
+  }
+}
+
+// the partials, then their chunk sum into out [D, C, C]
 cudaError_t run_fwd(int dx_group, int n_chunks, int smem_bytes, cudaStream_t s,
                     const __nv_bfloat16* A, const __nv_bfloat16* B, float* partial, float* out,
                     long long n, int c, int p, int wp, long long rows_per_chunk) {
   const int T = 2 * p + 1;
   const int D = T * T;
-  const dim3 grid(4 * (T / dx_group) * T, n_chunks);
-  cudaError_t err;
-  switch (dx_group) {
-    case 1: err = launch_fwd<1>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk); break;
-    case 3: err = launch_fwd<3>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk); break;
-    case 5: err = launch_fwd<5>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk); break;
-    default: err = launch_fwd<7>(grid, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk);
-  }
+  const cudaError_t err =
+      run_fwd_partial(dx_group, n_chunks, smem_bytes, s, A, B, partial, n, p, wp, rows_per_chunk);
   if (err != cudaSuccess) return err;
   joint_fwd_reduce<<<reduce_blocks((long long)D * c * c), 256, 0, s>>>(partial, out, D, c, LANES,
                                                                        n_chunks);

@@ -6,17 +6,19 @@
 // Replaces the Pallas TPU kernels of the JAX package's
 // ops/pallas/mi_fused.py (Kernel.backend=pallas_fused):
 //   * mi_fused.py:215 _fused_fwd / _fwd_kernel
-//       -> joint_prep<SoftmaxRows> + joint_fwd_partial + joint_fwd_reduce
+//       -> C = 128: joint_prep<SoftmaxRows> + joint_fwd_partial + joint_fwd_reduce
+//          C = 128 t: wide_prep + t^2 x (joint_fwd_partial + fused_fwd_reduce_block)
 //   * mi_fused.py:254 _fused_bwd / _bwd_kernel (dl2)
-//       -> joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[d] as is
+//       -> C = 128: joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[d] as is
+//          C = 128 t: wide_prep + t^2 x joint_bwd<AddRows> + wide_vjp
 //   * mi_fused.py:275 _fused_bwd / _bwd_kernel (dl1, transpose_g)
-//       -> joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[D-1-d]^T
+//       -> the same kernels, g[D-1-d]^T
 //
-// What is computed. l1, l2 are [N, 128] logits, fp32 or (the model's bf16
-// compute, Precision.compute_dtype=bfloat16) bf16, read as fp32: the
-// row-major flattening of [B, Hp, Wp, 128] canvases with a border of width p;
-// lanes from S*K on are dead (float32 min, or -inf in bf16: no step reads a
-// dead lane's value). For a row n:
+// What is computed. l1, l2 are [N, C] logits, C = 128 t lanes (t = 1 .. 8),
+// fp32 or (the model's bf16 compute, Precision.compute_dtype=bfloat16) bf16,
+// read as fp32: the row-major flattening of [B, Hp, Wp, C] canvases with a
+// border of width p; lanes from S*K on are dead (float32 min, or -inf in
+// bf16: no step reads a dead lane's value). For a row n:
 //   valid(n) = 0 <= n < N and (y, x) of n lies in [p, Hp - p) x [p, Wp - p)
 //   z = l / T on live lanes, -inf on dead ones; m = max of z over the ROW
 //   e = exp(z - m); den = per-group sum of e (of bf16-rounded e in bf16 mode)
@@ -35,56 +37,84 @@
 //
 // What bounds it on an H100 (989 TF/s dense bf16, 3.35 TB/s HBM). Each launch
 // does the products of the matching mi_joint launch: at the headline Up_conv2
-// tap (N = 529,000, p = 3, 49 displacements) 2*N*128*128*49 = 8.5e11 flops
-// against ~0.27 GB of logits read and J (or d(logits)) written, so the work is
-// bound by operations (0.86 ms). At Up_conv3 (N = 129,960, p = 1) the bytes
-// bound it (~0.04-0.06 ms). The 2*N*128 exps that the function needs are far
-// below either bound.
+// tap (N = 529,000, p = 3, 49 displacements) 2*N*C*C*49 flops, 8.5e11 at C =
+// 128 (0.86 ms) and 4x that at C = 256, against ~0.27 GB of logits read and J
+// (or d(logits)) written a 128-lane block, so the work is bound by operations.
+// At Up_conv3 (N = 129,960, p = 1) the bytes bound it at 128 lanes
+// (~0.04-0.06 ms). The 2*N*C exps that the function needs are far below
+// either bound.
 //
 // What the bf16 design (the training path) does about it: each row's softmax
-// is formed once per call, in the joint's conversion pass, and the products
-// run on the joint's wgmma kernels (joint_core.cuh, one copy shared with
-// mi_joint.cu; the launch plan and scratch are the joint's, from
+// is formed once per call, in a conversion pass, and the products run on the
+// joint's wgmma kernels (joint_core.cuh, one copy shared with mi_joint.cu;
+// the launch plan and scratch are the joint's at 128 lanes, from
 // ops/mi_joint.py). The products take bf16 operands anyway, so the pass
-// writes pm = bf16(p * valid) into the joint's [N, 128] bf16 scratch: bit for
-// bit the operands the tensor cores would have read from a softmax formed
+// writes pm = bf16(p * valid) into bf16 scratch of [N, 128] lane blocks: bit
+// for bit the operands the tensor cores would have read from a softmax formed
 // while staging, and no fp32 probability tensor exists.
-//   * SoftmaxRows, joint_prep's row policy. A row's softmax is a chain of
-//     shuffles, exps, divisions and group sums, and the pass is bound by the
-//     instructions it issues, not by its bytes (at Up_conv2 271 MB of logits
-//     in and 135 MB of bf16 out per operand). So a warp forms 4 rows at once
-//     (4 lanes of each a thread: four independent chains) while the next 4
-//     rows' loads are in flight; each thread's lane-to-group map is computed
+//   * C = 128, SoftmaxRows, joint_prep's row policy. A row's softmax is a
+//     chain of shuffles, exps, divisions and group sums, and the pass is bound
+//     by the instructions it issues, not by its bytes (at Up_conv2 271 MB of
+//     logits in and 135 MB of bf16 out per operand). So a warp forms 4 rows at
+//     once (4 lanes of each a thread: four independent chains) while the next
+//     4 rows' loads are in flight; each thread's lane-to-group map is computed
 //     once, not per row; one lane a row tests the interior mask (two integer
-//     divisions) and a ballot shares it; T = 1, the only temperature the
-//     heads emit, divides nothing (x / 1 is x); group sums read 16 bytes at a
-//     time when K % 4 == 0. The rounding points are the TPU kernel's
-//     (row_softmax).
-//   * Forward: SoftmaxRows over l1 and l2 in one launch, then the joint's
-//     joint_fwd_partial and joint_fwd_reduce unchanged: 3 launches.
-//   * Backward, once per side: SoftmaxRows over the source side's logits with
-//     the joint's conversion of g (transposed, and for dl1 in reversed
-//     displacement order) in one launch, then joint_bwd with the VjpRows
-//     epilogue: 2 launches. After its last wgmma wait the block moves its
-//     256 x 128 fp32 accumulators (dq before the mask) to shared memory, over
-//     the ring and slabs it no longer reads (152 KB of the 197-227 KB), reads
-//     its own rows' logits (4 rows a warp at once, the next 4 in flight),
-//     recomputes their unmasked probabilities with the same device code and
-//     writes dl = (t - p*s) / T, t = p * (valid * dq). dq never reaches device
-//     memory, and the epilogue holds nothing live across the main loop. The
-//     SM's tensor cores idle while it runs (one block an SM): it is what the
-//     backward costs over the joint's.
+//     divisions) and a ballot shares it; T = 1, the only temperature the heads
+//     emit, divides nothing (x / 1 is x); group sums read 16 bytes at a time
+//     when K % 4 == 0. The rounding points are the TPU kernel's (row_softmax).
+//   * Forward at C = 128: SoftmaxRows over l1 and l2 in one launch, then the
+//     joint's joint_fwd_partial and joint_fwd_reduce unchanged: 3 launches.
+//   * Backward at C = 128, once per side: SoftmaxRows over the source side's
+//     logits with the joint's conversion of g (transposed, and for dl1 in
+//     reversed displacement order) in one launch, then joint_bwd with the
+//     VjpRows epilogue: 2 launches. After its last wgmma wait the block moves
+//     its 256 x 128 fp32 accumulators (dq before the mask) to shared memory,
+//     over the ring and slabs it no longer reads (152 KB of the 197-227 KB),
+//     reads its own rows' logits (4 rows a warp at once, the next 4 in
+//     flight), recomputes their unmasked probabilities with the same device
+//     code and writes dl = (t - p*s) / T, t = p * (valid * dq). dq never
+//     reaches device memory, and the epilogue holds nothing live across the
+//     main loop. The SM's tensor cores idle while it runs (one block an SM):
+//     it is what the backward costs over the joint's.
+//   * C = 128 t, t > 1. The max runs over the whole row and a group may
+//     straddle two lane blocks (K = 30: group 4 covers lanes 120-149), so the
+//     softmax and its VJP read whole rows: wide_softmax, one row a warp at a
+//     time, a thread holding 4 lanes of each block (loads of 16 bytes a lane,
+//     neighbouring lanes on neighbouring addresses), the row's exps,
+//     probabilities and rounded terms in the warp's rows of shared memory
+//     (3 C floats a warp), the group sums one lane a group (S of them) and
+//     each lane's group index from a table formed once a block. The rounding
+//     points stay row_softmax's.
+//   * Forward at C = 128 t: wide_prep writes pm1 and pm2 as t [N, 128] bf16
+//     blocks each (one launch); block (i, j) of J is joint_fwd_partial on A_i,
+//     B_j and a chunk sum into J (fused_fwd_reduce_block), the joint's lane
+//     tiling (ops/mi_joint.py:lane_tiled_fwd) without its copies: 1 + 2 t^2
+//     launches, the partial scratch reused by each pair.
+//   * Backward at C = 128 t: the VJP needs each row's dq over all t blocks,
+//     since its group sums straddle them. wide_prep writes pm of the source
+//     side as t blocks and g as t^2 H blocks (one launch); output block j's
+//     dq = sum_i joint_bwd(pm_src_i, H_ij), the AddRows epilogue storing
+//     (i = 0) or adding (i > 0) its fp32 accumulators into an [N, C] fp32 dq
+//     scratch; then wide_vjp forms each own row's probabilities again and
+//     writes dl: 2 + t^2 launches. dq makes one round trip through device
+//     memory (4 N C bytes each way) that the 128-lane epilogue avoids.
 //   * Edge rows: rows outside [0, N) of the shifted source are zero-filled by
 //     the joint's cp.async; border rows are zero through the mask in the pass;
 //     own rows that are border rows get dl = 0.
-// The fp32 parity mode keeps the first (CUDA-core) kernels: they form each
-// staged row's softmax while staging it, once per displacement, and are not
-// on the training path.
+// The fp32 parity mode (CUDA-core FMAs, not on the training path) forms each
+// staged row's whole-row softmax while staging it (wide_softmax), once per
+// displacement and lane-block pair: the forward's block computes one 128 x
+// 128 tile of J (grid D t^2 x chunks), the backward's one 128-lane block of
+// dq (grid rows x t, the source's blocks summed in turn), then wide_vjp.
 //
-// ptxas (sm_90a, -O3; chip_smoke.py's build phase prints it), no spills:
-// joint_bwd<6, VjpRows> 232 registers (joint_bwd<6, StoreRows> 219), 1 block
-// per SM; joint_prep<SoftmaxRows> 128 registers and 16 KB of static shared
-// memory (the warps' scratch rows).
+// ptxas (sm_90a, -O3; chip_smoke.py's build phase prints it), no spills on
+// the bf16 path: joint_bwd<6, VjpRows> 232 registers (joint_bwd<6, AddRows>
+// and <6, StoreRows> 219), 1 block per SM; joint_prep<SoftmaxRows> 128
+// registers and 16 KB of static shared memory (the warps' scratch rows);
+// wide_prep 48-54 and wide_vjp 48 registers with 3 C floats a warp of dynamic
+// shared memory (25 KB a block at C = 256); fused_fwd_reduce_block 32. The
+// fp32 mode: fused_fwd_partial_fp32 128 registers, fused_dq_fp32 128 with 40
+// (96 for the transpose) bytes of spill stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,7 +125,8 @@
 
 namespace {
 
-constexpr int C = LANES;      // lanes per row: the head's lane width
+constexpr int C = LANES;      // lanes of a row at t = 1 (the 128-lane kernels)
+constexpr int MAX_BLOCKS = 8; // 128-lane blocks a row may have: C <= 1024
 constexpr int KT = 32;        // rows per staged slice in the fp32 forward
 constexpr int ROWS = 128;     // own rows per block in the fp32 backward
 constexpr int THREADS = 256;  // 8 warps
@@ -106,6 +137,7 @@ constexpr int LDQ = C + 8;    // VjpRows' dq rows: conflict-free float2 stores
 
 struct Geometry {
   long long n;  // rows of the flattened canvas
+  int c;        // lanes of a row: 128 t
   int hp, wp, p;
   int sk, k;    // live lanes (S*K), lanes per group (K)
   float t;      // temperature
@@ -291,25 +323,34 @@ __device__ __forceinline__ void row_softmax_vjp(const float4 (&pv)[R], const flo
   }
 }
 
-// lanes 4 * lane .. 4 * lane + 3 of logit row `row`, as float: 16 bytes of
-// fp32 or 8 bytes of bf16 (the model's bf16 compute: its dead lanes are -inf,
-// which no step reads before it tests the lane)
-__device__ __forceinline__ float4 load_row4(const float* l, long long row, int lane) {
-  return reinterpret_cast<const float4*>(l + row * C)[lane];
+// 4 consecutive logits as float: 16 bytes of fp32 or 8 bytes of bf16 (the
+// model's bf16 compute: its dead lanes are -inf, which no step reads before
+// it tests the lane)
+__device__ __forceinline__ float4 load4(const float* l) {
+  return *reinterpret_cast<const float4*>(l);
 }
-__device__ __forceinline__ float4 load_row4(const __nv_bfloat16* l, long long row, int lane) {
-  const uint2 w = reinterpret_cast<const uint2*>(l + row * C)[lane];
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* l) {
+  const uint2 w = *reinterpret_cast<const uint2*>(l);
   return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
 }
 
-// the same lanes of a d(logits) row: fp32, or bf16 (each value rounded once)
-__device__ __forceinline__ void store_row4(float* o, long long row, int lane, float4 v) {
-  reinterpret_cast<float4*>(o + row * C)[lane] = v;
+// 4 consecutive d(logits): fp32, or bf16 (each value rounded once)
+__device__ __forceinline__ void store4(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
 }
-__device__ __forceinline__ void store_row4(__nv_bfloat16* o, long long row, int lane, float4 v) {
-  reinterpret_cast<uint2*>(o + row * C)[lane] = make_uint2(pack_bf16x2(v.x, v.y),
-                                                           pack_bf16x2(v.z, v.w));
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
+  *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
+
+// lanes 4 * lane .. 4 * lane + 3 of 128-lane row `row`
+template <typename L>
+__device__ __forceinline__ float4 load_row4(const L* l, long long row, int lane) {
+  return load4(l + row * C + 4 * lane);
+}
+template <typename L>
+__device__ __forceinline__ void store_row4(L* o, long long row, int lane, float4 v) {
+  store4(o + row * C + 4 * lane, v);
 }
 
 // ===========================================================================
@@ -477,38 +518,344 @@ struct VjpRows {
 static_assert((BW_TILE * LDQ + 8 * ROW_GROUP * C) * 4 <= bwd_smem_bytes(0, 4),
               "VjpRows' dq tile and scratch rows fit in joint_bwd's smallest shared memory");
 
+
 // ===========================================================================
-// fp32 parity mode: CUDA-core FMAs, synchronous staging, the softmax formed
-// while staging (not on the training path)
+// rows of C = 128 t lanes (t > 1 on the bf16 path; any t in the fp32 parity
+// mode): the softmax over the whole row, one row a warp at a time
 // ===========================================================================
 
-// One warp stages tall row `row` of logits l as masked fp32 probabilities
-// into the 128-lane shared row dst (zeros where the row is invalid or not
-// `live`).
+// Dynamic shared memory of the whole-row kernels: each lane's group index (C
+// ints, -1 for a dead lane; computed once a block), then `per_warp` rows of C
+// floats for each of the block's WARPS warps.
+__host__ __device__ constexpr size_t wide_smem_bytes(int c, int per_warp) {
+  return (size_t)c * 4 + (size_t)WARPS * per_warp * c * 4;
+}
+
+// A warp's view of that memory. e: the row's exps, then its unmasked
+// probabilities; r: what the group sums read (the exps, bf16-rounded in bf16
+// mode; in the VJP t = p * dq), the same row as e where nothing is rounded
+// and e is not needed beside it (the fp32 staging); s: the S group sums.
+struct WideScratch {
+  const int* gidx;
+  float* e;
+  float* r;
+  float* s;
+};
+
+__device__ __forceinline__ WideScratch wide_scratch(unsigned char* smem, const Geometry& g,
+                                                    int warp, int per_warp) {
+  float* rows = reinterpret_cast<float*>(smem + (size_t)g.c * 4) + (size_t)warp * per_warp * g.c;
+  return {reinterpret_cast<const int*>(smem), rows, per_warp == 3 ? rows + g.c : rows,
+          rows + (per_warp - 1) * g.c};
+}
+
+// every thread of the block calls it before any warp reads the table
+__device__ __forceinline__ void init_groups(unsigned char* smem, const Geometry& g) {
+  int* gidx = reinterpret_cast<int*>(smem);
+  for (int j = threadIdx.x; j < g.c; j += blockDim.x) gidx[j] = j < g.sk ? j / g.k : -1;
+  __syncthreads();
+}
+
+// the sum of the k floats at x (16-byte aligned when k % 4 == 0) in
+// group_sums' four running sums
+__device__ __forceinline__ float group_sum(const float* x, int k) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int q = 0;
+  if ((k & 3) == 0) {
+    for (; q < k; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(x + q);
+      s0 += v.x;
+      s1 += v.y;
+      s2 += v.z;
+      s3 += v.w;
+    }
+  } else {
+    for (; q + 3 < k; q += 4) {
+      s0 += x[q];
+      s1 += x[q + 1];
+      s2 += x[q + 2];
+      s3 += x[q + 3];
+    }
+    for (; q < k; ++q) s0 += x[q];
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// lane l's group sums: groups l, l + 32, ... of the warp's row r (written by
+// every lane before the call's first syncwarp)
+__device__ __forceinline__ void wide_group_sums(const Geometry& g, const WideScratch& w,
+                                                int lane) {
+  __syncwarp();
+  for (int s = lane; s < g.sk / g.k; s += 32) w.s[s] = group_sum(w.r + s * g.k, g.k);
+  __syncwarp();
+}
+
+// Unmasked probabilities of one row of C lanes (the whole warp calls it on
+// the same row; a lane holds lanes 4 lane .. 4 lane + 3 of each 128-lane
+// block): afterwards w.e[j] = p_j, each written by the lane that reads it.
+// The max runs over the whole row, the group sums over whole groups (a group
+// may straddle two blocks); the rounding points are row_softmax's.
+template <bool BF16, bool UNIT_T, typename L>
+__device__ __forceinline__ void wide_softmax(const L* row, const Geometry& g,
+                                             const WideScratch& w, int lane) {
+  const int t = g.c / LANES;
+  float m = -INFINITY;
+  for (int b = 0; b < t; ++b) {
+    const int j = b * LANES + 4 * lane;
+    const float4 v = load4(row + j);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    float z[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      z[i] = j + i < g.sk ? by_t<UNIT_T>(x[i], g.t) : -INFINITY;
+      m = fmaxf(m, z[i]);
+    }
+    *reinterpret_cast<float4*>(w.e + j) = make_float4(z[0], z[1], z[2], z[3]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  for (int b = 0; b < t; ++b) {
+    const int j = b * LANES + 4 * lane;
+    const float4 z = *reinterpret_cast<const float4*>(w.e + j);
+    const float zi[4] = {z.x, z.y, z.z, z.w};
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = j + i < g.sk ? expf(zi[i] - m) : 0.f;
+    *reinterpret_cast<float4*>(w.e + j) = make_float4(e[0], e[1], e[2], e[3]);
+    if (BF16)
+      *reinterpret_cast<float4*>(w.r + j) =
+          make_float4(round_bf16(e[0]), round_bf16(e[1]), round_bf16(e[2]), round_bf16(e[3]));
+    else if (w.r != w.e)
+      *reinterpret_cast<float4*>(w.r + j) = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  wide_group_sums(g, w, lane);
+  for (int b = 0; b < t; ++b) {
+    const int j = b * LANES + 4 * lane;
+    const float4 e = *reinterpret_cast<const float4*>(w.e + j);
+    const float ei[4] = {e.x, e.y, e.z, e.w};
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = j + i < g.sk ? ei[i] / (w.s[w.gidx[j + i]] + 1e-16f) : 0.f;
+    *reinterpret_cast<float4*>(w.e + j) = make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// The bf16 operands of a C-lane call in one launch, grid-stride:
+//   rows: dst_i[b, r, 0:128] = bf16(softmax(src_i[r]) * valid(r)) for each
+//         128-lane block b (dst_i: t blocks of [N, 128]; i = 0, 1, src1 may
+//         be null), one warp a row;
+//   g:    for each pair (bi, bj) of a source and an output block, H[bi t + bj,
+//         d, j, k] = bf16(g[d, 128 bi + k, 128 bj + j]) (transpose_g = 0) or
+//         bf16(g[D-1-d, 128 bj + j, 128 bi + k]) (transpose_g = 1), so that
+//         joint_bwd on source block bi and H[bi t + bj] gives that pair's
+//         share of output block bj (g may be null).
+template <bool UNIT_T, typename L>
+__device__ __forceinline__ void wide_prep_rows(const L* src0, __nv_bfloat16* dst0, const L* src1,
+                                               __nv_bfloat16* dst1, const Geometry& geo,
+                                               const WideScratch& w, int lane) {
+  const int t = geo.c / LANES;
+  const long long rows = src1 ? 2 * geo.n : geo.n;
+  const long long step = (long long)gridDim.x * WARPS;
+  for (long long u = blockIdx.x * (long long)WARPS + (threadIdx.x >> 5); u < rows; u += step) {
+    const bool second = u >= geo.n;
+    const long long r = second ? u - geo.n : u;
+    const bool valid = row_valid(r, geo);  // uniform across the warp
+    if (valid) wide_softmax<true, UNIT_T>((second ? src1 : src0) + r * geo.c, geo, w, lane);
+    __nv_bfloat16* dst = (second ? dst1 : dst0) + r * LANES + 4 * lane;
+    for (int b = 0; b < t; ++b) {
+      const float4 x = valid ? *reinterpret_cast<const float4*>(w.e + b * LANES + 4 * lane)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<uint2*>(dst + (long long)b * geo.n * LANES) =
+          make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
+    }
+  }
+}
+
+template <typename L>
+__global__ void __launch_bounds__(THREADS)
+wide_prep(const L* __restrict__ src0, __nv_bfloat16* __restrict__ dst0, const L* __restrict__ src1,
+          __nv_bfloat16* __restrict__ dst1, Geometry geo, const float* __restrict__ g,
+          __nv_bfloat16* __restrict__ h, int D, int transpose_g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  init_groups(smem, geo);
+  const int lane = threadIdx.x & 31;
+  const WideScratch w = wide_scratch(smem, geo, threadIdx.x >> 5, 3);
+  if (geo.t == 1.f)
+    wide_prep_rows<true>(src0, dst0, src1, dst1, geo, w, lane);
+  else
+    wide_prep_rows<false>(src0, dst0, src1, dst1, geo, w, lane);
+  if (g == nullptr) return;
+  const int t = geo.c / LANES;
+  const long long c = geo.c;
+  const long long per_pair = h_units(D);
+  const long long units = (long long)t * t * per_pair;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units; u += stride) {
+    const int pair = (int)(u / per_pair);
+    const long long v = u % per_pair;
+    const int d = (int)(v / (LANES * (LANES / 8)));
+    const int j = (int)(v / (LANES / 8)) % LANES;
+    const int k0 = (int)(v % (LANES / 8)) * 8;
+    const int bi = pair / t, bj = pair % t;
+    const float* src = transpose_g ? g + ((D - 1 - d) * c + bj * LANES + j) * c + bi * LANES + k0
+                                   : g + (d * c + bi * LANES + k0) * c + bj * LANES + j;
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = transpose_g ? src[e] : src[e * c];
+    *reinterpret_cast<uint4*>(h + (((long long)pair * D + d) * LANES + j) * LANES + k0) =
+        make_uint4(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]), pack_bf16x2(x[4], x[5]),
+                   pack_bf16x2(x[6], x[7]));
+  }
+}
+
+// joint_bwd's epilogue on a C-lane row: the fp32 accumulators (one source
+// block's product into output block col0 / 128) into lanes [col0, col0 + 128)
+// of dq [N, ld] fp32, added to what the source blocks before it stored there
+// when `add` (dq before the mask; the VJP pass applies it)
+struct AddRows {
+  float* out;
+  int ld, col0, add;
+
+  __device__ __forceinline__ void operator()(float (&acc)[2][64], unsigned char*, long long n0,
+                                             long long N, int tid) const {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int wg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = n0 + wg * 128 + h * 64 + wq * 16 + g + half * 8;
+        if (row >= N) continue;
+#pragma unroll
+        for (int c8 = 0; c8 < 16; ++c8) {
+          float2* o = reinterpret_cast<float2*>(out + row * ld + col0 + c8 * 8 + 2 * t4);
+          float2 v = make_float2(acc[h][4 * c8 + 2 * half], acc[h][4 * c8 + 2 * half + 1]);
+          if (add) {
+            const float2 x = *o;
+            v = make_float2(x.x + v.x, x.y + v.y);
+          }
+          *o = v;
+        }
+      }
+  }
+};
+
+// d(own logits) of C-lane rows from the unmasked dq [N, C] fp32, one warp a
+// row: the own row's probabilities formed again (wide_softmax), t = p * dq
+// (rounded to bf16 before its group sum in bf16 mode), dl = (t - p * s) / T
+// in the logits' type; 0 on dead lanes and on border rows.
+template <bool BF16, bool UNIT_T, typename L>
+__device__ __forceinline__ void wide_vjp_rows(const L* own, const float* dq, L* out,
+                                              const Geometry& geo, const WideScratch& w,
+                                              int lane) {
+  const int t = geo.c / LANES;
+  const long long step = (long long)gridDim.x * WARPS;
+  for (long long r = blockIdx.x * (long long)WARPS + (threadIdx.x >> 5); r < geo.n; r += step) {
+    L* o = out + r * geo.c + 4 * lane;
+    if (!row_valid(r, geo)) {  // uniform across the warp
+      for (int b = 0; b < t; ++b) store4(o + b * LANES, make_float4(0.f, 0.f, 0.f, 0.f));
+      continue;
+    }
+    wide_softmax<BF16, UNIT_T>(own + r * geo.c, geo, w, lane);
+    const float* q_row = dq + r * geo.c + 4 * lane;
+    for (int b = 0; b < t; ++b) {
+      const float4 p = *reinterpret_cast<const float4*>(w.e + b * LANES + 4 * lane);
+      const float4 q = *reinterpret_cast<const float4*>(q_row + b * LANES);
+      const float4 tv = make_float4(__fmul_rn(p.x, q.x), __fmul_rn(p.y, q.y),
+                                    __fmul_rn(p.z, q.z), __fmul_rn(p.w, q.w));
+      *reinterpret_cast<float4*>(w.r + b * LANES + 4 * lane) =
+          BF16 ? make_float4(round_bf16(tv.x), round_bf16(tv.y), round_bf16(tv.z),
+                             round_bf16(tv.w))
+               : tv;
+    }
+    wide_group_sums(geo, w, lane);
+    for (int b = 0; b < t; ++b) {
+      const int j = b * LANES + 4 * lane;
+      const float4 p = *reinterpret_cast<const float4*>(w.e + j);
+      const float4 q = *reinterpret_cast<const float4*>(q_row + b * LANES);
+      const float pi[4] = {p.x, p.y, p.z, p.w}, qi[4] = {q.x, q.y, q.z, q.w};
+      float dl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dl[i] = j + i < geo.sk
+                    ? by_t<UNIT_T>(__fsub_rn(__fmul_rn(pi[i], qi[i]),
+                                             __fmul_rn(pi[i], w.s[w.gidx[j + i]])), geo.t)
+                    : 0.f;
+      store4(o + b * LANES, make_float4(dl[0], dl[1], dl[2], dl[3]));
+    }
+  }
+}
+
+template <typename L, bool BF16>
+__global__ void __launch_bounds__(THREADS)
+wide_vjp(const L* __restrict__ own, const float* __restrict__ dq, L* __restrict__ out,
+         Geometry geo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  init_groups(smem, geo);
+  const WideScratch w = wide_scratch(smem, geo, threadIdx.x >> 5, 3);
+  if (geo.t == 1.f)
+    wide_vjp_rows<BF16, true>(own, dq, out, geo, w, threadIdx.x & 31);
+  else
+    wide_vjp_rows<BF16, false>(own, dq, out, geo, w, threadIdx.x & 31);
+}
+
+// out[d, 128 bi + r, 128 bj + c] = sum over chunks, in chunk order, of
+// partial[chunk, d, r, c]: one lane-block pair's chunk sum into J [D, C, C]
+__global__ void fused_fwd_reduce_block(const float* __restrict__ partial, float* __restrict__ out,
+                                       int D, int c, int bi, int bj, int n_chunks) {
+  const long long per = (long long)D * LANES * LANES;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < per;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long d = e / (LANES * LANES);
+    const int r = (int)(e / LANES) % LANES, col = (int)(e % LANES);
+    float s = 0.f;
+    for (int k = 0; k < n_chunks; ++k) s += partial[k * per + e];
+    out[(d * c + bi * LANES + r) * c + bj * LANES + col] = s;
+  }
+}
+
+// ===========================================================================
+// fp32 parity mode: CUDA-core FMAs, synchronous staging, each staged row's
+// whole-row softmax formed while staging it (not on the training path)
+// ===========================================================================
+
+// One warp stages tall row `row` of logits l as masked fp32 probabilities:
+// this lane's 4 of lanes [128 b, 128 b + 128) of the row's softmax into dst
+// (zeros where the row is invalid or not `live`).
 __device__ __forceinline__ void stage_row(const float* __restrict__ l, long long row, bool live,
-                                          const Geometry& g, int lane, float* scratch,
-                                          float* dst) {
+                                          int b, const Geometry& g, const WideScratch& w,
+                                          int lane, float* dst) {
   float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
   if (live && row_valid(row, g)) {  // uniform across the warp
-    const float4 v[1] = {load_row4(l, row, lane)};
-    float4 p[1];
-    row_softmax<false, 1>(v, lane_map(lane, g), g, scratch, p);
-    q = p[0];
+    wide_softmax<false, false>(l + row * g.c, g, w, lane);
+    q = *reinterpret_cast<const float4*>(w.e + b * LANES + 4 * lane);
   }
   *reinterpret_cast<float4*>(dst) = q;
 }
 
-// partial[chunk, d, k1, k2] = sum over the chunk's rows n of
-// pm1[n + o_d, k1] * pm2[n, k2]; grid (D, n_chunks), THREADS threads
+// partial[chunk, d, 128 bi + k1, 128 bj + k2] = sum over the chunk's rows n of
+// pm1[n + o_d, 128 bi + k1] * pm2[n, 128 bj + k2]; grid (D t^2, n_chunks),
+// blockIdx.x = d + D (bi t + bj), THREADS threads, dynamic shared memory
+// fp32_fwd_smem(C)
+constexpr size_t FP32_FWD_TILES = 2 * (size_t)KT * LD * 4;
+__host__ __device__ constexpr size_t fp32_fwd_smem(int c) {
+  return FP32_FWD_TILES + wide_smem_bytes(c, 2);
+}
+
 __global__ void __launch_bounds__(THREADS)
 fused_fwd_partial_fp32(const float* __restrict__ l1, const float* __restrict__ l2,
                        float* __restrict__ partial, Geometry geo, long long rows_per_chunk) {
-  __shared__ __align__(128) float As[KT][LD];  // As[kk][m] = pm1[n0 + kk + o, m]
-  __shared__ __align__(128) float Bs[KT][LD];  // Bs[kk][j] = pm2[n0 + kk, j]
-  __shared__ __align__(16) float scratch[WARPS][C];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*As)[LD] = reinterpret_cast<float(*)[LD]>(smem);  // As[kk][m] = pm1[n0 + kk + o, m]
+  float(*Bs)[LD] = As + KT;                                // Bs[kk][j] = pm2[n0 + kk, j]
+  init_groups(smem + FP32_FWD_TILES, geo);
 
-  const int D = gridDim.x;
-  const int d = blockIdx.x;
+  const int t = geo.c / LANES;
+  const int D = gridDim.x / (t * t);
+  const int d = blockIdx.x % D;
+  const int bi = blockIdx.x / D / t, bj = blockIdx.x / D % t;
   const int chunk = blockIdx.y;
   const int T = 2 * geo.p + 1;
   const long long o = (long long)(d / T - geo.p) * geo.wp + (d % T - geo.p);
@@ -516,6 +863,7 @@ fused_fwd_partial_fp32(const float* __restrict__ l1, const float* __restrict__ l
   const long long n_end = min(geo.n, n_begin + rows_per_chunk);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
+  const WideScratch w = wide_scratch(smem + FP32_FWD_TILES, geo, warp, 2);
   // thread (ty, tx) owns rows ty + 16*i, cols tx + 16*j
   const int ty = tid / 16, tx = tid % 16;
   float facc[8][8];
@@ -530,9 +878,9 @@ fused_fwd_partial_fp32(const float* __restrict__ l1, const float* __restrict__ l
       const int kk = r % KT;
       const long long n = n0 + kk;
       if (r < KT)
-        stage_row(l1, n + o, n < n_end, geo, lane, scratch[warp], &As[kk][lane * 4]);
+        stage_row(l1, n + o, n < n_end, bi, geo, w, lane, &As[kk][lane * 4]);
       else
-        stage_row(l2, n, n < n_end, geo, lane, scratch[warp], &Bs[kk][lane * 4]);
+        stage_row(l2, n, n < n_end, bj, geo, w, lane, &Bs[kk][lane * 4]);
     }
     __syncthreads();
 #pragma unroll 4
@@ -550,36 +898,43 @@ fused_fwd_partial_fp32(const float* __restrict__ l1, const float* __restrict__ l
     __syncthreads();
   }
 
-  float* out = partial + ((long long)chunk * D + d) * (long long)C * C;
+  const long long c = geo.c;
+  float* out = partial + ((long long)chunk * D + d) * c * c + (long long)bi * LANES * c + bj * LANES;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[(ty + 16 * i) * C + tx + 16 * j] = facc[i][j];
+    for (int j = 0; j < 8; ++j) out[(ty + 16 * i) * c + tx + 16 * j] = facc[i][j];
 }
 
-// for own rows n of the block:
-//   dq[n, j] = valid_own(n) * sum_d sum_k pm_src[n + sign*o_d, k] * G_d[k, j]
+// lanes [128 bj, 128 bj + 128) of the own rows n of the block (bj =
+// blockIdx.y), before the mask:
+//   dq[n, j] = sum_d sum_k pm_src[n + sign*o_d, k] * G_d[k, j]
 //   G_d = g[d] (TRANSPOSE = false) or g[d]^T (TRANSPOSE = true)
-//   out[n] = softmax VJP of the own row's probabilities at dq
-// grid (ceil(N / ROWS)), THREADS threads, dynamic shared memory FP32_BWD_SMEM
-constexpr size_t FP32_BWD_SMEM = 2 * (size_t)ROWS * LD * 4 + (size_t)WARPS * C * 4;
+// summed over the source's lane blocks in turn; grid (ceil(N / ROWS), t),
+// THREADS threads, dynamic shared memory fp32_bwd_smem(C)
+constexpr size_t FP32_BWD_TILES = 2 * (size_t)ROWS * LD * 4;
+__host__ __device__ constexpr size_t fp32_bwd_smem(int c) {
+  return FP32_BWD_TILES + wide_smem_bytes(c, 2);
+}
 
 template <bool TRANSPOSE>
 __global__ void __launch_bounds__(THREADS)
-fused_bwd_fp32(const float* __restrict__ src, const float* __restrict__ own,
-               const float* __restrict__ g, float* __restrict__ out, Geometry geo, int sign) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ss = reinterpret_cast<float*>(smem);  // Ss[m][k] = pm_src[n0 + m + sign*o, k]
-  float* Gs = Ss + ROWS * LD;                  // Gs[r][c] = g[d][r][c]
-  float* dq = Ss;                              // [ROWS][LD], after the loop
-  float* scratch = Gs + ROWS * LD;
+fused_dq_fp32(const float* __restrict__ src, const float* __restrict__ g, float* __restrict__ dq,
+              Geometry geo, int sign) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ss = reinterpret_cast<float*>(smem);  // Ss[m][k] = pm_src[n0 + m + sign*o, 128 bi + k]
+  float* Gs = Ss + ROWS * LD;                  // Gs[r][c]: the (bi, bj) block of G_d (or G_d^T)
+  init_groups(smem + FP32_BWD_TILES, geo);
 
+  const long long c = geo.c;
+  const int t = geo.c / LANES;
+  const int bj = blockIdx.y;
   const long long n0 = (long long)blockIdx.x * ROWS;
   const int T = 2 * geo.p + 1;
   const int D = T * T;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  float* wscratch = scratch + warp * C;
+  const WideScratch w = wide_scratch(smem + FP32_BWD_TILES, geo, warp, 2);
   const int ty = tid / 16, tx = tid % 16;
   float facc[8][8];
 #pragma unroll
@@ -589,72 +944,50 @@ fused_bwd_fp32(const float* __restrict__ src, const float* __restrict__ own,
 
   for (int d = 0; d < D; ++d) {
     const long long o = sign * ((long long)(d / T - geo.p) * geo.wp + (d % T - geo.p));
-    for (int r = warp; r < ROWS; r += WARPS)
-      stage_row(src, n0 + r + o, true, geo, lane, wscratch, Ss + r * LD + lane * 4);
-    const float4* gd = reinterpret_cast<const float4*>(g + (long long)d * C * C);
-    for (int idx = tid; idx < C * C / 4; idx += THREADS)
-      *reinterpret_cast<float4*>(Gs + (idx / (C / 4)) * LD + (idx % (C / 4)) * 4) = gd[idx];
-    __syncthreads();
+    const float* gd = g + (long long)d * c * c;
+    for (int bi = 0; bi < t; ++bi) {
+      for (int r = warp; r < ROWS; r += WARPS)
+        stage_row(src, n0 + r + o, true, bi, geo, w, lane, Ss + r * LD + lane * 4);
+      for (int idx = tid; idx < LANES * LANES / 4; idx += THREADS) {
+        const int r = idx / (LANES / 4), c4 = idx % (LANES / 4) * 4;
+        const float* s = TRANSPOSE ? gd + (bj * LANES + r) * c + bi * LANES + c4
+                                   : gd + (bi * LANES + r) * c + bj * LANES + c4;
+        *reinterpret_cast<float4*>(Gs + r * LD + c4) = *reinterpret_cast<const float4*>(s);
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < C; ++kk) {
-      float a[8], b[8];
+      for (int kk = 0; kk < LANES; ++kk) {
+        float a[8], b[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = Ss[(ty + 16 * i) * LD + kk];
+        for (int i = 0; i < 8; ++i) a[i] = Ss[(ty + 16 * i) * LD + kk];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = TRANSPOSE ? Gs[(tx + 16 * j) * LD + kk] : Gs[kk * LD + tx + 16 * j];
+        for (int j = 0; j < 8; ++j)
+          b[j] = TRANSPOSE ? Gs[(tx + 16 * j) * LD + kk] : Gs[kk * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
+          for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
-
-  // the fp32 accumulators to shared memory (over the source rows)
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const long long n = n0 + ty + 16 * i;
+    if (n >= geo.n) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dq[(ty + 16 * i) * LD + tx + 16 * j] = facc[i][j];
-  __syncthreads();
-
-  // own rows: probabilities from the logits again, the mask, the softmax VJP
-  for (int r = warp; r < ROWS; r += WARPS) {
-    const long long n = n0 + r;
-    if (n >= geo.n) break;  // uniform across the warp; later rows are out too
-    float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row_valid(n, geo)) {  // an invalid row has dq = 0, hence dl = 0
-      const float4 v[1] = {load_row4(own, n, lane)};
-      const float4 qv[1] = {reinterpret_cast<const float4*>(dq + r * LD)[lane]};
-      float4 pv[1], dl[1];
-      const LaneMap lm = lane_map(lane, geo);
-      row_softmax<false, 1>(v, lm, geo, wscratch, pv);
-      row_softmax_vjp<false, 1>(pv, qv, lm, geo, wscratch, dl);
-      res = dl[0];
-    }
-    reinterpret_cast<float4*>(out + n * C)[lane] = res;
+    for (int j = 0; j < 8; ++j) dq[n * c + bj * LANES + tx + 16 * j] = facc[i][j];
   }
 }
 
-template <bool TRANSPOSE>
-cudaError_t launch_bwd_fp32(const float* src, const float* own, const float* g, float* out,
-                            const Geometry& geo, cudaStream_t s) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_bwd_fp32<TRANSPOSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FP32_BWD_SMEM);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  dim3 grid((unsigned)((geo.n + ROWS - 1) / ROWS));
-  fused_bwd_fp32<TRANSPOSE><<<grid, THREADS, FP32_BWD_SMEM, s>>>(src, own, g, out, geo,
-                                                                 TRANSPOSE ? -1 : 1);
-  return cudaGetLastError();
-}
+// ===========================================================================
+// host side
+// ===========================================================================
 
-Geometry make_geometry(long long n_rows, int hp, int wp, int p, int s, int k, float t) {
+Geometry make_geometry(long long n_rows, int c, int hp, int wp, int p, int s, int k, float t) {
   Geometry geo;
   geo.n = n_rows;
+  geo.c = c;
   geo.hp = hp;
   geo.wp = wp;
   geo.p = p;
@@ -664,52 +997,136 @@ Geometry make_geometry(long long n_rows, int hp, int wp, int p, int s, int k, fl
   return geo;
 }
 
-// Logits [N, 128], fp32 (rows of 512 bytes) or bf16 (the *_bf16in entry
-// points: rows of 256 bytes, dead lanes -inf), pointers 16-byte aligned. The
-// bf16 entry points take the joint's launch plan and refuse
-// (cudaErrorInvalidValue) one that disagrees with the kernels.
+bool lanes_ok(int c) { return c % LANES == 0 && c >= LANES && c <= MAX_BLOCKS * LANES; }
 
-// bf16 products: J[D, 128, 128] from logits l1, l2. a16, b16: scratch of N x
-// 128 bf16 (pm1, pm2); partial: scratch of n_chunks x D x 128 x 128 floats.
+// blocks of a whole-row kernel: a warp a row, and enough threads for the
+// units of H; at most 8192 (grid-stride beyond)
+unsigned wide_blocks(long long rows, long long units_g) {
+  const long long for_rows = (rows + WARPS - 1) / WARPS;
+  const long long for_g = (units_g + THREADS - 1) / THREADS;
+  const long long want = for_rows > for_g ? for_rows : for_g;
+  return (unsigned)(want < 1 ? 1 : want < 8192 ? want : 8192);
+}
+
+template <typename L>
+cudaError_t launch_wide_prep(const L* src0, __nv_bfloat16* dst0, const L* src1,
+                             __nv_bfloat16* dst1, const Geometry& geo, const float* g,
+                             __nv_bfloat16* h, int D, int transpose_g, cudaStream_t st) {
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(wide_prep<L>, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long t = geo.c / LANES;
+  const unsigned blocks = wide_blocks(src1 ? 2 * geo.n : geo.n, g ? t * t * h_units(D) : 0);
+  wide_prep<L><<<blocks, THREADS, wide_smem_bytes(geo.c, 3), st>>>(
+      src0, dst0, src1, dst1, geo, g, h, D, transpose_g);
+  return cudaGetLastError();
+}
+
+template <typename L, bool BF16>
+cudaError_t launch_wide_vjp(const L* own, const float* dq, L* out, const Geometry& geo,
+                            cudaStream_t st) {
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(wide_vjp<L, BF16>, smem_set);
+  if (err != cudaSuccess) return err;
+  wide_vjp<L, BF16><<<wide_blocks(geo.n, 0), THREADS, wide_smem_bytes(geo.c, 3), st>>>(
+      own, dq, out, geo);
+  return cudaGetLastError();
+}
+
+template <bool TRANSPOSE>
+cudaError_t launch_dq_fp32(const float* src, const float* g, float* dq, const Geometry& geo,
+                           cudaStream_t st) {
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(fused_dq_fp32<TRANSPOSE>, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((geo.n + ROWS - 1) / ROWS), (unsigned)(geo.c / LANES));
+  fused_dq_fp32<TRANSPOSE><<<grid, THREADS, fp32_bwd_smem(geo.c), st>>>(src, g, dq, geo,
+                                                                        TRANSPOSE ? -1 : 1);
+  return cudaGetLastError();
+}
+
+// Logits [N, C], C = 128 t (t <= MAX_BLOCKS), fp32 (rows of 4 C bytes) or bf16
+// (the *_bf16in entry points: 2 C bytes, dead lanes -inf), pointers 16-byte
+// aligned. The bf16 entry points take the joint's launch plan at 128 lanes
+// and refuse (cudaErrorInvalidValue) one that disagrees with the kernels, or
+// a lane count that is no such C.
+
+// bf16 products: J[D, C, C] from logits l1, l2. a16, b16: scratch of t x N x
+// 128 bf16 (pm1, pm2, lane block by lane block); partial: scratch of
+// n_chunks x D x 128 x 128 floats, reused by each lane-block pair.
 template <typename L>
 int fused_fwd_bf16(const L* l1, const L* l2, void* a16, void* b16, float* partial, float* out,
-                   long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                   long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
                    long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
                    void* stream) {
-  if (!fwd_plan_ok(C, p, dx_group, smem_bytes)) return (int)cudaErrorInvalidValue;
+  if (!lanes_ok(c) || !fwd_plan_ok(LANES, p, dx_group, smem_bytes))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* A16 = static_cast<__nv_bfloat16*>(a16);
   auto* B16 = static_cast<__nv_bfloat16*>(b16);
-  const SoftmaxRows<L> rows{l1, A16, l2, B16, make_geometry(n_rows, hp, wp, p, s, k, t)};
-  joint_prep<<<softmax_prep_blocks(2 * n_rows, 0), PREP_THREADS, 0, st>>>(rows, nullptr, nullptr,
-                                                                         C, 0, 0);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)run_fwd(dx_group, n_chunks, smem_bytes, st, A16, B16, partial, out, n_rows, C, p,
-                      wp, rows_per_chunk);
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
+  if (c == LANES) {
+    const SoftmaxRows<L> rows{l1, A16, l2, B16, geo};
+    joint_prep<<<softmax_prep_blocks(2 * n_rows, 0), PREP_THREADS, 0, st>>>(rows, nullptr,
+                                                                           nullptr, C, 0, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)run_fwd(dx_group, n_chunks, smem_bytes, st, A16, B16, partial, out, n_rows, C, p,
+                        wp, rows_per_chunk);
+  }
+  cudaError_t err = launch_wide_prep(l1, A16, l2, B16, geo, nullptr, nullptr, 0, 0, st);
+  const int blocks = c / LANES;
+  const int D = (2 * p + 1) * (2 * p + 1);
+  for (int bi = 0; bi < blocks && err == cudaSuccess; ++bi)
+    for (int bj = 0; bj < blocks && err == cudaSuccess; ++bj) {
+      err = run_fwd_partial(dx_group, n_chunks, smem_bytes, st, A16 + bi * n_rows * LANES,
+                            B16 + bj * n_rows * LANES, partial, n_rows, p, wp, rows_per_chunk);
+      if (err != cudaSuccess) break;
+      fused_fwd_reduce_block<<<reduce_blocks((long long)D * LANES * LANES), 256, 0, st>>>(
+          partial, out, D, c, bi, bj, n_chunks);
+      err = cudaGetLastError();
+    }
+  return (int)err;
 }
 
-// bf16 products: d(own logits) [N, 128] in the logits' type: transpose_g = 0
+// bf16 products: d(own logits) [N, C] in the logits' type: transpose_g = 0
 // gives dl2 (src = l1, own = l2), transpose_g = 1 gives dl1 (src = l2, own =
-// l1); g [D, 128, 128] fp32. s16: scratch of N x 128 bf16 (pm of src); h16:
-// scratch of D x 128 x 128 bf16.
+// l1); g [D, C, C] fp32. s16: scratch of t x N x 128 bf16 (pm of src); h16:
+// scratch of t^2 x D x 128 x 128 bf16; dq: scratch of N x C floats (C > 128
+// only, else null).
 template <typename L>
-int fused_bwd_bf16(const L* src, const L* own, const float* g, void* s16, void* h16, L* out,
-                   long long n_rows, int hp, int wp, int p, int s, int k, float t,
+int fused_bwd_bf16(const L* src, const L* own, const float* g, void* s16, void* h16, float* dq,
+                   L* out, long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
                    int transpose_g, int stages, int smem_bytes, void* stream) {
-  if (!bwd_plan_ok(C, p, stages, smem_bytes)) return (int)cudaErrorInvalidValue;
+  if (!lanes_ok(c) || !bwd_plan_ok(LANES, p, stages, smem_bytes) || (c > LANES && !dq))
+    return (int)cudaErrorInvalidValue;
   const int T = 2 * p + 1;
   const int D = T * T;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* S16 = static_cast<__nv_bfloat16*>(s16);
   auto* H16 = static_cast<__nv_bfloat16*>(h16);
-  const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
-  const SoftmaxRows<L> rows{src, S16, nullptr, nullptr, geo};
-  joint_prep<<<softmax_prep_blocks(n_rows, h_units(D)), PREP_THREADS, 0, st>>>(
-      rows, g, H16, C, D, transpose_g);
-  const cudaError_t err = cudaGetLastError();
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
+  if (c == LANES) {
+    const SoftmaxRows<L> rows{src, S16, nullptr, nullptr, geo};
+    joint_prep<<<softmax_prep_blocks(n_rows, h_units(D)), PREP_THREADS, 0, st>>>(
+        rows, g, H16, C, D, transpose_g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16, H16,
+                        VjpRows<L>{own, out, geo});
+  }
+  // the t source blocks' products summed into dq block by block, then one
+  // VJP pass over whole rows (its group sums straddle the blocks)
+  cudaError_t err = launch_wide_prep<L>(src, S16, nullptr, nullptr, geo, g, H16, D, transpose_g,
+                                        st);
+  const int blocks = c / LANES;
+  for (int bj = 0; bj < blocks && err == cudaSuccess; ++bj)
+    for (int bi = 0; bi < blocks && err == cudaSuccess; ++bi)
+      err = run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16 + bi * n_rows * LANES,
+                    H16 + (long long)(bi * blocks + bj) * D * LANES * LANES,
+                    AddRows{dq, c, bj * LANES, bi > 0});
   if (err != cudaSuccess) return (int)err;
-  return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16, H16, VjpRows<L>{own, out, geo});
+  return (int)launch_wide_vjp<L, true>(own, dq, out, geo, st);
 }
 
 }  // namespace
@@ -720,66 +1137,78 @@ const char* mi_fused_error_string(int code) { return cudaGetErrorString((cudaErr
 
 // fp32 logits
 int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, float* partial,
-                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
-                      long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
-                      void* stream) {
-  return fused_fwd_bf16(l1, l2, a16, b16, partial, out, n_rows, hp, wp, p, s, k, t,
+                      float* out, long long n_rows, int c, int hp, int wp, int p, int s, int k,
+                      float t, long long rows_per_chunk, int n_chunks, int dx_group,
+                      int smem_bytes, void* stream) {
+  return fused_fwd_bf16(l1, l2, a16, b16, partial, out, n_rows, c, hp, wp, p, s, k, t,
                         rows_per_chunk, n_chunks, dx_group, smem_bytes, stream);
 }
 
 int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* s16, void* h16,
-                      float* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
-                      int transpose_g, int stages, int smem_bytes, void* stream) {
-  return fused_bwd_bf16(src, own, g, s16, h16, out, n_rows, hp, wp, p, s, k, t, transpose_g,
-                        stages, smem_bytes, stream);
+                      float* dq, float* out, long long n_rows, int c, int hp, int wp, int p,
+                      int s, int k, float t, int transpose_g, int stages, int smem_bytes,
+                      void* stream) {
+  return fused_bwd_bf16(src, own, g, s16, h16, dq, out, n_rows, c, hp, wp, p, s, k, t,
+                        transpose_g, stages, smem_bytes, stream);
 }
 
 // bf16 logits (Precision.compute_dtype=bfloat16): the same, reading 8 bytes
 // of 4 logits a lane; d(logits) are written as bf16
 int mi_fused_fwd_bf16in(const void* l1, const void* l2, void* a16, void* b16, float* partial,
-                        float* out, long long n_rows, int hp, int wp, int p, int s, int k,
+                        float* out, long long n_rows, int c, int hp, int wp, int p, int s, int k,
                         float t, long long rows_per_chunk, int n_chunks, int dx_group,
                         int smem_bytes, void* stream) {
   return fused_fwd_bf16(static_cast<const __nv_bfloat16*>(l1),
                         static_cast<const __nv_bfloat16*>(l2), a16, b16, partial, out, n_rows,
-                        hp, wp, p, s, k, t, rows_per_chunk, n_chunks, dx_group, smem_bytes, stream);
+                        c, hp, wp, p, s, k, t, rows_per_chunk, n_chunks, dx_group, smem_bytes,
+                        stream);
 }
 
 int mi_fused_bwd_bf16in(const void* src, const void* own, const float* g, void* s16, void* h16,
-                        void* out, long long n_rows, int hp, int wp, int p, int s, int k, float t,
-                        int transpose_g, int stages, int smem_bytes, void* stream) {
+                        float* dq, void* out, long long n_rows, int c, int hp, int wp, int p,
+                        int s, int k, float t, int transpose_g, int stages, int smem_bytes,
+                        void* stream) {
   return fused_bwd_bf16(static_cast<const __nv_bfloat16*>(src),
-                        static_cast<const __nv_bfloat16*>(own), g, s16, h16,
-                        static_cast<__nv_bfloat16*>(out), n_rows, hp, wp, p, s, k, t, transpose_g,
-                        stages, smem_bytes, stream);
+                        static_cast<const __nv_bfloat16*>(own), g, s16, h16, dq,
+                        static_cast<__nv_bfloat16*>(out), n_rows, c, hp, wp, p, s, k, t,
+                        transpose_g, stages, smem_bytes, stream);
 }
 
-// fp32 parity mode: J[D, 128, 128] from logits l1, l2; partial is scratch of
-// n_chunks * D * 128 * 128 floats.
+// fp32 parity mode: J[D, C, C] from logits l1, l2; partial is scratch of
+// n_chunks * D * C * C floats.
 int mi_fused_fwd_fp32(const float* l1, const float* l2, float* partial, float* out,
-                      long long n_rows, int hp, int wp, int p, int s, int k, float t,
+                      long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
                       long long rows_per_chunk, int n_chunks, void* stream) {
-  const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
+  if (!lanes_ok(c)) return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(fused_fwd_partial_fp32, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
   const int T = 2 * p + 1;
   const int D = T * T;
+  const int blocks = c / LANES;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_fwd_partial_fp32<<<dim3(D, n_chunks), THREADS, 0, st>>>(l1, l2, partial, geo,
-                                                                rows_per_chunk);
-  const cudaError_t err = cudaGetLastError();
+  fused_fwd_partial_fp32<<<dim3(D * blocks * blocks, n_chunks), THREADS, fp32_fwd_smem(c), st>>>(
+      l1, l2, partial, geo, rows_per_chunk);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  joint_fwd_reduce<<<reduce_blocks((long long)D * C * C), 256, 0, st>>>(partial, out, D, C, C,
+  joint_fwd_reduce<<<reduce_blocks((long long)D * c * c), 256, 0, st>>>(partial, out, D, c, c,
                                                                        n_chunks);
   return (int)cudaGetLastError();
 }
 
-// fp32 parity mode: d(own logits) [N, 128], as mi_fused_bwd_bf16
-int mi_fused_bwd_fp32(const float* src, const float* own, const float* g, float* out,
-                      long long n_rows, int hp, int wp, int p, int s, int k, float t,
+// fp32 parity mode: d(own logits) [N, C], as mi_fused_bwd_bf16; dq is
+// scratch of N x C floats.
+int mi_fused_bwd_fp32(const float* src, const float* own, const float* g, float* dq, float* out,
+                      long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
                       int transpose_g, void* stream) {
-  const Geometry geo = make_geometry(n_rows, hp, wp, p, s, k, t);
+  if (!lanes_ok(c)) return (int)cudaErrorInvalidValue;
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(transpose_g ? launch_bwd_fp32<true>(src, own, g, out, geo, st)
-                           : launch_bwd_fp32<false>(src, own, g, out, geo, st));
+  const cudaError_t err = transpose_g ? launch_dq_fp32<true>(src, g, dq, geo, st)
+                                      : launch_dq_fp32<false>(src, g, dq, geo, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_wide_vjp<float, false>(own, dq, out, geo, st);
 }
 
 }  // extern "C"

@@ -62,7 +62,6 @@ from ..models import ProjectorWrapper, UNet
 from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import GEOMETRIES
 from ..ops.iic_local import BACKENDS as IIC_LOCAL_BACKENDS
-from ..ops.mi_fused import LANES as FUSED_LANES
 from ..parallel import (
     DistContext,
     gather_rows,
@@ -949,18 +948,15 @@ class MeanTeacherTrainer(SemiTrainer):
 
 def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
                      decoder_heads: Sequence[Tuple[str, bool]],
-                     live_lanes: Sequence[int], padded: bool = False) -> Optional[str]:
+                     padded: bool = False) -> Optional[str]:
     """None when ``Kernel.backend=pallas_fused`` can take the fused path,
-    else the first unmet condition. ``decoder_heads``: (head_type, normalize)
-    of each decoder position; ``live_lanes``: S*K of each. The port's fused
-    kernels take one 128-lane tile (the JAX kernel any multiple of 128 lanes;
-    see ROADMAP.md). ``padded``: the batch needs pad rows to divide the data
-    ranks (the JAX gate's condition): the fused kernels take logits, which
-    the row mask cannot reach."""
-    wide = [sk for sk in live_lanes if sk > FUSED_LANES]
-    if wide:
-        return (f"decoder heads with S*K={wide[0]} live lanes (the fused kernels take "
-                f"S*K <= {FUSED_LANES}, one {FUSED_LANES}-lane tile)")
+    else the first unmet condition: the JAX gate's conditions, at any S*K
+    (the fused kernels take the heads' logits in 128-lane blocks, as the JAX
+    kernel does; above ``ops/mi_fused.py:MAX_LANES`` lanes they raise).
+    ``decoder_heads``: (head_type, normalize) of each decoder
+    position. ``padded``: the batch needs pad rows to divide the data ranks
+    (the JAX gate's condition): the fused kernels take logits, which the row
+    mask cannot reach."""
     if device.type != "cuda":
         # the counterpart of the JAX gate's jax.default_backend() == "tpu"
         return (f"the fused kernels run on cuda, not {device.type} (the JAX package trains "
@@ -1014,9 +1010,7 @@ class IICTrainer(SemiTrainer):
             per_position = lambda key, default: _per_position(cfg, positions, key, default)
             heads = [(head_type, bool(normalize)) for head_type, normalize in zip(
                 per_position("head_types", "linear"), per_position("normalize", False))]
-            lanes = [int(s) * int(k) for s, k in zip(
-                per_position("num_subheads", 5), per_position("num_clusters", 10))]
-            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads, lanes,
+            unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads,
                                      self._batch_padded)
             fused_ok = unmet is None
             if unmet:

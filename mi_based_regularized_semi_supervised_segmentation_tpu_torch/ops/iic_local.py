@@ -362,9 +362,10 @@ def iid_segmentation_small_patch_loss_flat(
 def iid_segmentation_loss_fused_logits(l1: torch.Tensor, l2: torch.Tensor, S: int, K: int,
                                        padding: int, lamb: float = 1.0,
                                        T: float = 1.0, group=None) -> torch.Tensor:
-    """Subhead-mean displaced-MI loss straight from pre-padded 128-lane logit
-    canvases [B, Hp, Wp, 128] (one full-map tile): the row-max group softmax,
-    the interior mask and the joint in the fused kernels, bf16 operands. The
+    """Subhead-mean displaced-MI loss straight from pre-padded C-lane logit
+    canvases [B, Hp, Wp, C], C a multiple of 128 holding the S*K live lanes
+    (one full-map tile): the row-max group softmax over the whole row, the
+    interior mask and the joint in the fused kernels, bf16 operands. The
     fused forward's J is summed over ``group``; its backward gets the global
     gradient."""
     flat = displaced_joint_softmax(l1, l2, padding, S, K, T)

@@ -3,10 +3,11 @@ their wrappers and their plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas/mi_fused.py``
 (``displaced_joint_softmax_pallas``, ``Kernel.backend=pallas_fused``). Inputs
-are two pre-padded logit canvases [B, Hp, Wp, 128], with the dead lanes from
-S*K on at float32 min as ``LocalClusterHead(emit_logits=True)`` emits them
-(-inf when the heads compute in bf16: bf16 logits, which the kernels read
-and convert to fp32), flattened row-major to [N, 128]. For a row n:
+are two pre-padded logit canvases [B, Hp, Wp, C], C = 128 t lanes (t = 1 to
+``MAX_LANES // LANES``; the JAX kernel asserts only C % 128 == 0), with the
+dead lanes from S*K on at float32 min as ``LocalClusterHead(emit_logits=True)``
+emits them (-inf when the heads compute in bf16: bf16 logits, which the
+kernels read and convert to fp32), flattened row-major to [N, C]. For a row n:
 
     valid(n) = (y, x) of n lies in [p, Hp - p) x [p, Wp - p)   (conv zero padding)
     z  = l / T on the live lanes, -inf on the dead ones
@@ -27,13 +28,16 @@ with g = dL/dJ rounded to dot_dtype:
          logits: rounded once, the TPU kernel's ``out_dtype = l.dtype``)
 
 Products are summed in fp32. On the kernel path no fp32 probability tensor
-and no dq is ever allocated: in bf16 mode the joint's conversion pass forms
-the masked softmax of each row once a call into the joint's [N, 128] bf16
-scratch, and the joint's backward kernel applies the softmax VJP to its own
-rows before it writes (``csrc/mi_fused.cu``); the launch plan and scratch are
-the joint's (``launch_setup``). The plain version computes the same in fp32
-with bf16 rounding at exactly those points; its backward is written out, not
-left to autograd, which would round elsewhere.
+is ever allocated: in bf16 mode a conversion pass forms the masked softmax of
+each whole row once a call into t [N, 128] bf16 lane blocks, and the products
+run on the joint's kernels at its launch plan (``launch_setup``). At C = 128
+the joint's backward kernel also applies the softmax VJP to its own rows
+before it writes, so no dq exists; at C = 128 t, t > 1, the VJP's group sums
+straddle the lane blocks, so the t source blocks' products are summed into an
+[N, C] fp32 dq scratch and one pass over whole rows applies the VJP
+(``csrc/mi_fused.cu``). The plain version computes the same in fp32 with
+bf16 rounding at exactly those points, at any C; its backward is written
+out, not left to autograd, which would round elsewhere.
 
 Data parallelism: each rank's call returns the J of its rows; the loss front
 door (``ops/iic_local.py:iid_segmentation_loss_fused_logits``) sums J over
@@ -45,8 +49,14 @@ trainer sends such a batch to the unfused path.
 Dispatch: CUDA tensors go to the kernels (or the call raises), CPU tensors to
 the plain version. ``LAUNCHES`` counts kernel launches by (kernel, padding),
 one a wrapper call, a call on bf16 logits under the name with
-``mi_joint.BF16_OPERANDS`` appended; each call launches 3 device kernels in
-the forward and 2 in each backward, whatever the logits' dtype.
+``mi_joint.BF16_OPERANDS`` appended, whatever the lane count. The device
+kernels a call launches, whatever the logits' dtype: in bf16 mode at t = 1
+(128 lanes) 3 in the forward (softmax pass, product, chunk sum) and 2 in each
+backward (softmax pass with g, product with the VJP epilogue); at t = 2 (256
+lanes) 1 + 2 t^2 = 9 in the forward (softmax pass, then a product and a chunk
+sum for each of the 4 lane-block pairs) and 2 + t^2 = 6 in each backward
+(softmax pass with g, 4 products into dq, VJP pass). The fp32 mode launches
+2 in the forward and 2 in each backward at any t.
 """
 
 from __future__ import annotations
@@ -59,12 +69,14 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .mi_joint import (JointPlan, ScratchSpec, _check_modes, _check_operand, _offsets, _sm_count,
-                       alloc_scratch, bf16_scratch, fwd_chunking, kernel_name, launch_plan)
+from .mi_joint import (JointPlan, ScratchSpec, _check_modes, _check_operand, _offsets, _ptr,
+                       _sm_count, alloc_scratch, bf16_scratch, fwd_chunking, kernel_name,
+                       launch_plan)
 
 KERNEL_SOURCE = "mi_fused"
 FWD, BWD_DL2, BWD_DL1 = "mi_fused_fwd", "mi_fused_bwd_dl2", "mi_fused_bwd_dl1"
-LANES = 128  # the kernels take rows of exactly this many lanes (the head's lane width)
+LANES = 128  # the kernels' lane block: logits take C = LANES * t lanes
+MAX_LANES = 1024  # t <= 8: the whole-row kernels keep rows of C floats a warp in shared memory
 LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
 
 
@@ -203,12 +215,12 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(KERNEL_SOURCE)
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.mi_fused_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, f, ll, i, i,
-                                          i, vp]
-        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, f, i, i, i,
-                                          vp]
-        lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, ll, i, vp]
-        lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, f, i, vp]
+        lib.mi_fused_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, f, ll, i,
+                                          i, i, vp]
+        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, f, i,
+                                          i, i, vp]
+        lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, f, ll, i, vp]
+        lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, f, i, vp]
         lib.mi_fused_fwd_bf16in.argtypes = lib.mi_fused_fwd_bf16.argtypes
         lib.mi_fused_bwd_bf16in.argtypes = lib.mi_fused_bwd_bf16.argtypes
         for fn in (lib.mi_fused_fwd_bf16, lib.mi_fused_bwd_bf16, lib.mi_fused_fwd_fp32,
@@ -228,30 +240,43 @@ def _check(rc: int, what: str) -> None:
 
 def _check_layout(n: int, c: int, hp: int, wp: int, padding: int, S: int, K: int, T: float,
                   *tensors: torch.Tensor) -> None:
-    if c != LANES:
-        raise ValueError(f"the fused kernels take {LANES}-lane logits, got {c} lanes")
+    if c % LANES or not LANES <= c <= MAX_LANES:
+        raise ValueError(f"the fused kernels take logits in {LANES}-lane blocks (C a multiple "
+                         f"of {LANES}, at most {MAX_LANES}), got {c} lanes")
     if padding < 0 or hp <= 2 * padding or wp <= 2 * padding or n % (hp * wp):
         raise ValueError(f"{n} rows are no stack of {hp} x {wp} canvases with border {padding}")
-    if S < 1 or K < 1 or S * K > LANES or not T > 0:
-        raise ValueError(f"S={S}, K={K}, T={T}: need S*K <= {LANES} live lanes and T > 0")
+    if S < 1 or K < 1 or S * K > c or not T > 0:
+        raise ValueError(f"S={S}, K={K}, T={T}: need S*K <= {c} live lanes and T > 0")
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("the fused kernels read rows as 16-byte vectors: pointer misaligned")
 
 
-def launch_setup(n: int, wp: int, padding: int, sm_count: int,
-                 backward: bool) -> Tuple[JointPlan, ScratchSpec]:
-    """The bf16 kernels' launch plan and scratch: the joint's, at the same
-    shape (its forward's two [N, 128] bf16 copies, which hold the masked
-    probabilities here, or its backward's source copy and H)."""
+def launch_setup(n: int, wp: int, padding: int, sm_count: int, backward: bool,
+                 lanes: int = LANES) -> Tuple[JointPlan, ScratchSpec]:
+    """The bf16 kernels' launch plan and scratch at C = ``lanes`` = 128 t: the
+    joint's plan at 128 lanes, and its scratch (the forward's two [N, 128]
+    bf16 copies, which hold the masked probabilities here, or the backward's
+    source copy and H) with a lane block axis of t on the copies and of t^2
+    on H; for t > 1 the backward also takes the [N, C] fp32 dq that its
+    products sum into. The chunk partials are one lane-block pair's,
+    reused by each pair."""
     plan = launch_plan(n, LANES, padding, wp, sm_count)
-    return plan, bf16_scratch(plan, backward)
+    spec = bf16_scratch(plan, backward)
+    t = lanes // LANES
+    if t > 1:
+        blocks = {"a16": t, "b16": t, "s16": t, "h16": t * t}
+        spec = {name: ((blocks[name],) + shape if name in blocks else shape, dtype)
+                for name, (shape, dtype) in spec.items()}
+        if backward:
+            spec["dq"] = ((n, lanes), torch.float32)
+    return plan, spec
 
 
 def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: int,
                  S: int, K: int, T: float = 1.0, bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: J [D, 128, 128] fp32 from flat logit canvases [N, 128]
-    (fp32, or bf16 with bf16 products)."""
+    """Kernel launch: J [D, C, C] fp32 from flat logit canvases [N, C], C =
+    128 t (fp32, or bf16 with bf16 products)."""
     _check_operand(l1, "l1")
     _check_operand(l2, "l2", l1.shape, (l1.dtype,))
     if l1.device != l2.device:
@@ -265,9 +290,9 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
         sms = _sm_count(l1.device.index)
         out = torch.empty((d, c, c), dtype=torch.float32, device=l1.device)
         stream = torch.cuda.current_stream(l1.device).cuda_stream
-        geometry = (n, hp, wp, padding, S, K, float(T))
+        geometry = (n, c, hp, wp, padding, S, K, float(T))
         if bf16:
-            plan, spec = launch_setup(n, wp, padding, sms, backward=False)
+            plan, spec = launch_setup(n, wp, padding, sms, backward=False, lanes=c)
             buf = alloc_scratch(spec, l1.device)
             fn = lib.mi_fused_fwd_bf16in if l1.dtype == torch.bfloat16 else lib.mi_fused_fwd_bf16
             rc = fn(l1.data_ptr(), l2.data_ptr(), buf["a16"].data_ptr(), buf["b16"].data_ptr(),
@@ -288,8 +313,8 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
 def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int, wp: int,
                  padding: int, S: int, K: int, T: float = 1.0, transpose_g: bool = False,
                  bf16: bool = True) -> torch.Tensor:
-    """Kernel launch: d(own logits) [N, 128] in the logits' dtype (fp32, or
-    bf16 with bf16 products); g [D, 128, 128] fp32.
+    """Kernel launch: d(own logits) [N, C] in the logits' dtype (fp32, or
+    bf16 with bf16 products); g [D, C, C] fp32, C = 128 t.
 
     transpose_g=False: dl2 (src = l1, own = l2), dq[n] = sum_d pm1[n + o_d] @ g[d]
     transpose_g=True:  dl1 (src = l2, own = l1), dq[m] = sum_d pm2[m - o_d] @ g[d]^T
@@ -307,17 +332,19 @@ def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int,
     with torch.cuda.device(src.device):
         out = torch.empty((n, c), dtype=src.dtype, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        geometry = (n, hp, wp, padding, S, K, float(T), int(transpose_g))
+        geometry = (n, c, hp, wp, padding, S, K, float(T), int(transpose_g))
         if bf16:
-            plan, spec = launch_setup(n, wp, padding, _sm_count(src.device.index), backward=True)
+            plan, spec = launch_setup(n, wp, padding, _sm_count(src.device.index), backward=True,
+                                      lanes=c)
             buf = alloc_scratch(spec, src.device)
             fn = lib.mi_fused_bwd_bf16in if src.dtype == torch.bfloat16 else lib.mi_fused_bwd_bf16
             rc = fn(src.data_ptr(), own.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
-                    buf["h16"].data_ptr(), out.data_ptr(), *geometry, plan.bwd_stages,
-                    plan.bwd_smem, stream)
+                    buf["h16"].data_ptr(), _ptr(buf, "dq"), out.data_ptr(), *geometry,
+                    plan.bwd_stages, plan.bwd_smem, stream)
         else:
+            dq = torch.empty((n, c), dtype=torch.float32, device=src.device)
             rc = lib.mi_fused_bwd_fp32(src.data_ptr(), own.data_ptr(), g.data_ptr(),
-                                       out.data_ptr(), *geometry, stream)
+                                       dq.data_ptr(), out.data_ptr(), *geometry, stream)
     name = kernel_name(BWD_DL1 if transpose_g else BWD_DL2, src.dtype)
     _check(rc, name)
     LAUNCHES[(name, padding)] += 1
@@ -349,8 +376,8 @@ class _DisplacedJointSoftmaxCUDA(torch.autograd.Function):
 def displaced_joint_softmax(l1: torch.Tensor, l2: torch.Tensor, padding: int, S: int, K: int,
                             T: float = 1.0,
                             dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Pre-padded logit canvases [B, Hp, Wp, 128] x2 -> [Tt, Tt, 128, 128] raw
-    displaced sums of the masked row-max group-softmax probabilities
+    """Pre-padded logit canvases [B, Hp, Wp, C] x2, C = 128 t -> [Tt, Tt, C, C]
+    raw displaced sums of the masked row-max group-softmax probabilities
     (``displaced_joint_softmax_pallas``); gradients flow to the logits. The
     kernels for CUDA tensors, the plain version for CPU tensors."""
     if l1.dim() != 4 or l1.shape != l2.shape:

@@ -19,6 +19,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu.ops import affine as 
 from mi_based_regularized_semi_supervised_segmentation_tpu.utils import general as jgeneral
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import affine
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.utils import general
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 
 def _nchw(x):

@@ -5,6 +5,7 @@ tolerances of ``test_torch_arch_zoo.py`` (readings there)."""
 import pytest
 
 from test_torch_arch_zoo import FAMILIES, check_bf16_forward, check_family
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 DEEPLABS = ("deeplabv2", "deeplabv3", "deeplabv3plus")
 

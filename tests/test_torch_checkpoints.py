@@ -40,6 +40,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine.checkpoi
     resolve_checkpoint,
     save_checkpoint,
 )
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 CROP = 32
 

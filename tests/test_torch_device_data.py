@@ -61,6 +61,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.augment_dev
     sample_augment_params,
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import unet_state_dict
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 PAD_TO = (72, 80)
 CROP = 48

@@ -21,6 +21,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import (
 )
 from test_torch_step import _check_losses, _check_params, _run_both
 from test_torch_trainer import _config
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 CROP = 32
 
@@ -50,13 +51,13 @@ def test_udaiic_fused_step_matches_jax(monkeypatch):
     _check_params(before, after_jax, after)
 
 
-def _trainer(tmp_path, backend="pallas_fused", **iic):
+def _trainer(tmp_path, backend="pallas_fused", crop=CROP, **iic):
     cfg = _config("udaiic")
     cfg["Kernel"] = {"backend": backend}
     cfg["IICRegParameters"].update(iic)
     return trainer_zoos["udaiic"](labeled_loader=None, unlabeled_loader=None, val_loader=None,
                                   test_loader=None, configuration=cfg, device="cpu",
-                                  crop_size=CROP, run_dir=str(tmp_path))
+                                  crop_size=crop, run_dir=str(tmp_path))
 
 
 def test_pallas_fused_on_cpu_trains_unfused_and_warns(tmp_path, capsys):
@@ -75,24 +76,33 @@ def test_pallas_fused_on_cpu_trains_unfused_and_warns(tmp_path, capsys):
 
 def test_fused_gate_conditions():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    linear, lanes = [("linear", False), ("linear", False)], [100, 100]
-    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, lanes) is None
-    assert trainer_mod.fused_path_unmet(cuda, [1024, 224], 224, linear, lanes) is None
-    assert "cuda" in trainer_mod.fused_path_unmet(cpu, 1024, 224, linear, lanes)
-    assert "patch_sizes" in trainer_mod.fused_path_unmet(cuda, [1024, 64], 224, linear, lanes)
-    for heads in ([("mlp", False), ("linear", False)], [("linear", True), ("linear", False)]):
-        assert "linear and unnormalized" in trainer_mod.fused_path_unmet(cuda, 1024, 224, heads,
-                                                                          lanes)
-
-
-def test_fused_gate_names_a_head_wider_than_one_tile():
-    """The fused kernels take S*K <= 128 live lanes; 5 x 30 clusters (150
-    lanes, padded to 256) fail the gate on any device, named by S*K."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
     linear = [("linear", False), ("linear", False)]
-    for device in (cuda, cpu):
-        assert "S*K=150" in trainer_mod.fused_path_unmet(device, 1024, 224, linear, [150, 150])
-    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, [100, 128]) is None
+    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear) is None
+    assert trainer_mod.fused_path_unmet(cuda, [1024, 224], 224, linear) is None
+    assert "cuda" in trainer_mod.fused_path_unmet(cpu, 1024, 224, linear)
+    assert "patch_sizes" in trainer_mod.fused_path_unmet(cuda, [1024, 64], 224, linear)
+    for heads in ([("mlp", False), ("linear", False)], [("linear", True), ("linear", False)]):
+        assert "linear and unnormalized" in trainer_mod.fused_path_unmet(cuda, 1024, 224, heads)
+
+
+def test_fused_gate_names_a_head_wider_than_one_tile(tmp_path, capsys, monkeypatch):
+    """The gate has no lane-width condition: the fused kernels take logits of
+    any multiple of 128 lanes, as the JAX kernel does. A 5 x 30 trainer
+    (150 live lanes in 256) passes the gate on cuda (the gate's inputs
+    recorded from the trainer), and on the CPU its warning names cuda, not
+    the width."""
+    seen = []
+    real = trainer_mod.fused_path_unmet
+    monkeypatch.setattr(trainer_mod, "fused_path_unmet",
+                        lambda *args: seen.append(args) or real(*args))
+    trainer = _trainer(tmp_path, DecoderParams={"num_clusters": 30, "num_subheads": 5})
+    trainer.init()
+    out = capsys.readouterr().out
+    assert "[trainer] WARNING: Kernel.backend=pallas_fused: the fused kernels run on cuda" in out
+    assert "S*K" not in out and "lane" not in out
+    (device, *rest), = seen
+    assert device.type == "cpu"
+    assert real(torch.device("cuda"), *rest) is None
 
 
 def _cpu_batch(seed=0):
@@ -103,20 +113,54 @@ def _cpu_batch(seed=0):
             "unlabeled_image": torch.tensor(rng.random((3, CROP, CROP, 1), dtype=np.float32))}
 
 
-def test_wide_head_with_pallas_fused_warns_and_trains_unfused(tmp_path, capsys):
-    """DecoderParams.num_clusters=30 (5 x 30 = 150 lanes in 256) with
-    Kernel.backend=pallas_fused: the trainer names S*K in its warning, the
-    decoder heads emit 256-lane probabilities and a step runs the unfused
-    path."""
-    trainer = _trainer(tmp_path, DecoderParams={"num_clusters": 30, "num_subheads": 5})
+def test_wide_head_with_pallas_fused_warns_and_trains_unfused(tmp_path, monkeypatch):
+    """DecoderParams.num_clusters=30 (5 x 30 = 150 live lanes in 256) with
+    Kernel.backend=pallas_fused and the gate passed (mocked: this host has no
+    card): the decoder heads emit 256-lane logits, and a step at crop 16 goes
+    through the fused joint (its plain version, on CPU tensors) at both
+    decoder taps. Each tap's MI equals the JAX package's fused-logits loss on
+    the same logits (its Pallas kernel in interpret mode) within rtol 1e-5
+    plus 1e-6 nats: at random init the MI sits near 0 (8e-4 nats), where its
+    terms cancel and a relative bound alone means little (measured 2.7e-8
+    and 1.2e-8 nats). ``mi`` is their importance-weighted sum with the
+    Conv5 term."""
+    import jax.numpy as jnp
+
+    from mi_based_regularized_semi_supervised_segmentation_tpu.ops.iic_local import (
+        iid_segmentation_loss_fused_logits as jax_loss_fused_logits,
+    )
+    from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import steps
+
+    monkeypatch.setattr(trainer_mod, "fused_path_unmet", lambda *args: None)
+    taps = []
+    real = steps.iid_segmentation_loss_fused_logits
+
+    def spy(l1, l2, S, K, padding, **kwargs):
+        taps.append((l1.detach().numpy(), l2.detach().numpy(), S, K, padding))
+        return real(l1, l2, S, K, padding=padding, **kwargs)
+
+    monkeypatch.setattr(steps, "iid_segmentation_loss_fused_logits", spy)
+    crop = 16
+    trainer = _trainer(tmp_path, crop=crop, DecoderParams={"num_clusters": 30, "num_subheads": 5})
     trainer.init()
-    out = capsys.readouterr().out
-    assert "[trainer] WARNING: Kernel.backend=pallas_fused: decoder heads with S*K=150" in out
     proj = trainer._projector
-    assert proj.local_emit_logits is False
+    assert proj.local_emit_logits
     assert proj.heads["Up_conv2"](torch.zeros(1, 4, 4, 16)).shape[-1] == 256
-    metrics = trainer._train_step(_cpu_batch())
-    assert np.isfinite(float(metrics["total_loss"])) and float(metrics["mi"]) != 0.0
+    rng = np.random.default_rng(0)
+    batch = {"labeled_image": torch.tensor(rng.random((2, crop, crop, 1), dtype=np.float32)),
+             "labeled_target": torch.tensor(rng.integers(0, 4, (2, crop, crop)),
+                                            dtype=torch.int32),
+             "unlabeled_image": torch.tensor(rng.random((3, crop, crop, 1), dtype=np.float32))}
+    metrics = trainer._train_step(batch)
+    assert [(t[0].shape, t[2:]) for t in taps] == [((3, 10, 10, 256), (5, 30, 1)),
+                                                   ((3, 22, 22, 256), (5, 30, 3))]
+    for name, (l1, l2, S, K, padding) in zip(("Up_conv3", "Up_conv2"), taps):
+        want = -float(jax_loss_fused_logits(jnp.asarray(l1), jnp.asarray(l2), S, K, padding))
+        np.testing.assert_allclose(float(metrics[f"individual_mis/{name}"]), want, rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    mis = [float(metrics[f"individual_mis/{n}"]) for n in ("Conv5", "Up_conv3", "Up_conv2")]
+    np.testing.assert_allclose(float(metrics["mi"]), (mis[0] + 0.5 * mis[1] + 0.5 * mis[2]) / 2,
+                               rtol=1e-6)
 
 
 def test_fused_ok_emits_logits_and_the_trainer_step_runs_fused(tmp_path, monkeypatch):

@@ -43,6 +43,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import 
 
 from test_torch_precision import _bf16, _ulps
 from test_torch_step import _check_losses, _check_params, _run_both
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 FEATS = ("Conv5", "Up_conv3", "Up_conv2")
 S, K = 2, 5

@@ -28,6 +28,7 @@ import torch
 
 from mi_based_regularized_semi_supervised_segmentation_tpu.ops import iic_local as jil
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import iic_local as til
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 S, K, LANES = 2, 3, 128
 JAX_BACKEND = {"auto": "pallas", "pallas": "pallas", "xla": "xla", "plain": "xla",

@@ -55,6 +55,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.utils import (
     SurfaceMeter,
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import unet_state_dict
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 
 def _volumes(seed):

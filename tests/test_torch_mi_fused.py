@@ -12,7 +12,22 @@ same arrays. Tolerances, each with its reason:
   Both sides round the same values at the same points, but a last-bit
   difference in an exp or a sum can move a value across a bf16 rounding
   boundary. Measured over seeds 0-3 of these cases: 7.2e-5 for J, 2.0e-7 for
-  the logit gradients.
+  the logit gradients;
+- bf16 logits (the bf16 heads' output; bf16 products): J as bf16 operands;
+  the logit gradients come back bf16, each fp32 result rounded once on both
+  sides, so an fp32 value within the summation-order difference of a rounding
+  midpoint rounds the other way: each entry may be one bf16 step (of its own
+  magnitude) apart, and what is left is held at 2e-4 of the largest entry.
+The 256-lane cases (C = 2 x 128, the heads' lane padding of S*K > 128) hold
+the same tolerances, with one allowance for J in the bf16 modes: groups of
+30-32 lanes hold probabilities up to ~0.5, and a last-bit difference in a
+group sum that rounds one such probability to the neighbouring bf16 value on
+one side moves a J entry by one bf16 step of it times its partner, so J is
+held at 2e-4 of its largest entry plus 2^-8 max(p1) max(p2) (one such flip).
+Measured over seeds 0-3 (12 cases a mode): J 0.0 in 11 of the 12 bf16-product
+cases and 8.1e-4 in one (seed 3, 8 x 32), 4.9e-5 on bf16 logits; the logit
+gradients at most 1.8e-4 (bf16 products) and 1.1e-4 beyond one step (bf16
+logits); fp32 at most 3.9e-7 relative.
 """
 
 import numpy as np
@@ -27,6 +42,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.iic_local i
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.mi_joint import (
     displaced_joint_plain_flat,
 )
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 try:  # the JAX side; a card's machine without JAX runs only the cuda-marked test
     import jax
@@ -46,38 +62,49 @@ except ImportError:
 S, K = 2, 3
 SK = S * K
 C = 128
+WIDE = 256
 BF16_BOUND = 2e-4
 
 
-def _logits(rng, B, Hp, Wp, sk=SK):
+def _logits(rng, B, Hp, Wp, sk=SK, lanes=C):
     """Lane-padded logits as LocalClusterHead(emit_logits) produces them."""
-    z = np.full((B, Hp, Wp, C), np.finfo(np.float32).min, np.float32)
+    z = np.full((B, Hp, Wp, lanes), np.finfo(np.float32).min, np.float32)
     z[..., :sk] = rng.normal(size=(B, Hp, Wp, sk)).astype(np.float32)
     return z
 
 
-def _jax(l1, l2, g, pad, dot, band=None, s=S, k=K):
+def _jax(l1, l2, g, pad, dot, band=None, s=S, k=K, dtype=None):
     f = lambda a, b: displaced_joint_softmax_pallas(a, b, pad, s, k, 1.0, band, dot)
-    joint, vjp = jax.vjp(f, jnp.asarray(l1), jnp.asarray(l2))
+    joint, vjp = jax.vjp(f, jnp.asarray(l1, dtype), jnp.asarray(l2, dtype))
     d1, d2 = vjp(jnp.asarray(g))
-    return [np.asarray(x) for x in (joint, d1, d2)]
+    return [np.asarray(x.astype(jnp.float32)) for x in (joint, d1, d2)]
 
 
-def _port(l1, l2, g, pad, dot, s=S, k=K):
-    t1 = torch.tensor(l1, requires_grad=True)
-    t2 = torch.tensor(l2, requires_grad=True)
+def _port(l1, l2, g, pad, dot, s=S, k=K, dtype=torch.float32):
+    t1 = torch.tensor(l1).to(dtype).requires_grad_(True)
+    t2 = torch.tensor(l2).to(dtype).requires_grad_(True)
     joint = mi_fused.displaced_joint_softmax(t1, t2, pad, s, k, 1.0, dot)
     (joint * torch.tensor(g)).sum().backward()
-    return [x.detach().numpy() for x in (joint, t1.grad, t2.grad)]
+    assert t1.grad.dtype == t2.grad.dtype == dtype
+    return [x.detach().float().numpy() for x in (joint, t1.grad, t2.grad)]
 
 
-def _cotangent(rng, pad):
+def _cotangent(rng, pad, lanes=C):
     t = 2 * pad + 1
-    return rng.normal(size=(t, t, C, C)).astype(np.float32)
+    return rng.normal(size=(t, t, lanes, lanes)).astype(np.float32)
 
 
 def _rel_err(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _rel_err_bf16(got, want):
+    """_rel_err of bf16 results beyond one bf16 step of each entry's own
+    magnitude (its single rounding)."""
+    with np.errstate(divide="ignore"):
+        step = np.exp2(np.floor(np.log2(np.abs(want))) - 7)
+    excess = np.clip(np.abs(got - want) - step, 0.0, None)
+    return float(excess.max() / np.abs(want).max())
 
 
 # pad 1 and 2 as tests/test_mi_fused.py, both operand modes, and a canvas whose
@@ -104,6 +131,55 @@ def test_matches_pallas_values_and_logit_grads(rng, pad, shape, band, mode):
         else:
             err = _rel_err(v, w)
             assert err <= BF16_BOUND, f"{name}: {err:.2e} of the largest entry"
+
+
+# C = 256 (two 128-lane blocks), each in fp32 and bf16 products on fp32
+# logits and in bf16 products on bf16 logits: (S, K, far)
+WIDE_CASES = {
+    # 5 x 30 = 150 live lanes: group 4 covers lanes 120-149, across lane 128
+    "straddle": (5, 30, False),
+    # 8 x 32 = 256: no dead lane
+    "dense": (8, 32, False),
+    # 5 x 30, l1's lanes 128-149 200 logit units up: every row's max lies in
+    # block 1, and groups 0-3 (block 0) and lanes 120-127 underflow to zeros
+    "max_in_block_1": (5, 30, True),
+}
+WIDE_MODES = {"fp32": (torch.float32, "fp32"), "bf16": (torch.float32, "bf16"),
+              "bf16_logits": (torch.bfloat16, "bf16")}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+@pytest.mark.parametrize("mode", list(WIDE_MODES))
+def test_matches_pallas_at_256_lanes(rng, case, mode):
+    s, k, far = WIDE_CASES[case]
+    logit_dtype, dot = WIDE_MODES[mode]
+    l1 = _logits(rng, 1, 12, 12, s * k, WIDE)
+    l2 = _logits(rng, 1, 12, 12, s * k, WIDE)
+    if far:
+        l1[..., C:s * k] += 200.0
+    g = _cotangent(rng, 1, WIDE)
+    jdtype = jnp.bfloat16 if logit_dtype == torch.bfloat16 else jnp.float32
+    want = _jax(l1, l2, g, 1, DTYPES[dot][1], s=s, k=k, dtype=jdtype)
+    got = _port(l1, l2, g, 1, DTYPES[dot][0], s=s, k=k, dtype=logit_dtype)
+    p_max = [float(mi_fused.group_softmax_rowmax(torch.tensor(x).reshape(-1, WIDE), s, k)
+                   .max()) for x in (l1, l2)]
+    for name, w, v in zip(("joint", "dl1", "dl2"), want, got):
+        assert v.shape == w.shape, name
+        if mode == "fp32":
+            atol = 0.0 if name == "joint" else 1e-5 * np.abs(w).max()
+            np.testing.assert_allclose(v, w, rtol=1e-4, atol=atol, err_msg=name)
+        elif name == "joint":
+            flip = 2.0 ** -8 * p_max[0] * p_max[1] / np.abs(w).max()
+            err = _rel_err(v, w)
+            assert err <= BF16_BOUND + flip, f"{name}: {err:.2e} of the largest entry"
+        else:
+            err = _rel_err_bf16(v, w) if mode == "bf16_logits" else _rel_err(v, w)
+            assert err <= BF16_BOUND, f"{name}: {err:.2e} of the largest entry"
+    if far:  # no mass and no gradient below lane 120 of l1, on both sides
+        for joint, dl1 in ((want[0], want[1]), (got[0], got[1])):
+            assert np.abs(joint[:, :, :120, :]).max() == 0.0
+            assert np.abs(dl1[..., :120]).max() == 0.0
+            assert np.abs(joint[:, :, C:s * k, :]).max() > 0.0
 
 
 def test_dead_lanes_give_exact_zeros(rng):
@@ -184,10 +260,37 @@ def test_fused_logits_loss_matches_jax(rng):
         assert _rel_err(v.numpy(), np.asarray(w)) <= 2e-3
 
 
+def test_fused_logits_loss_matches_jax_at_256_lanes(rng):
+    """The loss front door at 5 x 30 clusters (150 live lanes in 256, group 4
+    across lane 128), padding 1, at the 128-lane test's tolerances (measured
+    over seeds 0-3: the value within 6.0e-6 relative, the logit gradients
+    within 4.5e-4 of their largest entry)."""
+    s, k, pad = 5, 30, 1
+    l1 = _logits(rng, 1, 12, 12, s * k, WIDE)
+    l2 = _logits(rng, 1, 12, 12, s * k, WIDE)
+    want, jgrads = jax.value_and_grad(
+        lambda a, b: jax_loss_fused_logits(a, b, s, k, pad), argnums=(0, 1))(
+            jnp.asarray(l1), jnp.asarray(l2))
+    t1 = torch.tensor(l1, requires_grad=True)
+    t2 = torch.tensor(l2, requires_grad=True)
+    loss = iid_segmentation_loss_fused_logits(t1, t2, s, k, pad)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    for v, w in ((t1.grad, jgrads[0]), (t2.grad, jgrads[1])):
+        assert _rel_err(v.numpy(), np.asarray(w)) <= 2e-3
+
+
 def test_front_door_checks_before_any_kernel():
-    x = torch.zeros((1, 8, 8, 64))
-    with pytest.raises(ValueError, match="128-lane"):
+    for lanes in (64, 192):  # no multiple of 128
+        x = torch.zeros((1, 8, 8, lanes))
+        with pytest.raises(ValueError, match="128-lane"):
+            mi_fused.displaced_joint_softmax(x, x, 1, S, K)
+    x = torch.zeros((1, 8, 8, mi_fused.MAX_LANES + C))
+    with pytest.raises(ValueError, match="at most"):
         mi_fused.displaced_joint_softmax(x, x, 1, S, K)
+    with pytest.raises(ValueError, match="S\\*K"):
+        mi_fused.displaced_joint_softmax(torch.zeros((1, 8, 8, WIDE)), torch.zeros(
+            (1, 8, 8, WIDE)), 1, 13, 20)
     y = torch.zeros((1, 8, 8, C))
     with pytest.raises(ValueError, match="dot_dtype"):
         mi_fused.displaced_joint_softmax(y, y, 1, S, K, dot_dtype=torch.float16)
@@ -216,10 +319,34 @@ def test_launch_setup_is_the_joints_plan_and_scratch(n, wp, padding):
         assert all(shape[1:] == (C,) for shape, _ in spec.values() if shape[0] == n)
 
 
+@pytest.mark.parametrize("n,wp,padding", [(529_000, 230, 3), (129_960, 114, 1)])
+def test_launch_setup_at_256_lanes(n, wp, padding):
+    """At C = 256 the plan is the 128-lane one; the bf16 copies hold two lane
+    blocks, H four block pairs, and the backward alone adds the [N, 256] fp32
+    dq that its products sum into (the VJP's group sums straddle the blocks);
+    the forward's chunk partials are one pair's."""
+    from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint
+
+    d = (2 * padding + 1) ** 2
+    for backward in (False, True):
+        plan, spec = mi_fused.launch_setup(n, wp, padding, 132, backward, lanes=WIDE)
+        assert plan == mi_joint.launch_plan(n, C, padding, wp, 132)
+        narrow = mi_joint.bf16_scratch(plan, backward)
+        if backward:
+            assert spec == {"s16": ((2, n, C), torch.bfloat16),
+                            "h16": ((4, d, C, C), torch.bfloat16),
+                            "dq": ((n, WIDE), torch.float32)}
+        else:
+            assert spec == {"a16": ((2, n, C), torch.bfloat16),
+                            "b16": ((2, n, C), torch.bfloat16), "partial": narrow["partial"]}
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card():
+@pytest.mark.parametrize("lanes,clusters", [(C, 20), (WIDE, 30)])
+def test_kernels_match_plain_on_card(lanes, clusters):
     """The CUDA kernels against the plain version on a small canvas (padding
-    3, S x K = 5 x 20): fp32 logits in both operand modes, then bf16 logits
+    3, S x K = 5 x 20 in 128 lanes, 5 x 30 in 256): fp32 logits in both
+    operand modes, then bf16 logits
     with -inf dead lanes (the bf16 heads' output), 1e-4 of the largest entry,
     except the logit gradients of the bf16 products at 1e-2. There t is
     rounded to bf16 before its group sum, so a last-bit difference in dq
@@ -229,18 +356,19 @@ def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (a CUDA kernel has no CPU mode)")
     rng = np.random.default_rng(0)
-    l1, l2 = _logits(rng, 2, 20, 19, 100), _logits(rng, 2, 20, 19, 100)
-    g = _cotangent(rng, 3) * 1e-2
+    live = 5 * clusters
+    l1, l2 = _logits(rng, 2, 20, 19, live, lanes), _logits(rng, 2, 20, 19, live, lanes)
+    g = _cotangent(rng, 3, lanes) * 1e-2
     for dtype, dot in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                        (torch.bfloat16, torch.bfloat16)):
         outs = []
         for dev in ("cpu", "cuda"):
             t1 = torch.tensor(l1, device=dev).to(dtype).requires_grad_(True)
             t2 = torch.tensor(l2, device=dev).to(dtype).requires_grad_(True)
-            joint = mi_fused.displaced_joint_softmax(t1, t2, 3, 5, 20, 1.0, dot)
+            joint = mi_fused.displaced_joint_softmax(t1, t2, 3, 5, clusters, 1.0, dot)
             (joint * torch.tensor(g, device=dev)).sum().backward()
             assert t1.grad.dtype == t2.grad.dtype == dtype
-            assert torch.all(t1.grad[..., 100:] == 0) and torch.all(t2.grad[..., 100:] == 0)
+            assert torch.all(t1.grad[..., live:] == 0) and torch.all(t2.grad[..., live:] == 0)
             outs.append([t.detach().float().cpu().numpy() for t in (joint, t1.grad, t2.grad)])
         for i, (want, got) in enumerate(zip(*outs)):
             assert np.isfinite(got).all()

@@ -19,6 +19,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.iic_local i
     displaced_joint_xla,
     iid_segmentation_small_patch_loss_flat,
 )
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 try:  # the JAX side; a card's machine without JAX runs only the cuda-marked tests
     import jax

@@ -32,6 +32,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import 
     projector_state_dict,
     unet_state_dict,
 )
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 FEATS = ("Conv5", "Up_conv3", "Up_conv2")
 

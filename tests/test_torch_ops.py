@@ -43,6 +43,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.losses impo
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.utils import class2one_hot
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import unet_state_dict
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 
 def _probs(rng, shape):

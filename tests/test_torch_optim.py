@@ -54,6 +54,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine.optim im
 )
 from test_torch_checkpoints import CROP, _assert_same, _one_step, make_config, make_loaders
 from test_torch_step import _check_losses, _check_params, _run_both
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 SHAPES = {"w": (4, 3), "b": (3,), "k": (2, 3, 3, 3)}
 STEPS = 8            # past Lookahead's sync at 5, Ranger's at 6, RAdam's rectification at 6

@@ -69,6 +69,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.parallel import
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.parallel import mesh
 from test_torch_step import _check_params, _np_tree, _port_state
 from test_torch_trainer import _config
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 CROP, C, BL, BU, PAD = 16, 3, 2, 3, 4
 FEATS = ("Conv5", "Up_conv2")
@@ -182,10 +183,9 @@ def test_masked_batchnorm_matches_plain_over_real_rows(shape):
 
 def test_fused_gate_refuses_a_padded_batch(tmp_path, monkeypatch):
     cuda = torch.device("cuda")
-    linear, lanes = [("linear", False), ("linear", False)], [100, 100]
-    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, lanes, padded=False) is None
-    assert "pad rows" in trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, lanes,
-                                                      padded=True)
+    linear = [("linear", False), ("linear", False)]
+    assert trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, padded=False) is None
+    assert "pad rows" in trainer_mod.fused_path_unmet(cuda, 1024, 224, linear, padded=True)
     seen = []
     monkeypatch.setattr(trainer_mod, "fused_path_unmet",
                         lambda *args: seen.append(args[-1]) or "refused")

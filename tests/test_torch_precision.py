@@ -132,6 +132,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.models import (
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_fused, mi_joint
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import unet_state_dict
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 DT = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 BF16_PAIRS = [("bfloat16", "float32"), ("bfloat16", "bfloat16")]

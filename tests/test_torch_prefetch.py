@@ -62,19 +62,9 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.parallel import
     prefetch_to_device,
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.utils import SummaryWriter
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 SURPLUS = 3  # depth 2 + the batch the worker holds
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs several test processes on
-    the machine's cores at once, and the trainers' steps on all cores in each
-    would oversubscribe them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -66,6 +66,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import 
     projection_head_state_dict,
     unet_state_dict,
 )
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 CROP, B, C = 32, 4, 3
 
@@ -81,14 +82,6 @@ def _jax_unet():
     return _np_tree(v), {k: np.asarray(feats[k]) for k in ("Conv5", "Up_conv3")}
 
 
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs several test processes on
-    the machine's cores at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 PARTS, GROUPS = ["0", "1", "2", "0"], ["p1", "p1", "p2", "p2"]
 
 

@@ -47,19 +47,9 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import (
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.models import UNet
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import iic_local, mi_joint
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 SEED = 10  # pretrain.yaml's RandomSeed
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads a test: the suite runs several test processes on
-    the machine's cores at once, and crop-224 steps on all cores in each
-    would oversubscribe them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import rotate
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 try:  # the JAX side; a card's machine without JAX runs only the cuda-marked test
     import jax.numpy as jnp

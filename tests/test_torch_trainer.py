@@ -22,6 +22,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.data.augment im
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer as trainer_mod
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import trainer_zoos
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 CROP = 32
 

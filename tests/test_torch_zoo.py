@@ -80,6 +80,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.models import (
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint, rotate
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops.losses import entropy
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.weights import unet_state_dict
+from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 EMA_WD = 1e-3  # large enough that the teacher's decay shows at rtol 1e-6
 CASES = {
