@@ -179,6 +179,17 @@ Phases, each printing JSON lines:
            launch) and the device-path step (shear, 2 rotation launches a
            rank), each against one process. Any rank's failure fails the
            phase; a rank's step ms is that of ranks time-sharing one card
+  space_parallel  the spatial H split on the one card: 4 gloo ranks on
+           cuda:0, each the full-width uda step (crop 224) on its rows and its
+           band of H of the 4 + 10 batch (a one-row halo a 3x3 convolution, the
+           H flip as a band swap), laid out as 2 x 2 and as 1 x 4 (Conv5
+           computed whole on every space rank), 2 x 2 in bf16 compute, and 2 x 2
+           on the device-data path with geometry shear (2 rotation launches a
+           rank), each against the one-process card step: losses and BN
+           statistics at STEPS_TOL, parameter moves at the step phase's bound,
+           summed gradients within PAR_GRAD_TOL (bf16: step_bf16's bounds);
+           each rank's step ms and the bytes its exchanges reduced; the udaiic
+           step under the split raises SpaceSplitUnsupported
   train_parallel  the train phase's run through main.main under an NCCL
            group of world 1 set up as torchrun sets it: no data group (a
            rank that holds the whole batch runs the one-process step), the
@@ -2865,6 +2876,235 @@ def phase_parallel() -> dict:
             "rotate": device_rows[0]["launches"]["rotate"]}
 
 
+# --- the spatial H split: gloo ranks sharing the one card (parallel/halo.py) ---
+SPACE_WORLD = 4   # space_parallel: ranks, laid out as 2 x 2 and as 1 x 4 (data x space)
+# (name, space size, compute dtype, data path): 2 x 2 bands every level at crop 224
+# (Conv5: 7 rows a band); 1 x 4 computes Conv5 whole (Conv4's bands hold 7 rows)
+SPACE_RUNS = (("2x2", 2, "fp32", "host"), ("1x4", 4, "fp32", "host"),
+              ("2x2_bf16", 2, "bf16", "host"), ("2x2_device", 2, "fp32", "device"))
+SPACE_UDA_WEIGHT = 5.0  # semi.yaml's UDARegCriterion.weight
+
+
+def _space_build(device, ctx, dtype: str, store=None, mode: str = "uda", crop: int = 224):
+    """(model, named parameters, step) of the full-width uda trainer's step
+    (U-Net 1 -> 4, MSE at SPACE_UDA_WEIGHT, Adam at 1e-3) from the weights of
+    seed 0 on ``device`` under ``ctx``; ``store``: the device-data path at
+    ``crop`` with geometry shear. ``mode="udaiic"`` builds the IIC step (the
+    headline's taps and heads), which the H split refuses."""
+    import torch
+
+    models, optim, steps = port("models"), port("engine.optim"), port("engine.steps")
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    torch.manual_seed(0)
+    model = models.UNet(1, 4, dtype=dt, bn_dtype=dt).to(device)
+    params = list(model.named_parameters())
+    kw = dict(uda_criterion="mse", reg_weight=SPACE_UDA_WEIGHT)
+    if mode == "udaiic":
+        feats = ["Conv5", "Up_conv3", "Up_conv2"]
+        proj = models.ProjectorWrapper(feats, num_clusters=20, num_subheads=5).to(device)
+        params += list(proj.named_parameters(prefix="proj"))
+        kw = dict(projector=proj, feature_names=feats, feature_importance=[1.0, 0.5, 0.5],
+                  uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3])
+    opt = optim.build_optimizer([p for _, p in params],
+                                {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
+    step = steps.build_train_step(model, opt, mode, num_classes=4,
+                                  generator=torch.Generator(device=device), data_store=store,
+                                  crop=crop, geometry="shear", context=ctx, **kw)
+    return model, params, step
+
+
+def _space_run(device, ctx, batch_np, flips, dtype: str = "fp32", store=None, aug=None,
+               crop: int = 224) -> dict:
+    """One step of ``_space_build``'s uda step under ``ctx`` (None: one
+    process): a tensor batch placed by ``batch_sharding`` (the rank's rows
+    and band) or an index batch passed whole (``store``, ``aug`` the
+    injected draws). Its losses, parameter moves, summed gradients, BN
+    running statistics, rotation launches and the bytes the exchanges
+    reduced, then the wall ms of PAR_TIMED_STEPS more steps on the same
+    batch."""
+    import torch
+
+    mesh, halo, rot = port("parallel.mesh"), port("parallel.halo"), port("ops.rotate")
+    model, params, step = _space_build(device, ctx, dtype, store, crop=crop)
+    batch = (batch_np if store is not None
+             else mesh.batch_sharding(batch_np, ctx, device))
+    flip_mask = torch.from_numpy(flips).to(device)
+    before = {k: p.detach().float().cpu().clone() for k, p in params}
+    rot.reset_launch_counts()
+    halo.reset_exchange_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch, flip_mask=flip_mask, aug_params=aug)
+    torch.cuda.synchronize()
+    out = {"losses": {k: float(metrics[k]) for k in ("sup_loss", "uda", "total_loss")},
+           "moves": {k: p.detach().float().cpu() - before[k] for k, p in params},
+           "grads": {k: p.grad.detach().float().cpu() for k, p in params if p.grad is not None},
+           "bn_stats": torch.cat([v.detach().float().cpu().flatten() for k, v in
+                                  model.state_dict().items() if "running_" in k]),
+           "launches": {"rotate": rot.launch_count(rot.ROTATE)},
+           "exchanged_bytes": dict(halo.EXCHANGED), "first_step_ms": (time.perf_counter() - t0) * 1e3,
+           "rank": None if ctx is None else ctx.rank,
+           "band_rows": None if ctx is None or store is not None
+           else int(batch["labeled_image"].shape[1]), "step_ms": []}
+    for _ in range(PAR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(batch, flip_mask=flip_mask, aug_params=aug)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _space_rank(ctx, spawned_at: float, batch_np, flips, store_root: str, index_np, aug,
+                crop: int) -> dict:
+    """A rank of the SPACE_WORLD-rank run: each of SPACE_RUNS under its
+    split context (both layouts made on every rank, in the same order),
+    then the udaiic step built under the split, which must raise
+    ``SpaceSplitUnsupported``."""
+    ready = time.time()
+    _full_fp32()
+    mesh, halo = port("parallel.mesh"), port("parallel.halo")
+    data, dp = port("data"), port("data.device_pipeline")
+    grids = {s: mesh.split_context(ctx, s) for s in sorted({s for _, s, _, _ in SPACE_RUNS})}
+    out = {"startup_s": {"to_import": IMPORTED_AT - spawned_at,
+                         "import_to_ready": ready - IMPORTED_AT}}
+    store = dp.DeviceDataStore(data.ACDCDataset(store_root, "train"), device=ctx.device,
+                               pack=True)
+    aug = {k: {n: None if t is None else t.to(ctx.device) for n, t in v.items()}
+           for k, v in aug.items()}
+    for name, space, dtype, path in SPACE_RUNS:
+        grid = grids[space]
+        if path == "device":
+            out[name] = _space_run(ctx.device, grid, index_np, flips, dtype, store, aug, crop)
+        else:
+            out[name] = _space_run(ctx.device, grid, batch_np, flips, dtype, crop=crop)
+    try:
+        _space_build(ctx.device, grids[2], "fp32", mode="udaiic")
+        out["udaiic_refused"] = None
+    except halo.SpaceSplitUnsupported as e:
+        out["udaiic_refused"] = str(e)
+    return out
+
+
+def _space_compare(what: str, ref: dict, got: dict, launches: dict, ref_fp32=None) -> dict:
+    """A rank's split step against the one-process card step: its rotation
+    launches exactly; in fp32 losses and BN statistics at STEPS_TOL
+    (relative), parameter moves at the step phase's two-tier bound, every
+    summed gradient within PAR_GRAD_TOL (relative L2); in bf16 (``ref_fp32``,
+    the one-process fp32 step) the step_bf16 phase's bounds: losses and BN at
+    STEPS_TOL_BF16, the moves at STEP_BF16_LOOSE, below STEP_BF16_LIVENESS
+    of the fp32 step's share, the 1x1 head's at STEP_BF16_HEADS_LOOSE (the
+    gradients reported)."""
+    import numpy as np
+
+    tol = STEPS_TOL if ref_fp32 is None else STEPS_TOL_BF16
+    rel = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-12) for k, v in ref["losses"].items()}
+    diffs = np.concatenate([(got["moves"][k] - m).abs().flatten().numpy()
+                            for k, m in ref["moves"].items()])
+    loose = _loose_share(got["moves"], ref["moves"])
+    rel_stats = float((got["bn_stats"] - ref["bn_stats"]).norm() / ref["bn_stats"].norm())
+    grad_rel = {k: float((got["grads"][k] - g).norm() / max(float(g.norm()), 1e-30))
+                for k, g in ref["grads"].items()}
+    out = {"rank": got["rank"], "rel_err": rel, "param_delta_max_diff": float(diffs.max()),
+           "param_delta_loose_share": loose, "bn_stats_rel_err": rel_stats,
+           "grad_rel_l2_worst": sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3],
+           "launches": got["launches"], "exchanged_bytes_a_step": got["exchanged_bytes"],
+           "band_rows": got["band_rows"], "rank_first_step_ms": got["first_step_ms"],
+           "rank_step_ms": got["step_ms"]}
+    if ref_fp32 is None:
+        moves_ok = diffs.max() <= 2.05e-3 and loose < 0.005
+        grads_ok = (set(got["grads"]) == set(ref["grads"])
+                    and max(grad_rel.values()) <= PAR_GRAD_TOL)
+    else:
+        heads = [k for k in ref["moves"] if k.startswith("DeConv_1x1.")]
+        out.update(param_delta_loose_share_fp32=_loose_share(ref_fp32["moves"], ref["moves"]),
+                   param_delta_loose_share_heads=_loose_share(got["moves"], ref["moves"], heads))
+        moves_ok = (diffs.max() <= 2.05e-3 and loose <= STEP_BF16_LOOSE
+                    and loose < STEP_BF16_LIVENESS * out["param_delta_loose_share_fp32"]
+                    and out["param_delta_loose_share_heads"] <= STEP_BF16_HEADS_LOOSE)
+        grads_ok = set(got["grads"]) == set(ref["grads"])
+    ok = (got["launches"] == launches and all(v <= tol for v in rel.values()) and moves_ok
+          and rel_stats <= tol and grads_ok)
+    if not ok:
+        emit({"phase": "space_parallel_mismatch", "what": what, **out})
+    check(got["launches"] == launches, f"{what}: launches {got['launches']} (want {launches})")
+    check(all(v <= tol for v in rel.values()), f"{what} losses differ: {rel}")
+    check(moves_ok, f"{what} parameter moves: max {diffs.max()}, loose share {loose}")
+    check(rel_stats <= tol, f"{what} BN statistics differ by {rel_stats}")
+    check(grads_ok, f"{what} summed gradients: {out['grad_rel_l2_worst'][0]} "
+                    f"(bound {PAR_GRAD_TOL}), tensors {len(got['grads'])} of {len(ref['grads'])}")
+    return out
+
+
+def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
+    """The spatial H split on the one card: SPACE_WORLD gloo ranks on
+    cuda:0 in one spawn, each the full-width uda step at crop 224 on its
+    rows and band of H of the 4 + 10 batch (every unlabeled row flipped in
+    H, so the band swap runs on each), laid out as 2 x 2 and 1 x 4 (Conv5
+    computed whole), 2 x 2 in bf16 compute, and 2 x 2 on the device-data
+    path with geometry shear (every rank of a column rotates its rows whole:
+    2 rotation launches a rank); each against the one-process card step
+    from the same weights, batch, draws and flip mask (``_space_compare``).
+    Then the udaiic step under the split must raise
+    ``SpaceSplitUnsupported``. A rank's step ms is that of SPACE_WORLD
+    processes time-sharing one card through gloo, not a scaling figure.
+    Returns the rotation's launches on one rank of the device run.
+    ``device`` / ``crop``: where and at what crop (a rehearsal on the CPU
+    runs ``cpu`` at a small crop, where the rotation launches no kernel)."""
+    import numpy as np
+    import torch
+
+    dryrun = port("parallel.dryrun")
+    data, dp, aug_mod = port("data"), port("data.device_pipeline"), port("ops.augment_device")
+    build_dir = Path(import_module(PORT).PROJECT_PATH) / "build"
+    batch, flips = _par_batch(4, 10, crop, seed=4)
+    flips[:, 0] = True  # the H flip on every unlabeled row: the band swap runs on each
+    root = build_dir / "chip_smoke_space"
+    data.generate_synthetic_acdc(str(root), num_train_patients=3, num_val_patients=1,
+                                 slices_per_patient=4, size=256)
+    cpu_store = dp.DeviceDataStore(data.ACDCDataset(str(root), "train"), pack=True)
+    rng = np.random.default_rng(5)
+    index_np = {"labeled_indices": rng.integers(0, len(cpu_store), 4),
+                "unlabeled_indices": rng.integers(0, len(cpu_store), 10)}
+    gen = torch.Generator().manual_seed(6)
+    aug = {k[:-len("_indices")]: aug_mod.sample_augment_params(
+               gen, len(v), cpu_store.shape, crop=crop, valid_hw=cpu_store.valid_hw_dev[v],
+               offsets=cpu_store.offsets_dev[v]) for k, v in index_np.items()}
+    spawned_at = time.time()
+    t0 = time.perf_counter()
+    ranks = dryrun.run_ranks(_space_rank, SPACE_WORLD, spawned_at, batch, flips, str(root),
+                             index_np, aug, crop, device=f"{device}:0" if device == "cuda"
+                             else device, timeout=PAR_TIMEOUT, threads=2)
+    spawn_wall = time.perf_counter() - t0
+    # the one-process references, after the ranks have left the card
+    refs = {"fp32": _space_run(device, None, batch, flips, crop=crop),
+            "bf16": _space_run(device, None, batch, flips, "bf16", crop=crop)}
+    store = dp.DeviceDataStore(data.ACDCDataset(str(root), "train"), device=device, pack=True)
+    dev_aug = {k: {n: None if t is None else t.to(device) for n, t in v.items()}
+               for k, v in aug.items()}
+    refs["device"] = _space_run(device, None, index_np, flips, store=store, aug=dev_aug,
+                                crop=crop)
+    rows = {}
+    for name, space, dtype, path in SPACE_RUNS:
+        ref = refs["device" if path == "device" else dtype]
+        want = {"rotate": 2 if path == "device" else 0}
+        rows[name] = [_space_compare(f"space_parallel {name} rank {r[name]['rank']}", ref, r[name],
+                                     want, refs["fp32"] if dtype == "bf16" else None)
+                      for r in ranks]
+    for r in ranks:
+        check(r["udaiic_refused"] is not None and "halo of p rows" in r["udaiic_refused"],
+              f"space_parallel: udaiic under the split gave {r['udaiic_refused']!r}")
+    emit({"phase": "space_parallel", "world": SPACE_WORLD, "batch": [4, 10], "crop": crop,
+          "mode": "uda", "backend": "gloo", "device": device, "nvidia_smi": nvidia_smi(),
+          "note": ("rank_*step_ms: a rank's step while all ranks time-share one card through "
+                   "gloo (not a scaling figure); exchanged_bytes_a_step: the bytes of the "
+                   "space group's all_reduce buffers a rank reduced in the checked step"),
+          "one_process": {k: {"first_step_ms": v["first_step_ms"], "step_ms": v["step_ms"],
+                              "losses": v["losses"]} for k, v in refs.items()},
+          "runs": rows, "udaiic_refused": ranks[0]["udaiic_refused"],
+          "rank_startup_s": [r["startup_s"] for r in ranks], "spawn_wall_s": spawn_wall})
+    return {"rotate": rows["2x2_device"][0]["launches"]["rotate"]}
+
+
 @contextmanager
 def _torchrun_world1(module):
     """The variables ``torchrun`` sets for a world of 1 (RANK, WORLD_SIZE,
@@ -3324,7 +3564,8 @@ def main(argv=None) -> int:
                                               "train_fused,train_fused_wide,train_device,"
                                               "train_bf16,train_remat,"
                                               "resume,inference,train_zoo,pretrain,optim,arch_zoo,"
-                                              "host_tier,parallel,train_parallel,"
+                                              "host_tier,parallel,space_parallel,"
+                                              "train_parallel,"
                                               "pretrain_parallel,profile")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--steps", type=int, default=8)
@@ -3449,6 +3690,10 @@ def main(argv=None) -> int:
     if "parallel" in phases:
         with timed(walls, "parallel"):
             par_launches = phase_parallel()
+    space_launches = {}
+    if "space_parallel" in phases:
+        with timed(walls, "space_parallel"):
+            space_launches = phase_space_parallel()
     if "train_parallel" in phases:
         with timed(walls, "train_parallel"):
             phase_train_parallel(args.steps, train_out)
@@ -3514,6 +3759,8 @@ def main(argv=None) -> int:
                      launches=rot_launches.get((r["name"], r["batch"]), 0),
                      meanteacher_launches=zoo_rot_launches.get((r["name"], r["batch"]), 0),
                      parallel_rank_launches_all_rotations=par_launches.get("rotate")
+                     if r["name"] == "rotate_shear" else None,
+                     space_parallel_rank_launches_all_rotations=space_launches.get("rotate")
                      if r["name"] == "rotate_shear" else None,
                      on_main_path=r["name"] == "rotate_shear")
                 for r in rotation_rows]

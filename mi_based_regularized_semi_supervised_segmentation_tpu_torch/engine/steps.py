@@ -50,6 +50,21 @@ summed over the data group in one flat ``all_reduce`` (the metrics ride in
 it), never averaged. Reported losses and dice sums are the global values.
 The eval steps sum each patient's masked loss and I/U over the ranks'
 slices.
+
+The spatial H split (a context of ``parallel/mesh.py:split_context``, the
+counterpart of the JAX ``batch_sharding(mesh, space_axis="space")``): a
+tensor batch holds the rank's rows and its band of H (``batch_sharding``);
+an index batch holds the global indices, and every space rank of a data
+rank augments its rows whole (one rotation launch a sub-batch with
+``geometry=shear``) and keeps its band. The U-Net runs on the band
+(``models/unet.py``), the H flips swap bands (``ops/flips.py``), each mean
+divides the rank's masked sum by the global count of real rows x H x W, and
+the gradients, losses and dice sums are summed over the world (data x
+space). The per-pixel modes run under it (``partial``, ``uda``,
+``entropy``, ``meanteacher``, whose teacher runs on the band too); ``iic``
+and ``udaiic``, whose joints over a band would need a halo of p rows, and
+any model but a U-Net without remat on the conv stem raise
+``SpaceSplitUnsupported`` when the step is built.
 """
 
 from __future__ import annotations
@@ -58,9 +73,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..models.unet import ENCODER_NAMES
+from ..models.unet import ENCODER_NAMES, check_space_split
 from ..ops.augment_device import apply_augment, center_crop_batch, sample_augment_params
 from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
@@ -70,7 +86,8 @@ from ..ops.iic_local import (
     iid_segmentation_small_patch_loss_subheads,
 )
 from ..ops.losses import entropy, kl_div
-from ..parallel.mesh import DistContext, reduce_grads_, reduce_sum_, single_context
+from ..parallel.halo import SpaceSplitUnsupported
+from ..parallel.mesh import DistContext, local_band, reduce_grads_, reduce_sum_, single_context
 from ..utils.general import class2one_hot
 
 MODES = ("partial", "uda", "iic", "udaiic", "entropy", "meanteacher")
@@ -222,7 +239,8 @@ def build_train_step(
     ``n_labeled_valid`` / ``n_unlabeled_valid``: how many leading rows of
     each global sub-batch are real (pad-and-mask; None: all).
     ``context``: the data-parallel context (None: one process). With it a
-    tensor batch holds the rank's rows, an index batch the global indices.
+    tensor batch holds the rank's rows (under the H split, and its band of
+    H), an index batch the global indices.
     ``teacher`` (meanteacher only): the EMA model, a copy of ``model``.
     ``step_counter``: a 0-d int64 CPU tensor, the global step, incremented
     in place by every step (the EMA schedule reads it); the caller keeps it
@@ -240,6 +258,14 @@ def build_train_step(
         step_counter = torch.zeros((), dtype=torch.int64)
     ctx = context or single_context()
     group, world = ctx.group, ctx.data_world
+    space = ctx if ctx.split_h else None
+    if space is not None:
+        _check_split(model, teacher, mode)
+    # the group of the gradients' and metrics' sums and of the banded levels'
+    # BN: under the split every rank holds distinct pixels, so the world
+    sum_group = dist.group.WORLD if space is not None else group
+    bn = {"bn_group": sum_group, "space": space} if space is not None else {"bn_group": group}
+    bands = ctx.space_size if space is not None else 1  # a row's share a rank holds: 1 / bands
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def consistency(p_tf: torch.Tensor, p_target: torch.Tensor) -> torch.Tensor:
@@ -271,6 +297,8 @@ def build_train_step(
             unlabeled_image, _ = augment_from_store(
                 unlab_store, batch["unlabeled_indices"], crop, geometry, generator,
                 aug_params.get("unlabeled"), with_labels=False, rows=ctx.rows(n_unlab))
+            labeled_image, labeled_target, unlabeled_image = (
+                local_band(t, space) for t in (labeled_image, labeled_target, unlabeled_image))
         else:
             labeled_image = batch["labeled_image"]
             labeled_target = batch["labeled_target"]
@@ -285,7 +313,7 @@ def build_train_step(
             raise ValueError(f"flip_mask has {flip_mask.shape[0]} rows for a global unlabeled "
                              f"batch of {n_unlab}")
         flip_mask = flip_mask[unlab_rows].to(unlabeled_image.device)
-        unlabeled_image_tf = apply_flips(unlabeled_image, flip_mask)
+        unlabeled_image_tf = apply_flips(unlabeled_image, flip_mask, space)
 
         dev = unlabeled_image.device
         n_lab_valid = n_lab if n_labeled_valid is None else int(n_labeled_valid)
@@ -298,23 +326,24 @@ def build_train_step(
 
         def mean(per_row: torch.Tensor, mask: Optional[torch.Tensor], n_valid: int):
             """The global mean over the real rows of this rank's share: its
-            masked sum over the global element count."""
+            masked sum over the global element count (a band holds 1 / S of
+            a row's elements)."""
             if mask is not None:
                 per_row = per_row * mask.reshape((-1,) + (1,) * (per_row.dim() - 1))
-            return per_row.sum() / (n_valid * per_row[0].numel())
+            return per_row.sum() / (n_valid * per_row[0].numel() * bands)
 
         if teacher is not None:
             teacher.train()
             with torch.no_grad():  # its BN running statistics move here
                 teacher_logits_tf = apply_flips(
-                    teacher(unlabeled_image, bn_mask=unlab_mask, bn_group=group), flip_mask)
+                    teacher(unlabeled_image, bn_mask=unlab_mask, **bn), flip_mask, space)
 
         model.train()
         if projector is not None:
             projector.train()
         optimizer.zero_grad(set_to_none=True)
         inputs = torch.cat([labeled_image, unlabeled_image, unlabeled_image_tf])
-        logits, features = model(inputs, return_features=True, bn_mask=bn_mask, bn_group=group)
+        logits, features = model(inputs, return_features=True, bn_mask=bn_mask, **bn)
         label_logits = logits[:n_labeled]
         unlabel_logits = logits[n_labeled:n_labeled + n_unlabeled]
         unlabel_tf_logits = logits[n_labeled + n_unlabeled:]
@@ -327,7 +356,7 @@ def build_train_step(
         total_weight = reg_weight
         if needs_uda:
             target_logits = (teacher_logits_tf if teacher is not None
-                             else apply_flips(unlabel_logits, flip_mask))
+                             else apply_flips(unlabel_logits, flip_mask, space))
             uda_loss = mean(consistency(torch.softmax(unlabel_tf_logits, -1),
                                         torch.softmax(target_logits, -1)),
                             unlab_mask, n_unlab_valid)
@@ -364,11 +393,11 @@ def build_train_step(
         with torch.no_grad():
             inter, union = dice_stats(label_logits.argmax(-1), labeled_target, num_classes,
                                       mask=lab_mask)
-        if group is not None:  # the gradients, with every rank's shares of the metrics
+        if sum_group is not None:  # the gradients, with every rank's shares of the metrics
             keys = list(metrics)
             rows = [inter.new_zeros((n_lab, num_classes)) for _ in range(2)]
             rows[0][lab_rows], rows[1][lab_rows] = inter, union
-            riders = reduce_grads_(params, group, torch.cat(
+            riders = reduce_grads_(params, sum_group, torch.cat(
                 [torch.stack([metrics[k].float() for k in keys])]
                 + [r.reshape(-1).float() for r in rows]))
             metrics = dict(zip(keys, riders[:len(keys)].unbind()))
@@ -383,6 +412,19 @@ def build_train_step(
         return metrics
 
     return step
+
+
+def _check_split(model: torch.nn.Module, teacher: Optional[torch.nn.Module], mode: str) -> None:
+    """``SpaceSplitUnsupported`` for what the H split does not run: the IIC
+    modes, and any model but a U-Net without remat on the conv stem."""
+    if mode in ("iic", "udaiic"):
+        raise SpaceSplitUnsupported(
+            f"mode {mode!r} under the H split: a displaced joint over a band needs a halo of "
+            "p rows, which no exchange provides (the per-pixel modes partial, uda, entropy "
+            "and meanteacher run split)")
+    for m in (model, teacher):
+        if m is not None:
+            check_space_split(m)
 
 
 @torch.no_grad()
@@ -530,7 +572,8 @@ def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused",
     "unlabeled_image"}: the device augmentation alone, drawn from a generator
     seeded from (seed, i) rather than from the step's generator, so batch
     i + 1 can be augmented before step i runs. Under ``context`` the draws
-    cover the global index batch and the rank's rows are augmented."""
+    cover the global index batch and the rank's rows are augmented (under
+    the H split, whole, and their band kept)."""
     lab_store, unlab_store = _stores(data_store)
     ctx = context or single_context()
 
@@ -542,7 +585,8 @@ def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused",
                                            rows=ctx.rows(len(lab)))
         unlabeled, _ = augment_from_store(unlab_store, unlab, crop, geometry, gen,
                                           with_labels=False, rows=ctx.rows(len(unlab)))
-        return {"labeled_image": image, "labeled_target": target, "unlabeled_image": unlabeled}
+        return {"labeled_image": local_band(image, ctx), "labeled_target": local_band(target, ctx),
+                "unlabeled_image": local_band(unlabeled, ctx)}
 
     return aug
 
@@ -576,7 +620,8 @@ def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 2
     call the repeats of a slice share one transform (the original project
     draws one per sample). ``step_fn`` is a tensor-batch step (no store).
     Under ``context`` every rank augments the whole store alike and each
-    step takes the rank's rows of the global index batch."""
+    step takes the rank's rows of the global index batch (under the H
+    split, their band)."""
     lab_store, unlab_store = _stores(data_store)
     ctx = context or single_context()
 
@@ -589,8 +634,9 @@ def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 2
             li = batches["labeled_indices"][i].long()
             ui = batches["unlabeled_indices"][i].long()
             li, ui = li[ctx.rows(len(li))], ui[ctx.rows(len(ui))]
-            out.append(step_fn({"labeled_image": lab_img[li], "labeled_target": lab_tgt[li],
-                                "unlabeled_image": unlab_img[ui]}))
+            out.append(step_fn({"labeled_image": local_band(lab_img[li], ctx),
+                                "labeled_target": local_band(lab_tgt[li], ctx),
+                                "unlabeled_image": local_band(unlab_img[ui], ctx)}))
         return _stack(out)
 
     return epoch

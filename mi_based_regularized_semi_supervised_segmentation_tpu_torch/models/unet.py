@@ -40,6 +40,29 @@ rows are normalized but enter no statistic, flax's ``BatchNorm(mask=)``);
 ``bn_group`` sums the statistics' sums and counts over the ranks of a
 process group (``parallel/mesh.py:all_reduce_sum``), so every rank
 normalizes with, and keeps running statistics of, the global batch.
+
+The spatial H split (``forward(..., space=)``, a context of
+``parallel/mesh.py:split_context``): the input is the rank's band of H.
+Level l of the U-Net (Conv1 .. Conv5 at H / 2^l rows, with the decoder
+block that returns to it) runs on bands while ``band_levels`` says so:
+while its rows split into S equal bands, so that every band above it has
+an even height and starts on an even row, and the max-pool and the
+nearest x2 upsample between banded levels stay within a band. There each
+3x3 convolution takes a one-row halo from its neighbours
+(``parallel/halo.py:halo_exchange``) and pads W alone, and BN sums its
+statistics over the world (every rank holds distinct pixels). A deeper
+level is computed whole on every space rank: the last band's output is
+gathered (``gather_h``), pooled, and BN sums over the data group (a space
+rank's copy of the whole map counts each pixel once there); the decoder's
+upsample back to the first banded level keeps the rank's band
+(``band_slice``). Crop 16 at S = 2 (16, 8, 4, 2, 1 rows) and crop 224 at
+S = 4 (224, 112, 56, 28, 14) compute Conv5 whole. The gradients of a
+whole level are each rank's share (its own band's loss): BN's backward
+sums them over the data group like its forward, and ``gather_h``'s
+backward sums them over the space group, so each band gets the whole
+gradient. The logits and the taps of the banded levels are the rank's
+bands; a whole level's tap is the whole map. ``remat`` and ``stem="s2d"``
+under the split raise ``SpaceSplitUnsupported``.
 """
 
 from __future__ import annotations
@@ -53,6 +76,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.halo import SpaceSplitUnsupported, band_slice, gather_h, halo_exchange
 from ..parallel.mesh import all_reduce_sum
 
 UNET_DIMENSIONS: Dict[str, int] = {
@@ -139,14 +163,19 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class Conv2d(nn.Conv2d):
     """3x3 convolution without bias computing in ``dtype``: input and weight
-    are cast at the call, the weight stays fp32 (flax's ``param_dtype``)."""
+    are cast at the call, the weight stays fp32 (flax's ``param_dtype``).
+    ``space``: the input is a band of H; its rows are padded by a halo from
+    the neighbouring bands, its columns by zeros."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32) -> None:
         super().__init__(in_ch, out_ch, 3, padding=1, bias=False)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         dt = self.compute_dtype
+        if space is not None:
+            return F.conv2d(halo_exchange(x.to(dt), space), self.weight.to(dt), None,
+                            padding=(0, 1))
         return self._conv_forward(x.to(dt), self.weight.to(dt), None)
 
 
@@ -162,8 +191,8 @@ class ConvBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
-        return _run_layers(self.conv, x, mask, group)
+                group=None, space=None) -> torch.Tensor:
+        return _run_layers(self.conv, x, mask, group, space)
 
 
 class UpConv(nn.Module):
@@ -178,18 +207,53 @@ class UpConv(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
-        return _run_layers(self.up, x, mask, group)
+                group=None, space=None) -> torch.Tensor:
+        return _run_layers(self.up, x, mask, group, space)
 
 
 def _run_layers(layers: nn.Sequential, x: torch.Tensor, mask: Optional[torch.Tensor],
-                group) -> torch.Tensor:
-    """``layers(x)``, with ``mask`` and ``group`` handed to each BN layer."""
-    if mask is None and group is None:
+                group, space=None) -> torch.Tensor:
+    """``layers(x)``, with ``mask`` and ``group`` handed to each BN layer and
+    ``space`` (the input is a band) to each convolution."""
+    if mask is None and group is None and space is None:
         return layers(x)
     for layer in layers:
-        x = layer(x, mask, group) if isinstance(layer, BatchNorm2d) else layer(x)
+        if isinstance(layer, BatchNorm2d):
+            x = layer(x, mask, group)
+        elif isinstance(layer, Conv2d):
+            x = layer(x, space)
+        else:
+            x = layer(x)
     return x
+
+
+def band_levels(height: int, space_size: int, depth: int = 5) -> int:
+    """How many of the U-Net's ``depth`` levels, level l at height / 2^l
+    rows, run on bands under an H split over ``space_size`` ranks: the
+    leading levels whose rows split into ``space_size`` equal bands (a band
+    above a banded level then has an even height and starts on an even row,
+    so the pool and the upsample between them stay within it). The rest are
+    computed whole. ``ValueError`` when the bands cannot split ``height``."""
+    if height % space_size:
+        raise ValueError(f"H = {height} does not split into {space_size} equal bands")
+    levels, rows = 0, height
+    while levels < depth and rows % space_size == 0:
+        levels += 1
+        if rows % 2:
+            break
+        rows //= 2
+    return levels
+
+
+def check_space_split(model: nn.Module) -> None:
+    """``SpaceSplitUnsupported`` unless ``model`` is a U-Net without remat
+    on the conv stem: the one model the H split runs."""
+    if not isinstance(model, UNet):
+        raise SpaceSplitUnsupported(f"the H split runs the U-Net only, not {type(model).__name__}")
+    if model.remat or model.stem != "conv":
+        raise SpaceSplitUnsupported(
+            f"the H split runs the U-Net without remat and with the conv stem, not "
+            f"remat={model.remat}, stem={model.stem!r}")
 
 
 def _remat(block: nn.Module, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -259,29 +323,52 @@ class UNet(nn.Module):
         nn.init.zeros_(self.DeConv_1x1.bias)
 
     def forward(self, x: torch.Tensor, return_features: bool = False,
-                bn_mask: Optional[torch.Tensor] = None, bn_group=None
+                bn_mask: Optional[torch.Tensor] = None, bn_group=None, space=None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
         """x: [B, H, W, input_dim]. Returns fp32 logits [B, H, W, C] and, with
         ``return_features``, the nine named taps, each [B, h, w, c].
         ``bn_mask`` [B] (the real rows) and ``bn_group`` (a process group)
-        reach every train-mode BN layer (``BatchNorm2d._masked_forward``)."""
+        reach every train-mode BN layer (``BatchNorm2d._masked_forward``).
+        ``space``: an H-split context; ``x`` is then the rank's band of H,
+        ``bn_group`` the group of the levels on bands (the world: every rank
+        holds distinct pixels) and ``space.group`` that of the levels
+        computed whole (the module docstring)."""
+        if space is not None:
+            check_space_split(self)
         x = x.to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 2)
         x = x.permute(0, 3, 1, 2)
-        if self.remat and self.training and torch.is_grad_enabled():
-            blk = lambda block, inp: _remat(block, inp, bn_mask, bn_group)
-        else:
-            blk = lambda block, inp: block(inp, bn_mask, bn_group)
-        e1 = blk(self.Conv1, x)
-        e2 = blk(self.Conv2, F.max_pool2d(e1, 2))
-        e3 = blk(self.Conv3, F.max_pool2d(e2, 2))
-        e4 = blk(self.Conv4, F.max_pool2d(e3, 2))
-        e5 = blk(self.Conv5, F.max_pool2d(e4, 2))
-        d5 = blk(self.Up_conv5, torch.cat([e4, blk(self.Up5, e5)], dim=1))
-        d4 = blk(self.Up_conv4, torch.cat([e3, blk(self.Up4, d5)], dim=1))
-        d3 = blk(self.Up_conv3, torch.cat([e2, blk(self.Up3, d4)], dim=1))
-        d2 = blk(self.Up_conv2, torch.cat([e1, blk(self.Up2, d3)], dim=1))
+        # levels below ``banded`` run on bands (all of them without the split)
+        # with BN over ``bn_group``; the deeper ones whole, BN over the data group
+        banded = 5 if space is None else band_levels(x.shape[2] * space.space_size,
+                                                     space.space_size)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+
+        def blk(block, inp, level: int):
+            if level >= banded:
+                return block(inp, bn_mask, space.group)
+            if remat:
+                return _remat(block, inp, bn_mask, bn_group)
+            return block(inp, bn_mask, bn_group, space)
+
+        def down(e, level: int):  # level - 1's output -> level's input
+            return F.max_pool2d(gather_h(e, space) if level == banded else e, 2)
+
+        def up(block, d, level: int):  # level + 1's output -> level's
+            if level + 1 != banded:
+                return blk(block, d, level)
+            whole = F.interpolate(d, scale_factor=2.0, mode="nearest")
+            return _run_layers(block.up[1:], band_slice(whole, space), bn_mask, bn_group, space)
+
+        e = [blk(self.Conv1, x, 0)]
+        for level, block in enumerate((self.Conv2, self.Conv3, self.Conv4, self.Conv5), 1):
+            e.append(blk(block, down(e[-1], level), level))
+        e1, e2, e3, e4, e5 = e
+        d5 = blk(self.Up_conv5, torch.cat([e4, up(self.Up5, e5, 3)], dim=1), 3)
+        d4 = blk(self.Up_conv4, torch.cat([e3, up(self.Up4, d5, 2)], dim=1), 2)
+        d3 = blk(self.Up_conv3, torch.cat([e2, up(self.Up3, d4, 1)], dim=1), 1)
+        d2 = blk(self.Up_conv2, torch.cat([e1, up(self.Up2, d3, 0)], dim=1), 0)
         head, dt = self.DeConv_1x1, self.dtype
         logits = F.conv2d(d2.to(dt), head.weight.to(dt)) + head.bias.to(dt)[:, None, None]
         logits = logits.permute(0, 2, 3, 1)

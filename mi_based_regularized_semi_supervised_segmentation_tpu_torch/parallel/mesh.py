@@ -28,7 +28,19 @@ on its rows of the global batch and the step sums over the ranks itself:
   enters a rank's loss as its share of the global value, so the objective
   is the sum of the ranks' losses.
 - ``replicate_state`` broadcasts parameters, buffers and optimizer state
-  from rank 0.
+  from rank 0 over the whole world (the counterpart of the JAX
+  ``replicate_sharding``: every rank, data and space, holds the state).
+
+The spatial H split (the JAX ``batch_sharding(mesh, space_axis="space")``,
+``P(data, space)``): ``split_context`` lays the world out as the
+[world / S, S] grid with the split on. Data rank d's S space ranks
+(``[d * S, (d + 1) * S)``, the ``space_group``) share its rows, and space rank
+s holds the band ``[s * H / S, (s + 1) * H / S)`` of H of every per-pixel
+array (``batch_sharding``, ``local_band``). The train step then exchanges
+halos and sums over the world (``parallel/halo.py``,
+``models/unet.py``, ``engine/steps.py``). Without the split (every context
+``init_distributed`` returns) the space ranks of a column take the same
+whole rows, as the trainers of both packages do.
 
 ``prefetch_to_device`` runs a host iterator (PNG decode, augmentation,
 stacking) on a daemon thread, ``DEPTH`` batches ahead of the consumer, so
@@ -69,7 +81,10 @@ import torch.distributed as dist
 @dataclass
 class DistContext:
     """Where a process stands in the run. ``group`` is its data-axis process
-    group, None when the data world is 1 (no collective is made)."""
+    group, None when the data world is 1 (no collective is made). Under the
+    H split (``split_h``, made by ``split_context``): ``space_group``, the
+    space ranks of its data rank (the sums over data x space use the default
+    group, every rank)."""
 
     world: int = 1
     rank: int = 0
@@ -78,6 +93,8 @@ class DistContext:
     space_size: int = 1
     group: Optional[Any] = None
     owns_group: bool = False  # init_distributed joined the group: close() leaves it
+    space_group: Optional[Any] = None
+    split_h: bool = False
 
     @property
     def data_world(self) -> int:
@@ -86,6 +103,20 @@ class DistContext:
     @property
     def data_rank(self) -> int:
         return self.rank // self.space_size
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space_size
+
+    def band(self, height: int) -> slice:
+        """This rank's band of ``height`` rows under the split (all of them
+        without it). ``ValueError`` when the bands cannot split ``height``."""
+        if not self.split_h:
+            return slice(0, height)
+        if height % self.space_size:
+            raise ValueError(f"H = {height} does not split into {self.space_size} equal bands")
+        rows = height // self.space_size
+        return slice(self.space_rank * rows, (self.space_rank + 1) * rows)
 
     @property
     def is_main(self) -> bool:
@@ -141,6 +172,30 @@ def _data_group(world: int, rank: int, space_size: int):
         if rank in ranks:
             mine = group
     return mine
+
+
+def split_context(context: DistContext, space_size: int) -> DistContext:
+    """The context of ``context``'s world laid out as the [world /
+    ``space_size``, ``space_size``] grid with the H split on (the JAX
+    ``batch_sharding(mesh, space_axis="space")``). Collective: every rank of
+    the world calls it, in the same order, since every rank creates every
+    group. The data group is ``_data_group``'s; each data rank's space group
+    holds ranks ``[d * S, (d + 1) * S)``. ``ValueError`` when ``space_size``
+    is below 2 or does not divide the world."""
+    world, rank = context.world, context.rank
+    if space_size < 2 or world % space_size:
+        raise ValueError(f"the H split needs a space size of 2 or more that divides the world "
+                         f"size {world}, not {space_size}")
+    mine = None
+    for d in range(world // space_size):
+        ranks = list(range(d * space_size, (d + 1) * space_size))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return DistContext(world=world, rank=rank, local_rank=context.local_rank,
+                       device=context.device, space_size=space_size,
+                       group=_data_group(world, rank, space_size), space_group=mine,
+                       split_h=True)
 
 
 def init_distributed(device="cuda", backend: Optional[str] = None, space_size: int = 1, *,
@@ -265,6 +320,28 @@ def shard_batch(batch: Dict[str, Any], context: Optional[DistContext],
     return out
 
 
+def local_band(x, context: Optional[DistContext], dim: int = 1):
+    """``x`` (numpy or tensor) cut to the rank's band of H along ``dim``
+    (all of it without the split)."""
+    if context is None or not context.split_h:
+        return x
+    band = context.band(x.shape[dim])
+    index = (slice(None),) * dim + (band,)
+    return x[index]
+
+
+def batch_sharding(batch: Dict[str, Any], context: Optional[DistContext],
+                   device=None) -> Dict[str, Any]:
+    """The counterpart of the JAX ``batch_sharding(mesh, space_axis=...)``
+    applied to a host batch: under the split, the rank's band of H (axis 1)
+    of every array of rank 3 or more (the images [B, H, W, 1], the targets
+    [B, H, W] and any per-pixel mask), then ``shard_batch``: the rank's rows,
+    on ``device``."""
+    banded = {k: local_band(v, context) if _is_array(v) and v.ndim >= 3 else v
+              for k, v in batch.items()}
+    return shard_batch(banded, context, device)
+
+
 def _broadcast_(t: torch.Tensor, device: torch.device) -> None:
     """``t`` from rank 0, in place; a CPU tensor travels through ``device``
     when the backend needs it there (nccl)."""
@@ -325,9 +402,16 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` summed over ``group`` in place, no gradient (metrics)."""
-    if group is not None:
-        dist.all_reduce(x, group=group)
+    """``x`` summed over ``group`` in place, no gradient. A bf16 or fp16
+    ``x`` is summed in fp32 (gloo sums neither; exact for a gather's sum with
+    zeros)."""
+    if group is None:
+        return x
+    if x.dtype in (torch.bfloat16, torch.float16):
+        wire = x.float()
+        dist.all_reduce(wire, group=group)
+        return x.copy_(wire)
+    dist.all_reduce(x, group=group)
     return x
 
 
@@ -353,39 +437,56 @@ def reduce_grads_(params: Sequence[torch.nn.Parameter], group,
     return None if riders is None else flat[at:]
 
 
-class _AllGatherRows(torch.autograd.Function):
+def gather_parts(part: torch.Tensor, group, parts: int, index: int,
+                 dim: int = 0) -> torch.Tensor:
+    """The whole of a tensor cut into ``parts`` equal parts along ``dim``
+    over the ranks of ``group``, ``part`` being the ``index``-th: each rank
+    writes its part into zeros and the group sums them (exact, and any
+    backend sums)."""
+    size = part.shape[dim]
+    shape = list(part.shape)
+    shape[dim] = size * parts
+    whole = part.new_zeros(shape)
+    whole.narrow(dim, index * size, size).copy_(part)
+    return reduce_sum_(whole, group)
+
+
+class _GatherParts(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local: torch.Tensor, context: DistContext) -> torch.Tensor:
-        ctx.context = context
-        return gather_rows(local.detach(), context)
+    def forward(ctx, part: torch.Tensor, group, parts: int, index: int, dim: int):
+        ctx.group, ctx.dim, ctx.size, ctx.index = group, dim, part.shape[dim], index
+        return gather_parts(part.detach(), group, parts, index, dim)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        context = ctx.context
-        grad = reduce_sum_(grad.contiguous().clone(), context.group)
-        return grad[context.rows(grad.shape[0])], None
+        grad = reduce_sum_(grad.contiguous().clone(), ctx.group)
+        return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None, None
+
+
+def all_gather_parts(part: torch.Tensor, group, parts: int, index: int,
+                     dim: int = 0) -> torch.Tensor:
+    """``gather_parts`` with a gradient: every rank's loss may depend on
+    every part, so the backward sums the incoming gradients over ``group``
+    and gives each rank those of its own part."""
+    return _GatherParts.apply(part, group, parts, index, dim)
 
 
 def all_gather_rows(local: torch.Tensor, context: Optional[DistContext]) -> torch.Tensor:
     """The global batch of ``local`` (each data rank's rows of it, the same
-    count on every rank), in global row order, with a gradient: every rank's
-    loss may depend on every row, so the backward sums the incoming
-    gradients over the group and gives each rank those of its own rows. At a
-    data world of 1 (or no context) it is ``local`` itself."""
+    count on every rank), in global row order, with a gradient
+    (``all_gather_parts`` over the data group). At a data world of 1 (or no
+    context) it is ``local`` itself."""
     if context is None or context.group is None or context.data_world == 1:
         return local
-    return _AllGatherRows.apply(local, context)
+    return all_gather_parts(local, context.group, context.data_world, context.data_rank)
 
 
 def gather_rows(local: torch.Tensor, context: Optional[DistContext]) -> torch.Tensor:
-    """The global batch from each data rank's rows of it: each rank writes
-    its rows into zeros and the group sums them (any backend that sums)."""
+    """The global batch from each data rank's rows of it (``gather_parts``
+    over the data group)."""
     if context is None or context.group is None or context.data_world == 1:
         return local
-    n = local.shape[0]
-    full = local.new_zeros((n * context.data_world,) + tuple(local.shape[1:]))
-    full[context.rows(full.shape[0])] = local
-    return reduce_sum_(full, context.group)
+    return gather_parts(local, context.group, context.data_world, context.data_rank)
 
 
 DEPTH = 2  # the JAX package's queue depth; the surplus is DEPTH + 1 pulls

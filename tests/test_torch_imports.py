@@ -43,7 +43,8 @@ def test_every_port_module_imports_without_jax():
     for name in ("ops.mi_joint", "ops.mi_fused", "ops.rotate", "ops.augment_device",
                  "ops.affine", "data.device_pipeline", "engine.steps", "engine.pretrain",
                  "engine.optim", "models.zoo", "models.vgg", "utils.general", "weights", "main",
-                 "pretrain_main", "parallel.mesh", "data.native", "data.pil_augment",
+                 "pretrain_main", "parallel.mesh", "parallel.halo", "data.native",
+                 "data.pil_augment",
                  "utils.viewer", "utils.cluster"):
         assert f"{PORT_DIR.name}.{name}" in modules, name
     code = ("import importlib, sys\n"
