@@ -54,6 +54,12 @@ Phases, each printing JSON lines:
            [10, 38, 38, 100] at p = 3; C = S*K = 100 lanes) on fp32 and bf16
            operands: exactly on integer inputs, within TOL on probability
            maps, timed beside its bound and F.conv2d
+  kernels_band  the kernels on band operands of the H split (the 2 x 2
+           split's Up_conv2 band canvas [5, 118, 230, C], p = 3):
+           the joint on a halo'd A, the fused kernels with l1's window of
+           live rows open at the top, at the bottom and at both, at 128 and
+           256 lanes, fp32 and bf16 operands, against their plain versions
+           at the unsplit tolerances; timed at the window open at both
   step     one small udaiic train step on the card against the same step on
            the CPU (plain joint), same weights, batch and flip mask
   step_fused  the same with the decoder heads emitting logits (fused kernels
@@ -180,16 +186,18 @@ Phases, each printing JSON lines:
            rank), each against one process. Any rank's failure fails the
            phase; a rank's step ms is that of ranks time-sharing one card
   space_parallel  the spatial H split on the one card: 4 gloo ranks on
-           cuda:0, each the full-width uda step (crop 224) on its rows and its
-           band of H of the 4 + 10 batch (a one-row halo a 3x3 convolution, the
-           H flip as a band swap), laid out as 2 x 2 and as 1 x 4 (Conv5
-           computed whole on every space rank), 2 x 2 in bf16 compute, and 2 x 2
-           on the device-data path with geometry shear (2 rotation launches a
-           rank), each against the one-process card step: losses and BN
+           cuda:0, each the full-width headline udaiic step (crop 224) on its
+           rows and its band of H of the 4 + 10 batch (a one-row halo a 3x3
+           convolution, the H flip as a band swap, the IIC halves' halo of p
+           rows and the joints summed over the world), laid out as 2 x 2 (Conv5
+           on bands) and as 1 x 4 (Conv5 computed whole on every space rank),
+           2 x 2 in bf16 compute, 2 x 2 on the device-data path with geometry
+           shear (2 rotation launches a rank) and 2 x 2 with
+           Kernel.backend=pallas_fused, each against the one-process card
+           step: 6 joint (or fused) launches a rank a step, losses and BN
            statistics at STEPS_TOL, parameter moves at the step phase's bound,
            summed gradients within PAR_GRAD_TOL (bf16: step_bf16's bounds);
-           each rank's step ms and the bytes its exchanges reduced; the udaiic
-           step under the split raises SpaceSplitUnsupported
+           each rank's step ms and the bytes each exchange reduced
   train_parallel  the train phase's run through main.main under an NCCL
            group of world 1 set up as torchrun sets it: no data group (a
            rank that holds the whole batch runs the one-process step), the
@@ -506,14 +514,17 @@ def _exact_check(mj, n: int, wp: int, p: int, gen, lanes: int = LANES, dtype=Non
                   f"{x.dtype} vs {y.dtype}")
 
 
-def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool) -> dict:
-    """The joint's three products on square canvases [N, C]: for each, the
-    kernel call, the plain version (fp32, bwd by autograd, on operands
-    rounded as the mode rounds them), its result, and one PyTorch library
-    call of the same function with the unpacking of its output."""
+def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool,
+                 wp: int = 0) -> dict:
+    """The joint's three products on canvases [N, C] of [batch, hp, wp]
+    (square without ``wp``): for each, the kernel call, the plain version
+    (fp32, bwd by autograd, on operands rounded as the mode rounds them),
+    its result, and one PyTorch library call of the same function with the
+    unpacking of its output."""
     import torch
     import torch.nn.functional as F
 
+    wp = wp or hp
     n, c = a.shape
     d = (2 * p + 1) ** 2
     dot = torch.bfloat16 if bf16 else torch.float32
@@ -521,21 +532,21 @@ def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool) -> dict:
     # bf16 operands are taken as they are; their gradients come back bf16
     ar, br = (a, b) if a.dtype == torch.bfloat16 else (t.to(dot).float() for t in (a, b))
     ap, bp = ar.clone().requires_grad_(True), br.clone().requires_grad_(True)
-    ref = mj.displaced_joint_plain_flat(ap, bp, hp, p)
+    ref = mj.displaced_joint_plain_flat(ap, bp, wp, p)
     ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), gr, retain_graph=True)
-    nchw = lambda t: t.reshape(batch, hp, hp, c).permute(0, 3, 1, 2).to(dot)
+    nchw = lambda t: t.reshape(batch, hp, wp, c).permute(0, 3, 1, 2).to(dot)
     w = g.reshape(2 * p + 1, 2 * p + 1, c, c)
     return {
         mj.FWD: dict(
-            kernel=lambda: mj.mi_joint_fwd(a, b, hp, p, bf16),
-            plain=lambda: mj.displaced_joint_plain_flat(ar, br, hp, p),
+            kernel=lambda: mj.mi_joint_fwd(a, b, wp, p, bf16),
+            plain=lambda: mj.displaced_joint_plain_flat(ar, br, wp, p),
             want=ref.detach(),
             # the original project's joint: clusters as channels, the B maps
             # as one Hp x Wp filter per cluster
             library=lambda: F.conv2d(nchw(a).transpose(0, 1), nchw(b).transpose(0, 1), padding=p),
             unpack=lambda o: o.permute(2, 3, 0, 1).reshape(d, c, c)),
         mj.BWD_DX: dict(
-            kernel=lambda: mj.mi_joint_bwd(b, g, hp, p, True, bf16),
+            kernel=lambda: mj.mi_joint_bwd(b, g, wp, p, True, bf16),
             plain=lambda: torch.autograd.grad(ref, ap, gr, retain_graph=True),
             want=ref_da,
             # dx = B correlated with flipped g: a (2p+1)^2 C->C conv
@@ -543,7 +554,7 @@ def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool) -> dict:
                                      padding=p),
             unpack=lambda o: o.permute(0, 2, 3, 1).reshape(n, c)),
         mj.BWD_DX_TF: dict(
-            kernel=lambda: mj.mi_joint_bwd(a, g, hp, p, False, bf16),
+            kernel=lambda: mj.mi_joint_bwd(a, g, wp, p, False, bf16),
             plain=lambda: torch.autograd.grad(ref, bp, gr, retain_graph=True),
             want=ref_db,
             library=lambda: F.conv2d(nchw(a), w.permute(3, 2, 0, 1).to(dot), padding=p),
@@ -655,6 +666,132 @@ def phase_kernels(reps: int) -> list:
         del a, b, g, operands
         torch.cuda.empty_cache()
     return rows
+
+
+# the kernels on band operands: rank 0's Up_conv2 canvas of the 2 x 2 split of
+# the headline step (5 of the 10 unlabeled rows, 112 of the 224 rows, p = 3):
+# [5, 118, 230, C]; the flipped half's window of live rows open at the top
+# (the last band: its upper halo live), at the bottom (the first band) or at
+# both (a middle band of S > 2)
+BAND = ("Up_conv2 band", 5, 112, 224, 3)
+BAND_WINDOWS = ("top", "bottom", "both")
+
+
+def _band_window(which: str, hp: int, p: int):
+    return {"top": (0, hp - p), "bottom": (p, hp), "both": (0, hp)}[which]
+
+
+def _band_probs(batch: int, hp: int, wp: int, p: int, rows, gen, lanes: int = LANES):
+    """Probabilities as the split's training path feeds the joint: the
+    per-subhead softmax, dead lanes 0, live on ``rows`` x [p, wp - p) of
+    each [hp, wp] canvas, zero elsewhere."""
+    import torch
+
+    z = torch.randn((batch, hp, wp, SUBHEADS, CLUSTERS), generator=gen, device="cuda")
+    probs = torch.softmax(z, -1).reshape(batch, hp, wp, SUBHEADS * CLUSTERS)
+    probs = torch.nn.functional.pad(probs, (0, lanes - SUBHEADS * CLUSTERS))
+    valid = torch.zeros((1, hp, wp, 1), device="cuda")
+    valid[:, rows[0]:rows[1], p:wp - p] = 1.0
+    return (probs * valid).reshape(-1, lanes).contiguous()
+
+
+def phase_kernels_band(reps: int) -> list:
+    """The joint and the fused kernels on a band of the H split (BAND): the
+    joint's three products on a halo'd A (live on the window's rows) and a
+    zero-bordered B, the fused kernels (fwd, dl2, dl1) with l1's window, at
+    128 and 256 lanes, on fp32 and bf16 operands, each window of
+    BAND_WINDOWS, against their plain versions at the unsplit tolerances,
+    each timed beside its plain version (the joint's beside its library
+    call; the fused kernels' at the "both" window). Returns the rows of the
+    "both" window."""
+    import torch
+
+    mj, mf = port("ops.mi_joint"), port("ops.mi_fused")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    label, batch, rows_band, width, p = BAND
+    hp, wp = rows_band + 2 * p, width + 2 * p
+    n, d = batch * hp * wp, (2 * p + 1) ** 2
+    replaces = {mf.FWD: f"{JAX_FUSED}:215", mf.BWD_DL2: f"{JAX_FUSED}:254",
+                mf.BWD_DL1: f"{JAX_FUSED}:275"}
+    out = []
+    for which in BAND_WINDOWS:
+        rows1 = _band_window(which, hp, p)
+        # the joint: A live on its window, B on its interior
+        a = _band_probs(batch, hp, wp, p, rows1, gen)
+        b = _band_probs(batch, hp, wp, p, (p, hp - p), gen)
+        g = torch.randn((d, LANES, LANES), generator=gen, device="cuda") * 1e-3
+        flops = 2.0 * n * LANES * LANES * d
+        for mode, (ma, mb) in {"bf16": (a, b), "fp32": (a, b),
+                               "bf16in": (a.to(torch.bfloat16), b.to(torch.bfloat16))}.items():
+            bf16 = mode != "fp32"
+            nbytes = 2.0 * ma.element_size() * n * LANES + 4.0 * d * LANES * LANES
+            cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16, wp=wp)
+            where = {"phase": "kernels_band", "tap": label, "label": f"{label} {which}",
+                     "mode": mode, "window": list(rows1)}
+            rows = _joint_rows(mj, cases, ma.dtype, where, n, LANES, p, flops, nbytes, bf16,
+                               reps)
+            if which == "both":
+                out += rows
+            del cases
+        del a, b, g
+        # the fused kernels: l1's window, l2's interior
+        for lanes, clusters in ((LANES, CLUSTERS), (2 * LANES, WIDE_CLUSTERS)):
+            f1, f2 = (_fused_logits(n, gen, "random", lanes, clusters) for _ in range(2))
+            g = torch.randn((d, lanes, lanes), generator=gen, device="cuda") * 1e-3
+            args = (hp, wp, p, SUBHEADS, clusters, 1.0)
+            live = SUBHEADS * clusters
+            fflops = 2.0 * n * live * live * d
+            for mode in ("bf16", "fp32", "bf16in"):
+                bf16 = mode != "fp32"
+                dot = torch.bfloat16 if bf16 else torch.float32
+                l1, l2 = (t.to(torch.bfloat16) if mode == "bf16in" else t for t in (f1, f2))
+                esz = l1.element_size()
+                cases = {
+                    mf.FWD: (lambda: mf.mi_fused_fwd(l1, l2, *args, bf16=bf16, rows1=rows1),
+                             lambda: mf.fused_fwd_plain(l1, l2, *args, dot, rows1=rows1),
+                             2.0 * esz * n * live + 4.0 * d * live * live),
+                    mf.BWD_DL2: (lambda: mf.mi_fused_bwd(l1, l2, g, *args, transpose_g=False,
+                                                         bf16=bf16, rows1=rows1),
+                                 lambda: mf.fused_bwd_side_plain(l1, l2, g, *args, dot,
+                                                                 transpose_g=False, rows1=rows1),
+                                 3.0 * esz * n * live + 4.0 * d * live * live),
+                    mf.BWD_DL1: (lambda: mf.mi_fused_bwd(l2, l1, g, *args, transpose_g=True,
+                                                         bf16=bf16, rows1=rows1),
+                                 lambda: mf.fused_bwd_side_plain(l2, l1, g, *args, dot,
+                                                                 transpose_g=True, rows1=rows1),
+                                 3.0 * esz * n * live + 4.0 * d * live * live)}
+                for base, (kernel, plain, nbytes) in cases.items():
+                    where = f"{label} {which} {lanes} lanes {mode}"
+                    err, scale, share, tol = _fused_compare(mf, base, bf16, kernel(), plain(),
+                                                            where)
+                    if which != "both" or (mode == "fp32" and lanes > LANES):
+                        continue  # checked; timed at the "both" window
+                    peak = PEAK_FLOPS["bf16" if bf16 else "fp32"]
+                    by_ops = fflops / peak >= nbytes / HBM_BYTES_PER_S
+                    row = {"phase": "kernels_band", "name": mj.kernel_name(base, l1.dtype),
+                           "tap": label if lanes == LANES else f"{label}_256",
+                           "label": where, "mode": mode, "window": list(rows1),
+                           "route": "cuda", "source": f"{PORT}/csrc/mi_fused.cu",
+                           "replaces": replaces[base], "shape": [n, lanes], "lanes": lanes,
+                           "padding": p, "max_abs_err": err, "max_abs_ref": scale,
+                           "tol_rel": tol, "share_above_tol": share,
+                           "ms": cuda_ms(kernel, reps),
+                           "plain_ms": cuda_ms(plain, max(3, reps // 3), warmup=1),
+                           "library_ms": None,
+                           "bound_ms": max(nbytes / HBM_BYTES_PER_S, fflops / peak) * 1e3,
+                           "bound_by": "operations" if by_ops else "bytes"}
+                    row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+                    emit(row)
+                    out.append(row)
+                del cases
+            del f1, f2, g
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_band", "band": list(BAND), "canvas": [batch, hp, wp],
+          "windows": {w: list(_band_window(w, hp, p)) for w in BAND_WINDOWS},
+          "checked": "joint fwd/dx/dx_tf at 128 lanes, fused fwd/dl2/dl1 at 128 and 256 lanes, "
+                     "fp32, bf16 and bf16in operands, each window"})
+    return out
 
 
 def phase_kernels_tiles(reps: int) -> list:
@@ -2878,71 +3015,81 @@ def phase_parallel() -> dict:
 
 # --- the spatial H split: gloo ranks sharing the one card (parallel/halo.py) ---
 SPACE_WORLD = 4   # space_parallel: ranks, laid out as 2 x 2 and as 1 x 4 (data x space)
-# (name, space size, compute dtype, data path): 2 x 2 bands every level at crop 224
-# (Conv5: 7 rows a band); 1 x 4 computes Conv5 whole (Conv4's bands hold 7 rows)
-SPACE_RUNS = (("2x2", 2, "fp32", "host"), ("1x4", 4, "fp32", "host"),
-              ("2x2_bf16", 2, "bf16", "host"), ("2x2_device", 2, "fp32", "device"))
-SPACE_UDA_WEIGHT = 5.0  # semi.yaml's UDARegCriterion.weight
+# (name, space size, compute dtype, data path, fused): 2 x 2 bands every level
+# at crop 224 (Conv5: 7 rows a band, its pooled vectors summed over the space
+# group); 1 x 4 computes Conv5 whole (Conv4's bands hold 7 rows)
+SPACE_RUNS = (("2x2", 2, "fp32", "host", False), ("1x4", 4, "fp32", "host", False),
+              ("2x2_bf16", 2, "bf16", "host", False), ("2x2_device", 2, "fp32", "device", False),
+              ("2x2_fused", 2, "fp32", "host", True))
 
 
-def _space_build(device, ctx, dtype: str, store=None, mode: str = "uda", crop: int = 224):
-    """(model, named parameters, step) of the full-width uda trainer's step
-    (U-Net 1 -> 4, MSE at SPACE_UDA_WEIGHT, Adam at 1e-3) from the weights of
-    seed 0 on ``device`` under ``ctx``; ``store``: the device-data path at
-    ``crop`` with geometry shear. ``mode="udaiic"`` builds the IIC step (the
-    headline's taps and heads), which the H split refuses."""
+def _space_build(device, ctx, dtype: str, store=None, fused: bool = False, crop: int = 224):
+    """(model, named parameters, step) of the headline udaiic step (taps
+    Conv5 / Up_conv3 / Up_conv2 of 5 x 20 clusters, paddings [1, 3], the
+    Conv5 head's weights times PAR_HEAD_SCALE; Adam at 1e-3) at full width
+    from the weights of seed 0 on ``device`` under ``ctx``, in ``dtype``
+    compute (the decoder heads too, as the trainer sets them); ``store``:
+    the device-data path at ``crop`` with geometry shear; ``fused``:
+    ``Kernel.backend=pallas_fused`` (the heads emit logits)."""
     import torch
 
     models, optim, steps = port("models"), port("engine.optim"), port("engine.steps")
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     torch.manual_seed(0)
     model = models.UNet(1, 4, dtype=dt, bn_dtype=dt).to(device)
-    params = list(model.named_parameters())
-    kw = dict(uda_criterion="mse", reg_weight=SPACE_UDA_WEIGHT)
-    if mode == "udaiic":
-        feats = ["Conv5", "Up_conv3", "Up_conv2"]
-        proj = models.ProjectorWrapper(feats, num_clusters=20, num_subheads=5).to(device)
-        params += list(proj.named_parameters(prefix="proj"))
-        kw = dict(projector=proj, feature_names=feats, feature_importance=[1.0, 0.5, 0.5],
-                  uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3])
+    feats = ["Conv5", "Up_conv3", "Up_conv2"]
+    proj = models.ProjectorWrapper(feats, num_clusters=20, num_subheads=5, local_dtype=dt,
+                                   local_emit_logits=fused).to(device)
+    with torch.no_grad():
+        proj.heads["Conv5"].linear.weight.mul_(PAR_HEAD_SCALE)
+    params = list(chain(model.named_parameters(), proj.named_parameters(prefix="proj")))
     opt = optim.build_optimizer([p for _, p in params],
                                 {"name": "Adam", "lr": 1e-3, "weight_decay": 1e-5})
-    step = steps.build_train_step(model, opt, mode, num_classes=4,
-                                  generator=torch.Generator(device=device), data_store=store,
-                                  crop=crop, geometry="shear", context=ctx, **kw)
+    step = steps.build_train_step(
+        model, opt, "udaiic", num_classes=4, generator=torch.Generator(device=device),
+        feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
+        uda_criterion="mse", uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3],
+        patch_sizes=1024, data_store=store, crop=crop, geometry="shear", context=ctx)
     return model, params, step
 
 
 def _space_run(device, ctx, batch_np, flips, dtype: str = "fp32", store=None, aug=None,
-               crop: int = 224) -> dict:
-    """One step of ``_space_build``'s uda step under ``ctx`` (None: one
+               crop: int = 224, fused: bool = False) -> dict:
+    """One step of ``_space_build``'s udaiic step under ``ctx`` (None: one
     process): a tensor batch placed by ``batch_sharding`` (the rank's rows
     and band) or an index batch passed whole (``store``, ``aug`` the
     injected draws). Its losses, parameter moves, summed gradients, BN
-    running statistics, rotation launches and the bytes the exchanges
-    reduced, then the wall ms of PAR_TIMED_STEPS more steps on the same
-    batch."""
+    running statistics, kernel launches (in all and by name and padding) and
+    the bytes each exchange reduced, then the wall ms of PAR_TIMED_STEPS more
+    steps on the same batch."""
     import torch
 
-    mesh, halo, rot = port("parallel.mesh"), port("parallel.halo"), port("ops.rotate")
-    model, params, step = _space_build(device, ctx, dtype, store, crop=crop)
+    mesh, halo = port("parallel.mesh"), port("parallel.halo")
+    mj, mf, rot = port("ops.mi_joint"), port("ops.mi_fused"), port("ops.rotate")
+    model, params, step = _space_build(device, ctx, dtype, store, fused, crop=crop)
     batch = (batch_np if store is not None
              else mesh.batch_sharding(batch_np, ctx, device))
     flip_mask = torch.from_numpy(flips).to(device)
     before = {k: p.detach().float().cpu().clone() for k, p in params}
-    rot.reset_launch_counts()
+    for mod in (mj, mf, rot):
+        mod.reset_launch_counts()
     halo.reset_exchange_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = step(batch, flip_mask=flip_mask, aug_params=aug)
     torch.cuda.synchronize()
-    out = {"losses": {k: float(metrics[k]) for k in ("sup_loss", "uda", "total_loss")},
+    out = {"losses": {k: float(metrics[k]) for k in ("sup_loss", "uda", "mi", "total_loss")},
+           "conv5_mi": float(metrics["individual_mis/Conv5"]),
            "moves": {k: p.detach().float().cpu() - before[k] for k, p in params},
            "grads": {k: p.grad.detach().float().cpu() for k, p in params if p.grad is not None},
            "bn_stats": torch.cat([v.detach().float().cpu().flatten() for k, v in
                                   model.state_dict().items() if "running_" in k]),
-           "launches": {"rotate": rot.launch_count(rot.ROTATE)},
-           "exchanged_bytes": dict(halo.EXCHANGED), "first_step_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": {"mi_joint": sum(mj.LAUNCHES.values()),
+                        "mi_fused": sum(mf.LAUNCHES.values()),
+                        "rotate": rot.launch_count(rot.ROTATE)},
+           "launches_by_kernel": dict(mj.LAUNCHES) | dict(mf.LAUNCHES),
+           "exchanged_bytes": dict(halo.EXCHANGED),
+           "first_step_ms": (time.perf_counter() - t0) * 1e3,
            "rank": None if ctx is None else ctx.rank,
            "band_rows": None if ctx is None or store is not None
            else int(batch["labeled_image"].shape[1]), "step_ms": []}
@@ -2957,40 +3104,35 @@ def _space_run(device, ctx, batch_np, flips, dtype: str = "fp32", store=None, au
 def _space_rank(ctx, spawned_at: float, batch_np, flips, store_root: str, index_np, aug,
                 crop: int) -> dict:
     """A rank of the SPACE_WORLD-rank run: each of SPACE_RUNS under its
-    split context (both layouts made on every rank, in the same order),
-    then the udaiic step built under the split, which must raise
-    ``SpaceSplitUnsupported``."""
+    split context (both layouts made on every rank, in the same order)."""
     ready = time.time()
     _full_fp32()
-    mesh, halo = port("parallel.mesh"), port("parallel.halo")
+    mesh = port("parallel.mesh")
     data, dp = port("data"), port("data.device_pipeline")
-    grids = {s: mesh.split_context(ctx, s) for s in sorted({s for _, s, _, _ in SPACE_RUNS})}
+    grids = {s: mesh.split_context(ctx, s) for s in sorted({run[1] for run in SPACE_RUNS})}
     out = {"startup_s": {"to_import": IMPORTED_AT - spawned_at,
                          "import_to_ready": ready - IMPORTED_AT}}
     store = dp.DeviceDataStore(data.ACDCDataset(store_root, "train"), device=ctx.device,
                                pack=True)
     aug = {k: {n: None if t is None else t.to(ctx.device) for n, t in v.items()}
            for k, v in aug.items()}
-    for name, space, dtype, path in SPACE_RUNS:
+    for name, space, dtype, path, fused in SPACE_RUNS:
         grid = grids[space]
         if path == "device":
             out[name] = _space_run(ctx.device, grid, index_np, flips, dtype, store, aug, crop)
         else:
-            out[name] = _space_run(ctx.device, grid, batch_np, flips, dtype, crop=crop)
-    try:
-        _space_build(ctx.device, grids[2], "fp32", mode="udaiic")
-        out["udaiic_refused"] = None
-    except halo.SpaceSplitUnsupported as e:
-        out["udaiic_refused"] = str(e)
+            out[name] = _space_run(ctx.device, grid, batch_np, flips, dtype, crop=crop,
+                                   fused=fused)
     return out
 
 
 def _space_compare(what: str, ref: dict, got: dict, launches: dict, ref_fp32=None) -> dict:
-    """A rank's split step against the one-process card step: its rotation
-    launches exactly; in fp32 losses and BN statistics at STEPS_TOL
-    (relative), parameter moves at the step phase's two-tier bound, every
-    summed gradient within PAR_GRAD_TOL (relative L2); in bf16 (``ref_fp32``,
-    the one-process fp32 step) the step_bf16 phase's bounds: losses and BN at
+    """A rank's split step against the one-process card step: its joint,
+    fused and rotation launches exactly; in fp32 losses and BN statistics at
+    STEPS_TOL (relative), parameter moves at the step phase's two-tier
+    bound, every summed gradient within PAR_GRAD_TOL (relative L2), the
+    Conv5 head's reported beside the worst; in bf16 (``ref_fp32``, the
+    one-process fp32 step) the step_bf16 phase's bounds: losses and BN at
     STEPS_TOL_BF16, the moves at STEP_BF16_LOOSE, below STEP_BF16_LIVENESS
     of the fp32 step's share, the 1x1 head's at STEP_BF16_HEADS_LOOSE (the
     gradients reported)."""
@@ -3007,6 +3149,9 @@ def _space_compare(what: str, ref: dict, got: dict, launches: dict, ref_fp32=Non
     out = {"rank": got["rank"], "rel_err": rel, "param_delta_max_diff": float(diffs.max()),
            "param_delta_loose_share": loose, "bn_stats_rel_err": rel_stats,
            "grad_rel_l2_worst": sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3],
+           "grad_rel_l2_conv5_head": {k: v for k, v in grad_rel.items()
+                                      if k.startswith("proj.heads.Conv5.")},
+           "conv5_mi": [ref["conv5_mi"], got["conv5_mi"]],
            "launches": got["launches"], "exchanged_bytes_a_step": got["exchanged_bytes"],
            "band_rows": got["band_rows"], "rank_first_step_ms": got["first_step_ms"],
            "rank_step_ms": got["step_ms"]}
@@ -3037,19 +3182,24 @@ def _space_compare(what: str, ref: dict, got: dict, launches: dict, ref_fp32=Non
 
 def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
     """The spatial H split on the one card: SPACE_WORLD gloo ranks on
-    cuda:0 in one spawn, each the full-width uda step at crop 224 on its
-    rows and band of H of the 4 + 10 batch (every unlabeled row flipped in
-    H, so the band swap runs on each), laid out as 2 x 2 and 1 x 4 (Conv5
-    computed whole), 2 x 2 in bf16 compute, and 2 x 2 on the device-data
-    path with geometry shear (every rank of a column rotates its rows whole:
-    2 rotation launches a rank); each against the one-process card step
-    from the same weights, batch, draws and flip mask (``_space_compare``).
-    Then the udaiic step under the split must raise
-    ``SpaceSplitUnsupported``. A rank's step ms is that of SPACE_WORLD
-    processes time-sharing one card through gloo, not a scaling figure.
-    Returns the rotation's launches on one rank of the device run.
-    ``device`` / ``crop``: where and at what crop (a rehearsal on the CPU
-    runs ``cpu`` at a small crop, where the rotation launches no kernel)."""
+    cuda:0 in one spawn, each the full-width headline udaiic step at crop
+    224 on its rows and band of H of the 4 + 10 batch (every unlabeled row
+    flipped in H, so the band swap runs on each; the IIC halves' halo of p
+    rows at Up_conv3 and Up_conv2, the joints summed over the world), laid
+    out as 2 x 2 (Conv5 on bands of 7 rows) and 1 x 4 (Conv5 computed
+    whole), 2 x 2 in bf16 compute, 2 x 2 on the device-data path with
+    geometry shear (every rank of a column rotates its rows whole: 2
+    rotation launches a rank), and 2 x 2 with ``Kernel.backend=pallas_fused``
+    (the fused kernels with l1's band window); each against the one-process
+    card step from the same weights, batch, draws and flip mask
+    (``_space_compare``): 6 joint launches a rank a step (6 fused launches on
+    the fused run), the bytes of each exchange. A rank's step ms is that of
+    SPACE_WORLD processes time-sharing one card through gloo, not a scaling
+    figure. Returns the launches of one rank of the device run (rotation)
+    and, by kernel and padding, of the 2 x 2 fp32 and fused runs (the
+    kernels on band operands). ``device`` / ``crop``: where and at what crop
+    (a rehearsal on the CPU runs ``cpu`` at a small crop, where no kernel
+    launches)."""
     import numpy as np
     import torch
 
@@ -3077,32 +3227,36 @@ def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
     spawn_wall = time.perf_counter() - t0
     # the one-process references, after the ranks have left the card
     refs = {"fp32": _space_run(device, None, batch, flips, crop=crop),
-            "bf16": _space_run(device, None, batch, flips, "bf16", crop=crop)}
+            "bf16": _space_run(device, None, batch, flips, "bf16", crop=crop),
+            "fused": _space_run(device, None, batch, flips, crop=crop, fused=True)}
     store = dp.DeviceDataStore(data.ACDCDataset(str(root), "train"), device=device, pack=True)
     dev_aug = {k: {n: None if t is None else t.to(device) for n, t in v.items()}
                for k, v in aug.items()}
     refs["device"] = _space_run(device, None, index_np, flips, store=store, aug=dev_aug,
                                 crop=crop)
     rows = {}
-    for name, space, dtype, path in SPACE_RUNS:
-        ref = refs["device" if path == "device" else dtype]
-        want = {"rotate": 2 if path == "device" else 0}
+    for name, space, dtype, path, fused in SPACE_RUNS:
+        ref = refs["device" if path == "device" else "fused" if fused else dtype]
+        want = {"mi_joint": 0 if fused else 6, "mi_fused": 6 if fused else 0,
+                "rotate": 2 if path == "device" else 0}
         rows[name] = [_space_compare(f"space_parallel {name} rank {r[name]['rank']}", ref, r[name],
                                      want, refs["fp32"] if dtype == "bf16" else None)
                       for r in ranks]
-    for r in ranks:
-        check(r["udaiic_refused"] is not None and "halo of p rows" in r["udaiic_refused"],
-              f"space_parallel: udaiic under the split gave {r['udaiic_refused']!r}")
     emit({"phase": "space_parallel", "world": SPACE_WORLD, "batch": [4, 10], "crop": crop,
-          "mode": "uda", "backend": "gloo", "device": device, "nvidia_smi": nvidia_smi(),
+          "mode": "udaiic", "backend": "gloo", "device": device, "nvidia_smi": nvidia_smi(),
           "note": ("rank_*step_ms: a rank's step while all ranks time-share one card through "
                    "gloo (not a scaling figure); exchanged_bytes_a_step: the bytes of the "
-                   "space group's all_reduce buffers a rank reduced in the checked step"),
+                   "space group's all_reduce buffers a rank reduced in the checked step, by "
+                   "exchange (halo: the U-Net's one-row halos; iic_halo: the IIC halves' "
+                   "p-row halos)"),
           "one_process": {k: {"first_step_ms": v["first_step_ms"], "step_ms": v["step_ms"],
-                              "losses": v["losses"]} for k, v in refs.items()},
-          "runs": rows, "udaiic_refused": ranks[0]["udaiic_refused"],
-          "rank_startup_s": [r["startup_s"] for r in ranks], "spawn_wall_s": spawn_wall})
-    return {"rotate": rows["2x2_device"][0]["launches"]["rotate"]}
+                              "losses": v["losses"], "launches": v["launches"]}
+                          for k, v in refs.items()},
+          "runs": rows, "rank_startup_s": [r["startup_s"] for r in ranks],
+          "spawn_wall_s": spawn_wall})
+    return {"rotate": rows["2x2_device"][0]["launches"]["rotate"],
+            "band_launches": ranks[0]["2x2"]["launches_by_kernel"]
+            | ranks[0]["2x2_fused"]["launches_by_kernel"]}
 
 
 @contextmanager
@@ -3558,7 +3712,8 @@ def phase_profile(trainer, steps: int, path: str = "host", expect=(), forbid=())
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="device,build,kernels,step,step_fused,step_device,"
+    parser.add_argument("--phases", default="device,build,kernels,kernels_band,step,step_fused,"
+                                              "step_device,"
                                               "step_meanteacher,step_bf16,step_s2d,step_heads,"
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_fused_wide,train_device,"
@@ -3590,6 +3745,7 @@ def main(argv=None) -> int:
         with timed(walls, "build"):
             phase_build()
     kernel_rows, tile_rows, rotation_rows, fused_rows, wide_fused_rows = [], [], [], [], []
+    band_rows = []
     if "kernels" in phases:
         with timed(walls, "kernels_joint"):
             kernel_rows = phase_kernels(args.reps)
@@ -3602,6 +3758,10 @@ def main(argv=None) -> int:
         with timed(walls, "kernels_fused_wide"):
             wide_fused_rows = phase_kernels_fused(args.reps, 2 * LANES, WIDE_CLUSTERS,
                                                   (RAGGED[1], RAGGED[2], RAGGED[5]))
+
+    if "kernels_band" in phases:
+        with timed(walls, "kernels_band"):
+            band_rows = phase_kernels_band(args.reps)
     for name, run in (("step", phase_step), ("step_fused", partial(phase_step, fused=True)),
                       ("step_device", phase_step_device),
                       ("step_meanteacher", phase_step_meanteacher),
@@ -3787,6 +3947,15 @@ def main(argv=None) -> int:
                      pretrain_parallel_rank_launches=ppar_launches.get(
                          (r["name"], r["padding"])))
                 for r in pretrain_rows]
+    # the joint and the fused kernels on band operands (the 2 x 2 split's
+    # Up_conv2 band, l1's window open at both ends): launches from rank 0 of
+    # the space_parallel phase's 2 x 2 runs (fp32 compute, auto and fused)
+    band_launches = space_launches.get("band_launches", {})
+    summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
+                     pct_of_bound=r["pct_of_bound"], window=r["window"],
+                     launches=band_launches.get((r["name"], r["padding"]), 0)
+                     if r["tap"] == BAND[0] else 0)
+                for r in band_rows if r["mode"] == "bf16"]
     emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})

@@ -19,7 +19,7 @@
 // read as fp32: the row-major flattening of [B, Hp, Wp, C] canvases with a
 // border of width p; lanes from S*K on are dead (float32 min, or -inf in
 // bf16: no step reads a dead lane's value). For a row n:
-//   valid(n) = 0 <= n < N and (y, x) of n lies in [p, Hp - p) x [p, Wp - p)
+//   valid(n) = 0 <= n < N and (y, x) of n lies in [y_lo, y_hi) x [p, Wp - p)
 //   z = l / T on live lanes, -inf on dead ones; m = max of z over the ROW
 //   e = exp(z - m); den = per-group sum of e (of bf16-rounded e in bf16 mode)
 //   p = e / (den + 1e-16);  pm = p * valid, rounded to bf16 in bf16 mode
@@ -34,6 +34,13 @@
 //   dl = (t - p * s) / T, and 0 on dead lanes, written in the logits' type
 //   (bf16 logits: rounded once, the TPU kernel's out_dtype = l.dtype)
 // Products are accumulated in fp32; the fp32 operand mode is the parity mode.
+// [y_lo, y_hi) is each operand's own window of live rows (Geometry::lo0 ..):
+// [p, Hp - p) for l2, and for l1 unless it holds a band of the map under the
+// spatial H split, whose canvas carries a halo of p rows from the
+// neighbouring bands, live except at the map's ends (the caller sets it).
+// The rows a halo carries are then read by the shifted operand and receive
+// their dl1, which the halo's backward sends home. The interior window gives
+// the kernels' unsplit output bit for bit.
 //
 // What bounds it on an H100 (989 TF/s dense bf16, 3.35 TB/s HBM). Each launch
 // does the products of the matching mi_joint launch: at the headline Up_conv2
@@ -141,22 +148,27 @@ struct Geometry {
   int hp, wp, p;
   int sk, k;    // live lanes (S*K), lanes per group (K)
   float t;      // temperature
+  // live rows [lo, hi) of each canvas, of operand 0 (the forward's l1, the
+  // backward's source side) and operand 1 (l2, the own side)
+  int lo0, hi0, lo1, hi1;
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Interior row of the canvas (the conv zero-padding semantics); rows outside
-// [0, N) are invalid, never clamped. The row index is 64-bit; the division
-// runs in 32 bits when N allows it (64-bit division is emulated).
-__device__ __forceinline__ bool row_valid(long long n, const Geometry& g) {
+// Live row of operand `op`'s canvas (the conv zero-padding semantics, its
+// window of rows); rows outside [0, N) are invalid, never clamped. The row
+// index is 64-bit; the division runs in 32 bits when N allows it (64-bit
+// division is emulated).
+__device__ __forceinline__ bool row_valid(long long n, const Geometry& g, int op) {
   if (n < 0 || n >= g.n) return false;
   const unsigned hw = (unsigned)g.hp * (unsigned)g.wp;
   const unsigned rem = g.n <= 0xffffffffLL ? (unsigned)n % hw : (unsigned)(n % (long long)hw);
   const int y = (int)(rem / (unsigned)g.wp);
   const int x = (int)rem - y * g.wp;
-  return y >= g.p && y < g.hp - g.p && x >= g.p && x < g.wp - g.p;
+  const int lo = op ? g.lo1 : g.lo0, hi = op ? g.hi1 : g.hi0;  // selects, no indexing
+  return y >= lo && y < hi && x >= g.p && x < g.wp - g.p;
 }
 
 // The groups of this thread's lanes j0..j0+3 (j0 = 4 * lane), the same for
@@ -393,7 +405,7 @@ struct SoftmaxRows {
       bool mine = false;
       if (lane < ROW_GROUP) {
         const long long u = grp * ROW_GROUP + lane;
-        mine = u < rows && row_valid(u >= geo.n ? u - geo.n : u, geo);
+        mine = u < rows && row_valid(u >= geo.n ? u - geo.n : u, geo, u >= geo.n);
       }
       valid = __ballot_sync(0xffffffffu, mine);
 #pragma unroll
@@ -481,7 +493,8 @@ struct VjpRows {
                                        int lane, int warp) const {
     const LaneMap lm = lane_map(lane, geo);
     // bit i: row 32 w + i is valid (lane i tests it)
-    const unsigned valid = __ballot_sync(0xffffffffu, row_valid(n0 + warp * 32 + lane, geo));
+    const unsigned valid =
+        __ballot_sync(0xffffffffu, row_valid(n0 + warp * 32 + lane, geo, 1));
     auto fetch = [&](int r0, float4 (&v)[ROW_GROUP]) {
 #pragma unroll
       for (int i = 0; i < ROW_GROUP; ++i) {
@@ -660,7 +673,7 @@ __device__ __forceinline__ void wide_prep_rows(const L* src0, __nv_bfloat16* dst
   for (long long u = blockIdx.x * (long long)WARPS + (threadIdx.x >> 5); u < rows; u += step) {
     const bool second = u >= geo.n;
     const long long r = second ? u - geo.n : u;
-    const bool valid = row_valid(r, geo);  // uniform across the warp
+    const bool valid = row_valid(r, geo, second);  // uniform across the warp
     if (valid) wide_softmax<true, UNIT_T>((second ? src1 : src0) + r * geo.c, geo, w, lane);
     __nv_bfloat16* dst = (second ? dst1 : dst0) + r * LANES + 4 * lane;
     for (int b = 0; b < t; ++b) {
@@ -754,7 +767,7 @@ __device__ __forceinline__ void wide_vjp_rows(const L* own, const float* dq, L* 
   const long long step = (long long)gridDim.x * WARPS;
   for (long long r = blockIdx.x * (long long)WARPS + (threadIdx.x >> 5); r < geo.n; r += step) {
     L* o = out + r * geo.c + 4 * lane;
-    if (!row_valid(r, geo)) {  // uniform across the warp
+    if (!row_valid(r, geo, 1)) {  // uniform across the warp
       for (int b = 0; b < t; ++b) store4(o + b * LANES, make_float4(0.f, 0.f, 0.f, 0.f));
       continue;
     }
@@ -821,14 +834,14 @@ __global__ void fused_fwd_reduce_block(const float* __restrict__ partial, float*
 // whole-row softmax formed while staging it (not on the training path)
 // ===========================================================================
 
-// One warp stages tall row `row` of logits l as masked fp32 probabilities:
-// this lane's 4 of lanes [128 b, 128 b + 128) of the row's softmax into dst
-// (zeros where the row is invalid or not `live`).
+// One warp stages tall row `row` of operand `op`'s logits l as masked fp32
+// probabilities: this lane's 4 of lanes [128 b, 128 b + 128) of the row's
+// softmax into dst (zeros where the row is invalid or not `live`).
 __device__ __forceinline__ void stage_row(const float* __restrict__ l, long long row, bool live,
-                                          int b, const Geometry& g, const WideScratch& w,
-                                          int lane, float* dst) {
+                                          int op, int b, const Geometry& g,
+                                          const WideScratch& w, int lane, float* dst) {
   float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (live && row_valid(row, g)) {  // uniform across the warp
+  if (live && row_valid(row, g, op)) {  // uniform across the warp
     wide_softmax<false, false>(l + row * g.c, g, w, lane);
     q = *reinterpret_cast<const float4*>(w.e + b * LANES + 4 * lane);
   }
@@ -878,9 +891,9 @@ fused_fwd_partial_fp32(const float* __restrict__ l1, const float* __restrict__ l
       const int kk = r % KT;
       const long long n = n0 + kk;
       if (r < KT)
-        stage_row(l1, n + o, n < n_end, bi, geo, w, lane, &As[kk][lane * 4]);
+        stage_row(l1, n + o, n < n_end, 0, bi, geo, w, lane, &As[kk][lane * 4]);
       else
-        stage_row(l2, n, n < n_end, bj, geo, w, lane, &Bs[kk][lane * 4]);
+        stage_row(l2, n, n < n_end, 1, bj, geo, w, lane, &Bs[kk][lane * 4]);
     }
     __syncthreads();
 #pragma unroll 4
@@ -947,7 +960,7 @@ fused_dq_fp32(const float* __restrict__ src, const float* __restrict__ g, float*
     const float* gd = g + (long long)d * c * c;
     for (int bi = 0; bi < t; ++bi) {
       for (int r = warp; r < ROWS; r += WARPS)
-        stage_row(src, n0 + r + o, true, bi, geo, w, lane, Ss + r * LD + lane * 4);
+        stage_row(src, n0 + r + o, true, 0, bi, geo, w, lane, Ss + r * LD + lane * 4);
       for (int idx = tid; idx < LANES * LANES / 4; idx += THREADS) {
         const int r = idx / (LANES / 4), c4 = idx % (LANES / 4) * 4;
         const float* s = TRANSPOSE ? gd + (bj * LANES + r) * c + bi * LANES + c4
@@ -984,8 +997,13 @@ fused_dq_fp32(const float* __restrict__ src, const float* __restrict__ g, float*
 // host side
 // ===========================================================================
 
-Geometry make_geometry(long long n_rows, int c, int hp, int wp, int p, int s, int k, float t) {
+Geometry make_geometry(long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
+                       int lo0, int hi0, int lo1, int hi1) {
   Geometry geo;
+  geo.lo0 = lo0;
+  geo.hi0 = hi0;
+  geo.lo1 = lo1;
+  geo.hi1 = hi1;
   geo.n = n_rows;
   geo.c = c;
   geo.hp = hp;
@@ -998,6 +1016,11 @@ Geometry make_geometry(long long n_rows, int c, int hp, int wp, int p, int s, in
 }
 
 bool lanes_ok(int c) { return c % LANES == 0 && c >= LANES && c <= MAX_BLOCKS * LANES; }
+
+// each window a non-empty range of a canvas's rows
+bool windows_ok(int hp, int lo0, int hi0, int lo1, int hi1) {
+  return 0 <= lo0 && lo0 < hi0 && hi0 <= hp && 0 <= lo1 && lo1 < hi1 && hi1 <= hp;
+}
 
 // blocks of a whole-row kernel: a warp a row, and enough threads for the
 // units of H; at most 8192 (grid-stride beyond)
@@ -1047,9 +1070,11 @@ cudaError_t launch_dq_fp32(const float* src, const float* g, float* dq, const Ge
 
 // Logits [N, C], C = 128 t (t <= MAX_BLOCKS), fp32 (rows of 4 C bytes) or bf16
 // (the *_bf16in entry points: 2 C bytes, dead lanes -inf), pointers 16-byte
-// aligned. The bf16 entry points take the joint's launch plan at 128 lanes
-// and refuse (cudaErrorInvalidValue) one that disagrees with the kernels, or
-// a lane count that is no such C.
+// aligned. lo0, hi0 / lo1, hi1: the live rows of operand 0's / 1's canvases
+// (forward: l1 / l2; backward: src / own). The bf16 entry points take the
+// joint's launch plan at 128 lanes. Every entry point refuses
+// (cudaErrorInvalidValue) a plan that disagrees with the kernels, a lane
+// count that is no such C, or a window that is empty or leaves [0, Hp).
 
 // bf16 products: J[D, C, C] from logits l1, l2. a16, b16: scratch of t x N x
 // 128 bf16 (pm1, pm2, lane block by lane block); partial: scratch of
@@ -1057,14 +1082,15 @@ cudaError_t launch_dq_fp32(const float* src, const float* g, float* dq, const Ge
 template <typename L>
 int fused_fwd_bf16(const L* l1, const L* l2, void* a16, void* b16, float* partial, float* out,
                    long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
-                   long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
-                   void* stream) {
-  if (!lanes_ok(c) || !fwd_plan_ok(LANES, p, dx_group, smem_bytes))
+                   int lo0, int hi0, int lo1, int hi1, long long rows_per_chunk, int n_chunks,
+                   int dx_group, int smem_bytes, void* stream) {
+  if (!lanes_ok(c) || !fwd_plan_ok(LANES, p, dx_group, smem_bytes) ||
+      !windows_ok(hp, lo0, hi0, lo1, hi1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* A16 = static_cast<__nv_bfloat16*>(a16);
   auto* B16 = static_cast<__nv_bfloat16*>(b16);
-  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t, lo0, hi0, lo1, hi1);
   if (c == LANES) {
     const SoftmaxRows<L> rows{l1, A16, l2, B16, geo};
     joint_prep<<<softmax_prep_blocks(2 * n_rows, 0), PREP_THREADS, 0, st>>>(rows, nullptr,
@@ -1097,15 +1123,17 @@ int fused_fwd_bf16(const L* l1, const L* l2, void* a16, void* b16, float* partia
 template <typename L>
 int fused_bwd_bf16(const L* src, const L* own, const float* g, void* s16, void* h16, float* dq,
                    L* out, long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
-                   int transpose_g, int stages, int smem_bytes, void* stream) {
-  if (!lanes_ok(c) || !bwd_plan_ok(LANES, p, stages, smem_bytes) || (c > LANES && !dq))
+                   int lo0, int hi0, int lo1, int hi1, int transpose_g, int stages,
+                   int smem_bytes, void* stream) {
+  if (!lanes_ok(c) || !bwd_plan_ok(LANES, p, stages, smem_bytes) || (c > LANES && !dq) ||
+      !windows_ok(hp, lo0, hi0, lo1, hi1))
     return (int)cudaErrorInvalidValue;
   const int T = 2 * p + 1;
   const int D = T * T;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* S16 = static_cast<__nv_bfloat16*>(s16);
   auto* H16 = static_cast<__nv_bfloat16*>(h16);
-  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t, lo0, hi0, lo1, hi1);
   if (c == LANES) {
     const SoftmaxRows<L> rows{src, S16, nullptr, nullptr, geo};
     joint_prep<<<softmax_prep_blocks(n_rows, h_units(D)), PREP_THREADS, 0, st>>>(
@@ -1138,52 +1166,53 @@ const char* mi_fused_error_string(int code) { return cudaGetErrorString((cudaErr
 // fp32 logits
 int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, float* partial,
                       float* out, long long n_rows, int c, int hp, int wp, int p, int s, int k,
-                      float t, long long rows_per_chunk, int n_chunks, int dx_group,
-                      int smem_bytes, void* stream) {
-  return fused_fwd_bf16(l1, l2, a16, b16, partial, out, n_rows, c, hp, wp, p, s, k, t,
-                        rows_per_chunk, n_chunks, dx_group, smem_bytes, stream);
+                      float t, int lo0, int hi0, int lo1, int hi1, long long rows_per_chunk,
+                      int n_chunks, int dx_group, int smem_bytes, void* stream) {
+  return fused_fwd_bf16(l1, l2, a16, b16, partial, out, n_rows, c, hp, wp, p, s, k, t, lo0, hi0,
+                        lo1, hi1, rows_per_chunk, n_chunks, dx_group, smem_bytes, stream);
 }
 
 int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* s16, void* h16,
                       float* dq, float* out, long long n_rows, int c, int hp, int wp, int p,
-                      int s, int k, float t, int transpose_g, int stages, int smem_bytes,
-                      void* stream) {
-  return fused_bwd_bf16(src, own, g, s16, h16, dq, out, n_rows, c, hp, wp, p, s, k, t,
-                        transpose_g, stages, smem_bytes, stream);
+                      int s, int k, float t, int lo0, int hi0, int lo1, int hi1, int transpose_g,
+                      int stages, int smem_bytes, void* stream) {
+  return fused_bwd_bf16(src, own, g, s16, h16, dq, out, n_rows, c, hp, wp, p, s, k, t, lo0, hi0,
+                        lo1, hi1, transpose_g, stages, smem_bytes, stream);
 }
 
 // bf16 logits (Precision.compute_dtype=bfloat16): the same, reading 8 bytes
 // of 4 logits a lane; d(logits) are written as bf16
 int mi_fused_fwd_bf16in(const void* l1, const void* l2, void* a16, void* b16, float* partial,
                         float* out, long long n_rows, int c, int hp, int wp, int p, int s, int k,
-                        float t, long long rows_per_chunk, int n_chunks, int dx_group,
-                        int smem_bytes, void* stream) {
+                        float t, int lo0, int hi0, int lo1, int hi1, long long rows_per_chunk,
+                        int n_chunks, int dx_group, int smem_bytes, void* stream) {
   return fused_fwd_bf16(static_cast<const __nv_bfloat16*>(l1),
                         static_cast<const __nv_bfloat16*>(l2), a16, b16, partial, out, n_rows,
-                        c, hp, wp, p, s, k, t, rows_per_chunk, n_chunks, dx_group, smem_bytes,
-                        stream);
+                        c, hp, wp, p, s, k, t, lo0, hi0, lo1, hi1, rows_per_chunk, n_chunks,
+                        dx_group, smem_bytes, stream);
 }
 
 int mi_fused_bwd_bf16in(const void* src, const void* own, const float* g, void* s16, void* h16,
                         float* dq, void* out, long long n_rows, int c, int hp, int wp, int p,
-                        int s, int k, float t, int transpose_g, int stages, int smem_bytes,
-                        void* stream) {
+                        int s, int k, float t, int lo0, int hi0, int lo1, int hi1,
+                        int transpose_g, int stages, int smem_bytes, void* stream) {
   return fused_bwd_bf16(static_cast<const __nv_bfloat16*>(src),
                         static_cast<const __nv_bfloat16*>(own), g, s16, h16, dq,
-                        static_cast<__nv_bfloat16*>(out), n_rows, c, hp, wp, p, s, k, t,
-                        transpose_g, stages, smem_bytes, stream);
+                        static_cast<__nv_bfloat16*>(out), n_rows, c, hp, wp, p, s, k, t, lo0,
+                        hi0, lo1, hi1, transpose_g, stages, smem_bytes, stream);
 }
 
 // fp32 parity mode: J[D, C, C] from logits l1, l2; partial is scratch of
 // n_chunks * D * C * C floats.
 int mi_fused_fwd_fp32(const float* l1, const float* l2, float* partial, float* out,
                       long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
-                      long long rows_per_chunk, int n_chunks, void* stream) {
-  if (!lanes_ok(c)) return (int)cudaErrorInvalidValue;
+                      int lo0, int hi0, int lo1, int hi1, long long rows_per_chunk, int n_chunks,
+                      void* stream) {
+  if (!lanes_ok(c) || !windows_ok(hp, lo0, hi0, lo1, hi1)) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t err = allow_smem(fused_fwd_partial_fp32, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t, lo0, hi0, lo1, hi1);
   const int T = 2 * p + 1;
   const int D = T * T;
   const int blocks = c / LANES;
@@ -1201,9 +1230,9 @@ int mi_fused_fwd_fp32(const float* l1, const float* l2, float* partial, float* o
 // scratch of N x C floats.
 int mi_fused_bwd_fp32(const float* src, const float* own, const float* g, float* dq, float* out,
                       long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
-                      int transpose_g, void* stream) {
-  if (!lanes_ok(c)) return (int)cudaErrorInvalidValue;
-  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t);
+                      int lo0, int hi0, int lo1, int hi1, int transpose_g, void* stream) {
+  if (!lanes_ok(c) || !windows_ok(hp, lo0, hi0, lo1, hi1)) return (int)cudaErrorInvalidValue;
+  const Geometry geo = make_geometry(n_rows, c, hp, wp, p, s, k, t, lo0, hi0, lo1, hi1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = transpose_g ? launch_dq_fp32<true>(src, g, dq, geo, st)
                                       : launch_dq_fp32<false>(src, g, dq, geo, st);

@@ -60,11 +60,22 @@ rank augments its rows whole (one rotation launch a sub-batch with
 (``models/unet.py``), the H flips swap bands (``ops/flips.py``), each mean
 divides the rank's masked sum by the global count of real rows x H x W, and
 the gradients, losses and dice sums are summed over the world (data x
-space). The per-pixel modes run under it (``partial``, ``uda``,
-``entropy``, ``meanteacher``, whose teacher runs on the band too); ``iic``
-and ``udaiic``, whose joints over a band would need a halo of p rows, and
-any model but a U-Net without remat on the conv stem raise
-``SpaceSplitUnsupported`` when the step is built.
+space). Every mode runs under it (``meanteacher``'s teacher on the band
+too), with remat and either stem. The IIC modes (``iic_regularization``):
+a decoder tap held as a band (``UNet.banded_taps``) builds its flipped
+plain half from the band swap, padded by p on W and by a halo of p rows
+from the neighbouring bands on H (``parallel/halo.py``; zeros only at the
+map's ends), its tf half on its own zero border; the per-pixel head
+computes the halo rows again; the flipped half is live on its halo rows
+except at the map's ends, the tf half on its interior, and the tap's joint
+is summed over the world. An encoder tap's pooled vectors are the same on
+every space rank of a data rank (``ClusterHead`` sums a band over the space
+group), so its joint is summed over the data group; so is a decoder tap
+computed whole. Each rank's IIC term is 1 / (W S) of the MI, so the
+world's gradient sum counts it once. A tiled IIC (a patch below the map)
+and a displacement p beyond a band's rows raise ``SpaceSplitUnsupported``
+before the step's first collective; so does any model but the U-Net, when
+the step is built.
 """
 
 from __future__ import annotations
@@ -76,7 +87,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..models.unet import ENCODER_NAMES, check_space_split
+from ..models.unet import ENCODER_NAMES, TAP_LEVELS, check_space_split
 from ..ops.augment_device import apply_augment, center_crop_batch, sample_augment_params
 from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
@@ -86,7 +97,7 @@ from ..ops.iic_local import (
     iid_segmentation_small_patch_loss_subheads,
 )
 from ..ops.losses import entropy, kl_div
-from ..parallel.halo import SpaceSplitUnsupported
+from ..parallel.halo import SpaceSplitUnsupported, halo_exchange
 from ..parallel.mesh import DistContext, local_band, reduce_grads_, reduce_sum_, single_context
 from ..utils.general import class2one_hot
 
@@ -120,7 +131,8 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
                        n_labeled: int, n_unlabeled: int, feature_names: Sequence[str],
                        paddings: Sequence[int], patch_sizes: Sequence[int],
                        backend: str, row_mask: Optional[torch.Tensor] = None,
-                       group=None) -> Dict[str, torch.Tensor]:
+                       group=None, space: Optional[DistContext] = None,
+                       banded: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
     """Per-position subhead-mean MI losses, {name: loss}.
 
     Each position's last 2*B_u feature rows split into (plain, tf). Encoder
@@ -135,7 +147,10 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
     logits and the fused kernels apply the softmax and the border mask.
     ``row_mask`` [B_u] zeroes the pad rows' probabilities before every
     joint (detached; not on the fused path, whose logits it cannot reach);
-    ``group`` sums every joint over its ranks."""
+    ``group`` sums every joint over its ranks. Under an H split (``space``)
+    the taps named in ``banded`` are the rank's bands: the module
+    docstring says how their halves, masks and joints are built (the
+    joints of the decoder ones summed over the world, not ``group``)."""
     if row_mask is not None and projector.local_emit_logits:
         raise ValueError("a padded batch needs the unfused path: the fused kernels take "
                          "logits, which the row mask cannot reach")
@@ -151,13 +166,19 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
             half1[name], half2[name] = plain, tf
             continue
         pad = paddings[dec_idx]
-        loss_cfg[name] = (pad, patch_sizes[dec_idx])
+        band = space if name in banded else None
+        loss_cfg[name] = (pad, patch_sizes[dec_idx], band)
         dec_idx += 1
-        half1[name] = F.pad(apply_flips(plain, flip_mask), (0, 0, pad, pad, pad, pad))
+        if band is None:
+            half1[name] = F.pad(apply_flips(plain, flip_mask), (0, 0, pad, pad, pad, pad))
+        else:  # the flipped band, its W border zero, its H border the neighbours' rows
+            half1[name] = halo_exchange(F.pad(apply_flips(plain, flip_mask, band),
+                                              (0, 0, pad, pad)), band, dim=1, rows=pad,
+                                        kind="iic_halo")
         half2[name] = F.pad(tf, (0, 0, pad, pad, pad, pad))
 
-    probs1 = projector(half1)
-    probs2 = projector(half2)
+    probs1 = projector(half1, space, banded)
+    probs2 = projector(half2, space, banded)
     losses: Dict[str, torch.Tensor] = {}
     for name in feature_names:
         p1, p2 = probs1[name], probs2[name]
@@ -166,31 +187,68 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
                 [iid_loss(p1[:, s], p2[:, s], mask=row_mask, group=group)[0]
                  for s in range(p1.shape[1])]).mean()
             continue
-        padding, patch = loss_cfg[name]
+        padding, patch, band = loss_cfg[name]
         hp, wp = p1.shape[1], p1.shape[2]
         S, K = projector.head_shape(name)
+        # the flipped half's live rows: its interior, or on a band its halo
+        # rows too but at the map's ends; the whole map's rows
+        rows1 = (padding, hp - padding)
+        map_rows, joint_group = hp - 2 * padding, group
+        if band is not None:
+            rows1 = (padding if band.space_rank == 0 else 0,
+                     hp - padding if band.space_rank == band.space_size - 1 else hp)
+            map_rows, joint_group = map_rows * band.space_size, dist.group.WORLD
         if projector.local_emit_logits:
             # p1, p2 are lane-padded logits: no valid multiply here
-            if patch < hp - 2 * padding or patch < wp - 2 * padding:
+            if patch < map_rows or patch < wp - 2 * padding:
                 raise ValueError(f"the fused path covers one full-map tile: patch {patch} < "
-                                 f"map {hp - 2 * padding}x{wp - 2 * padding} at {name}")
-            losses[name] = iid_segmentation_loss_fused_logits(p1, p2, S, K, padding=padding,
-                                                              group=group)
+                                 f"map {map_rows}x{wp - 2 * padding} at {name}")
+            losses[name] = iid_segmentation_loss_fused_logits(
+                p1, p2, S, K, padding=padding, group=joint_group,
+                rows1=None if band is None else rows1)
             continue
-        valid = torch.zeros((1, hp, wp) + (1,) * (p1.dim() - 3), dtype=p1.dtype,
-                            device=p1.device)
-        valid[:, padding:hp - padding, padding:wp - padding] = 1.0
+        valid1, valid2 = (torch.zeros((1, hp, wp) + (1,) * (p1.dim() - 3), dtype=p1.dtype,
+                                      device=p1.device) for _ in range(2))
+        valid1[:, rows1[0]:rows1[1], padding:wp - padding] = 1.0
+        valid2[:, padding:hp - padding, padding:wp - padding] = 1.0
         if row_mask is not None:
-            valid = valid * row_mask.detach().to(p1.dtype).reshape((-1,) + (1,) * (p1.dim() - 1))
+            rows = row_mask.detach().to(p1.dtype).reshape((-1,) + (1,) * (p1.dim() - 1))
+            valid1, valid2 = valid1 * rows, valid2 * rows
+        kw = dict(padding=padding, patch_size=patch, backend=backend, pre_padded=True,
+                  group=joint_group, map_rows=None if band is None else map_rows)
         if p1.dim() == 5:  # [B, Hp, Wp, S, K] (local_flat off)
-            losses[name] = iid_segmentation_small_patch_loss_subheads(
-                p1 * valid, p2 * valid, padding=padding, patch_size=patch, backend=backend,
-                pre_padded=True, group=group)
+            losses[name] = iid_segmentation_small_patch_loss_subheads(p1 * valid1, p2 * valid2,
+                                                                      **kw)
         else:
-            losses[name] = iid_segmentation_small_patch_loss_flat(
-                p1 * valid, p2 * valid, S, K, padding=padding, patch_size=patch,
-                backend=backend, pre_padded=True, group=group)
+            losses[name] = iid_segmentation_small_patch_loss_flat(p1 * valid1, p2 * valid2,
+                                                                  S, K, **kw)
     return losses
+
+
+def check_iic_split(model: torch.nn.Module, height: int, width: int, space_size: int,
+                    names: Sequence[str], paddings: Sequence[int],
+                    patch_sizes: Sequence[int]) -> Tuple[str, ...]:
+    """The taps ``model`` holds as bands under an H split of [height, width]
+    maps over ``space_size`` ranks; ``SpaceSplitUnsupported`` (before any
+    collective) for a decoder tap on bands whose patch is below its map
+    (tiles would cross the bands) or whose displacement p exceeds a band's
+    rows (a halo reaches the neighbouring band only). ``names``: the decoder
+    taps, in the order of ``paddings`` and ``patch_sizes``."""
+    banded = model.banded_taps(height, space_size)
+    grid = (height // 2, width // 2) if model.stem == "s2d" else (height, width)
+    for name, pad, patch in zip(names, paddings, patch_sizes):
+        if name not in banded:
+            continue
+        rows, cols = (g >> TAP_LEVELS[name] for g in grid)
+        if patch < max(rows, cols):
+            raise SpaceSplitUnsupported(
+                f"patch {patch} below the {rows}x{cols} map of {name} under the H split: its "
+                "tiles would cross the bands (one full-map tile runs split)")
+        if pad > rows // space_size:
+            raise SpaceSplitUnsupported(
+                f"padding {pad} at {name} beyond its bands of {rows // space_size} rows: a halo "
+                "reaches the neighbouring band only")
+    return banded
 
 
 def build_train_step(
@@ -260,7 +318,7 @@ def build_train_step(
     group, world = ctx.group, ctx.data_world
     space = ctx if ctx.split_h else None
     if space is not None:
-        _check_split(model, teacher, mode)
+        _check_split(model, teacher)
     # the group of the gradients' and metrics' sums and of the banded levels'
     # BN: under the split every rank holds distinct pixels, so the world
     sum_group = dist.group.WORLD if space is not None else group
@@ -305,6 +363,11 @@ def build_train_step(
             unlabeled_image = batch["unlabeled_image"]
             n_lab, n_unlab = labeled_image.shape[0] * world, unlabeled_image.shape[0] * world
         lab_rows, unlab_rows = ctx.rows(n_lab), ctx.rows(n_unlab)
+        banded = ()
+        if needs_iic and space is not None:  # before the step's first collective
+            banded = check_iic_split(model, labeled_image.shape[1] * bands,
+                                     labeled_image.shape[2], bands, dec_names, paddings,
+                                     patch_sizes)
         # the rank's rows from here on
         n_labeled, n_unlabeled = labeled_image.shape[0], unlabeled_image.shape[0]
         if flip_mask is None:
@@ -370,12 +433,15 @@ def build_train_step(
         if needs_iic:
             iic_losses = iic_regularization(projector, features, flip_mask, n_labeled,
                                             n_unlabeled, feature_names, paddings, patch_sizes,
-                                            backend, row_mask=unlab_mask, group=group)
-            # every rank holds the global MI: its share of the objective is 1 / W
-            iic_loss_val = sum(w * iic_losses[n] for n, w in zip(feature_names, importance)) / world
+                                            backend, row_mask=unlab_mask, group=group,
+                                            space=space, banded=banded)
+            # every rank holds the global MI: its share of the objective is
+            # 1 / W (under the split 1 / (W S): the gradients sum over the world)
+            share = world * bands
+            iic_loss_val = sum(w * iic_losses[n] for n, w in zip(feature_names, importance)) / share
             metrics["mi"] = -iic_loss_val
             for n in feature_names:
-                metrics[f"individual_mis/{n}"] = -iic_losses[n] / world
+                metrics[f"individual_mis/{n}"] = -iic_losses[n] / share
         if mode in ("uda", "meanteacher"):
             reg_loss = uda_loss
         elif mode == "entropy":
@@ -414,14 +480,9 @@ def build_train_step(
     return step
 
 
-def _check_split(model: torch.nn.Module, teacher: Optional[torch.nn.Module], mode: str) -> None:
-    """``SpaceSplitUnsupported`` for what the H split does not run: the IIC
-    modes, and any model but a U-Net without remat on the conv stem."""
-    if mode in ("iic", "udaiic"):
-        raise SpaceSplitUnsupported(
-            f"mode {mode!r} under the H split: a displaced joint over a band needs a halo of "
-            "p rows, which no exchange provides (the per-pixel modes partial, uda, entropy "
-            "and meanteacher run split)")
+def _check_split(model: torch.nn.Module, teacher: Optional[torch.nn.Module]) -> None:
+    """``SpaceSplitUnsupported`` for a model the H split does not run: any
+    but the U-Net."""
     for m in (model, teacher):
         if m is not None:
             check_space_split(m)

@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum
 from .unet import DECODER_NAMES, ENCODER_NAMES, UNET_DIMENSIONS
 
 HEAD_TYPES = ("linear", "mlp")
@@ -160,7 +161,10 @@ class _Subheads(nn.Module):
 class ClusterHead(_Subheads):
     """Global (encoder) head: average pool -> linear or mlp (``interm_dim``
     128) -> [normalize] -> softmax/T over K, S subheads. Output [B, S, K],
-    fp32."""
+    fp32. ``space`` (an H-split context): the features are the rank's band
+    of the map, pooled as the band's sum, summed over the space group (with
+    the gradient) and divided by the whole map's H x W, so every space rank
+    of a data rank holds the same pooled vectors."""
 
     def __init__(self, input_dim: int, num_clusters: int = 10, num_subheads: int = 5,
                  head_type: str = "linear", T: float = 1.0, normalize: bool = False,
@@ -168,8 +172,14 @@ class ClusterHead(_Subheads):
         super().__init__(input_dim, num_subheads, num_clusters, head_type, interm_dim)
         self.T, self.normalize = T, normalize
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        out = self.logits(features.float().mean(dim=(1, 2)), torch.float32)
+    def forward(self, features: torch.Tensor, space=None) -> torch.Tensor:
+        if space is None:
+            pooled = features.float().mean(dim=(1, 2))
+        else:
+            _, h, w = features.shape[:3]
+            pooled = all_reduce_sum(features.float().sum(dim=(1, 2)), space.space_group) \
+                / (h * space.space_size * w)
+        out = self.logits(pooled, torch.float32)
         if self.normalize:
             out = _l2_normalize(out)
         return torch.softmax(out / self.T, dim=-1)
@@ -224,7 +234,10 @@ class ProjectorWrapper(nn.Module):
     [B, H, W, S, K] one (the JAX ``ProjectorWrapper``'s default).
     ``local_emit_logits``: the decoder heads emit logits (the fused path); the
     parameters are the same either way. ``local_dtype``: the decoder heads'
-    compute and output dtype."""
+    compute and output dtype. ``forward(features, space, banded)``: the
+    encoder taps named in ``banded`` are bands of an H split (``space``),
+    pooled over the whole map (``ClusterHead``); a decoder head is per pixel
+    and takes a band as it takes a map."""
 
     def __init__(self, feature_names: Sequence[str], num_clusters=20, num_subheads=5,
                  head_types="linear", normalize=False, local_lane_multiple: int = 128,
@@ -254,8 +267,11 @@ class ProjectorWrapper(nn.Module):
         """(num_subheads, num_clusters) of a position."""
         return self._shapes[name]
 
-    def forward(self, features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {name: self.heads[name](features[name]) for name in self.feature_names}
+    def forward(self, features: Dict[str, torch.Tensor], space=None,
+                banded: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+        return {name: (self.heads[name](features[name], space) if name in banded
+                       and name in ENCODER_NAMES else self.heads[name](features[name]))
+                for name in self.feature_names}
 
 
 class ProjectionHead(nn.Module):

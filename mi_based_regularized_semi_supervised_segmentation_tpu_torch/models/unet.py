@@ -61,8 +61,12 @@ whole level are each rank's share (its own band's loss): BN's backward
 sums them over the data group like its forward, and ``gather_h``'s
 backward sums them over the space group, so each band gets the whole
 gradient. The logits and the taps of the banded levels are the rank's
-bands; a whole level's tap is the whole map. ``remat`` and ``stem="s2d"``
-under the split raise ``SpaceSplitUnsupported``.
+bands; a whole level's tap is the whole map (``UNet.banded_taps`` says
+which). ``stem="s2d"`` splits too: a band of even rows starting on an even
+row pixel-unshuffles to the band of the half grid, on which the levels run
+(``band_levels`` of H / 2); a band of odd rows raises
+``SpaceSplitUnsupported``. ``remat`` splits as well: the recompute of a
+block repeats its exchanges and BN sums, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -90,6 +94,9 @@ DECODER_NAMES = ["Up5", "Up_conv5", "Up4", "Up_conv4", "Up3", "Up_conv3", "Up2",
 COMPONENT_NAMES = ENCODER_NAMES + DECODER_NAMES
 TAP_NAMES = ["Conv1", "Conv2", "Conv3", "Conv4", "Conv5",
              "Up_conv5", "Up_conv4", "Up_conv3", "Up_conv2"]
+# each tap's level: the map it sits on is the grid's / 2^level
+TAP_LEVELS = {"Conv1": 0, "Conv2": 1, "Conv3": 2, "Conv4": 3, "Conv5": 4,
+              "Up_conv5": 3, "Up_conv4": 2, "Up_conv3": 1, "Up_conv2": 0}
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -246,22 +253,19 @@ def band_levels(height: int, space_size: int, depth: int = 5) -> int:
 
 
 def check_space_split(model: nn.Module) -> None:
-    """``SpaceSplitUnsupported`` unless ``model`` is a U-Net without remat
-    on the conv stem: the one model the H split runs."""
+    """``SpaceSplitUnsupported`` unless ``model`` is a U-Net: the one model
+    the H split runs (the zoo's models take no band)."""
     if not isinstance(model, UNet):
         raise SpaceSplitUnsupported(f"the H split runs the U-Net only, not {type(model).__name__}")
-    if model.remat or model.stem != "conv":
-        raise SpaceSplitUnsupported(
-            f"the H split runs the U-Net without remat and with the conv stem, not "
-            f"remat={model.remat}, stem={model.stem!r}")
 
 
 def _remat(block: nn.Module, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-           group=None) -> torch.Tensor:
-    """``block(x, mask, group)`` under non-reentrant
+           group=None, space=None) -> torch.Tensor:
+    """``block(x, mask, group, space)`` under non-reentrant
     ``torch.utils.checkpoint``: only the input is kept, and the backward runs
-    the forward again (its BN sums over ``group`` too, on every rank alike)
-    with the BN running statistics left alone."""
+    the forward again (its BN sums over ``group`` and its halo exchanges
+    over ``space`` again, on every rank alike) with the BN running
+    statistics left alone."""
     runs = count()
     norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
 
@@ -270,7 +274,7 @@ def _remat(block: nn.Module, x: torch.Tensor, mask: Optional[torch.Tensor] = Non
         for m in norms:
             m.update_stats = first
         try:
-            return block(inp, mask, group)
+            return block(inp, mask, group, space)
         finally:
             for m in norms:
                 m.update_stats = True
@@ -322,6 +326,13 @@ class UNet(nn.Module):
         self.DeConv_1x1 = nn.Conv2d(16, num_classes * r2, 1)
         nn.init.zeros_(self.DeConv_1x1.bias)
 
+    def banded_taps(self, height: int, space_size: int) -> Tuple[str, ...]:
+        """The taps held as bands under an H split of a map of ``height``
+        rows over ``space_size`` ranks (the rest hold the whole map)."""
+        grid = height // 2 if self.stem == "s2d" else height
+        banded = band_levels(grid, space_size)
+        return tuple(name for name in TAP_NAMES if TAP_LEVELS[name] < banded)
+
     def forward(self, x: torch.Tensor, return_features: bool = False,
                 bn_mask: Optional[torch.Tensor] = None, bn_group=None, space=None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
@@ -333,10 +344,12 @@ class UNet(nn.Module):
         ``bn_group`` the group of the levels on bands (the world: every rank
         holds distinct pixels) and ``space.group`` that of the levels
         computed whole (the module docstring)."""
-        if space is not None:
-            check_space_split(self)
         x = x.to(self.dtype)
         if self.stem == "s2d":
+            if space is not None and x.shape[1] % 2:
+                raise SpaceSplitUnsupported(
+                    f"stem='s2d' on bands of {x.shape[1]} rows: a band pixel-unshuffles to the "
+                    "half grid's band only when its rows are even")
             x = space_to_depth(x, 2)
         x = x.permute(0, 3, 1, 2)
         # levels below ``banded`` run on bands (all of them without the split)
@@ -346,11 +359,10 @@ class UNet(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
 
         def blk(block, inp, level: int):
-            if level >= banded:
-                return block(inp, bn_mask, space.group)
+            group, on = (space.group, None) if level >= banded else (bn_group, space)
             if remat:
-                return _remat(block, inp, bn_mask, bn_group)
-            return block(inp, bn_mask, bn_group, space)
+                return _remat(block, inp, bn_mask, group, on)
+            return block(inp, bn_mask, group, on)
 
         def down(e, level: int):  # level - 1's output -> level's input
             return F.max_pool2d(gather_h(e, space) if level == banded else e, 2)

@@ -43,8 +43,18 @@ per-tile joints are stacked so that ``mi_from_joint`` runs once over them,
 each joint with its own min; the loss is the mean over tiles of the
 subhead-mean MI. With ``pre_padded`` maps (the trainer's: the zero border of
 width p is already there) the border is stripped before tiling; a single
-full-map tile keeps it on the kernel backends, whose flatten is then a free
+full-map tile keeps it, and on the kernel backends the flatten is then a free
 reshape.
+
+The spatial H split (``map_rows``, the whole map's rows): the canvases hold
+a band of the map, x_out's with a halo of p rows from the neighbouring
+bands in its border (``engine/steps.py:iic_regularization``), x_tf_out's
+with a zero border. One tile must cover the whole map (the step refuses a
+patch below it: tiles would cross the bands). Every backend reads x_out's
+canvas as it stands, halo and all: the kernels as their operand, the others
+by shifting it against x_tf_out's interior (``_subhead_joint``'s
+``halo``). The band's joint
+is the band's share of the map's, summed over the ranks by ``group``.
 
 Data parallelism: every front door takes ``group``, a process group. The
 raw joint of each displacement (each tile's, the fused forward's J
@@ -114,10 +124,17 @@ def displaced_joint_xla_banded(x: torch.Tensor, x_tf: torch.Tensor, padding: int
     x_tf, the (2p+1)^2 shifted bands of the zero-padded x stacked into
     [B, rb, W, T*T, C] and contracted against it in one fp32 product."""
     _check_maps(x, x_tf, 4)
-    b, h, w, c = x.shape
+    p = padding
+    return _xla_banded_canvas(F.pad(x.float(), (0, 0, p, p, p, p)), x_tf.float(), p, band_rows)
+
+
+def _xla_banded_canvas(xp: torch.Tensor, xtf: torch.Tensor, padding: int,
+                       band_rows: int = 8) -> torch.Tensor:
+    """``displaced_joint_xla_banded`` of x's canvas ``xp`` [B, H+2p, W+2p, C]
+    as it stands (its border zero, or a band's halo rows) against x_tf
+    [B, H, W, C]."""
+    b, h, w, c = xtf.shape
     p, t = padding, 2 * padding + 1
-    xp = F.pad(x.float(), (0, 0, p, p, p, p))
-    xtf = x_tf.float()
     out = xtf.new_zeros((t * t, c, c))
     for h0 in range(0, h, band_rows):
         rb = min(band_rows, h - h0)
@@ -141,13 +158,27 @@ def displaced_joint_xla_subheads_scan(x: torch.Tensor, x_tf: torch.Tensor,
     padding adds exact zeros, so the values are the sliced form's up to
     summation order."""
     _check_maps(x, x_tf, 5)
-    _, _, _, s, k = x.shape
-    p, t = padding, 2 * padding + 1
-    xp = F.pad(x.float(), (0, 0, 0, 0, p, p, p, p))
-    xtf = x_tf.float()
+    p = padding
+    return _xla_scan_canvas(F.pad(x.float(), (0, 0, 0, 0, p, p, p, p)), x_tf.float(), p)
+
+
+def _xla_scan_canvas(xp: torch.Tensor, xtf: torch.Tensor, padding: int) -> torch.Tensor:
+    """``displaced_joint_xla_subheads_scan`` of x's canvas ``xp``
+    [B, H+2p, W+2p, S, K] as it stands against x_tf [B, H, W, S, K]."""
+    _, _, _, s, k = xtf.shape
+    t = 2 * padding + 1
     joints = [checkpoint(_one_displacement, xp, xtf, dy, dx, use_reentrant=False)
               for dy in range(t) for dx in range(t)]
     return torch.stack(joints).reshape(t, t, s, k, k)
+
+
+def _xla_canvas(xp: torch.Tensor, xtf: torch.Tensor, padding: int) -> torch.Tensor:
+    """``displaced_joint_xla_subheads`` of x's canvas ``xp``
+    [B, H+2p, W+2p, S, K] as it stands against x_tf [B, H, W, S, K]: one
+    product of x's shifted window and x_tf per displacement."""
+    t = 2 * padding + 1
+    return torch.stack([torch.stack([_one_displacement(xp, xtf, dy, dx) for dx in range(t)])
+                        for dy in range(t)])
 
 
 def displaced_joint_subheads(x: torch.Tensor, x_tf: torch.Tensor, padding: int) -> torch.Tensor:
@@ -269,10 +300,14 @@ def iid_segmentation_small_patch_loss(x_out: torch.Tensor, x_tf_out: torch.Tenso
 
 
 def _subhead_joint(x: torch.Tensor, x_tf: torch.Tensor, padding: int, backend: str,
-                   pre_padded: bool = False) -> torch.Tensor:
+                   pre_padded: bool = False, halo: bool = False) -> torch.Tensor:
     """[B, H, W, S, K] x2 -> [T, T, S, K, K] by ``backend``. The kernel
     backends take the maps as [B, H, W, S*K] (C = S*K lanes, no dead ones),
-    pre-padded or not; the others strip a pre-padded border first."""
+    pre-padded or not, and read x's canvas as it stands. On pre-padded
+    canvases the others shift a canvas of x against x_tf's interior: x's as
+    it stands with ``halo`` (its border rows a band's halo under the H
+    split), else x's interior on a zero border, so that the border takes no
+    gradient (the JAX package's ``xla`` backends strip it)."""
     _check_backend(backend)
     b, h, w, s, k = x.shape
     if backend in KERNEL_BACKENDS:
@@ -280,8 +315,17 @@ def _subhead_joint(x: torch.Tensor, x_tf: torch.Tensor, padding: int, backend: s
                                         padding, torch.bfloat16, pre_padded)
         return _block_diagonal_subheads(flat, s, k)
     if pre_padded:
-        x, x_tf = _strip(x, padding), _strip(x_tf, padding)
-        b, h, w, s, k = x.shape
+        p = padding
+        xp = x.float() if halo else F.pad(_strip(x, p).float(), (0, 0, 0, 0, p, p, p, p))
+        xtf = _strip(x_tf, p).float()
+        if backend == "xla_banded":
+            _, hi, wi, _, _ = xtf.shape
+            flat = _xla_banded_canvas(xp.reshape(b, h, w, s * k),
+                                      xtf.reshape(b, hi, wi, s * k), padding)
+            return _block_diagonal_subheads(flat, s, k)
+        if backend == "xla_scan":
+            return _xla_scan_canvas(xp, xtf, padding)
+        return _xla_canvas(xp, xtf, padding)
     if backend == "xla_banded":
         flat = displaced_joint_xla_banded(x.reshape(b, h, w, s * k),
                                           x_tf.reshape(b, h, w, s * k), padding)
@@ -311,17 +355,19 @@ def iid_segmentation_small_patch_loss_subheads(
     backend: str = "auto",
     pre_padded: bool = False,
     group=None,
+    map_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """The tiled subhead loss over [B, H, W, S, K] maps: the mean over tiles
     of each tile's subhead-mean loss. A pre-padded map that one tile covers
-    goes to ``iid_segmentation_loss_subheads`` with its border."""
+    takes one joint of its canvases, border and all. ``map_rows``:
+    the whole map's rows when the canvases hold a band of it (``_one_tile``),
+    x_out's with a halo of p rows (``_subhead_joint``)."""
     _check_maps(x_out, x_tf_out, 5)
     _check_backend(backend)
     if pre_padded:
-        interior = (x_out.shape[1] - 2 * padding, x_out.shape[2] - 2 * padding)
-        if patch_size >= max(interior):
-            return iid_segmentation_loss_subheads(x_out, x_tf_out, padding, lamb, backend,
-                                                  pre_padded=True, group=group)
+        if _one_tile(x_out, padding, patch_size, map_rows):
+            return _subhead_mi(_subhead_joint(x_out, x_tf_out, padding, backend, True,
+                                              halo=map_rows is not None), lamb, group)
         x_out, x_tf_out = _strip(x_out, padding), _strip(x_tf_out, padding)
     joints = [_subhead_joint(a, b, padding, backend, pre_padded=True) for a, b in zip(
         _tile_canvases(x_out, patch_size, padding), _tile_canvases(x_tf_out, patch_size, padding))]
@@ -339,35 +385,51 @@ def iid_segmentation_small_patch_loss_flat(
     backend: str = "auto",
     pre_padded: bool = False,
     group=None,
+    map_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Subhead-mean displaced-MI loss over flat [B, H, W, C] maps, C >= S*K
     (trailing lanes dead). A single tile on a kernel backend takes the joint
     of all C lanes as they are (the headline config's patch_sizes=1024);
     otherwise the dead lanes are dropped and the [B, H, W, S, K] view goes to
-    ``iid_segmentation_small_patch_loss_subheads``."""
+    ``iid_segmentation_small_patch_loss_subheads``. ``map_rows``: the whole
+    map's rows when pre-padded canvases hold a band of it (``_one_tile``)."""
     b, h, w, c = x_out.shape
     if c < S * K:
         raise ValueError(f"{c} lanes cannot hold {S} x {K} clusters")
     _check_backend(backend)
-    edge = 2 * padding if pre_padded else 0
-    if backend in KERNEL_BACKENDS and patch_size >= max(h - edge, w - edge):
+    one = (_one_tile(x_out, padding, patch_size, map_rows) if pre_padded
+           else patch_size >= max(h, w))
+    if backend in KERNEL_BACKENDS and one:
         flat = mi_joint.displaced_joint(x_out, x_tf_out, padding, torch.bfloat16, pre_padded)
         return _subhead_mi(_block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K), lamb,
                            group)
     five = lambda t: t[..., :S * K].reshape(b, h, w, S, K)
     return iid_segmentation_small_patch_loss_subheads(
-        five(x_out), five(x_tf_out), padding, patch_size, lamb, backend, pre_padded, group)
+        five(x_out), five(x_tf_out), padding, patch_size, lamb, backend, pre_padded, group,
+        map_rows)
+
+
+def _one_tile(x: torch.Tensor, padding: int, patch: int, map_rows: Optional[int]) -> bool:
+    """Whether one tile covers the map of a pre-padded canvas [B, Hp, Wp, ...]:
+    its interior, or with ``map_rows`` (the H split: the canvas holds a band
+    of the map, its x canvas a halo of p rows) the whole map's rows by the
+    interior's columns. The step refuses a tile below a banded map
+    (``engine/steps.py:check_iic_split``)."""
+    rows = x.shape[1] - 2 * padding if map_rows is None else map_rows
+    return patch >= max(rows, x.shape[2] - 2 * padding)
 
 
 def iid_segmentation_loss_fused_logits(l1: torch.Tensor, l2: torch.Tensor, S: int, K: int,
                                        padding: int, lamb: float = 1.0,
-                                       T: float = 1.0, group=None) -> torch.Tensor:
+                                       T: float = 1.0, group=None,
+                                       rows1: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Subhead-mean displaced-MI loss straight from pre-padded C-lane logit
     canvases [B, Hp, Wp, C], C a multiple of 128 holding the S*K live lanes
     (one full-map tile): the row-max group softmax over the whole row, the
     interior mask and the joint in the fused kernels, bf16 operands. The
     fused forward's J is summed over ``group``; its backward gets the global
-    gradient."""
-    flat = displaced_joint_softmax(l1, l2, padding, S, K, T)
+    gradient. ``rows1``: l1's live rows [y_lo, y_hi) of each canvas (a band's
+    halo'd canvas under the H split; None: its interior)."""
+    flat = displaced_joint_softmax(l1, l2, padding, S, K, T, rows1=rows1)
     return _subhead_mi(_block_diagonal_subheads(flat[:, :, :S * K, :S * K], S, K), lamb,
                        group)

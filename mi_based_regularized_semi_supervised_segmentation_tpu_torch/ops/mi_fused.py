@@ -9,7 +9,7 @@ dead lanes from S*K on at float32 min as ``LocalClusterHead(emit_logits=True)``
 emits them (-inf when the heads compute in bf16: bf16 logits, which the
 kernels read and convert to fp32), flattened row-major to [N, C]. For a row n:
 
-    valid(n) = (y, x) of n lies in [p, Hp - p) x [p, Wp - p)   (conv zero padding)
+    valid(n) = (y, x) of n lies in [y_lo, y_hi) x [p, Wp - p)   (conv zero padding)
     z  = l / T on the live lanes, -inf on the dead ones
     e  = exp(z - m), m the max of z over the whole ROW (not per group)
     p  = e / (den + 1e-16), den the per-group sum of e (of bf16-rounded e
@@ -17,12 +17,18 @@ kernels read and convert to fp32), flattened row-major to [N, C]. For a row n:
     pm = p * valid, rounded to dot_dtype
     J[d, k1, k2] = sum_n pm1[n + o_d, k1] * pm2[n, k2],  o_d = (dy - p) * Wp + (dx - p)
 
+[y_lo, y_hi) is [p, Hp - p) for l2, and for l1 unless the caller gives
+l1's window (``rows1``): under the spatial H split l1's canvas is a band of
+the map with a halo of p rows from its neighbours, live except at the map's
+ends (``engine/steps.py:iic_regularization``), while l2 keeps its zero
+border. The unsplit window gives the unsplit kernels' output bit for bit.
+
 A group far below its row's max underflows to all-zero probabilities, as on
 the TPU (``group_softmax_flat`` normalizes per group and would not). Backward,
 with g = dL/dJ rounded to dot_dtype:
 
-    dq2[n] = valid(n) * sum_d pm1[n + o_d] @ g[d]
-    dq1[m] = valid(m) * sum_d pm2[m - o_d] @ g[d]^T
+    dq2[n] = valid2(n) * sum_d pm1[n + o_d] @ g[d]
+    dq1[m] = valid1(m) * sum_d pm2[m - o_d] @ g[d]^T   (a halo row's dl1 too)
     t = p * dq;  s = per-group sum of t (of bf16-rounded t in bf16 mode)
     dl = (t - p * s) / T, 0 on the dead lanes, in the logits' dtype (bf16
          logits: rounded once, the TPU kernel's ``out_dtype = l.dtype``)
@@ -63,7 +69,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,12 +102,24 @@ def _round(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).float() if bf16 else x
 
 
-def row_valid(n: int, hp: int, wp: int, padding: int, device=None) -> torch.Tensor:
-    """[n, 1] fp32: 1 where a tall row of [B, Hp, Wp] canvases is interior."""
+def row_valid(n: int, hp: int, wp: int, padding: int, device=None,
+              rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """[n, 1] fp32: 1 where a tall row of [B, Hp, Wp] canvases is live: its
+    x in [p, Wp - p), its y in ``rows`` = [y_lo, y_hi) (the interior
+    [p, Hp - p) by default)."""
     rem = torch.arange(n, device=device) % (hp * wp)
     y, x = rem // wp, rem % wp
     p = padding
-    return ((y >= p) & (y < hp - p) & (x >= p) & (x < wp - p)).float()[:, None]
+    y_lo, y_hi = window(hp, padding, rows)
+    return ((y >= y_lo) & (y < y_hi) & (x >= p) & (x < wp - p)).float()[:, None]
+
+
+def window(hp: int, padding: int, rows: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+    """A canvas's live rows [y_lo, y_hi): ``rows``, or the interior."""
+    y_lo, y_hi = (padding, hp - padding) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= y_lo < y_hi <= hp:
+        raise ValueError(f"live rows [{y_lo}, {y_hi}) outside a canvas of {hp} rows")
+    return y_lo, y_hi
 
 
 def _group_sum(x: torch.Tensor, S: int, K: int) -> torch.Tensor:
@@ -122,10 +140,11 @@ def group_softmax_rowmax(logits: torch.Tensor, S: int, K: int, T: float = 1.0,
     return e / (_group_sum(_round(e, bf16), S, K) + 1e-16)
 
 
-def _probs(logits, hp, wp, padding, S, K, T, bf16):
-    """(masked probabilities rounded to the operand type, unmasked p, valid)."""
+def _probs(logits, hp, wp, padding, S, K, T, bf16, rows=None):
+    """(masked probabilities rounded to the operand type, unmasked p, valid);
+    ``rows``: the canvas's live rows (``row_valid``)."""
     p = group_softmax_rowmax(logits, S, K, T, bf16)
-    valid = row_valid(logits.shape[0], hp, wp, padding, logits.device)
+    valid = row_valid(logits.shape[0], hp, wp, padding, logits.device, rows)
     return _round(p * valid, bf16), p, valid
 
 
@@ -144,11 +163,12 @@ def _softmax_vjp(p: torch.Tensor, dq: torch.Tensor, S: int, K: int, T: float,
 
 def fused_fwd_plain(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: int,
                     S: int, K: int, T: float = 1.0,
-                    dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Logits [N, C] x2 -> J [D, C, C] fp32."""
+                    dot_dtype: torch.dtype = torch.bfloat16,
+                    rows1: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Logits [N, C] x2 -> J [D, C, C] fp32; ``rows1``: l1's live rows."""
     bf16 = dot_dtype == torch.bfloat16
     n = l1.shape[0]
-    pm1 = _probs(l1, hp, wp, padding, S, K, T, bf16)[0]
+    pm1 = _probs(l1, hp, wp, padding, S, K, T, bf16, rows1)[0]
     pm2 = _probs(l2, hp, wp, padding, S, K, T, bf16)[0]
     a_pad = _shifted(pm1, wp, padding)
     return torch.stack([a_pad[off:off + n].T @ pm2 for off in _offsets(wp, padding)])
@@ -157,15 +177,16 @@ def fused_fwd_plain(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, paddin
 def fused_bwd_side_plain(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int,
                          wp: int, padding: int, S: int, K: int, T: float = 1.0,
                          dot_dtype: torch.dtype = torch.bfloat16,
-                         transpose_g: bool = False) -> torch.Tensor:
+                         transpose_g: bool = False,
+                         rows1: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """d(own logits) [N, C] in own's dtype (fp32, or bf16 rounded once), what
     one backward kernel launch computes: dl2 (src = l1, own = l2, transpose_g
     False) or dl1 (src = l2, own = l1, transpose_g True) for the cotangent g
-    [D, C, C] of J."""
+    [D, C, C] of J; ``rows1``: l1's live rows."""
     bf16 = dot_dtype == torch.bfloat16
     n = src.shape[0]
-    pm_src = _probs(src, hp, wp, padding, S, K, T, bf16)[0]
-    _, p_own, v_own = _probs(own, hp, wp, padding, S, K, T, bf16)
+    pm_src = _probs(src, hp, wp, padding, S, K, T, bf16, None if transpose_g else rows1)[0]
+    _, p_own, v_own = _probs(own, hp, wp, padding, S, K, T, bf16, rows1 if transpose_g else None)
     g = _round(g.float(), bf16)
     offsets = _offsets(wp, padding)
     padded = _shifted(pm_src, wp, padding)
@@ -180,27 +201,28 @@ def fused_bwd_side_plain(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, 
 
 def fused_bwd_plain(l1: torch.Tensor, l2: torch.Tensor, g: torch.Tensor, hp: int, wp: int,
                     padding: int, S: int, K: int, T: float = 1.0,
-                    dot_dtype: torch.dtype = torch.bfloat16
+                    dot_dtype: torch.dtype = torch.bfloat16,
+                    rows1: Optional[Tuple[int, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dl1, dl2) [N, C], each in its logits' dtype, for the cotangent g
-    [D, C, C] of J."""
+    [D, C, C] of J; ``rows1``: l1's live rows."""
     args = (hp, wp, padding, S, K, T, dot_dtype)
-    return (fused_bwd_side_plain(l2, l1, g, *args, transpose_g=True),
-            fused_bwd_side_plain(l1, l2, g, *args, transpose_g=False))
+    return (fused_bwd_side_plain(l2, l1, g, *args, transpose_g=True, rows1=rows1),
+            fused_bwd_side_plain(l1, l2, g, *args, transpose_g=False, rows1=rows1))
 
 
 class _DisplacedJointSoftmaxPlain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, l1, l2, geometry):
+    def forward(ctx, l1, l2, geometry, rows1):
         ctx.save_for_backward(l1, l2)
-        ctx.geometry = geometry
-        return fused_fwd_plain(l1, l2, *geometry)
+        ctx.geometry, ctx.rows1 = geometry, rows1
+        return fused_fwd_plain(l1, l2, *geometry, rows1=rows1)
 
     @staticmethod
     def backward(ctx, g):
         l1, l2 = ctx.saved_tensors
-        dl1, dl2 = fused_bwd_plain(l1, l2, g, *ctx.geometry)
-        return dl1, dl2, None
+        dl1, dl2 = fused_bwd_plain(l1, l2, g, *ctx.geometry, rows1=ctx.rows1)
+        return dl1, dl2, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -215,12 +237,11 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(KERNEL_SOURCE)
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.mi_fused_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, f, ll, i,
-                                          i, i, vp]
-        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, f, i,
-                                          i, i, vp]
-        lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i, i, f, ll, i, vp]
-        lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, i, i, i, f, i, vp]
+        geo = [ll, i, i, i, i, i, i, f, i, i, i, i]  # ... the temperature, the two windows
+        lib.mi_fused_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp] + geo + [ll, i, i, i, vp]
+        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp] + geo + [i, i, i, vp]
+        lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp] + geo + [ll, i, vp]
+        lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, vp] + geo + [i, vp]
         lib.mi_fused_fwd_bf16in.argtypes = lib.mi_fused_fwd_bf16.argtypes
         lib.mi_fused_bwd_bf16in.argtypes = lib.mi_fused_bwd_bf16.argtypes
         for fn in (lib.mi_fused_fwd_bf16, lib.mi_fused_bwd_bf16, lib.mi_fused_fwd_fp32,
@@ -273,10 +294,19 @@ def launch_setup(n: int, wp: int, padding: int, sm_count: int, backward: bool,
     return plan, spec
 
 
+def _windows(hp: int, padding: int, rows1: Optional[Tuple[int, int]],
+             l1_first: bool = True) -> Tuple[int, int, int, int]:
+    """The kernels' two live-row windows, the first operand's then the
+    second's (forward: l1, l2; backward: the source side, the own side)."""
+    w1, w2 = window(hp, padding, rows1), window(hp, padding)
+    return w1 + w2 if l1_first else w2 + w1
+
+
 def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: int,
-                 S: int, K: int, T: float = 1.0, bf16: bool = True) -> torch.Tensor:
+                 S: int, K: int, T: float = 1.0, bf16: bool = True,
+                 rows1: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Kernel launch: J [D, C, C] fp32 from flat logit canvases [N, C], C =
-    128 t (fp32, or bf16 with bf16 products)."""
+    128 t (fp32, or bf16 with bf16 products); ``rows1``: l1's live rows."""
     _check_operand(l1, "l1")
     _check_operand(l2, "l2", l1.shape, (l1.dtype,))
     if l1.device != l2.device:
@@ -290,7 +320,7 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
         sms = _sm_count(l1.device.index)
         out = torch.empty((d, c, c), dtype=torch.float32, device=l1.device)
         stream = torch.cuda.current_stream(l1.device).cuda_stream
-        geometry = (n, c, hp, wp, padding, S, K, float(T))
+        geometry = (n, c, hp, wp, padding, S, K, float(T)) + _windows(hp, padding, rows1)
         if bf16:
             plan, spec = launch_setup(n, wp, padding, sms, backward=False, lanes=c)
             buf = alloc_scratch(spec, l1.device)
@@ -312,9 +342,10 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
 
 def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int, wp: int,
                  padding: int, S: int, K: int, T: float = 1.0, transpose_g: bool = False,
-                 bf16: bool = True) -> torch.Tensor:
+                 bf16: bool = True, rows1: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Kernel launch: d(own logits) [N, C] in the logits' dtype (fp32, or
-    bf16 with bf16 products); g [D, C, C] fp32, C = 128 t.
+    bf16 with bf16 products); g [D, C, C] fp32, C = 128 t; ``rows1``: l1's
+    live rows (the source side's for dl2, the own side's for dl1).
 
     transpose_g=False: dl2 (src = l1, own = l2), dq[n] = sum_d pm1[n + o_d] @ g[d]
     transpose_g=True:  dl1 (src = l2, own = l1), dq[m] = sum_d pm2[m - o_d] @ g[d]^T
@@ -332,7 +363,8 @@ def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int,
     with torch.cuda.device(src.device):
         out = torch.empty((n, c), dtype=src.dtype, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        geometry = (n, c, hp, wp, padding, S, K, float(T), int(transpose_g))
+        geometry = ((n, c, hp, wp, padding, S, K, float(T))
+                    + _windows(hp, padding, rows1, l1_first=not transpose_g) + (int(transpose_g),))
         if bf16:
             plan, spec = launch_setup(n, wp, padding, _sm_count(src.device.index), backward=True,
                                       lanes=c)
@@ -353,11 +385,11 @@ def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int,
 
 class _DisplacedJointSoftmaxCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, l1, l2, geometry):
+    def forward(ctx, l1, l2, geometry, rows1):
         ctx.save_for_backward(l1, l2)
-        ctx.geometry = geometry
+        ctx.geometry, ctx.rows1 = geometry, rows1
         *args, dot_dtype = geometry
-        return mi_fused_fwd(l1, l2, *args, bf16=dot_dtype == torch.bfloat16)
+        return mi_fused_fwd(l1, l2, *args, bf16=dot_dtype == torch.bfloat16, rows1=rows1)
 
     @staticmethod
     def backward(ctx, g):
@@ -367,19 +399,22 @@ class _DisplacedJointSoftmaxCUDA(torch.autograd.Function):
         g = g.contiguous()
         dl1 = dl2 = None
         if ctx.needs_input_grad[0]:
-            dl1 = mi_fused_bwd(l2, l1, g, *args, transpose_g=True, bf16=bf16)
+            dl1 = mi_fused_bwd(l2, l1, g, *args, transpose_g=True, bf16=bf16, rows1=ctx.rows1)
         if ctx.needs_input_grad[1]:
-            dl2 = mi_fused_bwd(l1, l2, g, *args, transpose_g=False, bf16=bf16)
-        return dl1, dl2, None
+            dl2 = mi_fused_bwd(l1, l2, g, *args, transpose_g=False, bf16=bf16, rows1=ctx.rows1)
+        return dl1, dl2, None, None
 
 
 def displaced_joint_softmax(l1: torch.Tensor, l2: torch.Tensor, padding: int, S: int, K: int,
                             T: float = 1.0,
-                            dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                            dot_dtype: torch.dtype = torch.bfloat16,
+                            rows1: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Pre-padded logit canvases [B, Hp, Wp, C] x2, C = 128 t -> [Tt, Tt, C, C]
     raw displaced sums of the masked row-max group-softmax probabilities
     (``displaced_joint_softmax_pallas``); gradients flow to the logits. The
-    kernels for CUDA tensors, the plain version for CPU tensors."""
+    kernels for CUDA tensors, the plain version for CPU tensors. ``rows1``:
+    l1's live rows [y_lo, y_hi) of each canvas (None: its interior, as
+    l2's; a band's halo'd canvas under the H split)."""
     if l1.dim() != 4 or l1.shape != l2.shape:
         raise ValueError(f"expected two equal [B, Hp, Wp, C] shapes, got {l1.shape}, {l2.shape}")
     if dot_dtype not in (torch.bfloat16, torch.float32):
@@ -387,11 +422,12 @@ def displaced_joint_softmax(l1: torch.Tensor, l2: torch.Tensor, padding: int, S:
     _, hp, wp, c = l1.shape
     _check_layout(l1.numel() // c, c, hp, wp, padding, S, K, T)
     geometry = (hp, wp, padding, S, K, float(T), dot_dtype)
+    rows1 = None if rows1 is None else window(hp, padding, rows1)
     a, b = l1.reshape(-1, c), l2.reshape(-1, c)
     if a.is_cuda or b.is_cuda:
-        joint = _DisplacedJointSoftmaxCUDA.apply(a, b, geometry)
+        joint = _DisplacedJointSoftmaxCUDA.apply(a, b, geometry, rows1)
     elif a.device.type == "cpu" and b.device.type == "cpu":
-        joint = _DisplacedJointSoftmaxPlain.apply(a, b, geometry)
+        joint = _DisplacedJointSoftmaxPlain.apply(a, b, geometry, rows1)
     else:
         raise ValueError(f"unsupported devices {l1.device}, {l2.device}")
     t = 2 * padding + 1

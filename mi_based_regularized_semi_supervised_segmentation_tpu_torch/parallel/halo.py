@@ -5,11 +5,12 @@ space_axis="space")``).
 Under a split context (``parallel/mesh.py:split_context``) space rank s of
 S holds the band ``[s * h, (s + 1) * h)`` of a map of H = S * h rows:
 
-- ``halo_exchange(x, context, dim)``: the band with one row of each
-  neighbour on each side (zeros above space rank 0 and below space rank
-  S - 1: the global convolution's zero padding). Its backward sends the
-  halo rows' gradients back: each rank adds its neighbours' to its own
-  edge rows.
+- ``halo_exchange(x, context, dim, rows=1)``: the band with ``rows`` rows
+  of each neighbour on each side (zeros above space rank 0 and below space
+  rank S - 1: the global convolution's zero padding, or the IIC canvas's
+  border). Its backward sends the halo rows' gradients back: each rank adds
+  its neighbours' to its own edge rows. The neighbours' bands must hold
+  ``rows`` rows (a halo reaches one band, never two).
 - ``flip_bands(x, context, dim)``: the band of the map flipped along H.
   Flipped band s holds band S - 1 - s reversed; the backward is the same
   swap of the gradient.
@@ -28,7 +29,9 @@ the host for ``all_reduce`` but takes none in ``all_gather`` or a
 point-to-point ``send``. So there is one path whatever the backend, and a
 failed collective raises. A bf16 or fp16 band travels as fp32 (exact both
 ways). ``EXCHANGED`` counts the bytes of the buffers a rank reduces, by
-exchange, forward and backward.
+exchange, forward and backward (a remat block's recompute counts again):
+``halo`` the U-Net's one-row halos, ``iic_halo`` the IIC halves' p-row
+ones (``kind``), ``flip`` and ``gather``.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from .mesh import DistContext, all_gather_parts, gather_parts
 
-EXCHANGED: Dict[str, int] = {"halo": 0, "flip": 0, "gather": 0}
+EXCHANGED: Dict[str, int] = {"halo": 0, "iic_halo": 0, "flip": 0, "gather": 0}
 
 
 def reset_exchange_counts() -> None:
@@ -67,36 +70,45 @@ def _every_band(x: torch.Tensor, context: DistContext, kind: str) -> torch.Tenso
 
 class _Halo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, context: DistContext, dim: int):
-        ctx.context, ctx.dim = context, dim
-        s, last = context.space_rank, context.space_size - 1
-        edges = _every_band(torch.stack([x.narrow(dim, 0, 1), x.narrow(dim, x.shape[dim] - 1, 1)]),
-                            context, "halo")
-        zeros = torch.zeros_like(x.narrow(dim, 0, 1))
-        above = edges[s - 1, 1] if s > 0 else zeros  # the last row of the band above
-        below = edges[s + 1, 0] if s < last else zeros  # the first row of the band below
+    def forward(ctx, x: torch.Tensor, context: DistContext, dim: int, rows: int, kind: str):
+        ctx.context, ctx.dim, ctx.rows, ctx.kind = context, dim, rows, kind
+        s, last, r = context.space_rank, context.space_size - 1, rows
+        edges = _every_band(torch.stack([x.narrow(dim, 0, r), x.narrow(dim, x.shape[dim] - r, r)]),
+                            context, kind)
+        zeros = torch.zeros_like(x.narrow(dim, 0, r))
+        above = edges[s - 1, 1] if s > 0 else zeros  # the last rows of the band above
+        below = edges[s + 1, 0] if s < last else zeros  # the first rows of the band below
         return torch.cat([above, x, below], dim=dim)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        context, dim = ctx.context, ctx.dim
+        context, dim, r = ctx.context, ctx.dim, ctx.rows
         s, last = context.space_rank, context.space_size - 1
-        h = grad.shape[dim] - 2
+        h = grad.shape[dim] - 2 * r
         # slot s: the gradients of its halo rows, owed to the bands above and below
-        owed = _every_band(torch.stack([grad.narrow(dim, 0, 1), grad.narrow(dim, h + 1, 1)]),
-                           context, "halo")
-        dx = grad.narrow(dim, 1, h).clone()
-        if s > 0:  # the band above's lower halo: this band's first row
-            dx.narrow(dim, 0, 1).add_(owed[s - 1, 1])
-        if s < last:  # the band below's upper halo: this band's last row
-            dx.narrow(dim, h - 1, 1).add_(owed[s + 1, 0])
-        return dx, None, None
+        owed = _every_band(torch.stack([grad.narrow(dim, 0, r), grad.narrow(dim, h + r, r)]),
+                           context, ctx.kind)
+        dx = grad.narrow(dim, r, h).clone()
+        if s > 0:  # the band above's lower halo: this band's first rows
+            dx.narrow(dim, 0, r).add_(owed[s - 1, 1])
+        if s < last:  # the band below's upper halo: this band's last rows
+            dx.narrow(dim, h - r, r).add_(owed[s + 1, 0])
+        return dx, None, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, context: DistContext, dim: int = 2) -> torch.Tensor:
-    """The band ``x`` with one row from each neighbouring band on each side
-    along ``dim`` (zeros at the map's edges): [..., h + 2, ...]."""
-    return _Halo.apply(x, context, dim)
+def halo_exchange(x: torch.Tensor, context: DistContext, dim: int = 2, rows: int = 1,
+                  kind: str = "halo") -> torch.Tensor:
+    """The band ``x`` with ``rows`` rows from each neighbouring band on each
+    side along ``dim`` (zeros at the map's edges): [..., h + 2 rows, ...],
+    its bytes counted under ``EXCHANGED[kind]``. ``SpaceSplitUnsupported``
+    when ``rows`` exceeds the band's h rows."""
+    if rows > x.shape[dim]:
+        raise SpaceSplitUnsupported(
+            f"a halo of {rows} rows over bands of {x.shape[dim]}: a halo reaches the "
+            "neighbouring band only")
+    if rows <= 0:
+        return x
+    return _Halo.apply(x, context, dim, rows, kind)
 
 
 def _swap(x: torch.Tensor, context: DistContext, dim: int) -> torch.Tensor:

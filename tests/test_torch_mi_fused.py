@@ -374,3 +374,53 @@ def test_kernels_match_plain_on_card(lanes, clusters):
             assert np.isfinite(got).all()
             tol = 1e-2 if i and dot == torch.bfloat16 else 1e-4
             np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,clusters", [(C, 20), (WIDE, 30)])
+@pytest.mark.parametrize("rows", ["interior", "top", "bottom", "both"])
+def test_kernels_take_l1_window_on_card(lanes, clusters, rows):
+    """The kernels with l1's window of live rows (``rows1``, a band's halo'd
+    canvas under the H split), forward, dl2 and dl1, in the three operand
+    modes of ``test_kernels_match_plain_on_card``. The interior window is
+    the unsplit call: bit for bit the output with no window. A window open
+    at the top, the bottom or both is held against the plain version with
+    the same window at ``chip_smoke.py``'s kernel tolerances: 5e-4 of the
+    largest entry, the bf16 products' logit gradients 1e-2 (the reason is
+    in ``test_kernels_match_plain_on_card``); fp32 products hold at 1e-4.
+    With bf16 products a last-bit difference in a softmax can round one
+    probability to the neighbouring bf16 value, which moves a J entry by
+    2^-8 p1 p2: on an H100 1-2 of 802,816 J entries at 128 lanes sat
+    1.06e-4 of the largest entry off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(1)
+    p, hp, wp, s = 3, 20, 19, 5
+    live = s * clusters
+    window = {"interior": (p, hp - p), "top": (0, hp - p), "bottom": (p, hp),
+              "both": (0, hp)}[rows]
+    l1, l2 = (_logits(rng, 2, hp, wp, live, lanes).reshape(-1, lanes) for _ in range(2))
+    g = _cotangent(rng, p, lanes).reshape(-1, lanes, lanes) * 1e-2
+    args = (hp, wp, p, s, clusters, 1.0)
+    for dtype, bf16 in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, True)):
+        def run(dev, **kw):
+            a, b = (torch.tensor(t, device=dev).to(dtype) for t in (l1, l2))
+            gt = torch.tensor(g, device=dev)
+            if dev == "cpu":
+                dot = torch.bfloat16 if bf16 else torch.float32
+                return [mi_fused.fused_fwd_plain(a, b, *args, dot, **kw),
+                        *mi_fused.fused_bwd_plain(a, b, gt, *args, dot, **kw)]
+            return [mi_fused.mi_fused_fwd(a, b, *args, bf16=bf16, **kw),
+                    mi_fused.mi_fused_bwd(b, a, gt, *args, transpose_g=True, bf16=bf16, **kw),
+                    mi_fused.mi_fused_bwd(a, b, gt, *args, transpose_g=False, bf16=bf16, **kw)]
+        got = run("cuda", rows1=window)
+        if rows == "interior":
+            for a, b in zip(got, run("cuda")):
+                assert torch.equal(a, b)
+            continue
+        for i, (want, out) in enumerate(zip(run("cpu", rows1=window), got)):
+            want, out = want.float().numpy(), out.float().cpu().numpy()
+            assert np.isfinite(out).all()
+            tol = (1e-2 if i else 5e-4) if bf16 else 1e-4
+            np.testing.assert_allclose(out, want, rtol=0, atol=tol * np.abs(want).max(),
+                                       err_msg=f"{dtype} logits, bf16 products {bf16}, out {i}")
