@@ -706,7 +706,7 @@ def phase_kernels_band(reps: int) -> list:
     "both" window."""
     import torch
 
-    mj, mf = port("ops.mi_joint"), port("ops.mi_fused")
+    mj, mf, heads = port("ops.mi_joint"), port("ops.mi_fused"), port("models.heads")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
     label, batch, rows_band, width, p = BAND
@@ -742,11 +742,27 @@ def phase_kernels_band(reps: int) -> list:
             args = (hp, wp, p, SUBHEADS, clusters, 1.0)
             live = SUBHEADS * clusters
             fflops = 2.0 * n * live * live * d
+            valid = (mf.row_valid(n, hp, wp, p, "cuda", rows1), mf.row_valid(n, hp, wp, p, "cuda"))
             for mode in ("bf16", "fp32", "bf16in"):
                 bf16 = mode != "fp32"
                 dot = torch.bfloat16 if bf16 else torch.float32
                 l1, l2 = (t.to(torch.bfloat16) if mode == "bf16in" else t for t in (f1, f2))
                 esz = l1.element_size()
+                # the unfused path on the same band: per-group softmax and the
+                # windows' masks as separate kernels, then the mi_joint kernels
+                leaves = [t.clone().requires_grad_(True) for t in (l1, l2)]
+                probs = [heads.group_softmax_flat(t, SUBHEADS, clusters) * v.to(t.dtype)
+                         for t, v in zip(leaves, valid)]
+                saved = [t.detach().contiguous() for t in probs]
+                unfused_bwd = lambda own, src, tr: torch.autograd.grad(
+                    probs[own], leaves[own], mj.mi_joint_bwd(saved[src], g, wp, p, tr, bf16),
+                    retain_graph=True)
+                unfused = {
+                    mf.FWD: lambda: mj.mi_joint_fwd(
+                        *(heads.group_softmax_flat(t, SUBHEADS, clusters) * v.to(t.dtype)
+                          for t, v in zip((l1, l2), valid)), wp, p, bf16),
+                    mf.BWD_DL2: lambda: unfused_bwd(1, 0, False),
+                    mf.BWD_DL1: lambda: unfused_bwd(0, 1, True)}
                 cases = {
                     mf.FWD: (lambda: mf.mi_fused_fwd(l1, l2, *args, bf16=bf16, rows1=rows1),
                              lambda: mf.fused_fwd_plain(l1, l2, *args, dot, rows1=rows1),
@@ -778,20 +794,90 @@ def phase_kernels_band(reps: int) -> list:
                            "tol_rel": tol, "share_above_tol": share,
                            "ms": cuda_ms(kernel, reps),
                            "plain_ms": cuda_ms(plain, max(3, reps // 3), warmup=1),
+                           "unfused_path_ms": cuda_ms(unfused[base], max(3, reps // 3),
+                                                      warmup=1),
                            "library_ms": None,
                            "bound_ms": max(nbytes / HBM_BYTES_PER_S, fflops / peak) * 1e3,
                            "bound_by": "operations" if by_ops else "bytes"}
                     row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+                    row["vs_unfused"] = row["ms"] / row["unfused_path_ms"]
                     emit(row)
                     out.append(row)
-                del cases
-            del f1, f2, g
+                del cases, unfused, leaves, probs, saved
+            del f1, f2, g, valid
         torch.cuda.empty_cache()
     emit({"phase": "kernels_band", "band": list(BAND), "canvas": [batch, hp, wp],
           "windows": {w: list(_band_window(w, hp, p)) for w in BAND_WINDOWS},
           "checked": "joint fwd/dx/dx_tf at 128 lanes, fused fwd/dl2/dl1 at 128 and 256 lanes, "
                      "fp32, bf16 and bf16in operands, each window"})
-    return out
+    return out + _band_tile_rows(mj, reps)
+
+
+def _live_work(a, b, batch: int, hp: int, wp: int, p: int):
+    """(pairs, live entries of A, live entries of B) of the joint on flat
+    [batch * hp * wp, C] canvases: the pairs (B at n, A at n + the shift,
+    both live) summed over the (2p + 1)^2 shifts, and the rows of each that
+    hold data. A dead entry is zero and adds nothing to any of the three
+    products, so this is the work that this data needs: on a tile's canvas
+    the zero border is no rounding error (38^2 canvas entries to 32^2 live)."""
+    live_a, live_b = (t.reshape(batch, hp, wp, -1).abs().sum(-1) > 0 for t in (a, b))
+    inner = live_b[:, p:hp - p, p:wp - p]
+    check(int(inner.sum()) == int(live_b.sum()), "B must be zero on its border of width p")
+    pairs = sum(int((inner & live_a[:, dy:hp - 2 * p + dy, dx:wp - 2 * p + dx]).sum())
+                for dy in range(2 * p + 1) for dx in range(2 * p + 1))
+    return pairs, int(live_a.sum()), int(live_b.sum())
+
+
+def _live_bound(a, b, batch: int, hp: int, wp: int, p: int, c: int, esz: int):
+    """(flops, bytes) of the joint's products on the live entries of the
+    canvases (``_live_work``): 2 C^2 a pair; each live row of A and B read
+    once and the [D, C, C] fp32 joint (or its gradient) once."""
+    pairs, na, nb = _live_work(a, b, batch, hp, wp, p)
+    d = (2 * p + 1) ** 2
+    return 2.0 * pairs * c * c, float(esz) * (na + nb) * c + 4.0 * d * c * c
+
+
+# the joint on tile pieces of the 2 x 2 split at patch 32: Up_conv2 (p = 3),
+# rank 0's 5 unlabeled rows, C = S*K = 100 lanes; a whole tile inside the band
+# (32 rows), and the tile [96, 128) cut by the band's edge at row 112 (its 16
+# rows in the band; A live on them and on the 3 rows below the edge)
+BAND_TILES = (("Up_conv2 band tile", 32, "interior"), ("Up_conv2 band tile cut", 16, "bottom"))
+BAND_TILE_TAPS = {tap for tap, _, _ in BAND_TILES}
+
+
+def _band_tile_rows(mj, reps: int) -> list:
+    """The joint's three products on the tile pieces of BAND_TILES, each
+    piece on its own canvas [5, rows + 2p, 32 + 2p, 100] as
+    ``ops/iic_local.py:_tiled_joints`` gathers it (B live on the piece's
+    rows, A on the tile's rows within p of them), on fp32 operands (bf16
+    products) and bf16 operands, within TOL of the plain version, timed
+    beside it and ``F.conv2d``. The bound counts the live work
+    (``_live_bound``), not the canvas."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    p, batch, c = BAND[4], BAND[1], SUBHEADS * CLUSTERS
+    d = (2 * p + 1) ** 2
+    rows = []
+    for label, piece_rows, a_window in BAND_TILES:
+        hp, wp = piece_rows + 2 * p, TILE_PATCH + 2 * p
+        n = batch * hp * wp
+        a_rows = (p, hp) if a_window == "bottom" else (p, hp - p)
+        a = _band_probs(batch, hp, wp, p, a_rows, gen, lanes=c)
+        b = _band_probs(batch, hp, wp, p, (p, hp - p), gen, lanes=c)
+        g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
+        for mode, (ma, mb) in {"bf16": (a, b), "bf16in": (a.to(torch.bfloat16),
+                                                          b.to(torch.bfloat16))}.items():
+            flops, nbytes = _live_bound(ma, mb, batch, hp, wp, p, c, ma.element_size())
+            cases = _joint_cases(mj, ma, mb, g, batch, hp, p, True, wp=wp)
+            where = {"phase": "kernels_band", "tap": label, "label": f"{label} [{batch}, {hp}, "
+                     f"{wp}]", "mode": mode, "window": list(a_rows)}
+            rows += _joint_rows(mj, cases, ma.dtype, where, n, c, p, flops, nbytes, True, reps)
+            del cases
+        del a, b, g
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernels_tiles(reps: int) -> list:
@@ -801,7 +887,8 @@ def phase_kernels_tiles(reps: int) -> list:
     C = S*K = 100 lanes, no dead ones; exactly on integer inputs, then on
     probability maps within TOL, on fp32 operands (bf16 products, the fp32
     model's) and bf16 operands. The bound counts the function's 100 lanes
-    (``bound_ms_128``: the 128 lanes the kernels compute)."""
+    on the live work (``_live_bound``; ``bound_ms_128``: the 128 lanes the
+    kernels compute)."""
     import torch
 
     mj = port("ops.mi_joint")
@@ -820,10 +907,9 @@ def phase_kernels_tiles(reps: int) -> list:
         a = _tap_inputs(batch, edge, p, gen, lanes=c)
         b = _tap_inputs(batch, edge, p, gen, lanes=c)
         g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
-        flops = 2.0 * n * c * c * d
         for mode, (ma, mb) in {"bf16": (a, b), "bf16in": (a.to(torch.bfloat16),
                                                           b.to(torch.bfloat16))}.items():
-            nbytes = 2.0 * ma.element_size() * n * c + 4.0 * d * c * c
+            flops, nbytes = _live_bound(ma, mb, batch, hp, hp, p, c, ma.element_size())
             cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16=True)
             where = {"phase": "kernels", "tap": f"tile_{tap}", "label": f"{tap} tile {edge}",
                      "mode": mode}
@@ -1387,6 +1473,27 @@ def joint_calls(edges, patch: int) -> int:
     tile) over decoder maps of the given edges at ``patch``."""
     tiles = port("ops.iic_local")._tiles
     return 3 * sum(len(tiles(e, e, patch)) for e in edges)
+
+
+def band_tile_pieces(edge: int, patch: int, space: int, s: int) -> dict:
+    """{rows: count} of the tile pieces of space rank ``s`` of ``space``
+    bands of an edge x edge decoder map at ``patch``: each tile whose rows
+    meet the rank's band gives one piece, of its rows in the band."""
+    tiles = port("ops.iic_local")._tiles
+    b0, b1 = s * edge // space, (s + 1) * edge // space
+    pieces: dict = {}
+    for r, _ in tiles(edge, edge, patch):
+        if r.start < b1 and r.stop > b0:
+            rows = min(r.stop, b1) - max(r.start, b0)
+            pieces[rows] = pieces.get(rows, 0) + 1
+    return pieces
+
+
+def band_joint_calls(edges, patch: int, space: int, s: int) -> int:
+    """The joint's kernel calls a step on space rank ``s`` of ``space`` bands
+    of decoder maps of the given edges at ``patch``: three for each tile
+    piece of the rank's band."""
+    return 3 * sum(sum(band_tile_pieces(e, patch, space, s).values()) for e in edges)
 
 
 def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "conv",
@@ -3021,16 +3128,26 @@ SPACE_WORLD = 4   # space_parallel: ranks, laid out as 2 x 2 and as 1 x 4 (data 
 SPACE_RUNS = (("2x2", 2, "fp32", "host", False), ("1x4", 4, "fp32", "host", False),
               ("2x2_bf16", 2, "bf16", "host", False), ("2x2_device", 2, "fp32", "device", False),
               ("2x2_fused", 2, "fp32", "host", True))
+# the tiled IIC on bands (patch_sizes [32, 32]: 6 x 6 tiles of Up_conv3's
+# 112^2, 13 x 13 of Up_conv2's 224^2), each (name, space size, compute dtype):
+# a rank launches the joint three times a step for each tile its band meets
+# (band_joint_calls), against 615 in one process; checked once, no timed
+# steps (a rank's step is seconds here)
+SPACE_TILED_RUNS = (("2x2_tiled", 2, "fp32"), ("2x2_tiled_bf16", 2, "bf16"),
+                    ("1x4_tiled", 4, "fp32"))
+SPACE_TILED_LAUNCHES = {2: (345, 345), 4: (192, 267, 267, 192)}  # at crop 224
 
 
-def _space_build(device, ctx, dtype: str, store=None, fused: bool = False, crop: int = 224):
+def _space_build(device, ctx, dtype: str, store=None, fused: bool = False, crop: int = 224,
+                 patch: int = 1024):
     """(model, named parameters, step) of the headline udaiic step (taps
     Conv5 / Up_conv3 / Up_conv2 of 5 x 20 clusters, paddings [1, 3], the
     Conv5 head's weights times PAR_HEAD_SCALE; Adam at 1e-3) at full width
     from the weights of seed 0 on ``device`` under ``ctx``, in ``dtype``
     compute (the decoder heads too, as the trainer sets them); ``store``:
     the device-data path at ``crop`` with geometry shear; ``fused``:
-    ``Kernel.backend=pallas_fused`` (the heads emit logits)."""
+    ``Kernel.backend=pallas_fused`` (the heads emit logits); ``patch``: the
+    decoder taps' patch size."""
     import torch
 
     models, optim, steps = port("models"), port("engine.optim"), port("engine.steps")
@@ -3049,24 +3166,25 @@ def _space_build(device, ctx, dtype: str, store=None, fused: bool = False, crop:
         model, opt, "udaiic", num_classes=4, generator=torch.Generator(device=device),
         feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
         uda_criterion="mse", uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3],
-        patch_sizes=1024, data_store=store, crop=crop, geometry="shear", context=ctx)
+        patch_sizes=[patch, patch], data_store=store, crop=crop, geometry="shear", context=ctx)
     return model, params, step
 
 
 def _space_run(device, ctx, batch_np, flips, dtype: str = "fp32", store=None, aug=None,
-               crop: int = 224, fused: bool = False) -> dict:
+               crop: int = 224, fused: bool = False, patch: int = 1024,
+               timed_steps: int = PAR_TIMED_STEPS) -> dict:
     """One step of ``_space_build``'s udaiic step under ``ctx`` (None: one
     process): a tensor batch placed by ``batch_sharding`` (the rank's rows
     and band) or an index batch passed whole (``store``, ``aug`` the
     injected draws). Its losses, parameter moves, summed gradients, BN
     running statistics, kernel launches (in all and by name and padding) and
-    the bytes each exchange reduced, then the wall ms of PAR_TIMED_STEPS more
-    steps on the same batch."""
+    the bytes each exchange reduced, then the wall ms of ``timed_steps``
+    more steps on the same batch."""
     import torch
 
     mesh, halo = port("parallel.mesh"), port("parallel.halo")
     mj, mf, rot = port("ops.mi_joint"), port("ops.mi_fused"), port("ops.rotate")
-    model, params, step = _space_build(device, ctx, dtype, store, fused, crop=crop)
+    model, params, step = _space_build(device, ctx, dtype, store, fused, crop=crop, patch=patch)
     batch = (batch_np if store is not None
              else mesh.batch_sharding(batch_np, ctx, device))
     flip_mask = torch.from_numpy(flips).to(device)
@@ -3093,7 +3211,7 @@ def _space_run(device, ctx, batch_np, flips, dtype: str = "fp32", store=None, au
            "rank": None if ctx is None else ctx.rank,
            "band_rows": None if ctx is None or store is not None
            else int(batch["labeled_image"].shape[1]), "step_ms": []}
-    for _ in range(PAR_TIMED_STEPS):
+    for _ in range(timed_steps):
         t0 = time.perf_counter()
         step(batch, flip_mask=flip_mask, aug_params=aug)
         torch.cuda.synchronize()
@@ -3109,7 +3227,8 @@ def _space_rank(ctx, spawned_at: float, batch_np, flips, store_root: str, index_
     _full_fp32()
     mesh = port("parallel.mesh")
     data, dp = port("data"), port("data.device_pipeline")
-    grids = {s: mesh.split_context(ctx, s) for s in sorted({run[1] for run in SPACE_RUNS})}
+    grids = {s: mesh.split_context(ctx, s)
+             for s in sorted({run[1] for run in SPACE_RUNS + SPACE_TILED_RUNS})}
     out = {"startup_s": {"to_import": IMPORTED_AT - spawned_at,
                          "import_to_ready": ready - IMPORTED_AT}}
     store = dp.DeviceDataStore(data.ACDCDataset(store_root, "train"), device=ctx.device,
@@ -3123,6 +3242,9 @@ def _space_rank(ctx, spawned_at: float, batch_np, flips, store_root: str, index_
         else:
             out[name] = _space_run(ctx.device, grid, batch_np, flips, dtype, crop=crop,
                                    fused=fused)
+    for name, space, dtype in SPACE_TILED_RUNS:
+        out[name] = _space_run(ctx.device, grids[space], batch_np, flips, dtype, crop=crop,
+                               patch=TILE_PATCH, timed_steps=0)
     return out
 
 
@@ -3193,11 +3315,15 @@ def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
     (the fused kernels with l1's band window); each against the one-process
     card step from the same weights, batch, draws and flip mask
     (``_space_compare``): 6 joint launches a rank a step (6 fused launches on
-    the fused run), the bytes of each exchange. A rank's step ms is that of
-    SPACE_WORLD processes time-sharing one card through gloo, not a scaling
-    figure. Returns the launches of one rank of the device run (rotation)
-    and, by kernel and padding, of the 2 x 2 fp32 and fused runs (the
-    kernels on band operands). ``device`` / ``crop``: where and at what crop
+    the fused run), the bytes of each exchange. Then the tiled IIC on bands
+    (SPACE_TILED_RUNS: patch 32, 2 x 2 in fp32 and bf16, 1 x 4), each
+    against the one-process tiled card step (615 joint launches), a rank's
+    launches three a tile its band meets (SPACE_TILED_LAUNCHES), one checked
+    step and none timed. A rank's step ms is that of SPACE_WORLD processes
+    time-sharing one card through gloo, not a scaling figure. Returns the
+    launches of one rank of the device run (rotation) and, by kernel and
+    padding, of the 2 x 2 fp32, fused and tiled runs (the kernels on band
+    operands and tile pieces). ``device`` / ``crop``: where and at what crop
     (a rehearsal on the CPU runs ``cpu`` at a small crop, where no kernel
     launches)."""
     import numpy as np
@@ -3234,6 +3360,14 @@ def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
                for k, v in aug.items()}
     refs["device"] = _space_run(device, None, index_np, flips, store=store, aug=dev_aug,
                                 crop=crop)
+    for dtype in ("fp32", "bf16"):
+        refs[f"tiled_{dtype}"] = _space_run(device, None, batch, flips, dtype, crop=crop,
+                                            patch=TILE_PATCH, timed_steps=0)
+    one_process_calls = joint_calls((crop // 2, crop), TILE_PATCH)
+    for dtype in ("fp32", "bf16"):
+        got = refs[f"tiled_{dtype}"]["launches"]["mi_joint"]
+        check(got == one_process_calls, f"space_parallel one-process tiled {dtype}: {got} joint "
+                                        f"launches, want {one_process_calls}")
     rows = {}
     for name, space, dtype, path, fused in SPACE_RUNS:
         ref = refs["device" if path == "device" else "fused" if fused else dtype]
@@ -3242,6 +3376,20 @@ def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
         rows[name] = [_space_compare(f"space_parallel {name} rank {r[name]['rank']}", ref, r[name],
                                      want, refs["fp32"] if dtype == "bf16" else None)
                       for r in ranks]
+    for name, space, dtype in SPACE_TILED_RUNS:
+        ref = refs[f"tiled_{dtype}"]
+        rows[name] = []
+        for r in ranks:
+            s = r[name]["rank"] % space
+            calls = band_joint_calls((crop // 2, crop), TILE_PATCH, space, s)
+            if crop == 224:
+                check(calls == SPACE_TILED_LAUNCHES[space][s],
+                      f"{name}: {calls} joint calls for space rank {s}, want "
+                      f"{SPACE_TILED_LAUNCHES[space][s]}")
+            rows[name].append(_space_compare(
+                f"space_parallel {name} rank {r[name]['rank']}", ref, r[name],
+                {"mi_joint": calls, "mi_fused": 0, "rotate": 0},
+                refs["tiled_fp32"] if dtype == "bf16" else None))
     emit({"phase": "space_parallel", "world": SPACE_WORLD, "batch": [4, 10], "crop": crop,
           "mode": "udaiic", "backend": "gloo", "device": device, "nvidia_smi": nvidia_smi(),
           "note": ("rank_*step_ms: a rank's step while all ranks time-share one card through "
@@ -3256,7 +3404,8 @@ def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
           "spawn_wall_s": spawn_wall})
     return {"rotate": rows["2x2_device"][0]["launches"]["rotate"],
             "band_launches": ranks[0]["2x2"]["launches_by_kernel"]
-            | ranks[0]["2x2_fused"]["launches_by_kernel"]}
+            | ranks[0]["2x2_fused"]["launches_by_kernel"],
+            "band_tile_launches": ranks[0]["2x2_tiled"]["launches_by_kernel"]}
 
 
 @contextmanager
@@ -3953,9 +4102,29 @@ def main(argv=None) -> int:
     band_launches = space_launches.get("band_launches", {})
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], window=r["window"],
+                     unfused_path_ms=r.get("unfused_path_ms"),
                      launches=band_launches.get((r["name"], r["padding"]), 0)
                      if r["tap"] == BAND[0] else 0)
-                for r in band_rows if r["mode"] == "bf16"]
+                for r in band_rows if r["mode"] == "bf16" and r["tap"] not in BAND_TILE_TAPS]
+    # the joint on the tile pieces of the 2 x 2 split at patch 32: rank 0 of
+    # space_parallel's 2x2_tiled run launched each product once a Up_conv2
+    # piece (counted by kernel and padding); each row takes the pieces of
+    # its shape (band_tile_pieces), which must sum to that count
+    tile_launches = space_launches.get("band_tile_launches", {})
+    pieces = band_tile_pieces(BAND[3], TILE_PATCH, 2, 0)
+    check(set(pieces) == {rows for _, rows, _ in BAND_TILES},
+          f"band tile pieces {pieces}: not the shapes of BAND_TILES")
+    for r in band_rows:  # the fp32 run launches the kernels of fp32 operands only
+        if r["tap"] in BAND_TILE_TAPS and r["mode"] == "bf16" and tile_launches:
+            got = tile_launches.get((r["name"], r["padding"]), 0)
+            check(got == sum(pieces.values()),
+                  f"{r['name']} on band tile pieces: {got} launches, want {pieces}")
+    piece_rows = {tap: rows for tap, rows, _ in BAND_TILES}
+    summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
+                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
+                     window=r["window"],
+                     launches=pieces[piece_rows[r["tap"]]] if tile_launches else 0)
+                for r in band_rows if r["mode"] == "bf16" and r["tap"] in BAND_TILE_TAPS]
     emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})

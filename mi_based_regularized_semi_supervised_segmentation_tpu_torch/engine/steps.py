@@ -63,19 +63,20 @@ the gradients, losses and dice sums are summed over the world (data x
 space). Every mode runs under it (``meanteacher``'s teacher on the band
 too), with remat and either stem. The IIC modes (``iic_regularization``):
 a decoder tap held as a band (``UNet.banded_taps``) builds its flipped
-plain half from the band swap, padded by p on W and by a halo of p rows
-from the neighbouring bands on H (``parallel/halo.py``; zeros only at the
-map's ends), its tf half on its own zero border; the per-pixel head
-computes the halo rows again; the flipped half is live on its halo rows
-except at the map's ends, the tf half on its interior, and the tap's joint
-is summed over the world. An encoder tap's pooled vectors are the same on
-every space rank of a data rank (``ClusterHead`` sums a band over the space
-group), so its joint is summed over the data group; so is a decoder tap
-computed whole. Each rank's IIC term is 1 / (W S) of the MI, so the
-world's gradient sum counts it once. A tiled IIC (a patch below the map)
-and a displacement p beyond a band's rows raise ``SpaceSplitUnsupported``
-before the step's first collective; so does any model but the U-Net, when
-the step is built.
+plain half from the band swap, padded by p on W and by a halo of p rows on
+H (``parallel/halo.py``: from the neighbouring bands, or from as many bands
+as p spans; zeros only past the map's ends), its tf half on its own zero
+border; the per-pixel head computes the halo rows again; the flipped half
+is live on its halo rows inside the map, the tf half on its interior. One
+full-map tile takes the band's joint; a patch below the map takes the
+whole map's tiles, each tile's piece of the band its own joint
+(``ops/iic_local.py``, a tile that misses the band none); either way the
+tap's joints are summed over the world. An encoder tap's pooled vectors are
+the same on every space rank of a data rank (``ClusterHead`` sums a band
+over the space group), so its joint is summed over the data group; so is a
+decoder tap computed whole. Each rank's IIC term is 1 / (W S) of the MI, so
+the world's gradient sum counts it once. Any model but the U-Net raises
+``SpaceSplitUnsupported`` when the step is built.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..models.unet import ENCODER_NAMES, TAP_LEVELS, check_space_split
+from ..models.unet import ENCODER_NAMES, check_space_split
 from ..ops.augment_device import apply_augment, center_crop_batch, sample_augment_params
 from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
@@ -97,7 +98,7 @@ from ..ops.iic_local import (
     iid_segmentation_small_patch_loss_subheads,
 )
 from ..ops.losses import entropy, kl_div
-from ..parallel.halo import SpaceSplitUnsupported, halo_exchange
+from ..parallel.halo import halo_exchange
 from ..parallel.mesh import DistContext, local_band, reduce_grads_, reduce_sum_, single_context
 from ..utils.general import class2one_hot
 
@@ -191,13 +192,14 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
         hp, wp = p1.shape[1], p1.shape[2]
         S, K = projector.head_shape(name)
         # the flipped half's live rows: its interior, or on a band its halo
-        # rows too but at the map's ends; the whole map's rows
+        # rows too, those inside the map; the whole map's rows, the band's
         rows1 = (padding, hp - padding)
-        map_rows, joint_group = hp - 2 * padding, group
+        map_rows, joint_group, band_rows = hp - 2 * padding, group, None
         if band is not None:
-            rows1 = (padding if band.space_rank == 0 else 0,
-                     hp - padding if band.space_rank == band.space_size - 1 else hp)
             map_rows, joint_group = map_rows * band.space_size, dist.group.WORLD
+            span = band.band(map_rows)
+            band_rows = (span.start, span.stop)
+            rows1 = (max(padding - span.start, 0), min(hp, map_rows - span.start + padding))
         if projector.local_emit_logits:
             # p1, p2 are lane-padded logits: no valid multiply here
             if patch < map_rows or patch < wp - 2 * padding:
@@ -215,7 +217,8 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
             rows = row_mask.detach().to(p1.dtype).reshape((-1,) + (1,) * (p1.dim() - 1))
             valid1, valid2 = valid1 * rows, valid2 * rows
         kw = dict(padding=padding, patch_size=patch, backend=backend, pre_padded=True,
-                  group=joint_group, map_rows=None if band is None else map_rows)
+                  group=joint_group, map_rows=None if band is None else map_rows,
+                  band=band_rows)
         if p1.dim() == 5:  # [B, Hp, Wp, S, K] (local_flat off)
             losses[name] = iid_segmentation_small_patch_loss_subheads(p1 * valid1, p2 * valid2,
                                                                       **kw)
@@ -223,32 +226,6 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
             losses[name] = iid_segmentation_small_patch_loss_flat(p1 * valid1, p2 * valid2,
                                                                   S, K, **kw)
     return losses
-
-
-def check_iic_split(model: torch.nn.Module, height: int, width: int, space_size: int,
-                    names: Sequence[str], paddings: Sequence[int],
-                    patch_sizes: Sequence[int]) -> Tuple[str, ...]:
-    """The taps ``model`` holds as bands under an H split of [height, width]
-    maps over ``space_size`` ranks; ``SpaceSplitUnsupported`` (before any
-    collective) for a decoder tap on bands whose patch is below its map
-    (tiles would cross the bands) or whose displacement p exceeds a band's
-    rows (a halo reaches the neighbouring band only). ``names``: the decoder
-    taps, in the order of ``paddings`` and ``patch_sizes``."""
-    banded = model.banded_taps(height, space_size)
-    grid = (height // 2, width // 2) if model.stem == "s2d" else (height, width)
-    for name, pad, patch in zip(names, paddings, patch_sizes):
-        if name not in banded:
-            continue
-        rows, cols = (g >> TAP_LEVELS[name] for g in grid)
-        if patch < max(rows, cols):
-            raise SpaceSplitUnsupported(
-                f"patch {patch} below the {rows}x{cols} map of {name} under the H split: its "
-                "tiles would cross the bands (one full-map tile runs split)")
-        if pad > rows // space_size:
-            raise SpaceSplitUnsupported(
-                f"padding {pad} at {name} beyond its bands of {rows // space_size} rows: a halo "
-                "reaches the neighbouring band only")
-    return banded
 
 
 def build_train_step(
@@ -365,9 +342,7 @@ def build_train_step(
         lab_rows, unlab_rows = ctx.rows(n_lab), ctx.rows(n_unlab)
         banded = ()
         if needs_iic and space is not None:  # before the step's first collective
-            banded = check_iic_split(model, labeled_image.shape[1] * bands,
-                                     labeled_image.shape[2], bands, dec_names, paddings,
-                                     patch_sizes)
+            banded = model.banded_taps(labeled_image.shape[1] * bands, bands)
         # the rank's rows from here on
         n_labeled, n_unlabeled = labeled_image.shape[0], unlabeled_image.shape[0]
         if flip_mask is None:

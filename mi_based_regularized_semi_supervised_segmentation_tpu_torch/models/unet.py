@@ -65,8 +65,15 @@ bands; a whole level's tap is the whole map (``UNet.banded_taps`` says
 which). ``stem="s2d"`` splits too: a band of even rows starting on an even
 row pixel-unshuffles to the band of the half grid, on which the levels run
 (``band_levels`` of H / 2); a band of odd rows raises
-``SpaceSplitUnsupported``. ``remat`` splits as well: the recompute of a
+``SpaceSplitUnsupported`` (unreachable below 32 space ranks: the s2d U-Net
+pools its half grid four times, so H is a multiple of 32 and H / S is odd
+only when 32 divides S). ``remat`` splits as well: the recompute of a
 block repeats its exchanges and BN sums, in the same order on every rank.
+The taps of the banded levels feed the IIC modes on bands, at any patch
+and displacement (``engine/steps.py:iic_regularization``). The zoo's
+models take no band (``check_space_split``), as the JAX step calls only a
+model that takes ``return_features`` and ``bn_mask``, which none of the
+zoo's does.
 """
 
 from __future__ import annotations

@@ -37,24 +37,33 @@ tile, bf16 operands, T = 1).
 Small-patch tiling (patch smaller than the map): tiles of patch x patch at
 stride patch // 2, the last one flush with the far edge (``_tile_offsets``);
 each tile gets its own zero border and takes no halo from its neighbours.
-The tiles are gathered onto their bordered canvases in one op
-(``_tile_canvases``), each canvas goes to its backend's joint, and the
+The tiles are gathered onto their bordered canvases in one indexing op
+whose indices are built once per geometry and device (``_piece_plan``,
+``_gather_pieces``), each canvas goes to its backend's joint, and the
 per-tile joints are stacked so that ``mi_from_joint`` runs once over them,
 each joint with its own min; the loss is the mean over tiles of the
-subhead-mean MI. With ``pre_padded`` maps (the trainer's: the zero border of
-width p is already there) the border is stripped before tiling; a single
-full-map tile keeps it, and on the kernel backends the flatten is then a free
-reshape.
+subhead-mean MI. ``pre_padded`` maps (the trainer's: the zero border of
+width p is already there) are gathered from as they stand, border skipped;
+a single full-map tile keeps its canvas, and on the kernel backends the
+flatten is then a free reshape.
 
-The spatial H split (``map_rows``, the whole map's rows): the canvases hold
-a band of the map, x_out's with a halo of p rows from the neighbouring
-bands in its border (``engine/steps.py:iic_regularization``), x_tf_out's
-with a zero border. One tile must cover the whole map (the step refuses a
-patch below it: tiles would cross the bands). Every backend reads x_out's
-canvas as it stands, halo and all: the kernels as their operand, the others
-by shifting it against x_tf_out's interior (``_subhead_joint``'s
-``halo``). The band's joint
-is the band's share of the map's, summed over the ranks by ``group``.
+The spatial H split (``map_rows``, the whole map's rows; ``band``, the
+canvases' rows [b0, b1) of it): the canvases hold a band of the map, x_out's
+with a halo of p rows from the bands around it in its border
+(``engine/steps.py:iic_regularization``), x_tf_out's with a zero border.
+Every backend reads x_out's canvas as it stands, halo and all: the kernels
+as their operand, the others by shifting it against x_tf_out's interior
+(``_subhead_joint``'s ``halo``). One full-map tile takes the band's canvas
+whole. Below the map the tiles are the whole map's, in its order; each
+tile with a row in the band gives a piece: x_tf's canvas the tile's rows in
+the band on a zero border of p, x's the same rows +- p from the halo'd
+canvas, every entry outside the tile zero, as each tile keeps its own zero
+border. A piece goes to the backend's joint as a pre-padded canvas with a
+halo (on ``auto`` / ``pallas`` the CUDA joint on the piece as it stands), a
+tile that misses the band gives a zero joint and no launch, and the stacked
+[n_tiles, ...] joints are the band's shares of the one-process joints. The
+band's joints, a tile's or the whole map's, are summed over the ranks by
+``group``: the one-process joints on every rank.
 
 Data parallelism: every front door takes ``group``, a process group. The
 raw joint of each displacement (each tile's, the fused forward's J
@@ -65,8 +74,11 @@ receives the global dL/dJ. Every rank then holds the MI of the global batch.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+import functools
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -250,19 +262,120 @@ def _tiles(h: int, w: int, patch: int) -> List[Tuple[slice, slice]]:
             for wx in _tile_offsets(w, patch, step)]
 
 
-def _tile_canvases(x: torch.Tensor, patch: int, padding: int) -> Tuple[torch.Tensor, ...]:
-    """The tiles of [B, H, W, ...] maps, each on its own zero border of width
-    ``padding``: n contiguous [B, ph + 2p, pw + 2p, ...] canvases, gathered
-    by one indexing op and padded by one pad. Their backward is one stack
-    and one scatter-add into the map, where a slice per tile would add a
-    zero-filled copy of the whole map per tile."""
-    tiles = _tiles(x.shape[1], x.shape[2], patch)
-    rows = torch.tensor([list(range(r.start, r.stop)) for r, _ in tiles], device=x.device)
-    cols = torch.tensor([list(range(c.start, c.stop)) for _, c in tiles], device=x.device)
-    stack = x[:, rows[:, :, None], cols[:, None, :]].movedim(1, 0)  # [n, B, ph, pw, ...]
-    p = padding
-    tail = (0, 0) * (x.dim() - 3)
-    return F.pad(stack, tail + (p, p, p, p)).unbind(0)
+@dataclasses.dataclass(frozen=True)
+class _PiecePlan:
+    """The gather of a map's tile pieces: ``tiles`` the numbers of the tiles
+    (of ``n_tiles``, in ``_tiles``' order) that have a piece, ``shapes``
+    each piece's canvas [rows, cols]; per half, the flat index of each
+    canvas entry into one image's [rows * cols] (piece-major, then
+    row-major) and whether the entry is dead (zero on the canvas);
+    ``start`` and ``size``, the first entry and the entries of each entry's
+    piece, place a batch's entries piece by piece (``_batch_order``)."""
+
+    n_tiles: int
+    tiles: Tuple[int, ...]
+    shapes: Tuple[Tuple[int, int], ...]
+    x_index: torch.Tensor
+    x_dead: torch.Tensor
+    tf_index: torch.Tensor
+    tf_dead: torch.Tensor
+    start: torch.Tensor
+    size: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def _piece_plan(rows: int, cols: int, map_rows: int, map_cols: int, patch: int, padding: int,
+                band: Tuple[int, int], origin: int, device: torch.device) -> _PiecePlan:
+    """The pieces of the tiles of a ``map_rows`` x ``map_cols`` map held in
+    [B, rows, cols, ...] arrays whose entry (0, 0) is the map's pixel
+    (band[0] - origin, -origin): the whole map (band (0, map_rows)) or a
+    band of it, pre-padded (``origin`` = p) or not (0). A tile's piece is
+    its rows in the band [b0, b1) on a zero border of p: x_tf's canvas those
+    rows, x's the same rows +- p, each entry outside the tile zero. Built
+    once per geometry and device."""
+    p, (b0, b1) = padding, band
+    tiles = _tiles(map_rows, map_cols, patch)
+    kept, shapes, parts = [], [], {k: [] for k in ("xi", "xd", "ti", "td")}
+    for t, (rs, cs) in enumerate(tiles):
+        y0, y1 = max(rs.start, b0), min(rs.stop, b1)
+        if y0 >= y1:  # the tile misses the band
+            continue
+        g = np.arange(y0 - p, y1 + p)[:, None]  # the canvas's rows and columns in the map
+        c = np.arange(cs.start - p, cs.stop + p)[None, :]
+        at_r, at_c = g - b0 + origin, c + origin
+        in_cols = (c >= cs.start) & (c < cs.stop)
+        live_x = (g >= rs.start) & (g < rs.stop) & in_cols
+        live_tf = (g >= y0) & (g < y1) & in_cols
+        inside = (at_r >= 0) & (at_r < rows) & (at_c >= 0) & (at_c < cols)
+        if not inside[live_x].all():
+            raise ValueError(f"tile {t} reaches past the [{rows}, {cols}] canvas of the band "
+                             f"{band}: a band's canvas needs a halo of p = {p} rows")
+        flat = np.clip(at_r, 0, rows - 1) * cols + np.clip(at_c, 0, cols - 1)
+        for key, live in (("x", live_x), ("t", live_tf)):
+            parts[key + "i"].append(flat.reshape(-1))
+            parts[key + "d"].append((~live).reshape(-1))
+        kept.append(t)
+        shapes.append((y1 - y0 + 2 * p, cs.stop - cs.start + 2 * p))
+    sizes = [rc * wc for rc, wc in shapes]
+    parts["start"] = [np.repeat(np.cumsum([0] + sizes[:-1]), sizes)]
+    parts["size"] = [np.repeat(sizes, sizes)]
+    index = {k: torch.from_numpy(np.concatenate(v)).to(device) for k, v in parts.items()}
+    return _PiecePlan(len(tiles), tuple(kept), tuple(shapes), index["xi"], index["xd"],
+                      index["ti"], index["td"], index["start"], index["size"])
+
+
+def _batch_order(plan: _PiecePlan, batch: int) -> torch.Tensor:
+    """[batch, n]: where entry i of image b lands when a batch's canvases lie
+    piece by piece, each piece's [batch, rows, cols] contiguous."""
+    n = plan.start.numel()
+    at = torch.arange(batch, device=plan.start.device)[:, None]
+    within = torch.arange(n, device=plan.start.device) - plan.start
+    return batch * plan.start + within + at * plan.size
+
+
+def _gather_pieces(x: torch.Tensor, index: torch.Tensor, dead: torch.Tensor,
+                   order: torch.Tensor, shapes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """The canvases [B, rows, cols, ...] of a ``_PiecePlan`` half from
+    [B, H, W, ...] ``x``, laid out by ``order`` (``_batch_order``): one
+    gather, its dead entries zeroed, split into contiguous canvases. The
+    backward is one accumulating scatter into x, where a slice per piece
+    would add a zero-filled copy of x per piece."""
+    b, tail = x.shape[0], x.shape[3:]
+    flat = torch.empty(order.numel(), dtype=index.dtype, device=x.device)
+    flat[order.reshape(-1)] = (index + x.shape[1] * x.shape[2] * torch.arange(
+        b, device=x.device)[:, None]).reshape(-1)
+    holes = torch.empty(order.numel(), dtype=torch.bool, device=x.device)
+    holes[order.reshape(-1)] = dead.expand(b, -1).reshape(-1)
+    out = x.reshape((-1,) + tail)[flat].masked_fill(holes.reshape((-1,) + (1,) * len(tail)), 0)
+    return [piece.view((b, rc, wc) + tail)
+            for piece, (rc, wc) in zip(out.split([b * rc * wc for rc, wc in shapes]), shapes)]
+
+
+def _tiled_joints(x: torch.Tensor, x_tf: torch.Tensor, padding: int, patch: int, backend: str,
+                  pre_padded: bool, map_rows: Optional[int],
+                  band: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """[n_tiles, T, T, S, K, K]: each tile's joint over [B, H, W, S, K] maps
+    (``pre_padded``: canvases with the border of width p), or under the H
+    split (``map_rows``, the whole map's rows; ``band``, the canvases' rows
+    [b0, b1) of it) each tile's share from its piece of the band: zeros for
+    a tile that misses the band. Each piece goes to the backend's joint as a
+    pre-padded canvas taken as it stands."""
+    rows, cols = x.shape[1:3]
+    o = padding if pre_padded else 0
+    if map_rows is None:
+        map_rows, band = rows - 2 * o, (0, rows - 2 * o)
+    elif band is None or not pre_padded:
+        raise ValueError("a band's tiles need pre-padded canvases and the band's rows")
+    plan = _piece_plan(rows, cols, map_rows, cols - 2 * o, patch, padding, tuple(band), o,
+                       x.device)
+    order = _batch_order(plan, x.shape[0])
+    pieces = zip(plan.tiles, _gather_pieces(x, plan.x_index, plan.x_dead, order, plan.shapes),
+                 _gather_pieces(x_tf, plan.tf_index, plan.tf_dead, order, plan.shapes))
+    joints: List[Optional[torch.Tensor]] = [None] * plan.n_tiles
+    for t, a, b in pieces:
+        joints[t] = _subhead_joint(a, b, padding, backend, pre_padded=True, halo=True)
+    zero = torch.zeros_like(joints[plan.tiles[0]])
+    return torch.stack([zero if j is None else j for j in joints])
 
 
 def _strip(x: torch.Tensor, padding: int) -> torch.Tensor:
@@ -356,22 +469,21 @@ def iid_segmentation_small_patch_loss_subheads(
     pre_padded: bool = False,
     group=None,
     map_rows: Optional[int] = None,
+    band: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """The tiled subhead loss over [B, H, W, S, K] maps: the mean over tiles
     of each tile's subhead-mean loss. A pre-padded map that one tile covers
-    takes one joint of its canvases, border and all. ``map_rows``:
-    the whole map's rows when the canvases hold a band of it (``_one_tile``),
-    x_out's with a halo of p rows (``_subhead_joint``)."""
+    takes one joint of its canvases, border and all. ``map_rows``: the whole
+    map's rows when the canvases hold a band of it (``_one_tile``), x_out's
+    with a halo of p rows (``_subhead_joint``); ``band``: the band's rows
+    [b0, b1) of the map, which tiles below the map need (``_tiled_joints``)."""
     _check_maps(x_out, x_tf_out, 5)
     _check_backend(backend)
-    if pre_padded:
-        if _one_tile(x_out, padding, patch_size, map_rows):
-            return _subhead_mi(_subhead_joint(x_out, x_tf_out, padding, backend, True,
-                                              halo=map_rows is not None), lamb, group)
-        x_out, x_tf_out = _strip(x_out, padding), _strip(x_tf_out, padding)
-    joints = [_subhead_joint(a, b, padding, backend, pre_padded=True) for a, b in zip(
-        _tile_canvases(x_out, patch_size, padding), _tile_canvases(x_tf_out, patch_size, padding))]
-    return _subhead_mi(torch.stack(joints), lamb, group)
+    if pre_padded and _one_tile(x_out, padding, patch_size, map_rows):
+        return _subhead_mi(_subhead_joint(x_out, x_tf_out, padding, backend, True,
+                                          halo=map_rows is not None), lamb, group)
+    return _subhead_mi(_tiled_joints(x_out, x_tf_out, padding, patch_size, backend, pre_padded,
+                                     map_rows, band), lamb, group)
 
 
 def iid_segmentation_small_patch_loss_flat(
@@ -386,13 +498,15 @@ def iid_segmentation_small_patch_loss_flat(
     pre_padded: bool = False,
     group=None,
     map_rows: Optional[int] = None,
+    band: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Subhead-mean displaced-MI loss over flat [B, H, W, C] maps, C >= S*K
     (trailing lanes dead). A single tile on a kernel backend takes the joint
     of all C lanes as they are (the headline config's patch_sizes=1024);
     otherwise the dead lanes are dropped and the [B, H, W, S, K] view goes to
-    ``iid_segmentation_small_patch_loss_subheads``. ``map_rows``: the whole
-    map's rows when pre-padded canvases hold a band of it (``_one_tile``)."""
+    ``iid_segmentation_small_patch_loss_subheads``. ``map_rows`` and
+    ``band``: the whole map's rows and the band's when pre-padded canvases
+    hold a band of it."""
     b, h, w, c = x_out.shape
     if c < S * K:
         raise ValueError(f"{c} lanes cannot hold {S} x {K} clusters")
@@ -406,15 +520,14 @@ def iid_segmentation_small_patch_loss_flat(
     five = lambda t: t[..., :S * K].reshape(b, h, w, S, K)
     return iid_segmentation_small_patch_loss_subheads(
         five(x_out), five(x_tf_out), padding, patch_size, lamb, backend, pre_padded, group,
-        map_rows)
+        map_rows, band)
 
 
 def _one_tile(x: torch.Tensor, padding: int, patch: int, map_rows: Optional[int]) -> bool:
     """Whether one tile covers the map of a pre-padded canvas [B, Hp, Wp, ...]:
     its interior, or with ``map_rows`` (the H split: the canvas holds a band
     of the map, its x canvas a halo of p rows) the whole map's rows by the
-    interior's columns. The step refuses a tile below a banded map
-    (``engine/steps.py:check_iic_split``)."""
+    interior's columns."""
     rows = x.shape[1] - 2 * padding if map_rows is None else map_rows
     return patch >= max(rows, x.shape[2] - 2 * padding)
 

@@ -524,10 +524,11 @@ def displaced_joint(x: torch.Tensor, x_tf: torch.Tensor, padding: int,
     The kernels read x's border rows as they stand: only x is shifted, and
     x_tf's border is zero, so a row of x's border enters J where it lies
     within p of x_tf's interior. Under the spatial H split x is a band's
-    canvas whose border rows hold the neighbouring bands' rows (a halo of p
-    rows, ``engine/steps.py:iic_regularization``): the kernel reads them
-    like any row, and the bands' joints sum to the whole map's. Nothing in
-    the kernels changes for it."""
+    canvas, or a tile's piece of it, whose border rows hold the rows of the
+    map around it (a halo of p rows, ``engine/steps.py:iic_regularization``,
+    ``ops/iic_local.py:_tiled_joints``): the kernel reads them like any row,
+    and the bands' joints sum to the whole map's. Nothing in the kernels
+    changes for it."""
     if x.shape != x_tf.shape or x.dim() != 4:
         raise ValueError(f"expected two equal [B, H, W, C] shapes, got {x.shape}, {x_tf.shape}")
     p = padding

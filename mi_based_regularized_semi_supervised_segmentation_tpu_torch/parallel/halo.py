@@ -5,12 +5,13 @@ space_axis="space")``).
 Under a split context (``parallel/mesh.py:split_context``) space rank s of
 S holds the band ``[s * h, (s + 1) * h)`` of a map of H = S * h rows:
 
-- ``halo_exchange(x, context, dim, rows=1)``: the band with ``rows`` rows
-  of each neighbour on each side (zeros above space rank 0 and below space
-  rank S - 1: the global convolution's zero padding, or the IIC canvas's
-  border). Its backward sends the halo rows' gradients back: each rank adds
-  its neighbours' to its own edge rows. The neighbours' bands must hold
-  ``rows`` rows (a halo reaches one band, never two).
+- ``halo_exchange(x, context, dim, rows=1)``: the band with the ``rows``
+  rows of the map above it and below it (zeros past the map's ends: the
+  global convolution's zero padding, or the IIC canvas's border). Up to a
+  band's h rows they come from the neighbouring bands' edges, and the
+  backward adds the halo rows' gradients to the neighbours' edge rows;
+  beyond h the halo is cut from the whole map (``gather_h``), whose
+  backward sums the gradients over the space group.
 - ``flip_bands(x, context, dim)``: the band of the map flipped along H.
   Flipped band s holds band S - 1 - s reversed; the backward is the same
   swap of the gradient.
@@ -98,16 +99,17 @@ class _Halo(torch.autograd.Function):
 
 def halo_exchange(x: torch.Tensor, context: DistContext, dim: int = 2, rows: int = 1,
                   kind: str = "halo") -> torch.Tensor:
-    """The band ``x`` with ``rows`` rows from each neighbouring band on each
-    side along ``dim`` (zeros at the map's edges): [..., h + 2 rows, ...],
-    its bytes counted under ``EXCHANGED[kind]``. ``SpaceSplitUnsupported``
-    when ``rows`` exceeds the band's h rows."""
-    if rows > x.shape[dim]:
-        raise SpaceSplitUnsupported(
-            f"a halo of {rows} rows over bands of {x.shape[dim]}: a halo reaches the "
-            "neighbouring band only")
+    """The band ``x`` with the ``rows`` rows of the map above and below it
+    along ``dim`` (zeros past the map's ends): [..., h + 2 rows, ...], its
+    bytes counted under ``EXCHANGED[kind]``. Beyond the band's h rows the
+    halo spans several bands and is cut from the whole map."""
     if rows <= 0:
         return x
+    h = x.shape[dim]
+    if rows > h:
+        pad = [0, 0] * (x.dim() - 1 - dim) + [rows, rows]
+        whole = torch.nn.functional.pad(gather_h(x, context, dim, kind), pad)
+        return whole.narrow(dim, context.space_rank * h, h + 2 * rows)
     return _Halo.apply(x, context, dim, rows, kind)
 
 
@@ -133,13 +135,15 @@ def flip_bands(x: torch.Tensor, context: DistContext, dim: int = 1) -> torch.Ten
     return _FlipBands.apply(x, context, dim)
 
 
-def gather_h(x: torch.Tensor, context: DistContext, dim: int = 2) -> torch.Tensor:
+def gather_h(x: torch.Tensor, context: DistContext, dim: int = 2,
+             kind: str = "gather") -> torch.Tensor:
     """The whole map along H (``dim``) from the space ranks' bands, on every
-    space rank, with the gradient summed over the space group."""
+    space rank, with the gradient summed over the space group, its bytes
+    counted under ``EXCHANGED[kind]``."""
     whole = all_gather_parts(x, context.space_group, context.space_size, context.space_rank, dim)
-    _tally("gather", whole)
+    _tally(kind, whole)
     if whole.requires_grad:  # the backward reduces a buffer of the same size
-        whole.register_hook(lambda grad: _tally("gather", grad))
+        whole.register_hook(lambda grad: _tally(kind, grad))
     return whole
 
 

@@ -41,10 +41,10 @@ a 120 s timeout) and runs every case of that world. Held:
 - the exchanges' forward and backward at S = 2 and 3, in float64 and in
   bf16, against the same functions of the whole map under autograd;
 - the whole-level rule (``models/unet.py:band_levels``), and the named
-  refusals: a tiled IIC, a displacement beyond a band's rows (in the step
-  and in the halo), the s2d stem on bands of odd rows, a model of the zoo
-  other than the U-Net, an H the bands cannot split. The IIC modes, remat
-  and s2d under the split are held in ``tests/test_torch_space_iic.py``.
+  refusals: the s2d stem on bands of odd rows, a model of the zoo other
+  than the U-Net, an H the bands cannot split. The IIC modes, remat and s2d
+  under the split are held in ``tests/test_torch_space_iic.py``, the tiled
+  IIC and the halo deeper than a band in ``tests/test_torch_space_tiles.py``.
 """
 
 from pathlib import Path
@@ -473,39 +473,12 @@ def _build_split(model, mode="uda", **kw):
                             context=_fake_split(), **kw)
 
 
-def _iic_split_step(patch_sizes=1024, paddings=(1, 3)):
-    """A udaiic step at the headline taps on a split context without groups."""
-    from mi_based_regularized_semi_supervised_segmentation_tpu_torch.models import (
-        ProjectorWrapper,
-    )
-
-    feats = ["Conv5", "Up_conv3", "Up_conv2"]
-    return _build_split(UNet(1, C), "udaiic", projector=ProjectorWrapper(feats),
-                        feature_names=feats, feature_importance=[1.0, 0.5, 0.5],
-                        paddings=list(paddings), patch_sizes=patch_sizes, uda_weight=1.0,
-                        iic_weight=0.1)
-
-
-@pytest.mark.parametrize("case", ["tile", "p_beyond_band", "halo_rows", "s2d_odd_band", "enet",
-                                  "unsplit_h"])
+@pytest.mark.parametrize("case", ["s2d_odd_band", "enet", "unsplit_h"])
 def test_split_refusals(case):
     """What the H split does not run raises ``SpaceSplitUnsupported``, naming
-    it, before any collective: a tile below a banded tap's map, a
-    displacement beyond a band's rows (by the step and by the halo itself),
-    the s2d stem on bands of odd rows, a model of the zoo; and an H the
-    bands cannot split raises ``ValueError``."""
-    batch, flips = _batch(2, 2, crop=16)
-    split = batch_sharding(batch, _fake_split())  # rank 0's band: 8 rows
-    if case == "tile":  # Up_conv2's map is 16 x 16
-        with pytest.raises(SpaceSplitUnsupported, match="patch 8 below the 16x16 map"):
-            _iic_split_step(patch_sizes=8)(split, flip_mask=torch.from_numpy(flips))
-    elif case == "p_beyond_band":  # Up_conv3's bands hold 4 rows
-        with pytest.raises(SpaceSplitUnsupported, match="padding 5 at Up_conv3 beyond"):
-            _iic_split_step(paddings=(5, 1))(split, flip_mask=torch.from_numpy(flips))
-    elif case == "halo_rows":
-        with pytest.raises(SpaceSplitUnsupported, match="a halo of 3 rows over bands of 2"):
-            halo_exchange(torch.zeros(1, 2, 4, 1), _fake_split(), dim=1, rows=3)
-    elif case == "s2d_odd_band":
+    it, before any collective: the s2d stem on bands of odd rows, a model of
+    the zoo; and an H the bands cannot split raises ``ValueError``."""
+    if case == "s2d_odd_band":
         model = UNet(1, C, stem="s2d")
         with pytest.raises(SpaceSplitUnsupported, match="bands of 5 rows"):
             model(torch.zeros(1, 5, 16, 1), space=_fake_split())
