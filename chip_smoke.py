@@ -49,17 +49,25 @@ Phases, each printing JSON lines:
            on bf16 logits with -inf dead lanes, exactly on dyadic logits and
            within their tolerances on random ones; each bf16in row timed
            beside its bound (operand bytes halved) and F.conv2d on bf16.
-           Then the joint at the tile shapes of patch 32 (10 tiles of 32^2
-           with their own zero border: [10, 34, 34, 100] at p = 1,
-           [10, 38, 38, 100] at p = 3; C = S*K = 100 lanes) on fp32 and bf16
+           Last of all phases (its plain versions' 10^5 launches leave the
+           profiler recording one launch fewer a session, so it follows
+           every profiled count check), the grouped joint over each decoder
+           tap's tiles of patch 32 (each tile on its own zero border,
+           gathered as the training path gathers them: 36 of
+           [10, 34, 34, 100] at p = 1, 169 of [10, 38, 38, 100] at p = 3;
+           C = S*K = 100 lanes), one launch a product, on fp32 and bf16
            operands: exactly on integer inputs, within TOL on probability
-           maps, timed beside its bound and F.conv2d
+           maps, timed beside the bound summed over the pieces' live work
+           and one grouped F.conv2d
   kernels_band  the kernels on band operands of the H split (the 2 x 2
            split's Up_conv2 band canvas [5, 118, 230, C], p = 3):
            the joint on a halo'd A, the fused kernels with l1's window of
            live rows open at the top, at the bottom and at both, at 128 and
            256 lanes, fp32 and bf16 operands, against their plain versions
-           at the unsplit tolerances; timed at the window open at both
+           at the unsplit tolerances; timed at the window open at both;
+           last of all phases (as the kernels phase's tiles), the grouped
+           joint on rank 0's 91 tile pieces of patch 32 (78 whole, 13 cut
+           by the band's edge), one launch a product
   step     one small udaiic train step on the card against the same step on
            the CPU (plain joint), same weights, batch and flip mask
   step_fused  the same with the decoder heads emitting logits (fused kernels
@@ -76,15 +84,17 @@ Phases, each printing JSON lines:
            STEP_BF16_HEADS_LOOSE
   step_s2d the step phase with Arch.stem=s2d (fp32), at STEPS_TOL
   step_heads  the step phase with mlp heads, normalized, and patch 8 (9 tiles
-           of the 16^2 map, 49 of the 32^2 one: a joint launch a tile and
-           product), at STEPS_TOL
+           of the 16^2 map, 49 of the 32^2 one: all of a map's tiles in one
+           grouped joint launch a product), at STEPS_TOL
   train    the headline udaiic trainer through ``main.main`` on synthetic data
            (U-Net 16..256, 224^2 crops, 4 labeled + 10 unlabeled, taps Conv5 /
            Up_conv3 / Up_conv2, 5 x 20 clusters, paddings [1, 3]), with the
            kernel launch counts of that run, set to 0 just before it
   train_tiled  the same with IICRegParameters.LossParams.patch_sizes=32, 3
-           steps: (36 + 169) x 3 joint launches a step, exactly; the step's
-           device time by kind (profiler) and the joint's share of it
+           steps: 6 joint launches a step, exactly (each product one grouped
+           launch over a tap's 36 or 169 tiles); the step's device time by
+           kind (profiler) and the joint's share of it; then a patch-8 step
+           (the grouped kernels) on the card against the CPU at STEPS_TOL
   train_heads  the same with mlp heads at every position and normalized
            decoder heads, 3 steps, 6 joint launches a step, fp32 and bf16,
            each then profiled (device time by kind)
@@ -131,9 +141,9 @@ Phases, each printing JSON lines:
            Up_conv3 at padding 0): Trainer.name=iiccontrast, 3 steps in each
            phase (encoder, decoder, finetune): CSV and last.pth each, finite
            losses, frozen components bit-equal across each pretrain phase,
-           the joint launched only in the decoder phase, 12 times a step (3
-           products, each 4 launches: 200 lanes in two 128-lane blocks, the
-           second zero-padded), each phase's step ms and peak; contrastMT's
+           the joint launched only in the decoder phase, 3 times a step (3
+           products, each one launch over all 200 lanes at p = 0), each
+           phase's step ms and peak; contrastMT's
            finetune alone (its CSV's val DSC the teacher's); one decoder-IIC
            step on the card against the CPU at crop 32 (STEPS_TOL); the
            joint at the decoder's shape ([150528, 200], p = 0) exactly on
@@ -212,11 +222,11 @@ Phases, each printing JSON lines:
            the same steps in one process on the card: losses and BN
            statistics (the teacher's too) at STEPS_TOL, parameter moves at
            the step phase's bound, summed gradients within PAR_GRAD_TOL,
-           exactly 12 joint launches a rank in the decoder step (3 products
-           x 4 pairs of 128-lane blocks, p = 0, 37,632 rows) and none in the
+           exactly 3 joint launches a rank in the decoder step (3 products,
+           each one launch over all lanes, p = 0, 37,632 rows) and none in the
            others; each rank's step ms. Then pretrain_main under an NCCL group
            of world 1 set up as torchrun sets it: no data group, no
-           collective call, 12 launches a decoder step, the losses within
+           collective call, 3 launches a decoder step, the losses within
            STEPS_TOL of the pretrain phase's run
   profile  device time by kernel and by kind over a few more steps of the host
            path's trainer, the fused trainer and the device path's (shear)
@@ -262,8 +272,6 @@ ROTATIONS = (("labeled", 4, 256), ("unlabeled", 10, 256))
 SWEEP_ANGLES = 4096  # shift sweep: this many even angles, as many random ones, 5 edge cases
 # decoder taps of the headline udaiic config: (name, batch, map edge, padding)
 TAPS = (("Up_conv2", 10, 224, 3), ("Up_conv3", 10, 112, 1))
-# the tiles of patch 32 at those taps: (name, batch, tile edge, padding)
-TILES = (("Up_conv3", 10, 32, 1), ("Up_conv2", 10, 32, 3))
 # ragged joint shapes for the exact check: (batch, Hp, Wp, padding); N is no
 # multiple of the kernels' 256-row output tile or 64-row stage, Wp no
 # multiple of 8; from one partial tile to several forward chunks; padding 2
@@ -320,6 +328,9 @@ PRETRAIN_STEPS = 3   # pretrain: batches an epoch, one epoch a phase
 # partitions at crop 224, padding 0; IICHead.Decoder's 10 x 20 clusters
 PRETRAIN_TAP = ("Up_conv3", 12, 112, 0)
 PRETRAIN_HEAD = (10, 20)
+# the joint at p = 0 takes all 200 lanes in one launch a product
+# (ops/mi_joint.py:gram_plan): 3 launches a decoder step
+PRETRAIN_LAUNCHES_PER_PRODUCT = 1
 # optim: main.main under these Optim sections (6 joint launches a step as
 # under Adam); every OPTIMIZERS name stepped OPTIM_STEPS times (past
 # Lookahead's sync at 5, Ranger's and RAdam's rectification at 6) on the
@@ -393,6 +404,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int) -> float:
+    """The host's time a call of ``fn`` (mean over ``reps`` calls issued
+    back to back, no synchronisation inside): what a call costs the CPU when
+    the card is busy, and, where it exceeds the device time, what bounds a
+    loop of such calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def device_profile(fn, reps: int, warmup: int = 2) -> dict:
     """Per call, by kernel name: (device ms, launches) of every kernel that
     ``reps`` calls of ``fn`` launch (torch.profiler), divided by ``reps``."""
@@ -401,23 +428,31 @@ def device_profile(fn, reps: int, warmup: int = 2) -> dict:
 
     for _ in range(warmup):
         fn()
-    # a profiling session now and then records no device activity at all
-    # (seen on the card for a window of a few microsecond-kernels): take it
-    # again, up to three times, rather than report nothing
+    # a profiling session now and then records no device activity at all,
+    # or loses some of a window's records (seen on the card for a window of
+    # a few microsecond-kernels: one launch of three calls recorded): take
+    # it again, up to three times, until every kernel's count is a whole
+    # number of launches a call, rather than report a part of the window
+    last: dict = {}
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        split: dict = {}
+        split, whole = {}, True
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
                 key = e.key[:80]
                 ms, n = split.get(key, (0.0, 0.0))
                 split[key] = (ms + e.self_device_time_total / 1e3 / reps, n + e.count / reps)
+                whole = whole and e.count % reps == 0
         if split:
-            return split
+            last = split
+            if whole:
+                return split
+    if last:
+        return last  # the last session that saw any: the callers' checks see its counts
     raise RuntimeError("check failed: the profiler saw no device time in three sessions")
 
 
@@ -563,13 +598,16 @@ def _joint_cases(mj, a, b, g, batch: int, hp: int, p: int, bf16: bool,
 
 
 def _joint_rows(mj, cases: dict, dtype, where: dict, n: int, c: int, p: int, flops: float,
-                nbytes: float, bf16: bool, reps: int, extra=None) -> list:
+                nbytes: float, bf16: bool, reps: int, extra=None, want_launches=None) -> list:
     """Check and time the joint's three products (``_joint_cases``) on
     operands of ``dtype``: each kernel call within TOL of the plain version
     (a bf16 gradient beside one bf16 step of its own rounding), two calls
     bit-identical; its time beside the plain version's, the library call's
-    and the bound. ``where``: the keys that place the rows (phase, tap,
-    label, mode); ``extra``: more keys of every row."""
+    (a case's ``library`` None: no one PyTorch call computes it) and the
+    bound. ``where``: the keys that place the rows (phase, tap, label,
+    mode); ``extra``: more keys of every row; ``want_launches``: the
+    ``LAUNCHES`` count of one kernel call, checked and recorded as
+    ``launches_per_call``."""
     import torch
 
     replaces = {mj.FWD: f"{JAX_KERNELS}:178", mj.BWD_DX_TF: f"{JAX_KERNELS}:230",
@@ -578,7 +616,11 @@ def _joint_rows(mj, cases: dict, dtype, where: dict, n: int, c: int, p: int, flo
     rows = []
     for base, case in cases.items():
         name = mj.kernel_name(base, dtype)
+        mj.reset_launch_counts()
         got = case["kernel"]()
+        per_call = sum(mj.LAUNCHES.values())
+        check(want_launches is None or per_call == want_launches,
+              f"{where['label']} {name}: {per_call} launches in one call, want {want_launches}")
         want = case["want"]
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
@@ -599,8 +641,9 @@ def _joint_rows(mj, cases: dict, dtype, where: dict, n: int, c: int, p: int, flo
               f"{label}: max err {err} vs max |ref| {scale}")
         check(bool(torch.equal(case["kernel"](), got)),
               f"{label}: two calls on the same inputs differ")
-        lib_err = float((case["unpack"](case["library"]()).float()
-                         - want.float()).abs().max())
+        library = case["library"]
+        lib_err = None if library is None else float(
+            (case["unpack"](library()).float() - want.float()).abs().reshape(-1).max())
         by_ops = flops / peak >= nbytes / HBM_BYTES_PER_S
         row = {**where, "name": name, "route": "cuda", "source": f"{PORT}/csrc/mi_joint.cu",
                "replaces": replaces[base], "shape": [n, c], "padding": p,
@@ -608,14 +651,18 @@ def _joint_rows(mj, cases: dict, dtype, where: dict, n: int, c: int, p: int, flo
                "max_bf16_steps": bf16_steps,
                "ms": cuda_ms(case["kernel"], reps),
                "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
-               "library_ms": cuda_ms(case["library"], max(3, reps // 3), warmup=1),
-               "library_rel_err": lib_err / scale,
+               "library_ms": None if library is None
+               else cuda_ms(library, max(3, reps // 3), warmup=1),
+               "library_rel_err": None if lib_err is None else lib_err / scale,
                "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3,
                "bound_by": "operations" if by_ops else "bytes",
                "gflop": flops / 1e9}
         row["achieved_tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
-        row["vs_library"] = row["ms"] / row["library_ms"]
+        row["vs_library"] = None if library is None else row["ms"] / row["library_ms"]
+        if want_launches is not None:
+            row["launches_per_call"] = per_call
+            row["host_ms"] = host_ms(case["kernel"], reps)
         if bf16:  # the wrapper's kernels: (conversion,) product(, chunk sum)
             row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
         row.update(extra or {})
@@ -810,7 +857,7 @@ def phase_kernels_band(reps: int) -> list:
           "windows": {w: list(_band_window(w, hp, p)) for w in BAND_WINDOWS},
           "checked": "joint fwd/dx/dx_tf at 128 lanes, fused fwd/dl2/dl1 at 128 and 256 lanes, "
                      "fp32, bf16 and bf16in operands, each window"})
-    return out + _band_tile_rows(mj, reps)
+    return out
 
 
 def _live_work(a, b, batch: int, hp: int, wp: int, p: int):
@@ -837,88 +884,204 @@ def _live_bound(a, b, batch: int, hp: int, wp: int, p: int, c: int, esz: int):
     return 2.0 * pairs * c * c, float(esz) * (na + nb) * c + 4.0 * d * c * c
 
 
-# the joint on tile pieces of the 2 x 2 split at patch 32: Up_conv2 (p = 3),
-# rank 0's 5 unlabeled rows, C = S*K = 100 lanes; a whole tile inside the band
-# (32 rows), and the tile [96, 128) cut by the band's edge at row 112 (its 16
-# rows in the band; A live on them and on the 3 rows below the edge)
-BAND_TILES = (("Up_conv2 band tile", 32, "interior"), ("Up_conv2 band tile cut", 16, "bottom"))
-BAND_TILE_TAPS = {tap for tap, _, _ in BAND_TILES}
+# the grouped joint on the tile pieces of the 2 x 2 split at patch 32: Up_conv2
+# (p = 3), rank 0's band [0, 112) of the 224 rows and its 5 unlabeled rows,
+# C = S*K = 100 lanes: 78 whole tiles [5, 38, 38] and the 13 tiles [96, 128)
+# cut by the band's edge [5, 22, 38] (A live on the band's rows and the 3
+# halo rows below its edge), one launch a product for all 91
+BAND_TILES = ("Up_conv2 band tiles", 0, 112, {32: 78, 16: 13})
+
+
+def _tile_pieces(x, y, map_rows: int, band, p: int):
+    """The flat operands [rows, C] of ``ops/iic_local.py:_tiled_joints`` from
+    pre-padded canvases x, y [B, rows, cols, C] (x's rows a band's with its
+    halo under the split), gathered as the training path gathers them at
+    TILE_PATCH, with the pieces' table and shapes."""
+    til = port("ops.iic_local")
+    batch, rows, cols, _ = x.shape
+    plan = til._piece_plan(rows, cols, map_rows, cols - 2 * p, TILE_PATCH, p, tuple(band), p,
+                           x.device)
+    order = til._batch_order(plan, batch)
+    a = til._gather_pieces(x, plan.x_index, plan.x_dead, order).contiguous()
+    b = til._gather_pieces(y, plan.tf_index, plan.tf_dead, order).contiguous()
+    return a, b, plan.pieces(batch), plan.shapes
+
+
+def _pieces_live_bound(a, b, pieces, batch: int, p: int, c: int, esz: int):
+    """``_live_bound`` summed over the pieces (each its own canvas and J)."""
+    flops = nbytes = 0.0
+    for first, rows, wp in pieces:
+        f, n = _live_bound(a[first:first + rows], b[first:first + rows], batch,
+                           rows // (batch * wp), wp, p, c, esz)
+        flops, nbytes = flops + f, nbytes + n
+    return flops, nbytes
+
+
+def _pieces_exact_check(mj, x, y, map_rows: int, band, p: int, gen, dtype) -> int:
+    """The grouped kernels on small integers gathered from canvases shaped
+    as x, y: bit for bit against the plain stack of per-piece joints (every
+    sum exact in fp32; bf16 gradients each rounded once on both sides), one
+    launch a product. Returns the pieces."""
+    import torch
+
+    xi, yi = (torch.randint(0, 2, t.shape, generator=gen, device="cuda").to(dtype)
+              for t in (x, y))
+    a, b, pieces, _ = _tile_pieces(xi, yi, map_rows, band, p)
+    d, c = (2 * p + 1) ** 2, a.shape[1]
+    g = torch.randint(-2, 3, (len(pieces), d, c, c), generator=gen, device="cuda").float()
+    ap, bp = (t.clone().requires_grad_(True) for t in (a, b))
+    ref = mj.pieces_fwd_plain(ap, bp, pieces, p, torch.float32)
+    ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), g)
+    mj.reset_launch_counts()
+    got = {"fwd": (mj.mi_joint_fwd_pieces(a, b, pieces, p), ref.detach()),
+           "dx": (mj.mi_joint_bwd_pieces(b, g, pieces, p, True), ref_da),
+           "dx_tf": (mj.mi_joint_bwd_pieces(a, g, pieces, p, False), ref_db)}
+    check(sum(mj.LAUNCHES.values()) == 3, f"grouped exact p={p}: launches {dict(mj.LAUNCHES)}")
+    for what, (u, v) in got.items():
+        err = float((u.float() - v.float()).abs().max())
+        check(err == 0.0 and u.dtype == v.dtype,
+              f"grouped exact {what} p={p} {len(pieces)} pieces {dtype}: max err {err}, "
+              f"{u.dtype} vs {v.dtype}")
+    return len(pieces)
+
+
+def _pieces_cases(mj, a, b, g, pieces, shapes, batch: int, p: int) -> dict:
+    """``_joint_cases`` for the grouped call on the flat operands of
+    ``_tile_pieces``: the kernel launches, the plain stack of per-piece
+    joints (fp32 sums on operands rounded as the kernels round them), and,
+    where the pieces share one shape, one grouped ``F.conv2d`` (groups = the
+    pieces) computing the same function; else no library call."""
+    import torch
+    import torch.nn.functional as F
+
+    n_p, (_, c) = len(pieces), a.shape
+    t = 2 * p + 1
+    gr = g.to(torch.bfloat16).float()
+    ar, br = (a, b) if a.dtype == torch.bfloat16 else (u.to(torch.bfloat16).float()
+                                                          for u in (a, b))
+    ap, bp = ar.clone().requires_grad_(True), br.clone().requires_grad_(True)
+    ref = mj.pieces_fwd_plain(ap, bp, pieces, p, torch.float32)
+    ref_da, ref_db = torch.autograd.grad(ref, (ap, bp), gr, retain_graph=True)
+    cases = {
+        mj.FWD: dict(kernel=lambda: mj.mi_joint_fwd_pieces(a, b, pieces, p),
+                     plain=lambda: mj.pieces_fwd_plain(ar, br, pieces, p, torch.float32),
+                     want=ref.detach()),
+        mj.BWD_DX: dict(kernel=lambda: mj.mi_joint_bwd_pieces(b, g, pieces, p, True),
+                        plain=lambda: torch.autograd.grad(ref, ap, gr, retain_graph=True),
+                        want=ref_da),
+        mj.BWD_DX_TF: dict(kernel=lambda: mj.mi_joint_bwd_pieces(a, g, pieces, p, False),
+                           plain=lambda: torch.autograd.grad(ref, bp, gr, retain_graph=True),
+                           want=ref_db)}
+    if len(set(shapes)) > 1:
+        for case in cases.values():
+            case["library"] = None
+        return cases
+    (hp, wp), = set(shapes)
+    bf = torch.bfloat16
+    # per piece [batch, hp, wp, c]; as NCHW images with the pieces stacked
+    imgs = lambda u: u.reshape(n_p, batch, hp, wp, c).to(bf)
+    w = g.reshape(n_p, t, t, c, c)
+    cases[mj.FWD].update(
+        # each piece's A as a batch of c images of `batch` channels, its B
+        # as c filters: one group a piece
+        library=lambda: F.conv2d(imgs(a).permute(4, 0, 1, 2, 3).reshape(c, n_p * batch, hp, wp),
+                                 imgs(b).permute(0, 4, 1, 2, 3).reshape(n_p * c, batch, hp, wp),
+                                 padding=p, groups=n_p),
+        unpack=lambda o: o.reshape(c, n_p, c, t, t).permute(1, 3, 4, 0, 2).reshape(
+            n_p, t * t, c, c))
+    nchw = lambda u: imgs(u).permute(1, 0, 4, 2, 3).reshape(batch, n_p * c, hp, wp)
+    unpack_rows = lambda o: o.reshape(batch, n_p, c, hp, wp).permute(1, 0, 3, 4, 2).reshape(-1, c)
+    cases[mj.BWD_DX].update(
+        library=lambda: F.conv2d(nchw(b), w.flip(1, 2).permute(0, 3, 4, 1, 2).reshape(
+            n_p * c, c, t, t).to(bf), padding=p, groups=n_p),
+        unpack=unpack_rows)
+    cases[mj.BWD_DX_TF].update(
+        library=lambda: F.conv2d(nchw(a), w.permute(0, 4, 3, 1, 2).reshape(
+            n_p * c, c, t, t).to(bf), padding=p, groups=n_p),
+        unpack=unpack_rows)
+    return cases
+
+
+def _pieces_rows(mj, label: str, x, y, map_rows: int, band, p: int, gen, where: dict,
+                 reps: int) -> list:
+    """The grouped kernels on the pieces of canvases x, y (probability maps)
+    at TILE_PATCH: exactly on integers, then on fp32 operands (bf16
+    products) and bf16 operands within TOL of the plain stack, one launch a
+    product, timed beside it and the grouped convolution where one takes
+    the pieces; the bound summed over the pieces' live work."""
+    import torch
+
+    batch = x.shape[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        n_pieces = _pieces_exact_check(mj, x, y, map_rows, band, p, gen, dtype)
+    emit({**where, "label": label, "pieces": n_pieces, "exact_check": "passed",
+          "exact_check_bf16in": "passed"})
+    rows = []
+    for mode, dtype in (("bf16", torch.float32), ("bf16in", torch.bfloat16)):
+        a, b, pieces, shapes = _tile_pieces(x.to(dtype), y.to(dtype), map_rows, band, p)
+        n, c = a.shape
+        g = torch.randn((len(pieces), (2 * p + 1) ** 2, c, c), generator=gen,
+                        device="cuda") * 1e-3
+        flops, nbytes = _pieces_live_bound(a, b, pieces, batch, p, c, a.element_size())
+        cases = _pieces_cases(mj, a, b, g, pieces, shapes, batch, p)
+        rows += _joint_rows(mj, cases, dtype, {**where, "label": label, "mode": mode}, n, c, p,
+                            flops, nbytes, True, reps,
+                            extra={"pieces": len(pieces),
+                                   "piece_shapes": sorted({(batch,) + s for s in shapes})},
+                            want_launches=1)
+        del a, b, g, cases
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _band_tile_rows(mj, reps: int) -> list:
-    """The joint's three products on the tile pieces of BAND_TILES, each
-    piece on its own canvas [5, rows + 2p, 32 + 2p, 100] as
-    ``ops/iic_local.py:_tiled_joints`` gathers it (B live on the piece's
-    rows, A on the tile's rows within p of them), on fp32 operands (bf16
-    products) and bf16 operands, within TOL of the plain version, timed
-    beside it and ``F.conv2d``. The bound counts the live work
-    (``_live_bound``), not the canvas."""
+    """The grouped joint on rank 0's tile pieces of the 2 x 2 split at patch
+    32 (BAND_TILES): the band's canvases [5, 118, 230, 100] (A live on the
+    band's rows and its lower halo, B on its interior) gathered as the split
+    training path gathers them, 78 whole pieces and 13 cut by the band's
+    edge in one launch a product. No one library call takes pieces of two
+    shapes."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
-    p, batch, c = BAND[4], BAND[1], SUBHEADS * CLUSTERS
-    d = (2 * p + 1) ** 2
-    rows = []
-    for label, piece_rows, a_window in BAND_TILES:
-        hp, wp = piece_rows + 2 * p, TILE_PATCH + 2 * p
-        n = batch * hp * wp
-        a_rows = (p, hp) if a_window == "bottom" else (p, hp - p)
-        a = _band_probs(batch, hp, wp, p, a_rows, gen, lanes=c)
-        b = _band_probs(batch, hp, wp, p, (p, hp - p), gen, lanes=c)
-        g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
-        for mode, (ma, mb) in {"bf16": (a, b), "bf16in": (a.to(torch.bfloat16),
-                                                          b.to(torch.bfloat16))}.items():
-            flops, nbytes = _live_bound(ma, mb, batch, hp, wp, p, c, ma.element_size())
-            cases = _joint_cases(mj, ma, mb, g, batch, hp, p, True, wp=wp)
-            where = {"phase": "kernels_band", "tap": label, "label": f"{label} [{batch}, {hp}, "
-                     f"{wp}]", "mode": mode, "window": list(a_rows)}
-            rows += _joint_rows(mj, cases, ma.dtype, where, n, c, p, flops, nbytes, True, reps)
-            del cases
-        del a, b, g
-    torch.cuda.empty_cache()
+    label, b0, b1, counts = BAND_TILES
+    p, batch, width = BAND[4], BAND[1], BAND[3]
+    hp, wp = b1 - b0 + 2 * p, width + 2 * p
+    c = SUBHEADS * CLUSTERS
+    x = _band_probs(batch, hp, wp, p, (p, hp), gen, lanes=c).reshape(batch, hp, wp, c)
+    y = _band_probs(batch, hp, wp, p, (p, hp - p), gen, lanes=c).reshape(batch, hp, wp, c)
+    rows = _pieces_rows(mj, label, x, y, width, (b0, b1), p, gen,
+                        {"phase": "kernels_band", "tap": label, "window": [p, hp]}, reps)
+    for r in rows:
+        check(r["pieces"] == sum(counts.values()), f"{label}: {r['pieces']} pieces, want {counts}")
     return rows
 
 
 def phase_kernels_tiles(reps: int) -> list:
-    """The joint at the tile shapes of patch 32 (``IICRegParameters.LossParams.
-    patch_sizes=32``, the train_tiled phase): 10 tiles of 32^2 each with its
-    own zero border (34^2 at Up_conv3's p = 1, 38^2 at Up_conv2's p = 3) and
-    C = S*K = 100 lanes, no dead ones; exactly on integer inputs, then on
-    probability maps within TOL, on fp32 operands (bf16 products, the fp32
-    model's) and bf16 operands. The bound counts the function's 100 lanes
-    on the live work (``_live_bound``; ``bound_ms_128``: the 128 lanes the
-    kernels compute)."""
+    """The grouped joint at the tiles of patch 32 (``IICRegParameters.
+    LossParams.patch_sizes=32``, the train_tiled phase): each decoder tap's
+    map (TAPS, pre-padded probability maps, C = S*K = 100 lanes) gathered
+    into its tile pieces as the training path gathers them (169 of
+    [10, 38, 38] at Up_conv2, 36 of [10, 34, 34] at Up_conv3), all of a
+    tap's pieces in one launch a product: exactly on integer inputs, then
+    within TOL on fp32 operands (bf16 products, the fp32 model's) and bf16
+    operands, timed beside the plain stack and one grouped F.conv2d. The
+    bound counts the pieces' live work (``_pieces_live_bound``)."""
     import torch
 
     mj = port("ops.mi_joint")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     rows = []
-    for tap, batch, edge, p in TILES:
+    c = SUBHEADS * CLUSTERS
+    for tap, batch, edge, p in TAPS:
         hp = edge + 2 * p
-        d = (2 * p + 1) ** 2
-        n = batch * hp * hp
-        c = SUBHEADS * CLUSTERS
-        _exact_check(mj, n, hp, p, gen, lanes=c)
-        _exact_check(mj, n, hp, p, gen, lanes=c, dtype=torch.bfloat16)
-        emit({"phase": "kernels", "tile": tap, "exact_check": "passed",
-              "exact_check_bf16in": "passed", "shape": [n, c], "padding": p})
-        a = _tap_inputs(batch, edge, p, gen, lanes=c)
-        b = _tap_inputs(batch, edge, p, gen, lanes=c)
-        g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
-        for mode, (ma, mb) in {"bf16": (a, b), "bf16in": (a.to(torch.bfloat16),
-                                                          b.to(torch.bfloat16))}.items():
-            flops, nbytes = _live_bound(ma, mb, batch, hp, hp, p, c, ma.element_size())
-            cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16=True)
-            where = {"phase": "kernels", "tap": f"tile_{tap}", "label": f"{tap} tile {edge}",
-                     "mode": mode}
-            bound_128 = max(nbytes / HBM_BYTES_PER_S,
-                            flops * (LANES / c) ** 2 / PEAK_FLOPS["bf16"]) * 1e3
-            rows += _joint_rows(mj, cases, ma.dtype, where, n, c, p, flops, nbytes, True, reps,
-                                extra={"bound_ms_128": bound_128})
-            del cases
-        del a, b, g
+        x, y = (_tap_inputs(batch, edge, p, gen, lanes=c).reshape(batch, hp, hp, c)
+                for _ in range(2))
+        rows += _pieces_rows(mj, f"{tap} tiles {TILE_PATCH}", x, y, edge, (0, edge), p, gen,
+                             {"phase": "kernels", "tap": f"tiles_{tap}"}, reps)
+        del x, y
         torch.cuda.empty_cache()
     return rows
 
@@ -1468,11 +1631,18 @@ def _loose_share(moves, ref, keys=None) -> float:
     return float(np.mean(diffs > 0.05 * 1e-3)) if diffs.size else 0.0
 
 
-def joint_calls(edges, patch: int) -> int:
-    """The joint's kernel calls a step (forward and two backward products a
-    tile) over decoder maps of the given edges at ``patch``."""
+def tile_count(edges, patch: int) -> int:
+    """The tiles a step of decoder maps of the given edges at ``patch``."""
     tiles = port("ops.iic_local")._tiles
-    return 3 * sum(len(tiles(e, e, patch)) for e in edges)
+    return sum(len(tiles(e, e, patch)) for e in edges)
+
+
+def joint_calls(edges, patch: int) -> int:
+    """The joint's kernel calls a step over decoder maps of the given edges
+    at ``patch``: three a map (the forward and two backward products), each
+    one launch whether the map is one canvas or its tiles, which go to the
+    grouped kernels together (``ops/iic_local.py:_tiled_joints``)."""
+    return 3 * len(edges)
 
 
 def band_tile_pieces(edge: int, patch: int, space: int, s: int) -> dict:
@@ -1491,9 +1661,10 @@ def band_tile_pieces(edge: int, patch: int, space: int, s: int) -> dict:
 
 def band_joint_calls(edges, patch: int, space: int, s: int) -> int:
     """The joint's kernel calls a step on space rank ``s`` of ``space`` bands
-    of decoder maps of the given edges at ``patch``: three for each tile
-    piece of the rank's band."""
-    return 3 * sum(sum(band_tile_pieces(e, patch, space, s).values()) for e in edges)
+    of decoder maps of the given edges at ``patch``: three for each map whose
+    tiles meet the rank's band (all of its pieces in one grouped call a
+    product)."""
+    return 3 * sum(1 for e in edges if band_tile_pieces(e, patch, space, s))
 
 
 def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "conv",
@@ -1504,8 +1675,8 @@ def phase_step(fused: bool = False, phase: str = "", dtype=None, stem: str = "co
     kernels' bf16-operand variants on the card, losses at ``tol``, the
     parameter moves as STEP_BF16_* says); ``stem``: the U-Net's stem;
     ``heads``, ``patch``: head options and patch_sizes (step_heads: mlp,
-    normalized, patch 8 on the 16^2 and 32^2 maps, one joint launch a tile
-    and product)."""
+    normalized, patch 8 on the 16^2 and 32^2 maps, one grouped joint launch
+    a map and product)."""
     import numpy as np
     import torch
 
@@ -1810,22 +1981,27 @@ def phase_train_fused_wide(steps: int) -> dict:
 def phase_train_tiled(steps: int = 3):
     """The headline trainer with patch_sizes=32: each decoder map in tiles of
     32^2 at stride 16, each its own joint (6 x 6 tiles of Up_conv3's 112^2, 13
-    x 13 of Up_conv2's 224^2), the kernel launched (36 + 169) x 3 times a
-    step, no other joint launch; then the step's device time by kind
-    (profile) and the joint's share of it. Returns the trainer and the
+    x 13 of Up_conv2's 224^2), all of a map's tiles in one grouped launch a
+    product: 6 joint launches a step, no other; then the step's device time
+    by kind (profile) and the joint's share of it; then one tiled step
+    (patch 8 on the 16^2 and 32^2 maps: 9 + 49 tiles, the grouped kernels)
+    on the card against the CPU at STEPS_TOL. Returns the trainer and the
     launch counts of its run (set to 0 just before it)."""
     calls = joint_calls((112, 224), TILE_PATCH)
-    check(calls == 3 * (36 + 169), f"train_tiled: {calls} joint calls a step, want 615")
+    tiles = tile_count((112, 224), TILE_PATCH)
+    check(calls == 6 and tiles == 36 + 169,
+          f"train_tiled: {calls} joint calls a step over {tiles} tiles, want 6 over 205")
     trainer, launches, out = phase_train(
         steps, extra=(f"IICRegParameters.LossParams.patch_sizes={TILE_PATCH}",),
         phase="train_tiled", run_tag="_tiled", calls=calls)
     prof = phase_profile(trainer, steps=steps, path="tiled")
     joint_ms = prof["by_kind_ms_per_step"].get(_kernel_kind("joint_fwd"), 0.0)
-    emit({"phase": "train_tiled_split", "launches_per_step": calls,
+    emit({"phase": "train_tiled_split", "launches_per_step": calls, "tiles_per_step": tiles,
           "median_step_ms": out["median_step_ms"],
           "profile_wall_ms_per_step": prof["wall_ms_per_step"],
           "device_ms_per_step": prof["device_ms_per_step"], "joint_device_ms_per_step": joint_ms,
           "joint_share_of_device": joint_ms / prof["device_ms_per_step"]})
+    phase_step(phase="train_tiled_step", patch=8)
     return trainer, launches
 
 
@@ -2248,8 +2424,7 @@ def phase_pretrain(steps: int = PRETRAIN_STEPS) -> tuple:
     import torch
 
     pm, pre, mj = port("pretrain_main"), port("engine.pretrain"), port("ops.mi_joint")
-    subheads, clusters = PRETRAIN_HEAD
-    per_product = len(mj._lane_tiles(subheads * clusters)) ** 2
+    per_product = PRETRAIN_LAUNCHES_PER_PRODUCT
     record: dict = {}
     with _watch_phases(pre.IICContrastTrainer, record):
         trainer = pm.main(_pretrain_argv("iiccontrast", "chip_smoke_pretrain_iic"))
@@ -2376,16 +2551,15 @@ def _pretrain_step_run(device: str):
 
 
 def phase_pretrain_step() -> None:
-    """The decoder-IIC pretrain step on the card (the joint kernels,
-    lane-tiled) against the CPU (their plain version): losses within
-    STEPS_TOL (relative), the parameter moves as in the step phase."""
+    """The decoder-IIC pretrain step on the card (the joint kernels at p = 0,
+    one launch a product over all lanes) against the CPU (their plain
+    version): losses within STEPS_TOL (relative), the parameter moves as in
+    the step phase."""
     import numpy as np
 
-    mj = port("ops.mi_joint")
-    subheads, clusters = PRETRAIN_HEAD
     (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = (_pretrain_step_run(dev)
                                                     for dev in ("cpu", "cuda"))
-    want = 3 * len(mj._lane_tiles(subheads * clusters)) ** 2
+    want = 3 * PRETRAIN_LAUNCHES_PER_PRODUCT
     check(n_cpu == 0 and n_gpu == want, f"pretrain_step launches cpu={n_cpu} cuda={n_gpu} "
                                         f"(want 0, {want})")
     rel = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu}
@@ -2401,12 +2575,13 @@ def phase_pretrain_step() -> None:
 
 def phase_pretrain_joint(reps: int) -> list:
     """The joint at the pretrain decoder's shape ([12 * 112^2, 200] fp32
-    probability maps, padding 0, bf16 products, lane-tiled): exactly on
-    integer inputs at a ragged shape and at this one (fp32 and bf16
-    operands), then within TOL on probability maps, timed beside the plain
-    version, its bound and one torch.matmul (at padding 0 the joint is one
-    [N, C]^T [N, C] product): bf16 casts of the fp32 inputs included, with
-    the fp32 matmul beside it (``library_fp32_ms``)."""
+    probability maps, padding 0, bf16 products: one launch a product over
+    all 200 lanes): exactly on integer inputs at a ragged shape and at this
+    one (fp32 and bf16 operands), then within TOL on probability maps, one
+    launch a call, timed beside the plain version, its bound and one
+    torch.matmul (at padding 0 the joint is one [N, C]^T [N, C] product):
+    bf16 casts of the fp32 inputs included, with the fp32 matmul beside it
+    (``library_fp32_ms``)."""
     import torch
 
     mj = port("ops.mi_joint")
@@ -2445,8 +2620,8 @@ def phase_pretrain_joint(reps: int) -> list:
                             {"phase": "pretrain_joint", "tap": tap, "label": f"pretrain {tap}",
                              "mode": "bf16"}, n, c, p, 2.0 * n * c * c, nbytes, True, reps,
                             extra={"library": "torch.matmul, bf16 casts included",
-                                   "library_fp32_ms": extra[name],
-                                   "launches_per_call": len(mj._lane_tiles(c)) ** 2})
+                                   "library_fp32_ms": extra[name]},
+                            want_launches=PRETRAIN_LAUNCHES_PER_PRODUCT)
     del a, b, g, cases
     torch.cuda.empty_cache()
     return rows
@@ -3130,12 +3305,12 @@ SPACE_RUNS = (("2x2", 2, "fp32", "host", False), ("1x4", 4, "fp32", "host", Fals
               ("2x2_fused", 2, "fp32", "host", True))
 # the tiled IIC on bands (patch_sizes [32, 32]: 6 x 6 tiles of Up_conv3's
 # 112^2, 13 x 13 of Up_conv2's 224^2), each (name, space size, compute dtype):
-# a rank launches the joint three times a step for each tile its band meets
-# (band_joint_calls), against 615 in one process; checked once, no timed
-# steps (a rank's step is seconds here)
+# a rank launches the joint three times a step for each map, all the pieces
+# of its band in one grouped launch a product (band_joint_calls), as one
+# process does; checked once, no timed steps
 SPACE_TILED_RUNS = (("2x2_tiled", 2, "fp32"), ("2x2_tiled_bf16", 2, "bf16"),
                     ("1x4_tiled", 4, "fp32"))
-SPACE_TILED_LAUNCHES = {2: (345, 345), 4: (192, 267, 267, 192)}  # at crop 224
+SPACE_TILED_LAUNCHES = {2: (6, 6), 4: (6, 6, 6, 6)}  # at crop 224
 
 
 def _space_build(device, ctx, dtype: str, store=None, fused: bool = False, crop: int = 224,
@@ -3317,8 +3492,8 @@ def phase_space_parallel(device: str = "cuda", crop: int = 224) -> dict:
     (``_space_compare``): 6 joint launches a rank a step (6 fused launches on
     the fused run), the bytes of each exchange. Then the tiled IIC on bands
     (SPACE_TILED_RUNS: patch 32, 2 x 2 in fp32 and bf16, 1 x 4), each
-    against the one-process tiled card step (615 joint launches), a rank's
-    launches three a tile its band meets (SPACE_TILED_LAUNCHES), one checked
+    against the one-process tiled card step (6 joint launches), a rank's
+    launches three a map, its band's pieces grouped (SPACE_TILED_LAUNCHES), one checked
     step and none timed. A rank's step ms is that of SPACE_WORLD processes
     time-sharing one card through gloo, not a scaling figure. Returns the
     launches of one rank of the device run (rotation) and, by kernel and
@@ -3693,11 +3868,11 @@ def phase_pretrain_parallel(pretrain_run) -> dict:
     ``iiccontrast`` encoder and decoder phases and of ``contrastMT``'s
     finetune on its 3 of the 12 slices at 224^2 (1 + 3 in finetune), against
     the same steps in one process on the card (``_ppar_compare``): exactly
-    12 joint launches a rank in the decoder step (3 products x 4 pairs of
-    128-lane blocks at p = 0 on 3 x 112^2 = 37,632 rows), none in the other
+    3 joint launches a rank in the decoder step (3 products, one launch each
+    over all lanes at p = 0 on 3 x 112^2 = 37,632 rows), none in the other
     two. Then ``pretrain_main`` under an NCCL group of world 1 set up as
     ``torchrun`` sets it: no data group and no collective call (each
-    ``torch.distributed`` collective counted), the decoder phase's 12
+    ``torch.distributed`` collective counted), the decoder phase's 3
     launches a step, the losses within STEPS_TOL of ``pretrain_run`` (the
     pretrain phase's run directory, None when it did not run). A rank's step ms is that of ranks time-sharing one card
     through gloo, not a scaling figure. Returns a rank's decoder launches."""
@@ -3709,10 +3884,9 @@ def phase_pretrain_parallel(pretrain_run) -> dict:
                              timeout=PAR_TIMEOUT, threads=2)
     spawn_wall = time.perf_counter() - t0
     ref = _ppar_run("cuda", None, data)  # after the ranks have left the card
-    subheads, clusters = PRETRAIN_HEAD
-    per_step = {f"{name}/p0": len(mj._lane_tiles(subheads * clusters)) ** 2
+    per_step = {f"{name}/p0": PRETRAIN_LAUNCHES_PER_PRODUCT
                 for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
-    check(sum(per_step.values()) == 12, f"pretrain_parallel: {per_step} a decoder step")
+    check(sum(per_step.values()) == 3, f"pretrain_parallel: {per_step} a decoder step")
     compared = [_ppar_compare(phase, ref[phase], r[phase], per_step if phase == "decoder" else {})
                 for r in ranks for phase in PPAR_PHASES]
     rows = [row for row, _ in compared]
@@ -3739,7 +3913,7 @@ def _ppar_main_world1(single) -> None:
     """``pretrain_main.main`` (iiccontrast, PRETRAIN_STEPS steps a phase, as
     the pretrain phase) with the torchrun variables of a world of 1 set:
     an NCCL group whose context has no data group, no collective call, the
-    decoder phase's 12 launches a step, and the phase CSVs' losses within
+    decoder phase's 3 launches a step, and the phase CSVs' losses within
     STEPS_TOL of ``single``'s, the pretrain phase's run (relative to
     PPAR_LOSS_FLOOR at least; the same seeds, data and card; None: not run);
     the group left at the end."""
@@ -3770,9 +3944,8 @@ def _ppar_main_world1(single) -> None:
           f"pretrain_parallel world 1 ran under {seen}")
     check(not calls, f"pretrain_parallel world 1: collectives called {sorted(set(calls))}")
     check(not dist.is_initialized(), "pretrain_parallel: pretrain_main left the group joined")
-    subheads, clusters = PRETRAIN_HEAD
-    per_product = len(mj._lane_tiles(subheads * clusters)) ** 2
-    want = {(name, 0): PRETRAIN_STEPS * per_product for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
+    want = {(name, 0): PRETRAIN_STEPS * PRETRAIN_LAUNCHES_PER_PRODUCT
+            for name in (mj.FWD, mj.BWD_DX, mj.BWD_DX_TF)}
     check(record["pretrain_decoder"]["launches"] == want,
           f"pretrain_parallel world 1: decoder launches {record['pretrain_decoder']['launches']}")
     run = Path(trainer._save_dir)
@@ -3796,7 +3969,7 @@ def _kernel_kind(name: str) -> str:
     lowered = name.lower()
     # the joint's kernels and the fused path's (which run on the joint's core)
     if any(k in lowered for k in ("fused_fwd", "fused_bwd", "joint_fwd", "joint_bwd",
-                                  "joint_prep")):
+                                  "joint_prep", "joint_gram")):
         return "displaced-MI joint kernels (this port's CUDA: mi_joint, mi_fused)"
     if "rotate_shear" in lowered or "lane_roll" in lowered:
         return "rotation (this port's CUDA)"
@@ -3899,7 +4072,6 @@ def main(argv=None) -> int:
         with timed(walls, "kernels_joint"):
             kernel_rows = phase_kernels(args.reps)
             phase_kernels_wide(args.reps)
-            tile_rows = phase_kernels_tiles(args.reps)
         with timed(walls, "kernels_rotate"):
             rotation_rows = phase_kernels_rotate(args.reps)
         with timed(walls, "kernels_fused"):
@@ -4037,6 +4209,17 @@ def main(argv=None) -> int:
                                                out32 and out32["max_memory_allocated_gib"]],
                   "order": ["bf16", "fp32"]})
         walls["profile"] = time.perf_counter() - t0
+    # the grouped joint's rows (a tap's tiles of patch 32, a band's tile
+    # pieces) run last: their plain versions launch some 10^5 kernels, after
+    # which the profiler recorded one launch fewer in every later session
+    # (the rotation's one-kernel checks failed), so every count the profiler
+    # checks is taken before them
+    if "kernels" in phases:
+        with timed(walls, "kernels_tiles"):
+            tile_rows = phase_kernels_tiles(args.reps)
+    if "kernels_band" in phases:
+        with timed(walls, "kernels_band_tiles"):
+            band_rows += _band_tile_rows(port("ops.mi_joint"), args.reps)
     # one entry per kernel and main-path shape; the joint and the fused
     # kernels in the training path's bf16 mode. Launches: the joint's from the
     # host path's train phase, the fused kernels' from the train_fused phase,
@@ -4051,10 +4234,11 @@ def main(argv=None) -> int:
                     resume_launches=resume_launches.get((r["name"], r["padding"]), 0),
                     parallel_rank_launches_all_joints=par_launches.get("mi_joint"))
                for r in kernel_rows if r["mode"] == "bf16"]
-    # the joint at the tile shapes of patch 32 (fp32 operands, the tiled run's)
+    # the grouped joint over each tap's tiles of patch 32 (fp32 operands, the
+    # tiled run's): launches from the train_tiled run
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
-                     bound_ms_128=r["bound_ms_128"],
+                     pieces=r["pieces"], piece_shapes=r["piece_shapes"],
                      launches=tiled_launches.get((r["name"], r["padding"]), 0))
                 for r in tile_rows if r["mode"] == "bf16"]
     # the bf16-operand variants (Precision.compute_dtype=bfloat16): launches
@@ -4105,26 +4289,24 @@ def main(argv=None) -> int:
                      unfused_path_ms=r.get("unfused_path_ms"),
                      launches=band_launches.get((r["name"], r["padding"]), 0)
                      if r["tap"] == BAND[0] else 0)
-                for r in band_rows if r["mode"] == "bf16" and r["tap"] not in BAND_TILE_TAPS]
-    # the joint on the tile pieces of the 2 x 2 split at patch 32: rank 0 of
-    # space_parallel's 2x2_tiled run launched each product once a Up_conv2
-    # piece (counted by kernel and padding); each row takes the pieces of
-    # its shape (band_tile_pieces), which must sum to that count
+                for r in band_rows if r["mode"] == "bf16" and r["tap"] != BAND_TILES[0]]
+    # the grouped joint on the tile pieces of the 2 x 2 split at patch 32:
+    # rank 0 of space_parallel's 2x2_tiled run launched each product once a
+    # step for all its Up_conv2 pieces (counted by kernel and padding), whose
+    # shapes (band_tile_pieces) are the row's
     tile_launches = space_launches.get("band_tile_launches", {})
     pieces = band_tile_pieces(BAND[3], TILE_PATCH, 2, 0)
-    check(set(pieces) == {rows for _, rows, _ in BAND_TILES},
-          f"band tile pieces {pieces}: not the shapes of BAND_TILES")
-    for r in band_rows:  # the fp32 run launches the kernels of fp32 operands only
-        if r["tap"] in BAND_TILE_TAPS and r["mode"] == "bf16" and tile_launches:
-            got = tile_launches.get((r["name"], r["padding"]), 0)
-            check(got == sum(pieces.values()),
-                  f"{r['name']} on band tile pieces: {got} launches, want {pieces}")
-    piece_rows = {tap: rows for tap, rows, _ in BAND_TILES}
+    check(pieces == BAND_TILES[3], f"band tile pieces {pieces}, want {BAND_TILES[3]}")
+    band_tile_rows = [r for r in band_rows if r["mode"] == "bf16" and r["tap"] == BAND_TILES[0]]
+    for r in band_tile_rows:  # the fp32 run launches the kernels of fp32 operands only
+        got = tile_launches.get((r["name"], r["padding"]), 0)
+        check(not tile_launches or got == 1,
+              f"{r['name']} on band tile pieces: {got} launches a step, want 1")
     summary += [dict(name=f"{r['name']}@{r['tap']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
-                     window=r["window"],
-                     launches=pieces[piece_rows[r["tap"]]] if tile_launches else 0)
-                for r in band_rows if r["mode"] == "bf16" and r["tap"] in BAND_TILE_TAPS]
+                     window=r["window"], pieces=r["pieces"], piece_shapes=r["piece_shapes"],
+                     launches=tile_launches.get((r["name"], r["padding"]), 0))
+                for r in band_tile_rows]
     emit({"phase": "walls", "seconds": walls, "script_s": time.perf_counter() - start})
     print(nvidia_smi(), flush=True)  # again beside the summary, for readers of the tail
     emit({"kernels": summary})

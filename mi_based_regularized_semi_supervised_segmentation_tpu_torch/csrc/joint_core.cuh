@@ -12,7 +12,10 @@
 //     the operands' type (StoreRows, below), or the softmax VJP of the
 //     block's own rows (mi_fused.cu).
 // Each takes fp32 or bf16 operands (the model's compute dtype); the products
-// run on bf16 either way and sum in fp32.
+// run on bf16 either way and sum in fp32. joint_bwd's body is a device
+// function of a block's rows (joint_bwd_tile), and the forward's has a copy
+// that hands each finished sum to a store (fwd_block), so that mi_joint.cu's
+// grouped kernels run them on each piece of a flat buffer of canvases.
 // The design and its bounds are described in mi_joint.cu.
 
 #pragma once
@@ -225,6 +228,33 @@ int cast_vec(int C, const void* a, const void* b) {
   return C % (16 / (int)sizeof(Src)) == 0 && (bits & 15u) == 0;
 }
 
+// H[d] from g for d in [0, D): each run of `per` displacements (a piece's;
+// per = D for one call) reversed on its own with transpose_g
+__device__ __forceinline__ void convert_g(long long first, long long stride,
+                                          const float* __restrict__ g,
+                                          __nv_bfloat16* __restrict__ h, int C, int D, int per,
+                                          int transpose_g) {
+  const long long units_g = (long long)D * LANES * (LANES / 8);
+  for (long long u = first; u < units_g; u += stride) {
+    const int d = (int)(u / (LANES * (LANES / 8)));
+    const int j = (int)(u / (LANES / 8)) % LANES;
+    const int k0 = (int)(u % (LANES / 8)) * 8;
+    const int base = d / per * per;
+    const int src_d = base + per - 1 - (d - base);
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = k0 + e;
+      v[e] = (j < C && k < C) ? (transpose_g ? g[((long long)src_d * C + j) * C + k]
+                                             : g[((long long)d * C + k) * C + j])
+                              : 0.f;
+    }
+    *reinterpret_cast<uint4*>(h + ((long long)d * LANES + j) * LANES + k0) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                   pack_bf16x2(v[6], v[7]));
+  }
+}
+
 template <typename RowConv>
 __global__ void __launch_bounds__(PREP_THREADS)
 joint_prep(RowConv rows, const float* __restrict__ g, __nv_bfloat16* __restrict__ h, int C, int D,
@@ -233,23 +263,7 @@ joint_prep(RowConv rows, const float* __restrict__ g, __nv_bfloat16* __restrict_
   const long long stride = (long long)gridDim.x * blockDim.x;
   rows(first, stride);
   if (g == nullptr) return;
-  const long long units_g = (long long)D * LANES * (LANES / 8);
-  for (long long u = first; u < units_g; u += stride) {
-    const int d = (int)(u / (LANES * (LANES / 8)));
-    const int j = (int)(u / (LANES / 8)) % LANES;
-    const int k0 = (int)(u % (LANES / 8)) * 8;
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int k = k0 + e;
-      v[e] = (j < C && k < C) ? (transpose_g ? g[((long long)(D - 1 - d) * C + j) * C + k]
-                                             : g[((long long)d * C + k) * C + j])
-                              : 0.f;
-    }
-    *reinterpret_cast<uint4*>(h + ((long long)d * LANES + j) * LANES + k0) =
-        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
-                   pack_bf16x2(v[6], v[7]));
-  }
+  convert_g(first, stride, g, h, C, D, D, transpose_g);
 }
 
 // units of H that joint_prep converts (16-byte chunks)
@@ -323,11 +337,13 @@ struct StoreRows {
   }
 };
 
+// one block's BW_TILE output rows from n0 (joint_bwd's body; the grouped
+// backward of mi_joint.cu calls it on a piece's rows)
 template <int STAGES, typename Epilogue>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-joint_bwd(const __nv_bfloat16* __restrict__ S, const __nv_bfloat16* __restrict__ H, long long N,
-          int p, int wp, Epilogue epi) {
-  extern __shared__ __align__(1024) unsigned char smem[];
+__device__ __forceinline__ void joint_bwd_tile(const __nv_bfloat16* __restrict__ S,
+                                               const __nv_bfloat16* __restrict__ H, long long N,
+                                               int p, int wp, long long n0, const Epilogue& epi,
+                                               unsigned char* smem) {
   const int T = 2 * p + 1;
   const int slab_rows = BW_TILE + 2 * p;
   const uint32_t slab_bytes = (uint32_t)slab_rows * ROW_BYTES;
@@ -335,7 +351,6 @@ joint_bwd(const __nv_bfloat16* __restrict__ S, const __nv_bfloat16* __restrict__
   const uint32_t slab_s = h_s + STAGES * BW_H_BYTES;
   if (h_s & 1023) __trap();  // the swizzled wgmma operand needs a 1024-byte aligned base
 
-  const long long n0 = (long long)blockIdx.x * BW_TILE;
   const long long n_hi = min(n0 + BW_TILE, N);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wq = warp & 3;
@@ -416,6 +431,14 @@ joint_bwd(const __nv_bfloat16* __restrict__ S, const __nv_bfloat16* __restrict__
   wgmma_wait<0>();
   cp_async_wait<0>();
   epi(acc, smem, n0, N, tid);
+}
+
+template <int STAGES, typename Epilogue>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+joint_bwd(const __nv_bfloat16* __restrict__ S, const __nv_bfloat16* __restrict__ H, long long N,
+          int p, int wp, Epilogue epi) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  joint_bwd_tile<STAGES>(S, H, N, p, wp, (long long)blockIdx.x * BW_TILE, epi, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -552,6 +575,132 @@ joint_fwd_partial(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __re
   } else {
     fwd_wg_loop<J1>(smem_s, STAGE_BYTES, B_BYTES, n_stages, J0, warp - 4, lane, partial_d, tile,
                     h1 * FW_HALF, h2 * FW_HALF, prefetch);
+  }
+  cp_async_wait<0>();
+}
+
+// fwd_wg_loop and joint_fwd_partial's body again, each finished sum handed
+// to store(d, k1, k2, v(k1, k2), v(k1, k2 + 1)): the grouped forward's
+// (mi_joint.cu: joint_fwd_pieces writes J[piece] itself). A copy, not the
+// same code: built on this body, joint_fwd_partial ran 13-45% slower at
+// Up_conv3 on the card, by how its partial stores compiled, so it keeps
+// its own.
+template <int J, typename Prefetch, typename Store>
+__device__ __forceinline__ void fwd_wg_loop_to(uint32_t smem_s, uint32_t stage_bytes,
+                                            uint32_t b_bytes, int n_stages, int j0, int wq,
+                                            int lane, int d0, int k1_0, int k2_0,
+                                            const Prefetch& prefetch, const Store& store) {
+  constexpr int JA = J > 0 ? J : 1;
+  float acc[JA][32];
+#pragma unroll
+  for (int j = 0; j < JA; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+  const int a_row = ((lane >> 4) << 3) + (lane & 7);
+  const int a_chunk = wq * 2 + ((lane >> 3) & 1);
+  uint32_t a0[JA][4], a1[JA][4];
+  auto kstep = [&](uint32_t a_base, uint32_t b_base, int kk, uint32_t (&a)[JA][4]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      ldsm4_t(a_base + swz(kk * 16 + j0 + j + a_row, a_chunk, FW_ROW_BYTES), a[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < J; ++j) wgmma_m64n64k16_tb(acc[j], a[j], desc_sw128_mn(b_base + kk * 2048));
+    wgmma_commit();
+    wgmma_wait<1>();
+  };
+#pragma unroll 1
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<FW_STAGES - 3>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    prefetch(st + FW_STAGES - 2);
+    if constexpr (J > 0) {
+      const uint32_t b_base = smem_s + (st % FW_STAGES) * stage_bytes;
+      const uint32_t a_base = b_base + b_bytes;
+      kstep(a_base, b_base, 0, a0);
+      kstep(a_base, b_base, 1, a1);
+      kstep(a_base, b_base, 2, a0);
+      kstep(a_base, b_base, 3, a1);
+    }
+  }
+  if constexpr (J > 0) {
+    wgmma_wait<0>();
+    const int g = lane >> 2, t4 = lane & 3;
+    const int k1 = k1_0 + wq * 16 + g;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8) {
+        const int k2 = k2_0 + c8 * 8 + 2 * t4;
+        store(d0 + j0 + j, k1, k2, acc[j][4 * c8], acc[j][4 * c8 + 1]);
+        store(d0 + j0 + j, k1 + 8, k2, acc[j][4 * c8 + 2], acc[j][4 * c8 + 3]);
+      }
+    }
+  }
+}
+
+// One block of the forward over rows [n_begin, n_end) of A, B [N, 128]
+// bf16: the quarter, displacement group and dy of block index bx, each
+// finished sum handed to the store (joint_fwd_partial's body with
+// fwd_wg_loop_to; the grouped forward calls it on a piece's rows).
+template <int TG, typename Store>
+__device__ __forceinline__ void fwd_block(const __nv_bfloat16* __restrict__ A,
+                                          const __nv_bfloat16* __restrict__ B, long long N,
+                                          int p, int wp, long long n_begin, long long n_end,
+                                          int bx, const Store& store, unsigned char* smem) {
+  constexpr int A_ROWS = FW_KT + TG - 1;
+  constexpr uint32_t B_BYTES = FW_KT * FW_ROW_BYTES;
+  constexpr uint32_t STAGE_BYTES = fwd_stage_bytes(TG);
+  constexpr int J0 = (TG + 1) / 2, J1 = TG - J0;
+  const uint32_t smem_s = smem_addr(smem);
+  if (smem_s & 1023) __trap();
+
+  const int T = 2 * p + 1;
+  const int groups = T / TG;
+  const int q = bx & 3;
+  const int grp = (bx >> 2) % groups;
+  const int dy = (bx >> 2) / groups;
+  const int h1 = q >> 1, h2 = q & 1;
+  const int dx0 = grp * TG;
+  const long long shift = (long long)(dy - p) * wp - p + dx0;
+  const int n_stages = n_end > n_begin ? (int)((n_end - n_begin + FW_KT - 1) / FW_KT) : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  auto prefetch = [&](int st) {
+    if (st < n_stages) {
+      const long long r0 = n_begin + (long long)st * FW_KT;
+      const int live = (int)min((long long)FW_KT, n_end - r0);
+      const uint32_t b_base = smem_s + (st % FW_STAGES) * STAGE_BYTES;
+      const uint32_t a_base = b_base + B_BYTES;
+      for (int idx = tid; idx < A_ROWS * (FW_ROW_BYTES / 16); idx += MMA_THREADS) {
+        const int r = idx >> 3, c = idx & 7;
+        const long long row = r0 + shift + r;
+        const bool valid = r < live + TG - 1 && row >= 0 && row < N;
+        cp_async16(a_base + swz(r, c, FW_ROW_BYTES),
+                   A + (valid ? row : 0) * LANES + h1 * FW_HALF + c * 8, valid);
+      }
+      for (int idx = tid; idx < FW_KT * (FW_ROW_BYTES / 16); idx += MMA_THREADS) {
+        const int r = idx >> 3, c = idx & 7;
+        const bool valid = r < live;
+        cp_async16(b_base + swz(r, c, FW_ROW_BYTES),
+                   B + (valid ? r0 + r : 0) * LANES + h2 * FW_HALF + c * 8, valid);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll 1
+  for (int st = 0; st < FW_STAGES - 2; ++st) prefetch(st);
+
+  const int d0 = dy * T + dx0;
+  if (warp < 4) {
+    fwd_wg_loop_to<J0>(smem_s, STAGE_BYTES, B_BYTES, n_stages, 0, warp, lane, d0,
+                       h1 * FW_HALF,
+                    h2 * FW_HALF, prefetch, store);
+  } else {
+    fwd_wg_loop_to<J1>(smem_s, STAGE_BYTES, B_BYTES, n_stages, J0, warp - 4, lane, d0,
+                       h1 * FW_HALF,
+                    h2 * FW_HALF, prefetch, store);
   }
   cp_async_wait<0>();
 }

@@ -21,8 +21,8 @@ Three phases over one U-Net, each with its own Adam and its own generator
 ``ClusterHead`` on the encoder features (``iid_loss`` per subhead, then the
 mean) and a 5-D ``LocalClusterHead`` on the decoder features, whose
 displaced-MI loss (padding 0, one tile: ``patch_size`` 512 covers the map)
-runs the CUDA joint on the card (``ops/mi_joint.py``, lane-tiled: S * K =
-200 lanes).
+runs the CUDA joint on the card (``ops/mi_joint.py``: at padding 0 one
+launch a product over all S * K = 200 lanes).
 
 The freeze: the JAX package masks the Adam updates of frozen components; the
 port gives their parameters ``requires_grad=False`` and leaves them out of

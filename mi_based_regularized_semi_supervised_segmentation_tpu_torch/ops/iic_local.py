@@ -39,11 +39,16 @@ stride patch // 2, the last one flush with the far edge (``_tile_offsets``);
 each tile gets its own zero border and takes no halo from its neighbours.
 The tiles are gathered onto their bordered canvases in one indexing op
 whose indices are built once per geometry and device (``_piece_plan``,
-``_gather_pieces``), each canvas goes to its backend's joint, and the
-per-tile joints are stacked so that ``mi_from_joint`` runs once over them,
-each joint with its own min; the loss is the mean over tiles of the
-subhead-mean MI. ``pre_padded`` maps (the trainer's: the zero border of
-width p is already there) are gathered from as they stand, border skipped;
+``_gather_pieces``: one flat buffer, piece after piece). On the kernel
+backends (S*K <= 128 lanes) the whole buffer goes to the grouped joint
+(``mi_joint.displaced_joint_pieces``: on the card one launch a product for
+all of a map's tiles, 6 a step over two decoder taps; the gradient comes
+back as one tensor for the gather's scatter); on the others, and above 128
+lanes, each canvas goes to its backend's joint. The per-tile joints are
+stacked so that ``mi_from_joint`` runs once over them, each joint with its
+own min; the loss is the mean over tiles of the subhead-mean MI.
+``pre_padded`` maps (the trainer's: the zero border of width p is already
+there) are gathered from as they stand, border skipped;
 a single full-map tile keeps its canvas, and on the kernel backends the
 flatten is then a free reshape.
 
@@ -59,8 +64,8 @@ tile with a row in the band gives a piece: x_tf's canvas the tile's rows in
 the band on a zero border of p, x's the same rows +- p from the halo'd
 canvas, every entry outside the tile zero, as each tile keeps its own zero
 border. A piece goes to the backend's joint as a pre-padded canvas with a
-halo (on ``auto`` / ``pallas`` the CUDA joint on the piece as it stands), a
-tile that misses the band gives a zero joint and no launch, and the stacked
+halo (on ``auto`` / ``pallas`` the grouped CUDA joint on the band's pieces as
+they stand), a tile that misses the band gives a zero joint, and the stacked
 [n_tiles, ...] joints are the band's shares of the one-process joints. The
 band's joints, a tile's or the whole map's, are summed over the ranks by
 ``group``: the one-process joints on every rank.
@@ -239,11 +244,10 @@ def _subhead_mi(joint: torch.Tensor, lamb: float, group=None) -> torch.Tensor:
 
 
 def _block_diagonal_subheads(flat_joint: torch.Tensor, s: int, k: int) -> torch.Tensor:
-    """[T, T, S*K, S*K] -> per-subhead diagonal blocks [T, T, S, K, K] (a
-    view)."""
-    t = flat_joint.shape[0]
-    r = flat_joint.reshape(t, t, s, k, s, k)
-    return torch.diagonal(r, dim1=2, dim2=4).movedim(-1, 2)
+    """[..., T, T, S*K, S*K] -> per-subhead diagonal blocks
+    [..., T, T, S, K, K] (a view)."""
+    r = flat_joint.reshape(flat_joint.shape[:-2] + (s, k, s, k))
+    return torch.diagonal(r, dim1=-4, dim2=-2).movedim(-1, -3)
 
 
 def _tile_offsets(size: int, patch: int, step: int) -> Tuple[int, ...]:
@@ -281,6 +285,19 @@ class _PiecePlan:
     tf_dead: torch.Tensor
     start: torch.Tensor
     size: torch.Tensor
+
+    def pieces(self, batch: int) -> mi_joint.Pieces:
+        """Each piece's (first row, rows, canvas width) in the flat [rows, C]
+        buffer of a batch's canvases laid piece by piece (``_batch_order``):
+        the grouped joint's table."""
+        return _pieces(self.shapes, batch)
+
+
+@functools.lru_cache(maxsize=64)
+def _pieces(shapes: Tuple[Tuple[int, int], ...], batch: int) -> mi_joint.Pieces:
+    sizes = [batch * rc * wc for rc, wc in shapes]
+    firsts = np.cumsum([0] + sizes[:-1])
+    return tuple((int(f), n, wc) for f, n, (_, wc) in zip(firsts, sizes, shapes))
 
 
 @functools.lru_cache(maxsize=64)
@@ -334,21 +351,27 @@ def _batch_order(plan: _PiecePlan, batch: int) -> torch.Tensor:
 
 
 def _gather_pieces(x: torch.Tensor, index: torch.Tensor, dead: torch.Tensor,
-                   order: torch.Tensor, shapes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """The canvases [B, rows, cols, ...] of a ``_PiecePlan`` half from
-    [B, H, W, ...] ``x``, laid out by ``order`` (``_batch_order``): one
-    gather, its dead entries zeroed, split into contiguous canvases. The
-    backward is one accumulating scatter into x, where a slice per piece
-    would add a zero-filled copy of x per piece."""
+                   order: torch.Tensor) -> torch.Tensor:
+    """The canvases of a ``_PiecePlan`` half from [B, H, W, ...] ``x``, laid
+    out by ``order`` (``_batch_order``) in one flat [rows, ...] buffer, piece
+    after piece (each piece's [B, rows, cols, ...] contiguous): one gather,
+    its dead entries zeroed. The backward is one accumulating scatter into
+    x, where a slice per piece would add a zero-filled copy of x per piece."""
     b, tail = x.shape[0], x.shape[3:]
     flat = torch.empty(order.numel(), dtype=index.dtype, device=x.device)
     flat[order.reshape(-1)] = (index + x.shape[1] * x.shape[2] * torch.arange(
         b, device=x.device)[:, None]).reshape(-1)
     holes = torch.empty(order.numel(), dtype=torch.bool, device=x.device)
     holes[order.reshape(-1)] = dead.expand(b, -1).reshape(-1)
-    out = x.reshape((-1,) + tail)[flat].masked_fill(holes.reshape((-1,) + (1,) * len(tail)), 0)
-    return [piece.view((b, rc, wc) + tail)
-            for piece, (rc, wc) in zip(out.split([b * rc * wc for rc, wc in shapes]), shapes)]
+    return x.reshape((-1,) + tail)[flat].masked_fill(holes.reshape((-1,) + (1,) * len(tail)), 0)
+
+
+def _split_pieces(flat: torch.Tensor, batch: int,
+                  shapes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``_gather_pieces``' buffer as the canvases [B, rows, cols, ...]."""
+    tail = flat.shape[1:]
+    return [piece.view((batch, rc, wc) + tail) for piece, (rc, wc) in
+            zip(flat.split([batch * rc * wc for rc, wc in shapes]), shapes)]
 
 
 def _tiled_joints(x: torch.Tensor, x_tf: torch.Tensor, padding: int, patch: int, backend: str,
@@ -358,9 +381,12 @@ def _tiled_joints(x: torch.Tensor, x_tf: torch.Tensor, padding: int, patch: int,
     (``pre_padded``: canvases with the border of width p), or under the H
     split (``map_rows``, the whole map's rows; ``band``, the canvases' rows
     [b0, b1) of it) each tile's share from its piece of the band: zeros for
-    a tile that misses the band. Each piece goes to the backend's joint as a
-    pre-padded canvas taken as it stands."""
+    a tile that misses the band. Each piece is a pre-padded canvas taken as
+    it stands: on the kernel backends (S*K <= 128 lanes) all of them go to
+    the grouped joint (``mi_joint.displaced_joint_pieces``: one call, one
+    launch a product on the card); otherwise each to the backend's joint."""
     rows, cols = x.shape[1:3]
+    b, _, _, s, k = x.shape
     o = padding if pre_padded else 0
     if map_rows is None:
         map_rows, band = rows - 2 * o, (0, rows - 2 * o)
@@ -368,14 +394,22 @@ def _tiled_joints(x: torch.Tensor, x_tf: torch.Tensor, padding: int, patch: int,
         raise ValueError("a band's tiles need pre-padded canvases and the band's rows")
     plan = _piece_plan(rows, cols, map_rows, cols - 2 * o, patch, padding, tuple(band), o,
                        x.device)
-    order = _batch_order(plan, x.shape[0])
-    pieces = zip(plan.tiles, _gather_pieces(x, plan.x_index, plan.x_dead, order, plan.shapes),
-                 _gather_pieces(x_tf, plan.tf_index, plan.tf_dead, order, plan.shapes))
-    joints: List[Optional[torch.Tensor]] = [None] * plan.n_tiles
-    for t, a, b in pieces:
-        joints[t] = _subhead_joint(a, b, padding, backend, pre_padded=True, halo=True)
-    zero = torch.zeros_like(joints[plan.tiles[0]])
-    return torch.stack([zero if j is None else j for j in joints])
+    order = _batch_order(plan, b)
+    xs, ts = (_gather_pieces(t, i, dead, order) for t, i, dead in
+              ((x, plan.x_index, plan.x_dead), (x_tf, plan.tf_index, plan.tf_dead)))
+    if backend in KERNEL_BACKENDS and s * k <= mi_joint.LANES:
+        t = 2 * padding + 1
+        flat = mi_joint.displaced_joint_pieces(xs.reshape(-1, s * k), ts.reshape(-1, s * k),
+                                               plan.pieces(b), padding, torch.bfloat16)
+        joints = _block_diagonal_subheads(flat.reshape((-1, t, t, s * k, s * k)), s, k)
+    else:
+        joints = torch.stack([_subhead_joint(a, c, padding, backend, pre_padded=True, halo=True)
+                              for a, c in zip(_split_pieces(xs, b, plan.shapes),
+                                              _split_pieces(ts, b, plan.shapes))])
+    if len(plan.tiles) == plan.n_tiles:
+        return joints
+    out = joints.new_zeros((plan.n_tiles,) + joints.shape[1:])
+    return out.index_copy(0, torch.tensor(plan.tiles, device=joints.device), joints)
 
 
 def _strip(x: torch.Tensor, padding: int) -> torch.Tensor:

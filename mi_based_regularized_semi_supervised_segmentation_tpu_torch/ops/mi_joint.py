@@ -16,33 +16,51 @@ incoming cotangent) to bf16 and accumulates in fp32, as the TPU kernel does;
 model computes in bf16 (``Precision.compute_dtype``; bf16 products only): J
 is fp32 either way and the gradients come back in the operands' dtype, each
 fp32 sum over all displacements (and lane blocks) rounded once, as the TPU
-kernel's VJP returns ``dx.astype(x.dtype)``. A bf16 launch takes C <= 128 lanes
-(zero-padded to 128 on the card); a wider C is tiled into 128-lane blocks, the
-last one zero-padded when C is no multiple of 128 (``lane_tiled_fwd``,
-``lane_tiled_bwd``), one launch per block pair.
-The launch geometry comes from ``launch_plan`` and the scratch from
-``bf16_scratch``, plain Python that the CPU tests check.
+kernel's VJP returns ``dx.astype(x.dtype)``.
+
+The bf16 products take three shapes of launch:
+  * p > 0, C <= 128: one launch a product (zero-padded to 128 lanes on the
+    card), geometry from ``launch_plan`` and scratch from ``bf16_scratch``;
+  * p > 0, C > 128: tiled into 128-lane blocks, the last one zero-padded
+    when C is no multiple of 128 (``lane_tiled_fwd``, ``lane_tiled_bwd``),
+    one launch per block pair;
+  * p = 0, C <= 256: J = A^T B, dx_tf = A g and dx = B g^T, each one launch
+    over all lanes that converts the operands inside the kernel
+    (``gram_plan``).
+The grouped call (``displaced_joint_pieces``) takes many canvases laid one
+after another in one [rows, C] buffer (the tile pieces of
+``ops/iic_local.py:_tiled_joints``), each with its own width and rows
+outside it zero, and returns their joints [n_pieces, D, C, C]: one launch a
+product for all of them (``pieces_plan``; C <= 128).
+Every plan is plain Python that the CPU tests check.
 
 Dispatch: CUDA tensors go to the kernel (or the call raises), CPU tensors to
-``displaced_joint_plain_flat``. ``LAUNCHES`` counts kernel launches by
-(kernel, padding), one a wrapper call; a call on bf16 operands counts under
-the name with ``BF16_OPERANDS`` appended. ``chip_smoke.py`` reads it to show
-the training path ran through the kernels. Device kernels a call, at 128
-lanes: fp32 operands 3 forward (conversion pass, product, chunk sum) and 2
-backward (conversion of the source and g, product); bf16 operands 2 forward
-(no conversion pass) and 2 backward (the pass converts g alone). A udaiic
-step with two decoder taps makes 6 calls either way.
+``displaced_joint_plain_flat`` (the grouped call: its stack over the
+pieces). ``LAUNCHES`` counts wrapper calls by (kernel, padding): one a call,
+but one per block pair above 128 lanes at p > 0; a call on bf16 operands
+counts under the name with ``BF16_OPERANDS`` appended. ``chip_smoke.py``
+reads it to show the training path ran through the kernels. Device kernels
+a call, at 128 lanes and p > 0: fp32 operands 3 forward (conversion pass,
+product, chunk sum) and 2 backward (conversion of the source and g,
+product); bf16 operands 2 forward (no conversion pass) and 2 backward (the
+pass converts g alone); the grouped call 2 forward (conversion pass,
+product writing J) and 2 backward; p = 0, 2 forward (product, chunk sum) and
+1 backward. A udaiic step with two decoder taps makes 6 calls either way,
+tiled or not; the pretrain decoder step 3.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import math
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,6 +82,10 @@ FWD_STAGE_ROWS = 64    # joint_fwd_partial: rows per pipeline stage
 FWD_STAGES = 6
 FWD_HALF = 64          # joint_fwd_partial: a block's J tile is 64 x 64
 SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on an H100
+# the p = 0 kernels (joint_gram_fwd / joint_gram_bwd)
+GRAM_STAGE_ROWS = 32   # forward: rows per stage
+GRAM_BUFS = 3          # forward: bf16 stage buffers
+GRAM_MAX_LANES = 256   # C <= 256, computed as 128 or 256 lanes
 
 
 def reset_launch_counts() -> None:
@@ -125,6 +147,30 @@ def displaced_joint_plain_flat(a: torch.Tensor, b: torch.Tensor, wp: int, paddin
     return _RoundGradBF16.apply(joint) if bf16 else joint
 
 
+def joint_bwd_plain_flat(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
+                         transpose_g: bool,
+                         dot_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The backward products of ``displaced_joint_plain_flat`` written out
+    (``mi_joint_bwd``'s function), [N, C] in src's dtype:
+      transpose_g=False (src = A): dx_tf[n] = sum_d A[n + o_d] @ g[d]
+      transpose_g=True  (src = B): dx[m]    = sum_d B[m - o_d] @ g[d]^T
+    bf16 ``dot_dtype`` rounds src and g to bf16; the sums are fp32, cast to
+    src's dtype once."""
+    n, _ = src.shape
+    shift = padding * wp + padding
+    s, gg = src.float(), g.float()
+    if dot_dtype == torch.bfloat16:
+        s, gg = s.to(torch.bfloat16).float(), gg.to(torch.bfloat16).float()
+    pad = F.pad(s, (0, 0, shift, shift))  # pad[r] = src[r - shift], zero outside
+    out = torch.zeros_like(s)
+    for d, off in enumerate(_offsets(wp, padding)):
+        if transpose_g:
+            out += pad[2 * shift - off:2 * shift - off + n] @ gg[d].T
+        else:
+            out += pad[off:off + n] @ gg[d]
+    return out.to(src.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -143,8 +189,15 @@ def _library() -> ctypes.CDLL:
         lib.mi_joint_bwd_fp32.argtypes = [vp, vp, vp, ll, i, i, i, i, vp]
         lib.mi_joint_fwd_bf16in.argtypes = lib.mi_joint_fwd_bf16.argtypes
         lib.mi_joint_bwd_bf16in.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, i, i, i, i, vp]
+        lib.mi_joint_fwd_pieces.argtypes = [vp, vp, i, vp, vp, vp, i, vp, ll, i, i, i, i, vp]
+        lib.mi_joint_bwd_pieces.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, ll, i, i, i, i, i,
+                                            vp]
+        lib.mi_joint_gram_fwd.argtypes = [vp, vp, i, vp, vp, ll, i, i, ll, i, i, vp]
+        lib.mi_joint_gram_bwd.argtypes = [vp, i, vp, vp, ll, i, i, i, i, i, vp]
         for fn in (lib.mi_joint_fwd_bf16, lib.mi_joint_bwd_bf16, lib.mi_joint_fwd_fp32,
-                   lib.mi_joint_bwd_fp32, lib.mi_joint_fwd_bf16in, lib.mi_joint_bwd_bf16in):
+                   lib.mi_joint_bwd_fp32, lib.mi_joint_fwd_bf16in, lib.mi_joint_bwd_bf16in,
+                   lib.mi_joint_fwd_pieces, lib.mi_joint_bwd_pieces, lib.mi_joint_gram_fwd,
+                   lib.mi_joint_gram_bwd):
             fn.restype = i
         lib.mi_joint_error_string.argtypes = [i]
         lib.mi_joint_error_string.restype = ctypes.c_char_p
@@ -318,6 +371,145 @@ def alloc_scratch(spec: ScratchSpec, device: torch.device) -> Dict[str, torch.Te
             for name, (shape, dtype) in spec.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class GramPlan:
+    """Launch geometry of the p = 0 kernels over all lanes (J = A^T B,
+    dx_tf = A g, dx = B g^T) for one call shape: C <= 256 lanes computed as
+    ``cp`` = 128 or 256 (zero-padded)."""
+    n: int
+    c: int
+    cp: int
+    # joint_gram_fwd: grid (fwd_slabs, fwd_chunks); block (slab, chunk) sums
+    # its chunk's rows into partial[chunk, 128 slab:+128, :cp], in stages of
+    # GRAM_STAGE_ROWS rows; joint_fwd_reduce sums the chunks
+    fwd_slabs: int
+    fwd_rows_per_chunk: int
+    fwd_chunks: int
+    fwd_smem: int
+    # joint_gram_bwd: bwd_blocks persistent blocks over bwd_tiles tiles of
+    # bwd_tile_rows rows, each block holding all of g as bf16
+    bwd_tile_rows: int
+    bwd_tiles: int
+    bwd_blocks: int
+    bwd_smem: int
+
+    @property
+    def fwd_grid(self) -> Tuple[int, int]:
+        return (self.fwd_slabs, self.fwd_chunks)
+
+    def fwd_chunk_rows(self, chunk: int) -> Tuple[int, int]:
+        lo = chunk * self.fwd_rows_per_chunk
+        return lo, min(self.n, lo + self.fwd_rows_per_chunk)
+
+    def bwd_block_tiles(self, block: int) -> List[int]:
+        return list(range(block, self.bwd_tiles, self.bwd_blocks))
+
+
+@functools.lru_cache(maxsize=64)
+def gram_plan(n: int, c: int, sm_count: int) -> GramPlan:
+    """The p = 0 kernels' launch plan (see ``GramPlan``): the forward's
+    chunks give one block per SM (``cp`` / 128 slab blocks a chunk), at
+    least 4 stages a chunk; the backward one persistent block per SM."""
+    if not 1 <= c <= GRAM_MAX_LANES:
+        raise ValueError(f"the p = 0 kernels take 1 to {GRAM_MAX_LANES} lanes, got C = {c}")
+    if n < 1:
+        raise ValueError(f"no rows (N = {n})")
+    cp = LANES if c <= LANES else GRAM_MAX_LANES
+    slabs = cp // LANES
+    want = max(1, sm_count // slabs)
+    chunks = max(1, min(want, math.ceil(n / (4 * GRAM_STAGE_ROWS)), 65535))
+    rows = math.ceil(math.ceil(n / chunks) / GRAM_STAGE_ROWS) * GRAM_STAGE_ROWS
+    tile_rows = 128 if cp == LANES else 64
+    tiles = math.ceil(n / tile_rows)
+    h_bytes = (cp // LANES) * (cp // BWD_STAGE_LANES) * LANES * BWD_STAGE_LANES * 2
+    return GramPlan(n=n, c=c, cp=cp, fwd_slabs=slabs, fwd_rows_per_chunk=rows,
+                    fwd_chunks=math.ceil(n / rows),
+                    fwd_smem=GRAM_BUFS * (2 + cp // 64) * GRAM_STAGE_ROWS * 64 * 2,
+                    bwd_tile_rows=tile_rows, bwd_tiles=tiles, bwd_blocks=min(tiles, sm_count),
+                    bwd_smem=h_bytes + tile_rows * cp * 2)
+
+
+Pieces = Tuple[Tuple[int, int, int], ...]  # per piece: (first row, rows, canvas width)
+
+
+@dataclasses.dataclass(frozen=True)
+class PiecesPlan:
+    """Launch geometry of the grouped kernels (``displaced_joint_pieces``):
+    the pieces tile rows [0, total_rows) of the flat operands one after
+    another. The forward's grid is (4 * fwd_groups * taps, n_pieces): a
+    block takes one whole piece (one chunk: it writes its sums into J), one
+    dy, fwd_dx_group displacements along x and a 64 x 64 quarter of J. The
+    backward's bwd_blocks blocks are each piece's BWD_TILE-row tiles in
+    turn, piece i's from first_block[i]. Stages and shared memory are
+    ``launch_plan``'s."""
+    pieces: Pieces
+    padding: int
+    total_rows: int
+    first_block: Tuple[int, ...]
+    bwd_blocks: int
+    bwd_stages: int
+    bwd_smem: int
+    fwd_dx_group: int
+    fwd_groups: int
+    fwd_smem: int
+    # the table on each device it was sent to (not part of the plan's value)
+    tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, hash=False, repr=False)
+
+    @property
+    def taps(self) -> int:
+        return 2 * self.padding + 1
+
+    def device_table(self, device: torch.device) -> torch.Tensor:
+        """``table()`` as int64 [n_pieces, 4] on ``device``, sent once."""
+        if device not in self.tables:
+            self.tables[device] = torch.tensor(self.table(), dtype=torch.int64, device=device)
+        return self.tables[device]
+
+    @property
+    def n_pieces(self) -> int:
+        return len(self.pieces)
+
+    @property
+    def fwd_grid(self) -> Tuple[int, int]:
+        return (4 * self.fwd_groups * self.taps, self.n_pieces)
+
+    def table(self) -> List[Tuple[int, int, int, int]]:
+        """The kernels' device table: per piece (first row, rows, wp, first
+        backward block)."""
+        return [piece + (fb,) for piece, fb in zip(self.pieces, self.first_block)]
+
+    def bwd_block_rows(self, block: int) -> Tuple[int, int, int]:
+        """(piece, first, last + 1 flat row) of backward block ``block``, as
+        the kernel finds them: the last piece whose first block is at or
+        before it."""
+        i = bisect.bisect_right(self.first_block, block) - 1
+        first, rows, _ = self.pieces[i]
+        lo = first + (block - self.first_block[i]) * BWD_TILE
+        return i, lo, min(first + rows, lo + BWD_TILE)
+
+
+@functools.lru_cache(maxsize=64)
+def pieces_plan(pieces: Pieces, c: int, padding: int, sm_count: int) -> PiecesPlan:
+    """The grouped kernels' launch plan (see ``PiecesPlan``). The pieces
+    must lie one after another from row 0, each with at least one row."""
+    if not pieces:
+        raise ValueError("no pieces")
+    at = 0
+    for first, rows, wp in pieces:
+        if first != at or rows < 1:
+            raise ValueError(f"piece ({first}, {rows}, {wp}) does not follow row {at}")
+        _check_geometry(wp, padding)
+        at += rows
+    base = launch_plan(pieces[0][1], c, padding, pieces[0][2], sm_count)
+    blocks = [math.ceil(rows / BWD_TILE) for _, rows, _ in pieces]
+    first_block = tuple(int(x) for x in np.cumsum([0] + blocks[:-1]))
+    return PiecesPlan(pieces=pieces, padding=padding, total_rows=at, first_block=first_block,
+                      bwd_blocks=sum(blocks), bwd_stages=base.bwd_stages,
+                      bwd_smem=base.bwd_smem, fwd_dx_group=base.fwd_dx_group,
+                      fwd_groups=base.fwd_groups, fwd_smem=base.fwd_smem)
+
+
 def _lane_tiles(c: int) -> List[slice]:
     return [slice(i, min(i + LANES, c)) for i in range(0, c, LANES)]
 
@@ -373,36 +565,95 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+# A call's host work all comes before its one launch, so it counts in the
+# call's time wherever the card waits on it: the current stream is read raw
+# (no Stream object), and the device is made current only where it is not.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device``, as the cudaStream_t a launch takes."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _on(device: torch.device):
+    """``device`` made current for a raw launch (nothing where it is)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _check_modes(operand: torch.Tensor, bf16: bool) -> None:
     if operand.dtype == torch.bfloat16 and not bf16:
         raise TypeError("bf16 operands take the bf16 products (bf16=True); the fp32 mode "
                         "takes fp32 operands")
 
 
+def _whole_width(padding: int, c: int, bf16: bool) -> bool:
+    """Whether a call takes the p = 0 kernels over all lanes."""
+    return bf16 and padding == 0 and c <= GRAM_MAX_LANES
+
+
 def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
                  bf16: bool = True) -> torch.Tensor:
     """Kernel launch: J [D, C, C] fp32 from flat canvases a, b [N, C] (fp32,
-    or bf16 with bf16 products); in bf16 one launch per pair of 128-lane
-    blocks."""
+    or bf16 with bf16 products); in bf16 at p = 0 one launch over all lanes
+    (C <= 256), at p > 0 one launch per pair of 128-lane blocks."""
     _check_operand(a, "a")
     _check_operand(b, "b", a.shape, (a.dtype,))
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
     _check_modes(a, bf16)
     _check_geometry(wp, padding)
+    if _whole_width(padding, a.shape[1], bf16):
+        return _launch_gram_fwd(a, b)
     if bf16 and a.shape[1] > LANES:
         return lane_tiled_fwd(a, b, lambda x, y: _launch_fwd(x, y, wp, padding, bf16))
     return _launch_fwd(a, b, wp, padding, bf16)
+
+
+def _launch_gram_fwd(a, b):
+    n, c = a.shape
+    with _on(a.device):
+        plan = gram_plan(n, c, _sm_count(a.device.index))
+        partial = torch.empty((plan.fwd_chunks, plan.cp, plan.cp), dtype=torch.float32,
+                              device=a.device)
+        out = torch.empty((1, c, c), dtype=torch.float32, device=a.device)
+        rc = _library().mi_joint_gram_fwd(
+            a.data_ptr(), b.data_ptr(), int(a.dtype == torch.bfloat16), partial.data_ptr(),
+            out.data_ptr(), n, c, plan.cp, plan.fwd_rows_per_chunk, plan.fwd_chunks,
+            plan.fwd_smem, _stream(a.device))
+    name = kernel_name(FWD, a.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, 0)] += 1
+    return out
+
+
+def _launch_gram_bwd(src, g, transpose_g):
+    n, c = src.shape
+    with _on(src.device):
+        plan = gram_plan(n, c, _sm_count(src.device.index))
+        out = torch.empty((n, c), dtype=src.dtype, device=src.device)
+        rc = _library().mi_joint_gram_bwd(
+            src.data_ptr(), int(src.dtype == torch.bfloat16), g.data_ptr(), out.data_ptr(), n, c,
+            plan.cp, int(transpose_g), plan.bwd_blocks, plan.bwd_smem,
+            _stream(src.device))
+    name = kernel_name(BWD_DX if transpose_g else BWD_DX_TF, src.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, 0)] += 1
+    return out
 
 
 def _launch_fwd(a, b, wp, padding, bf16):
     n, c = a.shape
     d = (2 * padding + 1) ** 2
     lib = _library()
-    with torch.cuda.device(a.device):
+    with _on(a.device):
         sms = _sm_count(a.device.index)
         out = torch.empty((d, c, c), dtype=torch.float32, device=a.device)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+        stream = _stream(a.device)
         if bf16:
             plan = launch_plan(n, c, padding, wp, sms)
             buf = alloc_scratch(bf16_scratch(plan, backward=False, rows=converts_rows(a, b)),
@@ -445,6 +696,8 @@ def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
         raise ValueError(f"src on {src.device}, g on {g.device}")
     _check_modes(src, bf16)
     _check_geometry(wp, padding)
+    if _whole_width(padding, c, bf16):
+        return _launch_gram_bwd(src, g, transpose_g)
     if bf16 and c > LANES:
         return lane_tiled_bwd(
             src, g, lambda s, h, tr: _launch_bwd(s, h, wp, padding, tr, bf16, torch.float32),
@@ -455,9 +708,9 @@ def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
 def _launch_bwd(src, g, wp, padding, transpose_g, bf16, out_dtype):
     n, c = src.shape
     lib = _library()
-    with torch.cuda.device(src.device):
+    with _on(src.device):
         out = torch.empty((n, c), dtype=out_dtype, device=src.device)
-        stream = torch.cuda.current_stream(src.device).cuda_stream
+        stream = _stream(src.device)
         if bf16:
             plan = launch_plan(n, c, padding, wp, _sm_count(src.device.index))
             buf = alloc_scratch(bf16_scratch(plan, backward=True, rows=converts_rows(src)),
@@ -480,38 +733,160 @@ def _launch_bwd(src, g, wp, padding, transpose_g, bf16, out_dtype):
     return out
 
 
-class _DisplacedJointCUDA(torch.autograd.Function):
-    """The kernels' autograd: J fp32; the gradients in the operands' dtype."""
+class _Joint(torch.autograd.Function):
+    """J = fwd(a, b) with the backward products bwd(src, g, transpose_g):
+    the kernels' wrappers, or (on the CPU, in the tests) their plain
+    stand-ins. J is fp32; the gradients come in the operands' dtype."""
 
     @staticmethod
-    def forward(ctx, a, b, wp, padding, bf16):
+    def forward(ctx, a, b, fwd, bwd):
         ctx.save_for_backward(a, b)
-        ctx.geometry = (wp, padding, bf16)
-        return mi_joint_fwd(a, b, wp, padding, bf16)
+        ctx.bwd = bwd
+        return fwd(a, b)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        wp, padding, bf16 = ctx.geometry
         g = g.contiguous()
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = mi_joint_bwd(b, g, wp, padding, transpose_g=True, bf16=bf16)
-        if ctx.needs_input_grad[1]:
-            db = mi_joint_bwd(a, g, wp, padding, transpose_g=False, bf16=bf16)
-        return da, db, None, None, None
+        da = ctx.bwd(b, g, True) if ctx.needs_input_grad[0] else None
+        db = ctx.bwd(a, g, False) if ctx.needs_input_grad[1] else None
+        return da, db, None, None
+
+
+def _check_dot(dot_dtype: torch.dtype) -> None:
+    if dot_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dot_dtype must be bfloat16 or float32, got {dot_dtype}")
 
 
 def displaced_joint_flat(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
                          dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """[N, C] x2 -> [D, C, C]: the kernel for CUDA tensors, the plain version
     for CPU tensors."""
-    if dot_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"dot_dtype must be bfloat16 or float32, got {dot_dtype}")
+    _check_dot(dot_dtype)
     if a.is_cuda or b.is_cuda:
-        return _DisplacedJointCUDA.apply(a, b, wp, padding, dot_dtype == torch.bfloat16)
+        bf16 = dot_dtype == torch.bfloat16
+        return _Joint.apply(a, b, lambda x, y: mi_joint_fwd(x, y, wp, padding, bf16),
+                            lambda s, g, tr: mi_joint_bwd(s, g, wp, padding, tr, bf16))
     if a.device.type == "cpu" and b.device.type == "cpu":
         return displaced_joint_plain_flat(a, b, wp, padding, dot_dtype)
+    raise ValueError(f"unsupported devices {a.device}, {b.device}")
+
+
+# ---------------------------------------------------------------------------
+# the grouped joint: many canvases, one launch a product
+# ---------------------------------------------------------------------------
+
+def _piece_rows(t: torch.Tensor, pieces: Pieces) -> List[torch.Tensor]:
+    return [t[first:first + rows] for first, rows, _ in pieces]
+
+
+def pieces_fwd_plain(a: torch.Tensor, b: torch.Tensor, pieces: Pieces, padding: int,
+                     dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The grouped forward's function: [n_pieces, D, C, C], each piece's
+    ``displaced_joint_plain_flat`` on its rows."""
+    return torch.stack([displaced_joint_plain_flat(x, y, wp, padding, dot_dtype)
+                        for x, y, (_, _, wp) in zip(_piece_rows(a, pieces),
+                                                    _piece_rows(b, pieces), pieces)])
+
+
+def pieces_bwd_plain(src: torch.Tensor, g: torch.Tensor, pieces: Pieces, padding: int,
+                     transpose_g: bool, dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The grouped backward's function: [rows, C], each piece's
+    ``joint_bwd_plain_flat`` on its rows and its g."""
+    return torch.cat([joint_bwd_plain_flat(x, g[i], wp, padding, transpose_g, dot_dtype)
+                      for i, (x, (_, _, wp)) in enumerate(zip(_piece_rows(src, pieces), pieces))])
+
+
+def _pieces_plan_for(a: torch.Tensor, pieces: Pieces, padding: int) -> PiecesPlan:
+    """The grouped call's plan for operands ``a`` [rows, C], which the
+    pieces must cover."""
+    if not a.shape[1] <= LANES:
+        raise ValueError(f"the grouped kernels take 1 to {LANES} lanes, got C = {a.shape[1]}")
+    plan = pieces_plan(pieces, a.shape[1], padding, _sm_count(a.device.index))
+    if plan.total_rows != a.shape[0]:
+        raise ValueError(f"the pieces cover {plan.total_rows} rows of {a.shape[0]}")
+    return plan
+
+
+def mi_joint_fwd_pieces(a: torch.Tensor, b: torch.Tensor, pieces: Pieces,
+                        padding: int) -> torch.Tensor:
+    """Kernel launch: J [n_pieces, D, C, C] fp32 of the pieces of flat
+    canvases a, b [rows, C] (fp32 or bf16; bf16 products, C <= 128), one
+    launch for all of them."""
+    _check_operand(a, "a")
+    _check_operand(b, "b", a.shape, (a.dtype,))
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    plan = _pieces_plan_for(a, pieces, padding)
+    n, c = a.shape
+    d = (2 * padding + 1) ** 2
+    with _on(a.device):
+        copies = converts_rows(a, b)
+        buf = alloc_scratch({k: ((n, LANES), torch.bfloat16) for k in ("a16", "b16")}
+                            if copies else {}, a.device)
+        out = torch.empty((plan.n_pieces, d, c, c), dtype=torch.float32, device=a.device)
+        rc = _library().mi_joint_fwd_pieces(
+            a.data_ptr(), b.data_ptr(), int(a.dtype == torch.bfloat16), _ptr(buf, "a16"),
+            _ptr(buf, "b16"), plan.device_table(a.device).data_ptr(), plan.n_pieces,
+            out.data_ptr(), n, c, padding, plan.fwd_dx_group, plan.fwd_smem,
+            _stream(a.device))
+    name = kernel_name(FWD, a.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, padding)] += 1
+    return out
+
+
+def mi_joint_bwd_pieces(src: torch.Tensor, g: torch.Tensor, pieces: Pieces, padding: int,
+                        transpose_g: bool) -> torch.Tensor:
+    """Kernel launch: the grouped backward product [rows, C] in src's dtype
+    from src [rows, C] and g [n_pieces, D, C, C] fp32 (``mi_joint_bwd`` of
+    each piece with its g), one launch for all pieces."""
+    _check_operand(src, "src")
+    n, c = src.shape
+    d = (2 * padding + 1) ** 2
+    _check_operand(g, "g", (len(pieces), d, c, c), (torch.float32,))
+    if src.device != g.device:
+        raise ValueError(f"src on {src.device}, g on {g.device}")
+    plan = _pieces_plan_for(src, pieces, padding)
+    with _on(src.device):
+        spec = {"h16": ((plan.n_pieces, d, LANES, LANES), torch.bfloat16)}
+        if converts_rows(src):
+            spec["s16"] = ((n, LANES), torch.bfloat16)
+        buf = alloc_scratch(spec, src.device)
+        out = torch.empty((n, c), dtype=src.dtype, device=src.device)
+        rc = _library().mi_joint_bwd_pieces(
+            src.data_ptr(), int(src.dtype == torch.bfloat16), g.data_ptr(), _ptr(buf, "s16"),
+            buf["h16"].data_ptr(), plan.device_table(src.device).data_ptr(), plan.n_pieces,
+            plan.bwd_blocks, out.data_ptr(), n, c, padding, int(transpose_g), plan.bwd_stages,
+            plan.bwd_smem, _stream(src.device))
+    name = kernel_name(BWD_DX if transpose_g else BWD_DX_TF, src.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, padding)] += 1
+    return out
+
+
+def pieces_joint(a: torch.Tensor, b: torch.Tensor, fwd: Callable, bwd: Callable) -> torch.Tensor:
+    """The grouped call's autograd over the forward ``fwd(a, b)`` and the
+    backward products ``bwd(src, g, transpose_g)``: the kernels, or their
+    plain stand-ins (``pieces_fwd_plain``, ``pieces_bwd_plain``)."""
+    return _Joint.apply(a, b, fwd, bwd)
+
+
+def displaced_joint_pieces(a: torch.Tensor, b: torch.Tensor, pieces: Pieces, padding: int,
+                           dot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """[rows, C] x2 -> [n_pieces, D, C, C]: the joint of each piece (first
+    row, rows, canvas width) of the flat canvases, its rows outside the
+    piece zero. CUDA tensors: the grouped kernels (bf16 products, C <= 128),
+    one launch a product; CPU tensors: the stack of each piece's plain
+    version."""
+    _check_dot(dot_dtype)
+    if a.is_cuda or b.is_cuda:
+        if dot_dtype != torch.bfloat16:
+            raise ValueError("the grouped kernels compute bf16 products only")
+        return pieces_joint(a, b, lambda x, y: mi_joint_fwd_pieces(x, y, pieces, padding),
+                            lambda s, g, tr: mi_joint_bwd_pieces(s, g, pieces, padding, tr))
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return pieces_fwd_plain(a, b, pieces, padding, dot_dtype)
     raise ValueError(f"unsupported devices {a.device}, {b.device}")
 
 

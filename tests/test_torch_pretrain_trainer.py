@@ -16,8 +16,8 @@ the encoder phase's); a resume from ``Checkpoint=`` restores each phase's
 state bit for bit and trains only the epochs left.
 
 The joint at the pretrain decoder's shape (padding 0, S * K = 10 x 20 = 200
-lanes, lane-tiled into a 128-lane block and a 72-lane one padded to 128;
-the tiling's CPU test is in tests/test_torch_mi_joint.py), marked ``cuda``
+lanes, one product over all lanes padded to 256; its plan's CPU test is in
+tests/test_torch_joint_regimes.py), marked ``cuda``
 (it skips without a card): the kernel against its plain version through the
 5-D loss (rtol 1e-4 of the loss, 2e-3 of the largest gradient entry: see
 the test). This
@@ -235,7 +235,7 @@ def test_parallel_defaults_pass(data_root, tmp_path):
 @pytest.mark.cuda
 def test_decoder_iic_on_card_matches_plain():
     """The pretrain decoder's IIC loss (5-D door, padding 0, one tile, 10 x 20
-    = 200 lanes) on the card (the kernel, lane-tiled: 4 launches a product)
+    = 200 lanes) on the card (the kernel over all lanes: 1 launch a product)
     against the CPU (its plain version): the loss at rtol 1e-4; both input
     gradients within 2e-3 of their largest entry. The cotangent of J comes
     from J, whose fp32 sums the two sides take in other orders, and both
@@ -255,7 +255,7 @@ def test_decoder_iic_on_card_matches_plain():
                                                                     patch_size=512)
         loss.backward()
         outs.append([loss.item()] + [t.grad.cpu().numpy() for t in q])
-    assert sum(mi_joint.LAUNCHES.values()) == 12
+    assert sum(mi_joint.LAUNCHES.values()) == 3
     assert set(p for _, p in mi_joint.LAUNCHES) == {0}
     np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-4)
     for got, want in zip(outs[1][1:], outs[0][1:]):
