@@ -149,6 +149,20 @@ Phases, each printing JSON lines:
            joint at the decoder's shape ([150528, 200], p = 0) exactly on
            integer inputs, within TOL on probability maps, timed beside its
            bound and torch.matmul
+  pretrain_wall  each pretrain phase of iiccontrast through
+           ``pretrain_main`` at PRETRAIN_WALL_STEPS batches an epoch: the
+           step loop's wall a step with no step synchronised, the
+           synchronised step's median and p90 after PRETRAIN_WALL_SKIP, the
+           same step alone on device-resident batches, the phase's loader
+           alone; the decoder at PRETRAIN_WALL_FACTOR_STEPS with one factor
+           changed at a time (no prefetch thread, no loader, no pinning, the
+           full path, no pool, one intra-op thread, the loaders' threads in
+           the trainer's process, the loaders' processes at its priority, a
+           pool of 2), and the encoder's loader factors; the start of a
+           loader's own process; the host's CPUs; the card's name and power
+           limit. Fails when the decoder's wall a step
+           is above PRETRAIN_WALL_LIMIT times the slower of its step alone
+           and its loader
   optim    the headline trainer through ``main.main`` under Optim.name=SGD
            (momentum 0.9) and RAdam: 6 joint launches a step each, finite
            losses; a resume under SGD equal to last.pth in every entry; then
@@ -324,6 +338,12 @@ TILE_PATCH = 32      # train_tiled: the original project's default patch size
 BACKEND_TOL = 5e-3
 ZOO_STEPS = 4        # steps of each resume / train_zoo run
 PRETRAIN_STEPS = 3   # pretrain: batches an epoch, one epoch a phase
+PRETRAIN_WALL_STEPS = 64         # pretrain_wall: batches an epoch, one epoch a phase
+PRETRAIN_WALL_FACTOR_STEPS = 32  # pretrain_wall: the decoder's factors, one epoch each
+PRETRAIN_WALL_SKIP = 8           # pretrain_wall: steps left out of each median and p90
+# pretrain_wall: the decoder's loop wall a step over the slower of its step alone and its
+# loader alone, at most (the fault read 2-4.5x; the rest is room for the shared host)
+PRETRAIN_WALL_LIMIT = 1.5
 # the pretrain decoder's IIC map (pretrain.yaml): Up_conv3 of 4 patients x 3
 # partitions at crop 224, padding 0; IICHead.Decoder's 10 x 20 clusters
 PRETRAIN_TAP = ("Up_conv3", 12, 112, 0)
@@ -2358,15 +2378,17 @@ def phase_train_remat(steps: int = 3) -> None:
           "peak_above_start_gib_remat": rem_peak, "step_ms": plain_ms, "step_ms_remat": rem_ms})
 
 
-def _pretrain_argv(name: str, save_dir: str, *extra: str) -> list:
+def _pretrain_argv(name: str, save_dir: str, *extra: str, steps: int = PRETRAIN_STEPS,
+                   timing: bool = True) -> list:
     """``pretrain_main`` on the card at pretrain.yaml's widths (crop 224,
     4 patients x 3 partitions a contrastive batch, the default heads),
-    PRETRAIN_STEPS steps an epoch, one epoch a phase."""
+    ``steps`` steps an epoch, one epoch a phase, each step synchronised and
+    timed with ``timing``."""
     return ["Data.synthetic=true", "Data.labeled_data_ratio=0.25",
             "Data.unlabeled_data_ratio=0.75", f"Trainer.name={name}", "Trainer.device=cuda",
-            f"Trainer.num_batches={PRETRAIN_STEPS}", "Trainer.max_epoch_train_encoder=1",
+            f"Trainer.num_batches={steps}", "Trainer.max_epoch_train_encoder=1",
             "Trainer.max_epoch_train_decoder=1", "Trainer.max_epoch_train_finetune=1",
-            f"Trainer.save_dir={save_dir}", "Trainer.step_timing=true", *extra]
+            f"Trainer.save_dir={save_dir}", f"Trainer.step_timing={str(timing).lower()}", *extra]
 
 
 @contextmanager
@@ -2625,6 +2647,211 @@ def phase_pretrain_joint(reps: int) -> list:
     del a, b, g, cases
     torch.cuda.empty_cache()
     return rows
+
+
+def _wall_main(save_dir: str, steps: int, *extra: str, timing: bool = False, patches=()):
+    """``pretrain_main`` (iiccontrast, ``steps`` batches an epoch, one epoch a
+    phase) with each (object, attribute, value) of ``patches`` in place;
+    returns the trainer."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    pm = port("pretrain_main")
+    with ExitStack() as stack:
+        for target, attribute, value in patches:
+            stack.enter_context(mock.patch.object(target, attribute, value))
+        return pm.main(_pretrain_argv("iiccontrast", save_dir, *extra, steps=steps,
+                                      timing=timing))
+
+
+def _wall_stats(times: list) -> tuple:
+    """(median, p90) of the steps after the first PRETRAIN_WALL_SKIP."""
+    kept = times[PRETRAIN_WALL_SKIP:]
+    return statistics.median(kept), statistics.quantiles(kept, n=10)[-1]
+
+
+def _alone_and_loader(steps: int) -> dict:
+    """``pretrain_main`` with each phase's epoch replaced by two readings of
+    that phase, its trainer built as it trains: its host iterator alone
+    (the phase's loader at its 4 threads and the phase's batch making, no
+    step running: ms a batch over ``steps`` pulls), then its step alone on
+    those ``steps`` batches made device resident first, each step
+    synchronised and timed as ``_ppar_run`` times them. The loader's first
+    batch (its process's start) is left out."""
+    import torch
+
+    pre, trainer_mod = port("engine.pretrain"), port("engine.trainer")
+    record = {}
+
+    def measure(self, name, phase, step, batches, *args, **kwargs):
+        try:
+            next(batches)  # the first batch waits for the loader's process to start
+            t0 = time.perf_counter()
+            host = [next(batches) for _ in range(steps)]
+            loader_ms = (time.perf_counter() - t0) * 1e3 / steps
+            resident = [({k: trainer_mod.to_device(v, self._device) for k, v in b.items()
+                          if k not in ("group", "valid")}, b["valid"]) for b in host]
+            torch.cuda.synchronize()
+            times = []
+            for batch, valid in resident:
+                t0 = time.perf_counter()
+                step(batch, **valid)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            record[name] = {"loader_ms_per_batch": loader_ms, "alone_ms": times}
+        finally:
+            self._start_epoch = 0
+            phase.close()
+
+    _wall_main("chip_smoke_pretrain_alone", steps,
+               patches=((pre.ContrastTrainer, "_run_phase", measure),))
+    return record
+
+
+def _phase_factors(steps: int, phase: str = "pretrain_decoder", only=None) -> dict:
+    """One pretrain ``phase`` alone through ``pretrain_main`` (the other
+    pretrain phase off, finetune 0 epochs), ``steps`` batches, no step
+    synchronised, with one factor changed at a time (``only``: those named
+    by their letters): (a) its host batches made before the
+    epoch, no prefetch thread (each pinned and copied on the main thread);
+    (b) the prefetch thread over batches made before the epoch: only the
+    thread and its pinning act; (c) the loader through the prefetch thread,
+    no pinning (a pageable copy); (d) the full path; then (e) the full path
+    with the loader's pool off (``PretrainData.num_workers=0``: one thread
+    makes each slice), (f) with torch at one intra-op thread and (g) with
+    the loaders' threads in the trainer's process (``own_process`` off, as
+    before the loaders had a process of their own), (h) with the loaders'
+    processes at the trainer's priority (``LOADER_NICE`` 0) and (i) with the
+    contrastive loader's pool at 2 threads. Each: the loop wall a step and
+    the trainer process's CPU ms a step over the phase's epoch (its CSV and
+    checkpoint included; a loader's own process not counted)."""
+    import torch
+
+    pm, pre, mesh = port("pretrain_main"), port("engine.pretrain"), port("parallel.mesh")
+    loader_mod = port("data.loader")
+    alone = ("Trainer.train_decoder=false" if phase == "pretrain_encoder"
+             else "Trainer.train_encoder=false", "Trainer.max_epoch_train_finetune=0")
+    real_batches = pre._host_batches
+
+    def premade(loader, make):
+        it = real_batches(loader, make)
+        return iter([next(it) for _ in range(steps + mesh.DEPTH + 1)])
+
+    def no_thread(host_iter, device=None, context=None, whole=(), ring=None):
+        for batch in host_iter:
+            yield mesh.local_rows(batch, context, whole)
+
+    def unpinned(host_iter, device=None, context=None, whole=(), ring=None):
+        return mesh.prefetch_to_device(host_iter, None, context, whole)
+
+    def pageable(arr, device):
+        return torch.as_tensor(arr).to(device)
+
+    def in_process(cls):
+        return lambda *args, **kwargs: cls(*args, **{**kwargs, "own_process": False})
+
+    variants = {"a_premade_no_thread": ((), ((pre, "_host_batches", premade),
+                                             (pre, "prefetch_to_device", no_thread))),
+                "b_premade_prefetch": ((), ((pre, "_host_batches", premade),)),
+                "c_loader_prefetch_unpinned": ((), ((pre, "prefetch_to_device", unpinned),
+                                                    (pre, "to_device", pageable))),
+                "d_full": ((), ()),
+                "e_full_loader_no_pool": (("PretrainData.num_workers=0",), ()),
+                "f_full_one_intraop_thread": ((), ()),
+                "g_full_loader_threads_in_process": ((), tuple(
+                    (pm, name, in_process(getattr(pm, name)))
+                    for name in ("TwiceLoader", "SegmentationLoader"))),
+                "h_full_loader_process_nice_0": ((), ((loader_mod, "LOADER_NICE", 0),)),
+                "i_full_loader_pool_2": (("PretrainData.num_workers=2",), ())}
+    cpu = {}
+    real_phase = pre.ContrastTrainer._run_phase
+
+    def cpu_timed(self, name, *args, **kwargs):
+        cpu0 = time.process_time()
+        try:
+            return real_phase(self, name, *args, **kwargs)
+        finally:
+            cpu[name] = (time.process_time() - cpu0) * 1e3
+
+    out = {"epoch_wall_per_step_ms": {}, "cpu_ms_per_step": {}}
+    threads = torch.get_num_threads()
+    for name, (extra, patches) in variants.items():
+        if only is not None and name[0] not in only:
+            continue
+        if name.startswith("f_"):
+            torch.set_num_threads(1)
+        try:
+            trainer = _wall_main(f"chip_smoke_pretrain_wall_{name[0]}", steps, *alone,
+                                 *extra, patches=(*patches, (pre.ContrastTrainer, "_run_phase",
+                                                             cpu_timed)))
+        finally:
+            torch.set_num_threads(threads)
+        (wall,) = trainer.loop_walls_ms[phase]
+        out["epoch_wall_per_step_ms"][name] = wall / steps
+        out["cpu_ms_per_step"][name] = cpu[phase] / steps
+        del trainer
+    return out
+
+
+def phase_pretrain_wall(steps: int = PRETRAIN_WALL_STEPS,
+                        factor_steps: int = PRETRAIN_WALL_FACTOR_STEPS) -> dict:
+    """Each pretrain phase of ``Trainer.name=iiccontrast`` through
+    ``pretrain_main`` at ``steps`` batches an epoch: the step loop's wall a
+    step (``loop_walls_ms`` / N, no step synchronised, so the overlap is the
+    user's), the synchronised step's median and p90 after the first
+    PRETRAIN_WALL_SKIP (a run with ``Trainer.step_timing=true``), the same
+    step alone on device-resident batches and the phase's loader alone
+    (``_alone_and_loader``); the decoder's factors (``_phase_factors``) at
+    ``factor_steps``, and the encoder's (d), (e), (g), (h), (i); the
+    seconds a loader's own process takes to start. Fails unless the
+    decoder's wall a step is within PRETRAIN_WALL_LIMIT of the slower of
+    its step alone and its loader."""
+    import torch
+
+    card = nvidia_smi()
+    alone = _alone_and_loader(steps)
+    data = port("data")
+    unlabeled = data.ACDCSemiInterface(import_module(PORT).DATA_PATH, 0.25, 0.75
+                                       ).create_semi_supervised_datasets()[1]
+    t0 = time.perf_counter()
+    loader = data.TwiceLoader(unlabeled, data.ACDCStrongTransforms.pretrain, batch_size=12,
+                              own_process=True)
+    loader.wait_ready()
+    start_s = time.perf_counter() - t0
+    loader.close()
+    walls = _wall_main("chip_smoke_pretrain_wall", steps).loop_walls_ms
+    synced = _wall_main("chip_smoke_pretrain_sync", steps, timing=True).step_times_ms
+    torch.cuda.empty_cache()
+    out = {}
+    for phase in ("pretrain_encoder", "pretrain_decoder", "finetune"):
+        (wall,) = walls[phase]
+        median, p90 = _wall_stats(synced[phase])
+        alone_ms, alone_p90 = _wall_stats(alone[phase]["alone_ms"])
+        loader = alone[phase]["loader_ms_per_batch"]
+        bound = max(alone_ms, loader)
+        out[phase] = {"phase": "pretrain_wall", "stage": phase, "steps": steps,
+                      "epoch_wall_per_step_ms": wall / steps, "sync_median_ms": median,
+                      "sync_p90_ms": p90, "alone_ms": alone_ms, "alone_p90_ms": alone_p90,
+                      "loader_ms_per_batch": loader,
+                      "bound_by": "step alone" if alone_ms >= loader else "loader",
+                      "wall_over_bound": wall / steps / bound, "sync_over_bound": median / bound,
+                      "card": card}
+        emit(out[phase])
+    factors = _phase_factors(factor_steps)
+    emit({"phase": "pretrain_wall", "stage": "pretrain_decoder_factors", "steps": factor_steps,
+          **factors, "loader_process_start_s": start_s,
+          "host_cpus": [len(os.sched_getaffinity(0)), os.cpu_count()], "card": card})
+    # the encoder, whose native loader runs its threads in parallel: the
+    # factors of the loaders' processes
+    emit({"phase": "pretrain_wall", "stage": "pretrain_encoder_factors", "steps": factor_steps,
+          **_phase_factors(factor_steps, "pretrain_encoder", "deghi"), "card": card})
+    dec = out["pretrain_decoder"]
+    check(dec["wall_over_bound"] <= PRETRAIN_WALL_LIMIT,
+          f"pretrain_wall: the decoder's loop wall {dec['epoch_wall_per_step_ms']:.2f} ms a step "
+          f"is {dec['wall_over_bound']:.2f}x the slower of its step alone "
+          f"({dec['alone_ms']:.2f} ms) and its loader ({dec['loader_ms_per_batch']:.2f} ms), "
+          f"above {PRETRAIN_WALL_LIMIT}x")
+    return out
 
 
 def phase_optim(steps: int) -> None:
@@ -4040,7 +4267,8 @@ def main(argv=None) -> int:
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_fused_wide,train_device,"
                                               "train_bf16,train_remat,"
-                                              "resume,inference,train_zoo,pretrain,optim,arch_zoo,"
+                                              "resume,inference,train_zoo,pretrain,pretrain_wall,"
+                                              "optim,arch_zoo,"
                                               "host_tier,parallel,space_parallel,"
                                               "train_parallel,"
                                               "pretrain_parallel,profile")
@@ -4158,6 +4386,9 @@ def main(argv=None) -> int:
             phase_pretrain_mt()
             phase_pretrain_step()
             pretrain_rows = phase_pretrain_joint(args.reps)
+    if "pretrain_wall" in phases:
+        with timed(walls, "pretrain_wall"):
+            phase_pretrain_wall()
     if "optim" in phases:
         with timed(walls, "optim"):
             phase_optim(args.steps)

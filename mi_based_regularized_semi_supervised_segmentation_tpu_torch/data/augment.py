@@ -33,26 +33,42 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 
+def _rotation_map(shape: Tuple[int, int], angle_deg: float) -> Optional[np.ndarray]:
+    """Where ``_rotate_nearest`` reads each output pixel of an [H, W] canvas
+    rotated by ``angle_deg``: its flat source index, H * W (the fill) where
+    it lands outside; None below 1e-6 degrees (the identity). A function of
+    the shape and the angle alone, so an image and its label map share one.
+    The same float64 operations, in the same order, as the JAX package's
+    pixel-by-pixel form, each product taken once a row or a column."""
+    if abs(angle_deg) < 1e-6:
+        return None
+    h, w = shape
+    theta = np.deg2rad(angle_deg)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    xc = np.arange(w, dtype=np.float64) - cx
+    yc = (np.arange(h, dtype=np.float64) - cy)[:, None]
+    # inverse mapping: output <- input rotated by -theta
+    cos_t, sin_t = np.cos(theta), np.sin(theta)
+    sx = np.rint((cos_t * xc - sin_t * yc) + cx)
+    sy = np.rint((sin_t * xc + cos_t * yc) + cy)
+    valid = (sx >= 0) & (sx < w) & (sy >= 0) & (sy < h)
+    source = sy * w + sx  # integral float64 values: exact
+    source[~valid] = h * w
+    return source.astype(np.int64)
+
+
+def _apply_rotation(arr: np.ndarray, rotation: Optional[np.ndarray],
+                    fill: float = 0.0) -> np.ndarray:
+    """``arr`` [H, W] read through a ``_rotation_map`` of its shape."""
+    if rotation is None:
+        return arr
+    return np.concatenate([arr.reshape(-1), np.full(1, fill, arr.dtype)])[rotation]
+
+
 def _rotate_nearest(arr: np.ndarray, angle_deg: float, fill: float = 0.0) -> np.ndarray:
     """Rotate [H, W] array by angle (counter-clockwise, like PIL) with
     nearest-neighbor sampling, keeping the original canvas size."""
-    if abs(angle_deg) < 1e-6:
-        return arr
-    h, w = arr.shape
-    theta = np.deg2rad(angle_deg)
-    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    ys, xs = np.indices((h, w)).astype(np.float64)
-    yc, xc = ys - cy, xs - cx
-    # inverse mapping: output <- input rotated by -theta
-    cos_t, sin_t = np.cos(theta), np.sin(theta)
-    src_x = cos_t * xc - sin_t * yc + cx
-    src_y = sin_t * xc + cos_t * yc + cy
-    sx = np.rint(src_x).astype(np.int64)
-    sy = np.rint(src_y).astype(np.int64)
-    valid = (sx >= 0) & (sx < w) & (sy >= 0) & (sy < h)
-    out = np.full_like(arr, fill)
-    out[valid] = arr[sy[valid], sx[valid]]
-    return out
+    return _apply_rotation(arr, _rotation_map(arr.shape, angle_deg), fill)
 
 
 def _pad_to(arr: np.ndarray, th: int, tw: int, fill: float = 0.0) -> np.ndarray:
@@ -115,9 +131,13 @@ class PairedTransform:
                 p.crop_x = int(rng.integers(0, max(w - tw, 0) + 1))
         return p
 
-    def apply_geometry(self, arr: np.ndarray, p: GeometryParams) -> np.ndarray:
+    def apply_geometry(self, arr: np.ndarray, p: GeometryParams,
+                       rotation: Optional[np.ndarray] = None) -> np.ndarray:
+        """``rotation``: the ``_rotation_map`` of ``arr``'s shape and
+        ``p.angle``, made here when None."""
         if self.rotation:
-            arr = _rotate_nearest(arr, p.angle)
+            arr = _apply_rotation(arr, rotation if rotation is not None
+                                  else _rotation_map(arr.shape, p.angle))
         if p.vflip:
             arr = arr[::-1, :]
         if p.hflip:
@@ -126,6 +146,18 @@ class PairedTransform:
             arr = _pad_to(arr, self.crop, self.crop)
             arr = arr[p.crop_y:p.crop_y + self.crop, p.crop_x:p.crop_x + self.crop]
         return np.ascontiguousarray(arr)
+
+    def apply_geometry_pair(self, img: np.ndarray, target: Optional[np.ndarray],
+                            p: GeometryParams) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``apply_geometry`` of the image (as float32) and of the target (as
+        int32; None passes), through one rotation map where their shapes
+        agree."""
+        rotation = _rotation_map(img.shape, p.angle) if self.rotation else None
+        out_img = self.apply_geometry(img.astype(np.float32), p, rotation)
+        if target is None:
+            return out_img, None
+        same = target.shape == img.shape
+        return out_img, self.apply_geometry(target, p, rotation if same else None).astype(np.int32)
 
     def __call__(
         self, img: np.ndarray, target: Optional[np.ndarray], rng: np.random.Generator
@@ -153,10 +185,7 @@ class PairedTransform:
                     n_img, n_gt = out
                     return n_img[..., None], n_gt
 
-        out_img = self.apply_geometry(img.astype(np.float32), p)
-        out_tgt = None
-        if target is not None:
-            out_tgt = self.apply_geometry(target, p).astype(np.int32)
+        out_img, out_tgt = self.apply_geometry_pair(img, target, p)
         if self.jitter is not None:
             lo, hi = self.jitter
             brightness = rng.uniform(lo, hi)
@@ -181,10 +210,13 @@ class TwiceTransform:
         if self.total_freedom:
             return [self.base(img, target, rng), self.base(img, target, rng)]
         p = self.base.sample_params(rng, img.shape)
+        # the geometry is a function of the slice and p alone: applied once, each
+        # view a copy of it before its own jitter (the draws in the same order)
+        geo_img, geo_tgt = self.base.apply_geometry_pair(img, target, p)
         views = []
         for _ in range(2):
-            out_img = self.base.apply_geometry(img.astype(np.float32), p)
-            out_tgt = None if target is None else self.base.apply_geometry(target, p).astype(np.int32)
+            out_img = geo_img.copy()
+            out_tgt = None if geo_tgt is None else geo_tgt.copy()
             if self.base.jitter is not None:
                 lo, hi = self.base.jitter
                 out_img = out_img * rng.uniform(lo, hi)

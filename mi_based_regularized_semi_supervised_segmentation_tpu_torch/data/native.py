@@ -36,6 +36,13 @@ def reset_call_counts() -> None:
             CALLS[name] = 0
 
 
+def add_calls(counts: Dict[str, int]) -> None:
+    """Add native calls made in another process (a loader's own)."""
+    with _lock:
+        for name, n in counts.items():
+            CALLS[name] += n
+
+
 def _count(name: str) -> None:
     with _lock:  # loader threads call at once
         CALLS[name] += 1
@@ -60,31 +67,49 @@ def _load() -> Optional[ctypes.CDLL]:
         from ..ops import build
 
         try:
-            lib = ctypes.CDLL(str(build.build_host("host_pipeline")))
+            _lib = _bind(ctypes.CDLL(str(build.build_host("host_pipeline"))))
         except (RuntimeError, OSError) as error:
             print(f"[data] WARNING: the native host library is unavailable, decoding and "
                   f"augmenting in numpy: {error}", flush=True)
-            return None
-        lib.misst_decode_png_gray8.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64,
-            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64,
-        ]
-        lib.misst_decode_png_gray8.restype = ctypes.c_int
-        lib.misst_augment_pair.argtypes = [
-            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
-            ctypes.c_void_p,  # gt or NULL
-            ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_float, ctypes.c_float,
-            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
-            ctypes.c_void_p,  # out_gt or NULL
-        ]
-        lib.misst_augment_pair.restype = ctypes.c_int
-        _lib = lib
         return _lib
+
+
+def library_path() -> Optional[str]:
+    """The loaded library's file (loaded, or built, first), None where the
+    native path is off or unavailable."""
+    lib = _load()
+    return None if lib is None else lib._name
+
+
+def use_library(path: Optional[str]) -> None:
+    """Take the library at ``path`` (another process's ``library_path()``),
+    or none, without building: a loader's own process uses its caller's."""
+    global _lib, _tried
+    with _lock:
+        _lib, _tried = None if path is None else _bind(ctypes.CDLL(path)), True
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The library with its entry points' signatures."""
+    lib.misst_decode_png_gray8.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+    ]
+    lib.misst_decode_png_gray8.restype = ctypes.c_int
+    lib.misst_augment_pair.argtypes = [
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_void_p,  # gt or NULL
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_float, ctypes.c_float,
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_void_p,  # out_gt or NULL
+    ]
+    lib.misst_augment_pair.restype = ctypes.c_int
+    return lib
 
 
 def available() -> bool:

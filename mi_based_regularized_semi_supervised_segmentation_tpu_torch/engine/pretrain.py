@@ -86,7 +86,7 @@ from ..ops.flips import apply_flips, sample_flip_mask
 from ..ops.iic import iid_loss
 from ..ops.iic_local import iid_segmentation_small_patch_loss_subheads
 from ..ops.losses import kl_div, supcon_loss
-from ..parallel import prefetch_to_device
+from ..parallel import PinnedRing, prefetch_to_device
 from ..parallel.mesh import DistContext, reduce_grads_, replicate_state, single_context
 from ..utils import AverageValueMeter, MeterInterface, Storage, StorageIncomeDict, SummaryWriter, \
     UniversalDice
@@ -583,7 +583,9 @@ class ContrastTrainer:
     docstring). ``Trainer`` keys other than the named arguments raise
     ``TypeError``; ``device``: ``cuda`` (raises without a card) or ``cpu``;
     ``step_timing``: synchronize after each step and keep the times (ms) in
-    ``step_times_ms[phase]``; ``context``: the data-parallel context
+    ``step_times_ms[phase]``; ``loop_walls_ms[phase]`` keeps each epoch's
+    step loop wall (ms: from the first batch's fetch to the last step's end,
+    one synchronisation); ``context``: the data-parallel context
     (``pretrain_main`` makes it from the launcher; None: one process)."""
 
     RUN_DIR = str(Path(PROJECT_PATH) / "runs")
@@ -626,6 +628,7 @@ class ContrastTrainer:
         self.train_decoder = bool(train_decoder)
         self._step_timing = bool(step_timing)
         self.step_times_ms: Dict[str, List[float]] = {}
+        self.loop_walls_ms: Dict[str, List[float]] = {}
         self._save_dir = str(Path(run_dir or self.RUN_DIR) / save_dir)
         Path(self._save_dir).mkdir(parents=True, exist_ok=True)
         if ctx.is_main:
@@ -700,6 +703,8 @@ class ContrastTrainer:
         max_epoch = self._max_epochs[name]
         storage = self._storages[name]
         times = self.step_times_ms.setdefault(name, [])
+        walls = self.loop_walls_ms.setdefault(name, [])
+        ring = PinnedRing(self._device) if self._device.type == "cuda" else None  # one a phase
         try:
             for epoch in range(self._start_epoch, max_epoch):
                 t_epoch = time.perf_counter()
@@ -713,8 +718,9 @@ class ContrastTrainer:
                 set_learning_rate(phase.optimizer, epoch_lr)
                 meters["lr"].add(epoch_lr)
                 pending = []
+                t_loop = time.perf_counter()
                 with closing(prefetch_to_device(batches, self._device, self._ctx,
-                                                whole=("labels",))) as prefetched:
+                                                whole=("labels",), ring=ring)) as prefetched:
                     for _ in range(self._num_batches):
                         batch = next(prefetched)
                         groups, valid = batch.pop("group"), batch.pop("valid")
@@ -726,6 +732,9 @@ class ContrastTrainer:
                                 torch.cuda.synchronize(self._device)
                             times.append((time.perf_counter() - t0) * 1e3)
                         pending.append((metrics, groups))
+                    if self._device.type == "cuda":  # the loop ends with its last step
+                        torch.cuda.synchronize(self._device)
+                    walls.append((time.perf_counter() - t_loop) * 1e3)
                 for metrics, groups in pending:  # one device sync per epoch
                     for m in meter_names:
                         meters[m].add(float(metrics[m]))

@@ -61,9 +61,11 @@ from ..data.device_pipeline import DeviceDataStore, DeviceIndexLoader, DevicePat
 from ..models import ProjectorWrapper, UNet
 from ..models.unet import ENCODER_NAMES
 from ..ops.augment_device import GEOMETRIES
+from ..ops import mi_fused
 from ..ops.iic_local import BACKENDS as IIC_LOCAL_BACKENDS
 from ..parallel import (
     DistContext,
+    PinnedRing,
     gather_rows,
     local_rows,
     prefetch_to_device,
@@ -232,10 +234,11 @@ def kernel_options(cfg: Dict[str, Any]) -> Tuple[str, str, str]:
 
 
 def to_device(arr, device: torch.device) -> torch.Tensor:
-    """A host array (or CPU tensor, pinned by ``prefetch_to_device``) on
-    ``device``, through pinned memory to a card."""
+    """A host array or tensor on ``device``, through pinned memory to a card;
+    a tensor already there (``prefetch_to_device`` puts its batches on the
+    card) as it is."""
     t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda" and not t.is_pinned():
+    if device.type == "cuda" and t.device.type == "cpu" and not t.is_pinned():
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
 
@@ -368,6 +371,8 @@ class SemiTrainer:
         self._device = resolve_device(device)
         if ctx.world > 1 and ctx.device.type == self._device.type:
             self._device = ctx.device  # the rank's card
+        # the pinned buffers the epochs' batches take to the card, made once
+        self._ring = PinnedRing(self._device) if self._device.type == "cuda" else None
         self._ctx = ctx
         self._labeled_loader = labeled_loader
         self._unlabeled_loader = unlabeled_loader
@@ -610,7 +615,8 @@ class SemiTrainer:
         progress = self._progress and self._device_data and self._ctx.is_main
         # the loaders run on a background thread, as the JAX package's epoch
         # does, and are left N + 3 batches on for the epoch's N steps
-        with closing(prefetch_to_device(host_batches, self._device, rows_of)) as batches, \
+        with closing(prefetch_to_device(host_batches, self._device, rows_of,
+                                        ring=self._ring)) as batches, \
                 self._trace(epoch) as trace:
             t_end = time.perf_counter()
             for i in range(self._num_batches):
@@ -947,16 +953,16 @@ class MeanTeacherTrainer(SemiTrainer):
 
 
 def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
-                     decoder_heads: Sequence[Tuple[str, bool]],
+                     decoder_heads: Sequence[tuple],
                      padded: bool = False) -> Optional[str]:
     """None when ``Kernel.backend=pallas_fused`` can take the fused path,
-    else the first unmet condition: the JAX gate's conditions, at any S*K
-    (the fused kernels take the heads' logits in 128-lane blocks, as the JAX
-    kernel does; above ``ops/mi_fused.py:MAX_LANES`` lanes they raise).
-    ``decoder_heads``: (head_type, normalize) of each decoder
-    position. ``padded``: the batch needs pad rows to divide the data ranks
-    (the JAX gate's condition): the fused kernels take logits, which the row
-    mask cannot reach."""
+    else the first unmet condition: the JAX gate's conditions, and each
+    head's logits at most ``ops/mi_fused.py:MAX_LANES`` lanes wide, the
+    widest rows the fused kernels take (the JAX kernel takes any multiple of
+    128). ``decoder_heads``: (head_type, normalize[, lanes]) of each decoder
+    position, lanes its S*K rounded up to 128. ``padded``: the batch needs
+    pad rows to divide the data ranks (the JAX gate's condition): the fused
+    kernels take logits, which the row mask cannot reach."""
     if device.type != "cuda":
         # the counterpart of the JAX gate's jax.default_backend() == "tpu"
         return (f"the fused kernels run on cuda, not {device.type} (the JAX package trains "
@@ -965,8 +971,12 @@ def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
     if min_patch < crop_size:
         return (f"min(patch_sizes)={min_patch} < crop_size={crop_size} (the fused path covers "
                 "one full-map tile)")
-    if any(head_type != "linear" or normalize for head_type, normalize in decoder_heads):
+    if any(head[0] != "linear" or head[1] for head in decoder_heads):
         return f"decoder heads {list(decoder_heads)} are not all linear and unnormalized"
+    lanes = max((head[2] for head in decoder_heads if len(head) > 2), default=0)
+    if lanes > mi_fused.MAX_LANES:
+        return (f"the decoder heads' logits take {lanes} lanes (S*K rounded up to "
+                f"{mi_fused.LANES}), above the fused kernels' {mi_fused.MAX_LANES}")
     if padded:
         return ("the batch needs pad rows to divide the data ranks (the fused kernels take "
                 "logits, which the pad-and-mask row mask cannot reach)")
@@ -1008,8 +1018,11 @@ class IICTrainer(SemiTrainer):
         if self._kernel_options[0] == "pallas_fused":
             positions = [name for name in self._feature_names if name not in ENCODER_NAMES]
             per_position = lambda key, default: _per_position(cfg, positions, key, default)
-            heads = [(head_type, bool(normalize)) for head_type, normalize in zip(
-                per_position("head_types", "linear"), per_position("normalize", False))]
+            block = mi_fused.LANES
+            heads = [(head_type, bool(normalize), -(-int(s) * int(k) // block) * block)
+                     for head_type, normalize, s, k in zip(
+                         per_position("head_types", "linear"), per_position("normalize", False),
+                         per_position("num_subheads", 5), per_position("num_clusters", 10))]
             unmet = fused_path_unmet(self._device, patch_sizes, self._crop_size, heads,
                                      self._batch_padded)
             fused_ok = unmet is None

@@ -73,6 +73,7 @@ def main(argv: Optional[List[str]] = None):
         str(trainer_config.get("device", "cuda")), space_size=int(par.get("space_size", 1) or 1),
         multihost=multihost, coordinator_address=par.get("coordinator_address"),
         num_processes=par.get("num_processes"), process_id=par.get("process_id"))
+    loaders = ()
     try:
         set_seed(int(config.get("RandomSeed", 1)))
         set_matmul_precision(str((config.get("Precision") or {}).get("matmul_precision",
@@ -84,8 +85,13 @@ def main(argv: Optional[List[str]] = None):
                 generate_synthetic_acdc(DATA_PATH)
             ctx.barrier()
         multiple = eval_pad_multiple(ctx.data_world)
+        # on a card the host path's loaders make their batches in processes of
+        # their own, so their threads leave the step's dispatch alone
+        own_process = (ctx.device.type == "cuda"
+                       and not bool(trainer_config.get("device_data", False)))
         labeled_loader, unlabeled_loader, test_loader = get_dataloaders(
-            config, eval_pad_multiple=multiple)
+            config, eval_pad_multiple=multiple, own_process=own_process)
+        loaders = (labeled_loader, unlabeled_loader)
         val_loader = create_val_loader(unlabeled_loader, test_loader, pad_multiple=multiple)
 
         name = trainer_config.pop("name")
@@ -105,12 +111,16 @@ def main(argv: Optional[List[str]] = None):
         checkpoint = config.get("Checkpoint")
         if checkpoint is not None:
             trainer.load_state_dict_from_path(checkpoint, strict=False)
+        for loader in loaders:  # set-up: their processes started with the loaders
+            loader.wait_ready()
         trainer.start_training()
         if config.get("Inference"):
             _, score = trainer.inference()
             if ctx.is_main:
                 print(f"inference DSC_mean={score:.4f}", flush=True)
     finally:
+        for loader in loaders:
+            loader.close()
         ctx.close()
     return trainer
 

@@ -45,10 +45,14 @@ whole rows, as the trainers of both packages do.
 ``prefetch_to_device`` runs a host iterator (PNG decode, augmentation,
 stacking) on a daemon thread, ``DEPTH`` batches ahead of the consumer, so
 the host's work overlaps the train step's dispatch. With a context it keeps
-the rank's rows of each batch; with a CUDA ``device`` the thread also pins
-the batch's arrays. The host-to-device copy stays on the consuming thread
-(``engine/trainer.py:to_device``), so no CUDA stream is shared across
-threads.
+the rank's rows of each batch; with a CUDA ``device`` the thread also puts
+the batch on the card (``PinnedRing``: numpy copies into pinned buffers made
+once and reused, the host-to-device copy on the ring's own stream), as the
+JAX worker puts its batches on the devices, so the step receives
+device-resident batches and its thread does no copy. The pinned copies are
+numpy's, on the prefetch thread alone: ``Tensor.pin_memory`` copied through
+torch's intra-op pool, whose threads then took the host's cores from the
+step's dispatch (``chip_smoke.py`` pretrain_wall).
 
 Surplus pulls. The JAX package's worker pulls a batch, checks its stop flag,
 then blocks putting the batch into a full queue. When the consumer stops
@@ -71,7 +75,7 @@ import queue
 import threading
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -501,21 +505,79 @@ class _Failed:
         self.error = error
 
 
-def _pin_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
-    """The batch with every numpy array as a pinned CPU tensor; other values
-    (group names, file names) pass through."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-            if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+class PinnedRing:
+    """``slots`` (DEPTH + 1) sets of host buffers on the way to ``device``,
+    pinned, made at first use for each key, shape and dtype and reused for
+    the ring's life (a trainer keeps one a phase). ``stage`` (the prefetch
+    thread) copies a batch's numpy arrays into the next slot with numpy,
+    then onto the card on the ring's own stream, and records an event on
+    those copies; a slot is rewritten only after the event of its last
+    copies has completed, so a copy in flight never reads a later batch.
+    ``ready`` (the consumer) makes its stream wait for that event and marks
+    the batch's tensors as used there, so their memory outlives the step's
+    kernels."""
+
+    def __init__(self, device, slots: int = DEPTH + 1) -> None:
+        self.device = torch.device(device)
+        self._buffers: List[Dict[str, torch.Tensor]] = [{} for _ in range(slots)]
+        self._copied: List[Any] = [None] * slots
+        self._turn = 0
+        self._stream = None
+
+    def _alloc(self, arr: np.ndarray) -> torch.Tensor:
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        return torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+
+    def _copy(self, buffers: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Any]:
+        """The buffers on the card, copied on the ring's stream, and the event
+        recorded after the copies."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            out = {k: b.to(self.device, non_blocking=True) for k, b in buffers.items()}
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def stage(self, batch: Dict[str, Any]) -> Tuple[Dict[str, Any], Any]:
+        """(The batch with each numpy array on the card, the event of its
+        copies); other values pass through."""
+        i = self._turn
+        self._turn = (i + 1) % len(self._buffers)
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()  # the slot's last copies have landed
+        slot, staged = self._buffers[i], {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                buf = slot.get(k)
+                if buf is None or tuple(buf.shape) != v.shape or buf.numpy().dtype != v.dtype:
+                    buf = slot[k] = self._alloc(v)
+                np.copyto(buf.numpy(), v)
+                staged[k] = buf
+        on_device, self._copied[i] = self._copy(staged)
+        return {k: on_device.get(k, v) for k, v in batch.items()}, self._copied[i]
+
+    def ready(self, staged: Tuple[Dict[str, Any], Any]) -> Dict[str, Any]:
+        """The batch, safe to use on the consumer's current stream."""
+        batch, event = staged
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(event)
+        for v in batch.values():
+            if isinstance(v, torch.Tensor):
+                v.record_stream(stream)
+        return batch
 
 
 def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
                        device: Optional[torch.device] = None,
                        context: Optional[DistContext] = None,
-                       whole: Sequence[str] = ()) -> Iterator[Dict[str, Any]]:
+                       whole: Sequence[str] = (),
+                       ring: Optional[PinnedRing] = None) -> Iterator[Dict[str, Any]]:
     """The batches of ``host_iter``, pulled on a background thread up to
     ``DEPTH`` ahead, cut to the rank's rows (``local_rows``, the keys in
-    ``whole`` kept whole) under a ``context``; pinned (``_pin_batch``) when
-    ``device`` is a CUDA device.
+    ``whole`` kept whole) under a ``context``; through ``ring`` (made here
+    when ``device`` is a CUDA device and none is given) the thread puts each
+    batch's arrays on the card, so the consumer gets device-resident tensors.
 
     Close the generator (``contextlib.closing``) when the epoch is done: that
     waits until the host iterator has been pulled N + DEPTH + 1 times for the
@@ -523,7 +585,8 @@ def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
     of the step), stops the thread and joins
     it. An exception of the host iterator is raised in the consumer, at the
     batch where it happened or, for a surplus pull, at the close."""
-    pin = device is not None and torch.device(device).type == "cuda"
+    if ring is None and device is not None and torch.device(device).type == "cuda":
+        ring = PinnedRing(device)
     q: "queue.Queue" = queue.Queue(maxsize=DEPTH)
     stop = threading.Event()
     cond = threading.Condition()
@@ -537,8 +600,8 @@ def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
 
     def worker() -> None:
         try:
-            if pin and torch.device(device).index is not None:
-                torch.cuda.set_device(device)  # pin on the consumer's card, not card 0
+            if ring is not None and ring.device.type == "cuda" and ring.device.index is not None:
+                torch.cuda.set_device(ring.device)  # stage on the consumer's card, not card 0
             it = iter(host_iter)
             while not stop.is_set():
                 try:
@@ -549,7 +612,7 @@ def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
                     pulls["n"] += 1
                     cond.notify_all()
                 item = local_rows(item, context, whole)
-                q.put(_pin_batch(item) if pin else item)
+                q.put(item if ring is None else ring.stage(item))
         except BaseException as error:  # handed to the consumer, raised there
             finish(_Failed(error))
         else:
@@ -567,7 +630,7 @@ def prefetch_to_device(host_iter: Iterable[Dict[str, Any]],
                     return
                 raise item.error
             consumed += 1
-            yield item
+            yield item if ring is None else ring.ready(item)
     finally:
         if not ended:
             with cond:

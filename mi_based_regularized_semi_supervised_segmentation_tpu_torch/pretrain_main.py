@@ -72,11 +72,14 @@ def main(argv: Optional[List[str]] = None):
     if name not in pretrain_zoos:
         raise ValueError(f"Trainer.name={name!r}: expected one of {sorted(pretrain_zoos)}")
     device = str(trainer_cfg.get("device", "cuda"))
-    resolve_device(device)  # before any data is made
+    # before any data is made; on a card each train loader makes its batches
+    # in a process of its own, so its threads leave the step's dispatch alone
+    own_process = resolve_device(device).type == "cuda"
     ctx = init_distributed(
         device, space_size=int(par.get("space_size", 1) or 1), multihost=multihost,
         coordinator_address=par.get("coordinator_address"),
         num_processes=par.get("num_processes"), process_id=par.get("process_id"))
+    loaders = []
     try:
         set_seed(int(config.get("RandomSeed", 1)))
         set_matmul_precision(str((config.get("Precision") or {}).get("matmul_precision",
@@ -100,12 +103,15 @@ def main(argv: Optional[List[str]] = None):
             partition_sample_num=int(pcfg.get("partition_sample_num", 1)), seed=seed)
         pretrain_loader = TwiceLoader(unlabeled_set, ACDCStrongTransforms.pretrain,
                                       batch_sampler=sampler, seed=seed,
-                                      num_workers=int(pcfg.get("num_workers", 4)))
+                                      num_workers=int(pcfg.get("num_workers", 4)),
+                                      own_process=own_process)
         fcfg = config.get("FineTuneData") or {}
         fine_tune_loader = SegmentationLoader(labeled_set, ACDCStrongTransforms.pretrain,
                                               batch_size=int(fcfg.get("batch_size", 4)),
                                               seed=seed + 1,
-                                              num_workers=int(fcfg.get("num_workers", 4)))
+                                              num_workers=int(fcfg.get("num_workers", 4)),
+                                              own_process=own_process)
+        loaders = [pretrain_loader, fine_tune_loader]
         val_loader = PatientEvalLoader(test_set, ACDCStrongTransforms.val,
                                        pad_multiple=eval_pad_multiple(ctx.data_world))
 
@@ -126,6 +132,8 @@ def main(argv: Optional[List[str]] = None):
             iic_cfg = config.get("IICHead") or {}
             enc_opt.update(iic_cfg.get("Encoder") or {})
             dec_opt.update(iic_cfg.get("Decoder") or {})
+        for loader in loaders:  # set-up: their processes started with the loaders
+            loader.wait_ready()
         trainer.start_training(
             checkpoint=config.get("Checkpoint"),
             pretrain_encoder_init_options=enc_opt,
@@ -133,6 +141,8 @@ def main(argv: Optional[List[str]] = None):
             finetune_network_init_options=fin_opt,
         )
     finally:
+        for loader in loaders:
+            loader.close()
         ctx.close()
     return trainer
 

@@ -85,6 +85,39 @@ def test_fused_gate_conditions():
         assert "linear and unnormalized" in trainer_mod.fused_path_unmet(cuda, 1024, 224, heads)
 
 
+@pytest.mark.parametrize("lanes", [128, 256, mi_fused.MAX_LANES, mi_fused.MAX_LANES + 128])
+def test_fused_gate_width_condition(lanes):
+    """A head's lanes up to ``MAX_LANES`` (1024) take the fused path; 1152
+    is an unmet condition named by its width, not an error in the kernel
+    wrapper."""
+    heads = [("linear", False, 128), ("linear", False, lanes)]
+    unmet = trainer_mod.fused_path_unmet(torch.device("cuda"), 1024, 224, heads)
+    if lanes <= mi_fused.MAX_LANES:
+        assert unmet is None
+    else:
+        assert f"{lanes} lanes" in unmet and str(mi_fused.MAX_LANES) in unmet
+
+
+@pytest.mark.parametrize("subheads,clusters,lanes", [(5, 204, 1024), (5, 210, 1152)])
+def test_fused_gate_takes_the_heads_lanes(tmp_path, monkeypatch, subheads, clusters, lanes):
+    """The trainer hands the gate each decoder head's lanes, S*K rounded up
+    to 128: 5 x 204 (1020 live lanes in 1024) passes it on cuda, 5 x 210 (1050
+    in 1152) does not (the gate's inputs recorded from a CPU trainer, which
+    trains unfused either way)."""
+    seen = []
+    real = trainer_mod.fused_path_unmet
+    monkeypatch.setattr(trainer_mod, "fused_path_unmet",
+                        lambda *args: seen.append(args) or real(*args))
+    trainer = _trainer(tmp_path, DecoderParams={"num_clusters": clusters,
+                                                "num_subheads": subheads})
+    trainer.init()
+    assert trainer._projector.local_emit_logits is False  # the CPU: unfused either way
+    (device, *rest), = seen
+    assert device.type == "cpu" and {head[2] for head in rest[2]} == {lanes}
+    unmet = real(torch.device("cuda"), *rest)
+    assert unmet is None if lanes <= mi_fused.MAX_LANES else f"{lanes} lanes" in unmet
+
+
 def test_fused_gate_names_a_head_wider_than_one_tile(tmp_path, capsys, monkeypatch):
     """The gate has no lane-width condition: the fused kernels take logits of
     any multiple of 128 lanes, as the JAX kernel does. A 5 x 30 trainer

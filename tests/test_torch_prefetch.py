@@ -11,7 +11,10 @@ starts where those pulls left it. The port always leaves its loaders N + 3
 on, deterministically; the JAX worker gets there only by timing, so the JAX
 side of each comparison waits until it has.
 
-Checked: the JAX and port prefetch over the JAX and port loaders on one
+Checked: the two prefetches over one batch source a side, N = 1 and 3, two
+epochs, the port's also through a staging ring (``PinnedRing``, its copies
+made lazy on the CPU): the same batches in the same order, N + 3 pulls an
+epoch; the JAX and port prefetch over the JAX and port loaders on one
 synthetic set (each on the native host path and on the numpy one, like with
 like), 2 epochs of N = 3, with ``_draw`` equal after each epoch and epoch 1's
 first batch bit-equal; the port's host-path trainer, its device-data path
@@ -62,6 +65,7 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.parallel import
     prefetch_to_device,
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.utils import SummaryWriter
+from test_torch_pinned_ring import LazyRing
 from torch_threads import two_threads  # noqa: F401  (two intra-op threads a test)
 
 SURPLUS = 3  # depth 2 + the batch the worker holds
@@ -194,6 +198,48 @@ def test_prefetch_ends_with_its_iterator_and_raises_its_errors():
     assert next(it)["i"] == 0
     with pytest.raises(ValueError, match="surplus broke"):
         it.close()
+
+
+class _Batches:
+    """An endless host iterator of distinct batches (an image, int32 labels,
+    a list), counting its pulls."""
+
+    def __init__(self, seed: int):
+        self.rng, self.pulls = np.random.default_rng(seed), 0
+
+    def __iter__(self):
+        while True:
+            self.pulls += 1
+            yield {"image": self.rng.random((2, 4, 4, 1), dtype=np.float32),
+                   "labels": np.full(8, self.pulls, np.int32), "group": [f"g{self.pulls}"]}
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("n", [1, 3])
+def test_prefetch_hands_out_the_jax_batches(n, staged):
+    """Two epochs of N steps over one host iterator a side (a phase's): the
+    port's prefetch, plain or through one staging ring kept across the
+    epochs (``PinnedRing``'s slots with lazy copies, as on the card), hands
+    out the JAX prefetch's batches in its order and leaves its iterator
+    pulled as often, N + 3 an epoch (the JAX side waited for)."""
+    ours_src, theirs_src = _Batches(0), _Batches(0)
+    ours_it, theirs_it = iter(ours_src), iter(theirs_src)
+    ring = LazyRing() if staged else None
+    for epoch in range(2):
+        want = (epoch + 1) * (n + SURPLUS)
+        with closing(prefetch_to_device(ours_it, ring=ring)) as it:
+            ours = [next(it) for _ in range(n)]
+        assert ours_src.pulls == want
+        jit = jax_prefetch_to_device(theirs_it, None)
+        theirs = [next(jit) for _ in range(n)]
+        _wait_for(lambda: theirs_src.pulls == want,
+                  f"JAX worker pulled {theirs_src.pulls} of {want}")
+        jit.close()  # its worker stays blocked in put, holding batch N + 3
+        assert theirs_src.pulls == want
+        for a, b in zip(ours, theirs):
+            assert a["group"] == b["group"]
+            for k in ("image", "labels"):
+                np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
 
 
 class _Counting:
