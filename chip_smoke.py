@@ -26,10 +26,14 @@ Phases, each printing JSON lines:
            through four times the L2 (and on one set, L2-warm) beside
            torch.gather and shear_tables; the row roll bit-exact, timed the
            same way.
-           Then the joint at 256 lanes (a head of 5 x 30 clusters, tiled
-           into 128-lane launches): exactly at a ragged shape, then on
-           probability maps at the Up_conv3 shape, timed, with its launches
-           per call. Then the three fused softmax + mask + joint kernels
+           Then the joint above 128 lanes (the wide kernels, one launch a
+           product): exactly at ragged shapes at 150, 200 and 256 lanes and
+           at 384 lanes with p = 0, then on probability maps at both taps at
+           150 lanes (a 5 x 30 head as the training path passes it) and at
+           256 (150 live), fp32 and bf16 operands, timed beside the plain
+           version and F.conv2d, with the bounds on the live and on all
+           lanes and the device kernels a call. Then the three fused
+           softmax + mask + joint kernels
            (Kernel.backend=pallas_fused) at the ragged shapes and both
            decoder-tap shapes, on logits: exactly on inputs whose softmax is
            dyadic (one lane per group far above the rest, p = 1; equal lanes,
@@ -110,7 +114,8 @@ Phases, each printing JSON lines:
            IICRegParameters.DecoderParams.num_clusters=30 (150 live lanes in
            the heads' 256): no gate warning, each fused kernel once a step at
            each decoder tap, no mi_joint launch; then the same config on
-           Kernel.backend=auto (24 joint launches a step) for its step ms;
+           Kernel.backend=auto (6 joint launches a step, one a product on
+           the wide kernels) for its step ms, in fp32 and bf16 compute;
            the fused run also in bf16 compute (the bf16-logit variants)
   train_device  the same trainer on the device-data path
            (Trainer.device_data=true, 8 steps in chunks of 4), once with
@@ -684,7 +689,9 @@ def _joint_rows(mj, cases: dict, dtype, where: dict, n: int, c: int, p: int, flo
             row["launches_per_call"] = per_call
             row["host_ms"] = host_ms(case["kernel"], reps)
         if bf16:  # the wrapper's kernels: (conversion,) product(, chunk sum)
-            row["device_ms_by_kernel"] = device_split(case["kernel"], reps)
+            prof = device_profile(case["kernel"], reps)
+            row["device_ms_by_kernel"] = {k: ms for k, (ms, _) in prof.items()}
+            row["device_kernels_per_call"] = sum(cnt for _, cnt in prof.values())
         row.update(extra or {})
         emit(row)
         rows.append(row)
@@ -1106,62 +1113,70 @@ def phase_kernels_tiles(reps: int) -> list:
     return rows
 
 
+# the joint's exact checks above 128 lanes: (ragged shape, lanes); 384 lanes
+# at p = 0 is past the p = 0 kernels' 256; 950 lanes: 15 quarters, the last
+# output block one quarter
+WIDE_RAGGED = ((RAGGED[0], 150), (RAGGED[1], 150), (RAGGED[1], 200), (RAGGED[4], 200),
+               (RAGGED[1], 256), (RAGGED[2], 256), (RAGGED[5], 384), ((2, 40, 37, 0), 384),
+               (RAGGED[1], 950))
+
+
 def phase_kernels_wide(reps: int) -> list:
-    """The bf16 joint at 256 lanes (5 x 30 clusters: 150 live lanes), which
-    the wrapper tiles into one launch per pair of 128-lane blocks: exactly at
-    a ragged shape, then on probability maps at the Up_conv3 shape within
-    TOL, timed beside the plain version and F.conv2d. ``launches_per_call``
-    counts the kernel launches of one wrapper call."""
+    """The bf16 joint above 128 lanes (the wide kernels: one launch a
+    product over the live 64-lane quarters): exactly at WIDE_RAGGED on fp32
+    and bf16 operands, then on probability maps at both decoder taps at 150
+    lanes (5 x 30 clusters, as ``ops/iic_local.py:_subhead_joint`` passes
+    them: no dead lane) and at 256 lanes (150 live), on fp32 and bf16
+    operands, each product within TOL of the plain version, one launch a
+    call (``_joint_rows``), timed beside the plain version and F.conv2d. The
+    bound counts the live lanes; ``bound_ms_lanes`` all C lanes,
+    ``bound_ms_computed`` the lanes the kernels compute (W x W quarter tiles
+    forward, the output blocks' 128 or 64 lanes by W backward)."""
     import torch
 
     mj = port("ops.mi_joint")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    lanes = 2 * LANES
-    batch, hp, wp, p = RAGGED[1]
-    _exact_check(mj, batch * hp * wp, wp, p, gen, lanes)
-    # bf16 operands: the lane blocks' fp32 sums rounded once, as at 128 lanes
-    _exact_check(mj, batch * hp * wp, wp, p, gen, lanes, dtype=torch.bfloat16)
-    emit({"phase": "kernels", "ragged": list(RAGGED[1]), "lanes": lanes, "exact_check": "passed",
-          "exact_check_bf16in": "passed"})
-    tap, batch, edge, p = TAPS[1]
-    hp = edge + 2 * p
-    d = (2 * p + 1) ** 2
-    n = batch * hp * hp
-    c = lanes
-    a = _tap_inputs(batch, edge, p, gen, WIDE_CLUSTERS, lanes)
-    b = _tap_inputs(batch, edge, p, gen, WIDE_CLUSTERS, lanes)
-    g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
-    flops = 2.0 * n * c * c * d
-    nbytes = 4.0 * (2 * n * c + d * c * c)
-    cases = _joint_cases(mj, a, b, g, batch, hp, p, bf16=True)
+    for (batch, hp, wp, p), lanes in WIDE_RAGGED:
+        _exact_check(mj, batch * hp * wp, wp, p, gen, lanes)
+        # bf16 operands: each fp32 sum over the quarters rounded once
+        _exact_check(mj, batch * hp * wp, wp, p, gen, lanes, dtype=torch.bfloat16)
+    emit({"phase": "kernels", "wide_ragged": [list(r) + [c] for r, c in WIDE_RAGGED],
+          "exact_check": "passed", "exact_check_bf16in": "passed"})
     rows = []
-    for name, case in cases.items():
-        kernel, want = case["kernel"], case["want"]
-        mj.reset_launch_counts()
-        got = kernel()
-        launches = mj.launch_count(name)
-        err, scale = float((got - want).abs().max()), float(want.abs().max())
-        check(math.isfinite(err) and err <= TOL * scale,
-              f"{tap} {lanes} lanes {name}: max err {err} vs max |ref| {scale}")
-        check(launches == (lanes // LANES) ** 2,
-              f"{tap} {lanes} lanes {name}: {launches} launches in one call (want 4)")
-        by_ops = flops / PEAK_FLOPS["bf16"] >= nbytes / HBM_BYTES_PER_S
-        row = {"phase": "kernels", "name": name, "tap": tap, "label": f"{tap} {lanes} lanes",
-               "mode": "bf16", "route": "cuda", "source": f"{PORT}/csrc/mi_joint.cu",
-               "shape": [n, c], "padding": p, "lanes": lanes, "launches_per_call": launches,
-               "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL,
-               "ms": cuda_ms(kernel, reps),
-               "plain_ms": cuda_ms(case["plain"], max(3, reps // 3), warmup=1),
-               "library_ms": cuda_ms(case["library"], max(3, reps // 3), warmup=1),
-               "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3,
-               "bound_by": "operations" if by_ops else "bytes"}
-        row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
-        emit(row)
-        rows.append(row)
+    live = SUBHEADS * WIDE_CLUSTERS
+    for tap, batch, edge, p in TAPS:
+        hp = edge + 2 * p
+        d = (2 * p + 1) ** 2
+        n = batch * hp * hp
+        for c in (live, 2 * LANES):
+            plan = mj.wide_plan(n, c, p, hp, 132)
+            a = _tap_inputs(batch, edge, p, gen, WIDE_CLUSTERS, c)
+            b = _tap_inputs(batch, edge, p, gen, WIDE_CLUSTERS, c)
+            g = torch.randn((d, c, c), generator=gen, device="cuda") * 1e-3
+            for mode, dtype in (("bf16", torch.float32), ("bf16in", torch.bfloat16)):
+                ma, mb = a.to(dtype), b.to(dtype)
+                esz = ma.element_size()
+                nbytes = {w: 2.0 * esz * n * w + 4.0 * d * w * w for w in (live, c)}
+                flops = {w: 2.0 * n * w * w * d for w in (live, c)}
+                out_lanes = sum(plan.bwd_block_lanes(ob) for ob in range(plan.bwd_out_blocks))
+                computed = {mj.FWD: 2.0 * n * plan.lanes ** 2 * d,
+                            mj.BWD_DX: 2.0 * n * out_lanes * plan.lanes * d}
+                computed[mj.BWD_DX_TF] = computed[mj.BWD_DX]
+                bound = lambda f, nb: max(nb / HBM_BYTES_PER_S, f / PEAK_FLOPS["bf16"]) * 1e3
+                cases = _joint_cases(mj, ma, mb, g, batch, hp, p, bf16=True)
+                where = {"phase": "kernels", "tap": tap, "label": f"{tap} {c} lanes",
+                         "mode": mode}
+                for base, case in cases.items():
+                    extra = {"lanes": c, "live_lanes": live, "quarters": plan.quarters,
+                             "bound_ms_lanes": bound(flops[c], nbytes[c]),
+                             "bound_ms_computed": bound(computed[base], nbytes[c])}
+                    rows += _joint_rows(mj, {base: case}, dtype, where, n, c, p, flops[live],
+                                        nbytes[live], True, reps, extra=extra, want_launches=1)
+                del cases, ma, mb
+            del a, b, g
+            torch.cuda.empty_cache()
     mj.reset_launch_counts()
-    del a, b, g, cases
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -1487,10 +1502,11 @@ def phase_kernels_fused(reps: int, lanes: int = LANES, clusters: int = CLUSTERS,
     ``clusters`` live) at the ``ragged`` shapes and both decoder-tap shapes:
     exact checks, then random logits in both operand modes against the plain
     version, timed beside it and beside the unfused path at the same shapes
-    (per-group softmax, mask and the mi_joint kernel, tiled into 128-lane
-    launches above 128 lanes; the backward's softmax VJP by autograd), with
-    the device time and the count of each kernel a call launches. Above 128
-    lanes the fp32 parity mode is timed over a third of the reps."""
+    (per-group softmax, mask and the mi_joint kernel, its wide kernels above
+    128 lanes; the backward's softmax VJP by autograd), with the device time
+    and the count of each kernel a call launches (3 forward and 2 backward
+    at 128 lanes, 3 and 3 above). Above 128 lanes the fp32 parity mode is
+    timed over a third of the reps."""
     import torch
 
     mf, mj, heads = port("ops.mi_fused"), port("ops.mi_joint"), port("models.heads")
@@ -1588,10 +1604,17 @@ def phase_kernels_fused(reps: int, lanes: int = LANES, clusters: int = CLUSTERS,
                 row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
                 row["pct_of_bound_lanes"] = 100.0 * row["bound_ms_lanes"] / row["ms"]
                 row["vs_unfused"] = row["ms"] / row["unfused_path_ms"]
-                if bf16:  # the wrapper's kernels: softmax pass, products, chunk sums, VJP pass
+                if bf16:  # the wrapper's kernels: softmax pass, product, chunk sum or VJP pass
                     prof = device_profile(case["kernel"], reps)
                     row["device_ms_by_kernel"] = {k: ms for k, (ms, _) in prof.items()}
                     row["device_kernels_per_call"] = sum(cnt for _, cnt in prof.values())
+                    # by kernel: a profiling session may drop a record or two
+                    # (device_profile), which a count of launches would read as
+                    # a missing kernel
+                    want = 3 if base == mf.FWD or lanes > LANES else 2
+                    check(len(prof) == want and all(round(cnt) == 1 for _, cnt in prof.values()),
+                          f"{where} {name}: {row['device_kernels_per_call']} device kernels a "
+                          f"call (want {want}): {sorted(prof)}")
                 emit(row)
                 rows.append(row)
             del cases, leaves, probs, saved
@@ -1948,9 +1971,10 @@ def phase_train_fused_wide(steps: int) -> dict:
     in bf16 compute (BF16: the kernels' bf16-logit variants): the gate
     passes with no warning, and each fused kernel launches once a step at
     each decoder tap (p = 1 and p = 3; mi_joint never, which phase_train
-    checks); then the fp32 config on Kernel.backend=auto (the joint tiled
-    into 128-lane launches: 4 a product, 24 a step) for its step ms. Returns
-    the fused kernels' launches of both runs."""
+    checks); then the same config on Kernel.backend=auto (the joint's wide
+    kernels: one launch a product, 6 a step) in fp32 and bf16 compute for
+    its step ms. Returns the fused kernels' launches of both fused runs and
+    the joint's of both auto runs."""
     import io
     from contextlib import redirect_stdout
 
@@ -1982,9 +2006,14 @@ def phase_train_fused_wide(steps: int) -> dict:
         outs[tag]["launches_per_step_per_tap"] = per_tap
         launches.update(run_launches)
         del trainer
-    auto_trainer, _, auto_out = phase_train(steps, "auto", extra, phase="train_wide_auto",
-                                            run_tag="_wide_auto", calls=24)
-    del auto_trainer
+    auto_outs = {}
+    for tag, more in (("", ()), ("_bf16", BF16)):
+        auto_trainer, run_launches, auto_outs[tag] = phase_train(
+            steps, "auto", extra + more, phase=f"train_wide_auto{tag}",
+            run_tag=f"_wide_auto{tag}", calls=6)
+        launches.update(run_launches)
+        del auto_trainer
+    auto_out = auto_outs[""]
     emit({"phase": "train_fused_wide", "clusters": [SUBHEADS, WIDE_CLUSTERS], "lanes": lanes,
           "live_lanes": SUBHEADS * WIDE_CLUSTERS, "gate_warning": False,
           "launches_per_step_per_tap": {k or "_fp32": o["launches_per_step_per_tap"]
@@ -1992,6 +2021,7 @@ def phase_train_fused_wide(steps: int) -> dict:
           "median_step_ms": outs[""]["median_step_ms"],
           "median_step_ms_bf16": outs["_bf16"]["median_step_ms"],
           "auto_median_step_ms": auto_out["median_step_ms"],
+          "auto_median_step_ms_bf16": auto_outs["_bf16"]["median_step_ms"],
           "peak_gib": outs[""]["max_memory_allocated_gib"],
           "auto_peak_gib": auto_out["max_memory_allocated_gib"],
           "losses": outs[""]["losses"], "auto_losses": auto_out["losses"]})
@@ -2438,9 +2468,8 @@ def phase_pretrain(steps: int = PRETRAIN_STEPS) -> tuple:
     of ``steps`` batches in each phase: each phase's CSV and last.pth, its
     losses finite; the frozen components' parameters bit-equal across each
     pretrain phase (and the trainable ones moved); the joint launched in the
-    decoder phase exactly as its lane tiling says (3 products a step, each
-    one launch per pair of 128-lane blocks of the 200 lanes, all at padding
-    0) and in no other phase; each phase's median step ms (each step
+    decoder phase once a product (3 a step, the p = 0 kernels over all 200
+    lanes) and in no other phase; each phase's median step ms (each step
     synchronised) and peak memory. Returns (the decoder phase's launches,
     the run directory)."""
     import torch
@@ -4295,11 +4324,12 @@ def main(argv=None) -> int:
         with timed(walls, "build"):
             phase_build()
     kernel_rows, tile_rows, rotation_rows, fused_rows, wide_fused_rows = [], [], [], [], []
+    wide_rows = []
     band_rows = []
     if "kernels" in phases:
         with timed(walls, "kernels_joint"):
             kernel_rows = phase_kernels(args.reps)
-            phase_kernels_wide(args.reps)
+            wide_rows = phase_kernels_wide(args.reps)
         with timed(walls, "kernels_rotate"):
             rotation_rows = phase_kernels_rotate(args.reps)
         with timed(walls, "kernels_fused"):
@@ -4478,6 +4508,16 @@ def main(argv=None) -> int:
                      pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
                      launches=bf16_launches.get((r["name"], r["padding"]), 0))
                 for r in kernel_rows if r["mode"] == "bf16in"]
+    # the joint above 128 lanes (the wide kernels; fp32 and bf16 operands at
+    # 150 and 256 lanes): launches from the train_fused_wide phase's auto runs
+    # (a 5 x 30 head: 150 lanes, fp32 and bf16 compute)
+    summary += [dict(name=f"{r['name']}@{r['tap']}_{r['lanes']}", **{k: r[k] for k in keys},
+                     pct_of_bound=r["pct_of_bound"], vs_library=r["vs_library"],
+                     bound_ms_lanes=r["bound_ms_lanes"], bound_ms_computed=r["bound_ms_computed"],
+                     device_kernels_per_call=r["device_kernels_per_call"],
+                     launches=wide_launches.get((r["name"], r["padding"]), 0)
+                     if r["lanes"] == SUBHEADS * WIDE_CLUSTERS else 0)
+                for r in wide_rows]
     summary += [dict(name=f"{r['name']}@B{r['batch']}", **{k: r[k] for k in keys},
                      pct_of_bound=r["pct_of_bound"], l2_warm_ms=r["l2_warm_ms"],
                      launches=rot_launches.get((r["name"], r["batch"]), 0),

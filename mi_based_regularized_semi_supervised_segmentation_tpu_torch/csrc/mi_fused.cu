@@ -7,10 +7,10 @@
 // ops/pallas/mi_fused.py (Kernel.backend=pallas_fused):
 //   * mi_fused.py:215 _fused_fwd / _fwd_kernel
 //       -> C = 128: joint_prep<SoftmaxRows> + joint_fwd_partial + joint_fwd_reduce
-//          C = 128 t: wide_prep + t^2 x (joint_fwd_partial + fused_fwd_reduce_block)
+//          C = 128 t: wide_prep + joint_fwd_wide + joint_fwd_reduce
 //   * mi_fused.py:254 _fused_bwd / _bwd_kernel (dl2)
 //       -> C = 128: joint_prep<SoftmaxRows> + joint_bwd<VjpRows>, g[d] as is
-//          C = 128 t: wide_prep + t^2 x joint_bwd<AddRows> + wide_vjp
+//          C = 128 t: wide_prep + joint_bwd_wide<StoreWide> + wide_vjp
 //   * mi_fused.py:275 _fused_bwd / _bwd_kernel (dl1, transpose_g)
 //       -> the same kernels, g[D-1-d]^T
 //
@@ -92,19 +92,20 @@
 //     (3 C floats a warp), the group sums one lane a group (S of them) and
 //     each lane's group index from a table formed once a block. The rounding
 //     points stay row_softmax's.
-//   * Forward at C = 128 t: wide_prep writes pm1 and pm2 as t [N, 128] bf16
-//     blocks each (one launch); block (i, j) of J is joint_fwd_partial on A_i,
-//     B_j and a chunk sum into J (fused_fwd_reduce_block), the joint's lane
-//     tiling (ops/mi_joint.py:lane_tiled_fwd) without its copies: 1 + 2 t^2
-//     launches, the partial scratch reused by each pair.
-//   * Backward at C = 128 t: the VJP needs each row's dq over all t blocks,
-//     since its group sums straddle them. wide_prep writes pm of the source
-//     side as t blocks and g as t^2 H blocks (one launch); output block j's
-//     dq = sum_i joint_bwd(pm_src_i, H_ij), the AddRows epilogue storing
-//     (i = 0) or adding (i > 0) its fp32 accumulators into an [N, C] fp32 dq
-//     scratch; then wide_vjp forms each own row's probabilities again and
-//     writes dl: 2 + t^2 launches. dq makes one round trip through device
-//     memory (4 N C bytes each way) that the 128-lane epilogue avoids.
+//   * Forward at C = 128 t: wide_prep writes pm1 and pm2 as rows of W =
+//     64 ceil(S*K / 64) bf16 lanes (the quarters that hold a live lane; the
+//     rest are zero and not computed), one launch; then the joint's wide
+//     kernels (joint_core.cuh): joint_fwd_wide over the W x W quarter tiles
+//     and one chunk sum into J [D, C, C], zeros past W: 3 launches.
+//   * Backward at C = 128 t: the VJP needs each row's dq over all lanes,
+//     since its group sums straddle the 128-lane blocks. wide_prep writes pm
+//     of the source side as rows of W lanes and g as H [ceil(S*K / 128), D,
+//     128, W] (one launch); joint_bwd_wide sums each output block's dq over
+//     the displacements and the source's live quarters in its accumulators
+//     and stores it once (StoreWide) into an [N, C] fp32 dq scratch; then
+//     wide_vjp forms each own row's probabilities again and writes dl: 3
+//     launches. dq makes one round trip through device memory (4 N C bytes
+//     each way) that the 128-lane epilogue avoids.
 //   * Edge rows: rows outside [0, N) of the shifted source are zero-filled by
 //     the joint's cp.async; border rows are zero through the mask in the pass;
 //     own rows that are border rows get dl = 0.
@@ -115,11 +116,11 @@
 // dq (grid rows x t, the source's blocks summed in turn), then wide_vjp.
 //
 // ptxas (sm_90a, -O3; chip_smoke.py's build phase prints it), no spills on
-// the bf16 path: joint_bwd<6, VjpRows> 232 registers (joint_bwd<6, AddRows>
-// and <6, StoreRows> 219), 1 block per SM; joint_prep<SoftmaxRows> 128
-// registers and 16 KB of static shared memory (the warps' scratch rows);
-// wide_prep 48-54 and wide_vjp 48 registers with 3 C floats a warp of dynamic
-// shared memory (25 KB a block at C = 256); fused_fwd_reduce_block 32. The
+// the bf16 path: joint_bwd<6, VjpRows> 232 registers (<6, StoreRows> 219),
+// 1 block per SM; joint_prep<SoftmaxRows> 128 registers and 16 KB of static
+// shared memory (the warps' scratch rows); wide_prep 48-54 and wide_vjp 48
+// registers with 3 C floats a warp of dynamic shared memory (25 KB a block
+// at C = 256). The
 // fp32 mode: fused_fwd_partial_fp32 128 registers, fused_dq_fp32 128 with 40
 // (96 for the transpose) bytes of spill stores.
 
@@ -655,18 +656,15 @@ __device__ __forceinline__ void wide_softmax(const L* row, const Geometry& g,
 }
 
 // The bf16 operands of a C-lane call in one launch, grid-stride:
-//   rows: dst_i[b, r, 0:128] = bf16(softmax(src_i[r]) * valid(r)) for each
-//         128-lane block b (dst_i: t blocks of [N, 128]; i = 0, 1, src1 may
-//         be null), one warp a row;
-//   g:    for each pair (bi, bj) of a source and an output block, H[bi t + bj,
-//         d, j, k] = bf16(g[d, 128 bi + k, 128 bj + j]) (transpose_g = 0) or
-//         bf16(g[D-1-d, 128 bj + j, 128 bi + k]) (transpose_g = 1), so that
-//         joint_bwd on source block bi and H[bi t + bj] gives that pair's
-//         share of output block bj (g may be null).
+//   rows: dst_i[r, 0:w] = bf16(softmax(src_i[r]) * valid(r)) (w =
+//         wide_lanes(S*K): the quarters that hold a live lane; i = 0, 1,
+//         src1 may be null), one warp a row;
+//   g:    H [nob, D, 128, w] for joint_bwd_wide (convert_g_wide; g may be
+//         null).
 template <bool UNIT_T, typename L>
 __device__ __forceinline__ void wide_prep_rows(const L* src0, __nv_bfloat16* dst0, const L* src1,
-                                               __nv_bfloat16* dst1, const Geometry& geo,
-                                               const WideScratch& w, int lane) {
+                                               __nv_bfloat16* dst1, const Geometry& geo, int w,
+                                               const WideScratch& ws, int lane) {
   const int t = geo.c / LANES;
   const long long rows = src1 ? 2 * geo.n : geo.n;
   const long long step = (long long)gridDim.x * WARPS;
@@ -674,13 +672,14 @@ __device__ __forceinline__ void wide_prep_rows(const L* src0, __nv_bfloat16* dst
     const bool second = u >= geo.n;
     const long long r = second ? u - geo.n : u;
     const bool valid = row_valid(r, geo, second);  // uniform across the warp
-    if (valid) wide_softmax<true, UNIT_T>((second ? src1 : src0) + r * geo.c, geo, w, lane);
-    __nv_bfloat16* dst = (second ? dst1 : dst0) + r * LANES + 4 * lane;
+    if (valid) wide_softmax<true, UNIT_T>((second ? src1 : src0) + r * geo.c, geo, ws, lane);
+    __nv_bfloat16* dst = (second ? dst1 : dst0) + r * w;
     for (int b = 0; b < t; ++b) {
-      const float4 x = valid ? *reinterpret_cast<const float4*>(w.e + b * LANES + 4 * lane)
+      const int j = b * LANES + 4 * lane;
+      if (j >= w) break;  // w is a multiple of 64: a lane's 4 are all in or all out
+      const float4 x = valid ? *reinterpret_cast<const float4*>(ws.e + j)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<uint2*>(dst + (long long)b * geo.n * LANES) =
-          make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
+      *reinterpret_cast<uint2*>(dst + j) = make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
     }
   }
 }
@@ -688,72 +687,20 @@ __device__ __forceinline__ void wide_prep_rows(const L* src0, __nv_bfloat16* dst
 template <typename L>
 __global__ void __launch_bounds__(THREADS)
 wide_prep(const L* __restrict__ src0, __nv_bfloat16* __restrict__ dst0, const L* __restrict__ src1,
-          __nv_bfloat16* __restrict__ dst1, Geometry geo, const float* __restrict__ g,
-          __nv_bfloat16* __restrict__ h, int D, int transpose_g) {
+          __nv_bfloat16* __restrict__ dst1, Geometry geo, int w, int nob,
+          const float* __restrict__ g, __nv_bfloat16* __restrict__ h, int D, int transpose_g) {
   extern __shared__ __align__(16) unsigned char smem[];
   init_groups(smem, geo);
   const int lane = threadIdx.x & 31;
-  const WideScratch w = wide_scratch(smem, geo, threadIdx.x >> 5, 3);
+  const WideScratch ws = wide_scratch(smem, geo, threadIdx.x >> 5, 3);
   if (geo.t == 1.f)
-    wide_prep_rows<true>(src0, dst0, src1, dst1, geo, w, lane);
+    wide_prep_rows<true>(src0, dst0, src1, dst1, geo, w, ws, lane);
   else
-    wide_prep_rows<false>(src0, dst0, src1, dst1, geo, w, lane);
+    wide_prep_rows<false>(src0, dst0, src1, dst1, geo, w, ws, lane);
   if (g == nullptr) return;
-  const int t = geo.c / LANES;
-  const long long c = geo.c;
-  const long long per_pair = h_units(D);
-  const long long units = (long long)t * t * per_pair;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units; u += stride) {
-    const int pair = (int)(u / per_pair);
-    const long long v = u % per_pair;
-    const int d = (int)(v / (LANES * (LANES / 8)));
-    const int j = (int)(v / (LANES / 8)) % LANES;
-    const int k0 = (int)(v % (LANES / 8)) * 8;
-    const int bi = pair / t, bj = pair % t;
-    const float* src = transpose_g ? g + ((D - 1 - d) * c + bj * LANES + j) * c + bi * LANES + k0
-                                   : g + (d * c + bi * LANES + k0) * c + bj * LANES + j;
-    float x[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = transpose_g ? src[e] : src[e * c];
-    *reinterpret_cast<uint4*>(h + (((long long)pair * D + d) * LANES + j) * LANES + k0) =
-        make_uint4(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]), pack_bf16x2(x[4], x[5]),
-                   pack_bf16x2(x[6], x[7]));
-  }
+  convert_g_wide(blockIdx.x * (long long)blockDim.x + threadIdx.x,
+                 (long long)gridDim.x * blockDim.x, g, h, geo.c, D, w, nob, transpose_g);
 }
-
-// joint_bwd's epilogue on a C-lane row: the fp32 accumulators (one source
-// block's product into output block col0 / 128) into lanes [col0, col0 + 128)
-// of dq [N, ld] fp32, added to what the source blocks before it stored there
-// when `add` (dq before the mask; the VJP pass applies it)
-struct AddRows {
-  float* out;
-  int ld, col0, add;
-
-  __device__ __forceinline__ void operator()(float (&acc)[2][64], unsigned char*, long long n0,
-                                             long long N, int tid) const {
-    const int lane = tid & 31, warp = tid >> 5;
-    const int wg = warp >> 2, wq = warp & 3;
-    const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long row = n0 + wg * 128 + h * 64 + wq * 16 + g + half * 8;
-        if (row >= N) continue;
-#pragma unroll
-        for (int c8 = 0; c8 < 16; ++c8) {
-          float2* o = reinterpret_cast<float2*>(out + row * ld + col0 + c8 * 8 + 2 * t4);
-          float2 v = make_float2(acc[h][4 * c8 + 2 * half], acc[h][4 * c8 + 2 * half + 1]);
-          if (add) {
-            const float2 x = *o;
-            v = make_float2(x.x + v.x, x.y + v.y);
-          }
-          *o = v;
-        }
-      }
-  }
-};
 
 // d(own logits) of C-lane rows from the unmasked dq [N, C] fp32, one warp a
 // row: the own row's probabilities formed again (wide_softmax), t = p * dq
@@ -812,21 +759,6 @@ wide_vjp(const L* __restrict__ own, const float* __restrict__ dq, L* __restrict_
     wide_vjp_rows<BF16, true>(own, dq, out, geo, w, threadIdx.x & 31);
   else
     wide_vjp_rows<BF16, false>(own, dq, out, geo, w, threadIdx.x & 31);
-}
-
-// out[d, 128 bi + r, 128 bj + c] = sum over chunks, in chunk order, of
-// partial[chunk, d, r, c]: one lane-block pair's chunk sum into J [D, C, C]
-__global__ void fused_fwd_reduce_block(const float* __restrict__ partial, float* __restrict__ out,
-                                       int D, int c, int bi, int bj, int n_chunks) {
-  const long long per = (long long)D * LANES * LANES;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < per;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long d = e / (LANES * LANES);
-    const int r = (int)(e / LANES) % LANES, col = (int)(e % LANES);
-    float s = 0.f;
-    for (int k = 0; k < n_chunks; ++k) s += partial[k * per + e];
-    out[(d * c + bi * LANES + r) * c + bj * LANES + col] = s;
-  }
 }
 
 // ===========================================================================
@@ -1038,10 +970,10 @@ cudaError_t launch_wide_prep(const L* src0, __nv_bfloat16* dst0, const L* src1,
   static bool smem_set = false;
   const cudaError_t err = allow_smem(wide_prep<L>, smem_set);
   if (err != cudaSuccess) return err;
-  const long long t = geo.c / LANES;
-  const unsigned blocks = wide_blocks(src1 ? 2 * geo.n : geo.n, g ? t * t * h_units(D) : 0);
+  const int w = wide_lanes(geo.sk), nob = wide_out_blocks(geo.sk);
+  const unsigned blocks = wide_blocks(src1 ? 2 * geo.n : geo.n, g ? h_units_wide(D, w, nob) : 0);
   wide_prep<L><<<blocks, THREADS, wide_smem_bytes(geo.c, 3), st>>>(
-      src0, dst0, src1, dst1, geo, g, h, D, transpose_g);
+      src0, dst0, src1, dst1, geo, w, nob, g, h, D, transpose_g);
   return cudaGetLastError();
 }
 
@@ -1072,20 +1004,23 @@ cudaError_t launch_dq_fp32(const float* src, const float* g, float* dq, const Ge
 // (the *_bf16in entry points: 2 C bytes, dead lanes -inf), pointers 16-byte
 // aligned. lo0, hi0 / lo1, hi1: the live rows of operand 0's / 1's canvases
 // (forward: l1 / l2; backward: src / own). The bf16 entry points take the
-// joint's launch plan at 128 lanes. Every entry point refuses
+// joint's launch plan at 128 lanes (t = 1), or its wide plan for S*K live
+// lanes (ops/mi_joint.py:wide_plan; t > 1). Every entry point refuses
 // (cudaErrorInvalidValue) a plan that disagrees with the kernels, a lane
 // count that is no such C, or a window that is empty or leaves [0, Hp).
 
-// bf16 products: J[D, C, C] from logits l1, l2. a16, b16: scratch of t x N x
-// 128 bf16 (pm1, pm2, lane block by lane block); partial: scratch of
-// n_chunks x D x 128 x 128 floats, reused by each lane-block pair.
+// bf16 products: J[D, C, C] from logits l1, l2. a16, b16: bf16 scratch of
+// N x 128 (t = 1) or N x W (W = wide_lanes(S*K)); partial: scratch of
+// n_chunks x D x 128 x 128 (t = 1) or x W x W floats.
 template <typename L>
 int fused_fwd_bf16(const L* l1, const L* l2, void* a16, void* b16, float* partial, float* out,
                    long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
                    int lo0, int hi0, int lo1, int hi1, long long rows_per_chunk, int n_chunks,
                    int dx_group, int smem_bytes, void* stream) {
-  if (!lanes_ok(c) || !fwd_plan_ok(LANES, p, dx_group, smem_bytes) ||
-      !windows_ok(hp, lo0, hi0, lo1, hi1))
+  const int w = wide_lanes(s * k);
+  if (!lanes_ok(c) || !windows_ok(hp, lo0, hi0, lo1, hi1) || s < 1 || k < 1 || s * k > c ||
+      !(c == LANES ? fwd_plan_ok(LANES, p, dx_group, smem_bytes)
+                   : wide_fwd_plan_ok(s * k, w, p, dx_group, smem_bytes)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* A16 = static_cast<__nv_bfloat16*>(a16);
@@ -1100,33 +1035,26 @@ int fused_fwd_bf16(const L* l1, const L* l2, void* a16, void* b16, float* partia
     return (int)run_fwd(dx_group, n_chunks, smem_bytes, st, A16, B16, partial, out, n_rows, C, p,
                         wp, rows_per_chunk);
   }
-  cudaError_t err = launch_wide_prep(l1, A16, l2, B16, geo, nullptr, nullptr, 0, 0, st);
-  const int blocks = c / LANES;
-  const int D = (2 * p + 1) * (2 * p + 1);
-  for (int bi = 0; bi < blocks && err == cudaSuccess; ++bi)
-    for (int bj = 0; bj < blocks && err == cudaSuccess; ++bj) {
-      err = run_fwd_partial(dx_group, n_chunks, smem_bytes, st, A16 + bi * n_rows * LANES,
-                            B16 + bj * n_rows * LANES, partial, n_rows, p, wp, rows_per_chunk);
-      if (err != cudaSuccess) break;
-      fused_fwd_reduce_block<<<reduce_blocks((long long)D * LANES * LANES), 256, 0, st>>>(
-          partial, out, D, c, bi, bj, n_chunks);
-      err = cudaGetLastError();
-    }
-  return (int)err;
+  const cudaError_t err = launch_wide_prep(l1, A16, l2, B16, geo, nullptr, nullptr, 0, 0, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)run_fwd_wide(dx_group, n_chunks, smem_bytes, st, A16, B16, partial, out, n_rows, c,
+                           p, wp, w, rows_per_chunk);
 }
 
 // bf16 products: d(own logits) [N, C] in the logits' type: transpose_g = 0
 // gives dl2 (src = l1, own = l2), transpose_g = 1 gives dl1 (src = l2, own =
-// l1); g [D, C, C] fp32. s16: scratch of t x N x 128 bf16 (pm of src); h16:
-// scratch of t^2 x D x 128 x 128 bf16; dq: scratch of N x C floats (C > 128
-// only, else null).
+// l1); g [D, C, C] fp32. t = 1: s16 scratch of N x 128 bf16 (pm of src), h16
+// of D x 128 x 128 bf16, dq null, `slabs` unused. t > 1: s16 of N x W, h16 of
+// ceil(S*K / 128) x D x 128 x W, dq of N x C floats, `slabs` source slab
+// buffers of joint_bwd_wide.
 template <typename L>
 int fused_bwd_bf16(const L* src, const L* own, const float* g, void* s16, void* h16, float* dq,
                    L* out, long long n_rows, int c, int hp, int wp, int p, int s, int k, float t,
-                   int lo0, int hi0, int lo1, int hi1, int transpose_g, int stages,
+                   int lo0, int hi0, int lo1, int hi1, int transpose_g, int stages, int slabs,
                    int smem_bytes, void* stream) {
-  if (!lanes_ok(c) || !bwd_plan_ok(LANES, p, stages, smem_bytes) || (c > LANES && !dq) ||
-      !windows_ok(hp, lo0, hi0, lo1, hi1))
+  if (!lanes_ok(c) || !windows_ok(hp, lo0, hi0, lo1, hi1) || s < 1 || k < 1 || s * k > c ||
+      !(c == LANES ? bwd_plan_ok(LANES, p, stages, smem_bytes)
+                   : dq != nullptr && wide_bwd_plan_ok(p, stages, slabs, smem_bytes)))
     return (int)cudaErrorInvalidValue;
   const int T = 2 * p + 1;
   const int D = T * T;
@@ -1143,16 +1071,14 @@ int fused_bwd_bf16(const L* src, const L* own, const float* g, void* s16, void* 
     return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16, H16,
                         VjpRows<L>{own, out, geo});
   }
-  // the t source blocks' products summed into dq block by block, then one
-  // VJP pass over whole rows (its group sums straddle the blocks)
+  // dq of the live output blocks in one product, then one VJP pass over
+  // whole rows (its group sums straddle the blocks)
+  const int w = wide_lanes(s * k), nob = wide_out_blocks(s * k);
   cudaError_t err = launch_wide_prep<L>(src, S16, nullptr, nullptr, geo, g, H16, D, transpose_g,
                                         st);
-  const int blocks = c / LANES;
-  for (int bj = 0; bj < blocks && err == cudaSuccess; ++bj)
-    for (int bi = 0; bi < blocks && err == cudaSuccess; ++bi)
-      err = run_bwd(stages, n_rows, p, wp, smem_bytes, st, S16 + bi * n_rows * LANES,
-                    H16 + (long long)(bi * blocks + bj) * D * LANES * LANES,
-                    AddRows{dq, c, bj * LANES, bi > 0});
+  if (err == cudaSuccess)
+    err = run_bwd_wide(stages, n_rows, p, wp, w, nob, slabs, smem_bytes, st, S16, H16,
+                       StoreWide<float>{dq, c, nob * LANES});
   if (err != cudaSuccess) return (int)err;
   return (int)launch_wide_vjp<L, true>(own, dq, out, geo, st);
 }
@@ -1175,9 +1101,9 @@ int mi_fused_fwd_bf16(const float* l1, const float* l2, void* a16, void* b16, fl
 int mi_fused_bwd_bf16(const float* src, const float* own, const float* g, void* s16, void* h16,
                       float* dq, float* out, long long n_rows, int c, int hp, int wp, int p,
                       int s, int k, float t, int lo0, int hi0, int lo1, int hi1, int transpose_g,
-                      int stages, int smem_bytes, void* stream) {
+                      int stages, int slabs, int smem_bytes, void* stream) {
   return fused_bwd_bf16(src, own, g, s16, h16, dq, out, n_rows, c, hp, wp, p, s, k, t, lo0, hi0,
-                        lo1, hi1, transpose_g, stages, smem_bytes, stream);
+                        lo1, hi1, transpose_g, stages, slabs, smem_bytes, stream);
 }
 
 // bf16 logits (Precision.compute_dtype=bfloat16): the same, reading 8 bytes
@@ -1195,11 +1121,11 @@ int mi_fused_fwd_bf16in(const void* l1, const void* l2, void* a16, void* b16, fl
 int mi_fused_bwd_bf16in(const void* src, const void* own, const float* g, void* s16, void* h16,
                         float* dq, void* out, long long n_rows, int c, int hp, int wp, int p,
                         int s, int k, float t, int lo0, int hi0, int lo1, int hi1,
-                        int transpose_g, int stages, int smem_bytes, void* stream) {
+                        int transpose_g, int stages, int slabs, int smem_bytes, void* stream) {
   return fused_bwd_bf16(static_cast<const __nv_bfloat16*>(src),
                         static_cast<const __nv_bfloat16*>(own), g, s16, h16, dq,
                         static_cast<__nv_bfloat16*>(out), n_rows, c, hp, wp, p, s, k, t, lo0,
-                        hi0, lo1, hi1, transpose_g, stages, smem_bytes, stream);
+                        hi0, lo1, hi1, transpose_g, stages, slabs, smem_bytes, stream);
 }
 
 // fp32 parity mode: J[D, C, C] from logits l1, l2; partial is scratch of
@@ -1221,8 +1147,8 @@ int mi_fused_fwd_fp32(const float* l1, const float* l2, float* partial, float* o
       l1, l2, partial, geo, rows_per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  joint_fwd_reduce<<<reduce_blocks((long long)D * c * c), 256, 0, st>>>(partial, out, D, c, c,
-                                                                       n_chunks);
+  joint_fwd_reduce<false><<<reduce_blocks((long long)D * c * c), 256, 0, st>>>(partial, out, D, c,
+                                                                              c, n_chunks);
   return (int)cudaGetLastError();
 }
 

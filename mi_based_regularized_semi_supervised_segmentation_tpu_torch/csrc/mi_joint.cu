@@ -6,10 +6,12 @@
 //   * mi_joint.py:178 _joint_fwd_call / _band_kernel_fwd
 //       -> joint_prep + joint_fwd_partial + joint_fwd_reduce; at p = 0
 //          joint_gram_fwd + joint_fwd_reduce; a tap's tiles joint_prep +
-//          joint_fwd_pieces
+//          joint_fwd_pieces; C > 128 joint_prep_wide + joint_fwd_wide +
+//          joint_fwd_reduce
 //   * mi_joint.py:230 _joint_bwd_call / _band_kernel_bwd (dx_tf)
 //       -> joint_prep + joint_bwd, g[d] as is; at p = 0 joint_gram_bwd; a
-//          tap's tiles joint_prep_pieces + joint_bwd_pieces
+//          tap's tiles joint_prep_pieces + joint_bwd_pieces; C > 128
+//          joint_prep_wide + joint_bwd_wide
 //   * mi_joint.py:249 _joint_bwd_call / _band_kernel_bwd(transpose_g) (dx)
 //       -> joint_prep + joint_bwd, g[D-1-d]^T (the same kernels)
 //
@@ -42,13 +44,7 @@
 // What the bf16 design does about it (C <= 128 lanes a launch, zero-padded to
 // 128; the kernels are in joint_core.cuh, one copy shared with mi_fused.cu,
 // whose fused path differs only in how joint_prep converts a row and what
-// joint_bwd's epilogue writes). A head wider than 128 lanes (C = 128 t) at
-// p > 0 is tiled in the wrapper (ops/mi_joint.py: lane_tiled_fwd /
-// lane_tiled_bwd): J block (i, j) is one forward launch on lane blocks A_i,
-// B_j; dx_tf_j = sum_i of a backward launch on A_i with g_ij, dx_i = sum_j of
-// one on B_j with g_ij^T. Each lane block is copied contiguous
-// (.contiguous()) once per call, so the kernels keep one row stride of 128
-// lanes:
+// joint_bwd's epilogue writes; wider heads below):
 //   * joint_prep rounds the operands to bf16 once per call, into [N, 128]
 //     scratch, and g into H[d][j][k], already transposed and, for dx, in
 //     reversed displacement order. The main kernels then copy bf16 bytes
@@ -84,7 +80,30 @@
 //     deterministic (no atomics). L2 traffic per launch at Up_conv2: about
 //     4.0 GB.
 //
-// Two regimes that the design above served badly have their own launches.
+// Three regimes that the design above served badly have their own launches.
+//
+// Heads wider than 128 lanes at p > 0 (IICRegParameters.DecoderParams
+// num_clusters or num_subheads past S*K = 128: C = 150 at 5 x 30 clusters,
+// 200 at 10 x 20), and above 256 lanes at p = 0. In 128-lane blocks such a
+// head wastes most of its last block (at C = 150, 16 quarter tiles of J of
+// which 9 hold a live lane, 4 K stages an output block of which 3 are live)
+// and needs a launch per block pair. So each product is one launch on rows
+// of W = 64 q lanes, q = ceil(C / 64) quarters (joint_core.cuh:
+// joint_fwd_wide, joint_bwd_wide):
+//   * one conversion pass an operand (CastWide: [N, W] bf16, zeros past C;
+//     none for bf16 rows of W lanes) and g into H [ceil(C / 128), D, 128, W];
+//   * joint_fwd_wide: joint_fwd_partial's block over the q^2 live quarter
+//     tiles of J (9 at C = 150), staging its quarters of A and B at the wide
+//     rows' stride; joint_fwd_reduce<true> sums the chunks into J [D, C, C];
+//   * joint_bwd_wide: grid (row tiles, 128-lane output blocks); a block's
+//     K loop runs over the displacements and the source's q quarters (3 at
+//     C = 150), each (dy, quarter) slab of 256 + 2p rows staged once for its
+//     T steps in a ring of slab buffers (2 at p = 3, 3 at p = 1), so the
+//     quarters sum in the block's fp32 accumulators and the result is
+//     written once in the operands' type (StoreWide), rounded once as at
+//     128 lanes. An output block is the m64n128 accumulators' 128 lanes; a
+//     last block of one quarter computes its 64 lanes alone, on m64n64
+//     accumulators (C = 150: lanes 128-191 for 22 live ones).
 //
 // The joint at p = 0 (the pretrain decoder's IIC: N = 150,528 rows of
 // C = 200 lanes, fp32). J = A^T B, dx_tf = A g and dx = B g^T are three
@@ -149,7 +168,9 @@
 // registers, joint_fwd_partial<3> 128, each with 104,448 bytes, 1 block per
 // SM; joint_fwd_pieces<7> 210, joint_bwd_pieces 231; joint_gram_fwd<256>
 // 223 (fp32 operands) / 206 (bf16) with 73,728 bytes, joint_gram_bwd<256>
-// 192 / 161 with 163,840 bytes; joint_prep and joint_fwd_reduce 32.
+// 192 / 161 with 163,840 bytes; joint_prep and joint_fwd_reduce 32. The wide
+// kernels' counts are in PERF.md (their shared memory: joint_fwd_wide the
+// forward's, joint_bwd_wide 165,376 bytes at p = 3 and 197,376 at p = 1).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -758,8 +779,8 @@ cudaError_t launch_gram_fwd(int n_chunks, int smem_bytes, cudaStream_t s, const 
       A, B, partial, n, c, rows_per_chunk, cast_vec<Src>(c, A, B));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  joint_fwd_reduce<<<reduce_blocks((long long)c * c), 256, 0, s>>>(partial, out, 1, c, CP,
-                                                                   n_chunks);
+  joint_fwd_reduce<false><<<reduce_blocks((long long)c * c), 256, 0, s>>>(partial, out, 1, c,
+                                                                          CP, n_chunks);
   return cudaGetLastError();
 }
 
@@ -879,15 +900,14 @@ int mi_joint_bwd_bf16(const float* src, const float* g, void* s16, void* h16, fl
   return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, S16, H16, StoreRows<float>{out, c});
 }
 
-// bf16 operands: the same product from src [N, C] bf16; g stays fp32 (the
-// cotangent of the fp32 J). out is [N, C] bf16 (out_bf16 = 1: each fp32 sum
-// over all displacements rounded once) or fp32 (out_bf16 = 0: a lane block of
-// a wider head, summed with the others in fp32 by the caller). With s16 ==
-// null, src must be rows of 128 lanes, 16-byte aligned: the conversion pass
-// then converts g alone; otherwise it also pads src into s16 [N, 128] bf16.
+// bf16 operands: the same product from src [N, C] bf16 into out [N, C] bf16
+// (each fp32 sum over all displacements rounded once); g stays fp32 (the
+// cotangent of the fp32 J). With s16 == null, src must be rows of 128 lanes,
+// 16-byte aligned: the conversion pass then converts g alone; otherwise it
+// also pads src into s16 [N, 128] bf16.
 int mi_joint_bwd_bf16in(const void* src, const float* g, void* s16, void* h16, void* out,
-                        int out_bf16, long long n_rows, int c, int p, int wp, int transpose_g,
-                        int stages, int smem_bytes, void* stream) {
+                        long long n_rows, int c, int p, int wp, int transpose_g, int stages,
+                        int smem_bytes, void* stream) {
   if (!bwd_plan_ok(c, p, stages, smem_bytes)) return (int)cudaErrorInvalidValue;
   const int T = 2 * p + 1;
   const int D = T * T;
@@ -904,11 +924,8 @@ int mi_joint_bwd_bf16in(const void* src, const float* g, void* s16, void* h16, v
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const __nv_bfloat16* operand = S16 == nullptr ? S : S16;
-  if (out_bf16)
-    return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, operand, H16,
-                        StoreRows<__nv_bfloat16>{static_cast<__nv_bfloat16*>(out), c});
   return (int)run_bwd(stages, n_rows, p, wp, smem_bytes, s, operand, H16,
-                      StoreRows<float>{static_cast<float*>(out), c});
+                      StoreRows<__nv_bfloat16>{static_cast<__nv_bfloat16*>(out), c});
 }
 
 // fp32 parity mode: J[D, C, C] from A, B [N, C]; partial is scratch of
@@ -926,8 +943,8 @@ int mi_joint_fwd_fp32(const float* a, const float* b, float* partial, float* out
                                                   vec4);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  joint_fwd_reduce<<<reduce_blocks((long long)D * c * c), 256, 0, s>>>(partial, out, D, c, c,
-                                                                       n_chunks);
+  joint_fwd_reduce<false><<<reduce_blocks((long long)D * c * c), 256, 0, s>>>(partial, out, D, c,
+                                                                             c, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -1051,6 +1068,91 @@ int mi_joint_gram_bwd(const void* src, int src_bf16, const float* g, void* out, 
                                                       n_rows, c, transpose_g)
                         : run_gram_bwd<float>(cp, blocks, smem_bytes, s, src, g, out, n_rows, c,
                                               transpose_g));
+}
+
+// The wide joint (bf16 products), C > 128 lanes at p > 0 and C > 256 at
+// p = 0: rows of W = wide_lanes(C) lanes, one launch a product over the live
+// quarters. Forward: J [D, C, C] fp32 from A, B [N, C] (fp32, or bf16 with
+// src_bf16); a16, b16: [N, W] bf16 scratch the conversion pass fills (null:
+// bf16 rows of W = C lanes, 16-byte aligned, read in place: no pass);
+// partial: n_chunks x D x W x W floats.
+int mi_joint_fwd_wide(const void* a, const void* b, int src_bf16, void* a16, void* b16,
+                      float* partial, float* out, long long n_rows, int c, int p, int wp,
+                      long long rows_per_chunk, int n_chunks, int dx_group, int smem_bytes,
+                      void* stream) {
+  const int w = wide_lanes(c);
+  if (!wide_fwd_plan_ok(c, w, p, dx_group, smem_bytes) || rows_per_chunk % FW_KT != 0 ||
+      rows_per_chunk * n_chunks < n_rows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);
+  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(b);
+  if (a16 == nullptr || b16 == nullptr) {
+    if (a16 != b16 || !src_bf16 || c != w || !aligned16(a) || !aligned16(b))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    auto* A16 = static_cast<__nv_bfloat16*>(a16);
+    auto* B16 = static_cast<__nv_bfloat16*>(b16);
+    const unsigned blocks = prep_blocks(2 * n_rows * (w / 8));
+    if (src_bf16) {
+      const CastWide<__nv_bfloat16> rows{A, A16, B, B16, n_rows, c, w,
+                                         cast_vec<__nv_bfloat16>(c, a, b)};
+      joint_prep_wide<<<blocks, PREP_THREADS, 0, s>>>(rows, nullptr, nullptr, c, 0, w, 0, 0);
+    } else {
+      const auto* af = static_cast<const float*>(a);
+      const auto* bf = static_cast<const float*>(b);
+      const CastWide<float> rows{af, A16, bf, B16, n_rows, c, w, cast_vec<float>(c, a, b)};
+      joint_prep_wide<<<blocks, PREP_THREADS, 0, s>>>(rows, nullptr, nullptr, c, 0, w, 0, 0);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    A = A16;
+    B = B16;
+  }
+  return (int)run_fwd_wide(dx_group, n_chunks, smem_bytes, s, A, B, partial, out, n_rows, c, p,
+                           wp, w, rows_per_chunk);
+}
+
+// Backward: out [N, C] in src's type (fp32, or bf16 with src_bf16: each fp32
+// sum over all displacements and quarters rounded once) = sum_d src[n + o_d]
+// @ g[d] (transpose_g = 0) or sum_d src[n - o_d] @ g[d]^T (1), g [D, C, C]
+// fp32; s16: [N, W] bf16 scratch (null: bf16 rows of W = C lanes read in
+// place); h16: [ceil(C / 128), D, 128, W] bf16 scratch; `slabs` source slab
+// buffers.
+int mi_joint_bwd_wide(const void* src, int src_bf16, const float* g, void* s16, void* h16,
+                      void* out, long long n_rows, int c, int p, int wp, int transpose_g,
+                      int stages, int slabs, int smem_bytes, void* stream) {
+  const int w = wide_lanes(c);
+  const int nob = wide_out_blocks(c);
+  if (c < 1 || !wide_bwd_plan_ok(p, stages, slabs, smem_bytes)) return (int)cudaErrorInvalidValue;
+  const int T = 2 * p + 1;
+  const int D = T * T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* S16 = static_cast<__nv_bfloat16*>(s16);
+  auto* H16 = static_cast<__nv_bfloat16*>(h16);
+  if (S16 == nullptr && (!src_bf16 || c != w || !aligned16(src)))
+    return (int)cudaErrorInvalidValue;
+  const long long rows_n = S16 == nullptr ? 0 : n_rows;  // no rows to convert
+  const unsigned prep = prep_blocks(rows_n * (w / 8) + h_units_wide(D, w, nob));
+  if (src_bf16) {
+    const auto* sb = static_cast<const __nv_bfloat16*>(src);
+    const CastWide<__nv_bfloat16> rows{sb, S16, nullptr, nullptr, rows_n, c, w,
+                                       cast_vec<__nv_bfloat16>(c, src, nullptr)};
+    joint_prep_wide<<<prep, PREP_THREADS, 0, s>>>(rows, g, H16, c, D, w, nob, transpose_g);
+  } else {
+    const auto* sf = static_cast<const float*>(src);
+    const CastWide<float> rows{sf, S16, nullptr, nullptr, rows_n, c, w,
+                               cast_vec<float>(c, src, nullptr)};
+    joint_prep_wide<<<prep, PREP_THREADS, 0, s>>>(rows, g, H16, c, D, w, nob, transpose_g);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const __nv_bfloat16* S = S16 == nullptr ? static_cast<const __nv_bfloat16*>(src) : S16;
+  if (src_bf16)
+    return (int)run_bwd_wide(stages, n_rows, p, wp, w, nob, slabs, smem_bytes, s, S, H16,
+                             StoreWide<__nv_bfloat16>{static_cast<__nv_bfloat16*>(out), c, c});
+  return (int)run_bwd_wide(stages, n_rows, p, wp, w, nob, slabs, smem_bytes, s, S, H16,
+                           StoreWide<float>{static_cast<float*>(out), c, c});
 }
 
 }  // extern "C"

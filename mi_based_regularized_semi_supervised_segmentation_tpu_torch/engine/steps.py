@@ -98,6 +98,7 @@ from ..ops.iic_local import (
     iid_segmentation_small_patch_loss_subheads,
 )
 from ..ops.losses import entropy, kl_div
+from ..ops.mi_joint import LANES
 from ..parallel.halo import halo_exchange
 from ..parallel.mesh import DistContext, local_band, reduce_grads_, reduce_sum_, single_context
 from ..utils.general import class2one_hot
@@ -223,8 +224,12 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
             losses[name] = iid_segmentation_small_patch_loss_subheads(p1 * valid1, p2 * valid2,
                                                                       **kw)
         else:
-            losses[name] = iid_segmentation_small_patch_loss_flat(p1 * valid1, p2 * valid2,
-                                                                  S, K, **kw)
+            # above 128 lanes the joint takes the S*K live lanes alone (the
+            # dead ones add nothing to it), so that its wide kernels compute
+            # only the 64-lane quarters that hold a live lane
+            live = S * K if p1.shape[-1] > LANES else p1.shape[-1]
+            losses[name] = iid_segmentation_small_patch_loss_flat(
+                p1[..., :live] * valid1, p2[..., :live] * valid2, S, K, **kw)
     return losses
 
 

@@ -35,13 +35,15 @@ with g = dL/dJ rounded to dot_dtype:
 
 Products are summed in fp32. On the kernel path no fp32 probability tensor
 is ever allocated: in bf16 mode a conversion pass forms the masked softmax of
-each whole row once a call into t [N, 128] bf16 lane blocks, and the products
-run on the joint's kernels at its launch plan (``launch_setup``). At C = 128
-the joint's backward kernel also applies the softmax VJP to its own rows
-before it writes, so no dq exists; at C = 128 t, t > 1, the VJP's group sums
-straddle the lane blocks, so the t source blocks' products are summed into an
-[N, C] fp32 dq scratch and one pass over whole rows applies the VJP
-(``csrc/mi_fused.cu``). The plain version computes the same in fp32 with
+each whole row once a call into bf16 rows, and the products run on the
+joint's kernels at its launch plan (``launch_setup``). At C = 128 the rows
+are 128 lanes, and the joint's backward kernel also applies the softmax VJP
+to its own rows before it writes, so no dq exists. At C = 128 t, t > 1, the
+rows are the joint's wide rows of W = 64 ceil(S*K / 64) lanes (the quarters
+that hold a live lane), each product one launch of the joint's wide kernels
+over them; the VJP's group sums straddle the 128-lane blocks, so the
+backward's product writes an [N, C] fp32 dq scratch once and one pass over
+whole rows applies the VJP (``csrc/mi_fused.cu``). The plain version computes the same in fp32 with
 bf16 rounding at exactly those points, at any C; its backward is written
 out, not left to autograd, which would round elsewhere.
 
@@ -58,26 +60,25 @@ one a wrapper call, a call on bf16 logits under the name with
 ``mi_joint.BF16_OPERANDS`` appended, whatever the lane count. The device
 kernels a call launches, whatever the logits' dtype: in bf16 mode at t = 1
 (128 lanes) 3 in the forward (softmax pass, product, chunk sum) and 2 in each
-backward (softmax pass with g, product with the VJP epilogue); at t = 2 (256
-lanes) 1 + 2 t^2 = 9 in the forward (softmax pass, then a product and a chunk
-sum for each of the 4 lane-block pairs) and 2 + t^2 = 6 in each backward
-(softmax pass with g, 4 products into dq, VJP pass). The fp32 mode launches
-2 in the forward and 2 in each backward at any t.
+backward (softmax pass with g, product with the VJP epilogue); at t > 1 3 in
+the forward (softmax pass, product over the live quarter tiles, chunk sum)
+and 3 in each backward (softmax pass with g, product into dq, VJP pass). The
+fp32 mode launches 2 in the forward and 2 in each backward at any t.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .mi_joint import (JointPlan, ScratchSpec, _check_modes, _check_operand, _offsets, _ptr,
-                       _sm_count, alloc_scratch, bf16_scratch, fwd_chunking, kernel_name,
-                       launch_plan)
+from .mi_joint import (JointPlan, ScratchSpec, WidePlan, _check_modes, _check_operand, _offsets,
+                       _ptr, _sm_count, alloc_scratch, bf16_scratch, fwd_chunking, kernel_name,
+                       launch_plan, wide_plan, wide_scratch)
 
 KERNEL_SOURCE = "mi_fused"
 FWD, BWD_DL2, BWD_DL1 = "mi_fused_fwd", "mi_fused_bwd_dl2", "mi_fused_bwd_dl1"
@@ -239,7 +240,7 @@ def _library() -> ctypes.CDLL:
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         geo = [ll, i, i, i, i, i, i, f, i, i, i, i]  # ... the temperature, the two windows
         lib.mi_fused_fwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp] + geo + [ll, i, i, i, vp]
-        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp] + geo + [i, i, i, vp]
+        lib.mi_fused_bwd_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp] + geo + [i, i, i, i, vp]
         lib.mi_fused_fwd_fp32.argtypes = [vp, vp, vp, vp] + geo + [ll, i, vp]
         lib.mi_fused_bwd_fp32.argtypes = [vp, vp, vp, vp, vp] + geo + [i, vp]
         lib.mi_fused_fwd_bf16in.argtypes = lib.mi_fused_fwd_bf16.argtypes
@@ -274,23 +275,22 @@ def _check_layout(n: int, c: int, hp: int, wp: int, padding: int, S: int, K: int
 
 
 def launch_setup(n: int, wp: int, padding: int, sm_count: int, backward: bool,
-                 lanes: int = LANES) -> Tuple[JointPlan, ScratchSpec]:
-    """The bf16 kernels' launch plan and scratch at C = ``lanes`` = 128 t: the
-    joint's plan at 128 lanes, and its scratch (the forward's two [N, 128]
-    bf16 copies, which hold the masked probabilities here, or the backward's
-    source copy and H) with a lane block axis of t on the copies and of t^2
-    on H; for t > 1 the backward also takes the [N, C] fp32 dq that its
-    products sum into. The chunk partials are one lane-block pair's,
-    reused by each pair."""
-    plan = launch_plan(n, LANES, padding, wp, sm_count)
-    spec = bf16_scratch(plan, backward)
-    t = lanes // LANES
-    if t > 1:
-        blocks = {"a16": t, "b16": t, "s16": t, "h16": t * t}
-        spec = {name: ((blocks[name],) + shape if name in blocks else shape, dtype)
-                for name, (shape, dtype) in spec.items()}
-        if backward:
-            spec["dq"] = ((n, lanes), torch.float32)
+                 lanes: int = LANES, live: Optional[int] = None
+                 ) -> Tuple[Union[JointPlan, WidePlan], ScratchSpec]:
+    """The bf16 kernels' launch plan and scratch at C = ``lanes`` = 128 t,
+    ``live`` = S*K of them live (all by default): at t = 1 the joint's plan
+    at 128 lanes and its scratch (the forward's two [N, 128] bf16 copies,
+    which hold the masked probabilities here, or the backward's source copy
+    and H); at t > 1 the joint's wide plan and scratch for the live lanes
+    (rows of W = 64 ceil(live / 64) lanes), the backward's with the [N, C]
+    fp32 dq its product writes."""
+    if lanes == LANES:
+        plan = launch_plan(n, LANES, padding, wp, sm_count)
+        return plan, bf16_scratch(plan, backward)
+    plan = wide_plan(n, live or lanes, padding, wp, sm_count)
+    spec = wide_scratch(plan, backward)
+    if backward:
+        spec["dq"] = ((n, lanes), torch.float32)
     return plan, spec
 
 
@@ -322,7 +322,7 @@ def mi_fused_fwd(l1: torch.Tensor, l2: torch.Tensor, hp: int, wp: int, padding: 
         stream = torch.cuda.current_stream(l1.device).cuda_stream
         geometry = (n, c, hp, wp, padding, S, K, float(T)) + _windows(hp, padding, rows1)
         if bf16:
-            plan, spec = launch_setup(n, wp, padding, sms, backward=False, lanes=c)
+            plan, spec = launch_setup(n, wp, padding, sms, backward=False, lanes=c, live=S * K)
             buf = alloc_scratch(spec, l1.device)
             fn = lib.mi_fused_fwd_bf16in if l1.dtype == torch.bfloat16 else lib.mi_fused_fwd_bf16
             rc = fn(l1.data_ptr(), l2.data_ptr(), buf["a16"].data_ptr(), buf["b16"].data_ptr(),
@@ -367,12 +367,12 @@ def mi_fused_bwd(src: torch.Tensor, own: torch.Tensor, g: torch.Tensor, hp: int,
                     + _windows(hp, padding, rows1, l1_first=not transpose_g) + (int(transpose_g),))
         if bf16:
             plan, spec = launch_setup(n, wp, padding, _sm_count(src.device.index), backward=True,
-                                      lanes=c)
+                                      lanes=c, live=S * K)
             buf = alloc_scratch(spec, src.device)
             fn = lib.mi_fused_bwd_bf16in if src.dtype == torch.bfloat16 else lib.mi_fused_bwd_bf16
             rc = fn(src.data_ptr(), own.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
                     buf["h16"].data_ptr(), _ptr(buf, "dq"), out.data_ptr(), *geometry,
-                    plan.bwd_stages, plan.bwd_smem, stream)
+                    plan.bwd_stages, plan.bwd_slabs, plan.bwd_smem, stream)
         else:
             dq = torch.empty((n, c), dtype=torch.float32, device=src.device)
             rc = lib.mi_fused_bwd_fp32(src.data_ptr(), own.data_ptr(), g.data_ptr(),

@@ -15,18 +15,18 @@ incoming cotangent) to bf16 and accumulates in fp32, as the TPU kernel does;
 ``torch.float32`` is the parity mode. The operands are fp32, or bf16 when the
 model computes in bf16 (``Precision.compute_dtype``; bf16 products only): J
 is fp32 either way and the gradients come back in the operands' dtype, each
-fp32 sum over all displacements (and lane blocks) rounded once, as the TPU
+fp32 sum over all displacements (and K quarters) rounded once, as the TPU
 kernel's VJP returns ``dx.astype(x.dtype)``.
 
-The bf16 products take three shapes of launch:
-  * p > 0, C <= 128: one launch a product (zero-padded to 128 lanes on the
-    card), geometry from ``launch_plan`` and scratch from ``bf16_scratch``;
-  * p > 0, C > 128: tiled into 128-lane blocks, the last one zero-padded
-    when C is no multiple of 128 (``lane_tiled_fwd``, ``lane_tiled_bwd``),
-    one launch per block pair;
-  * p = 0, C <= 256: J = A^T B, dx_tf = A g and dx = B g^T, each one launch
-    over all lanes that converts the operands inside the kernel
-    (``gram_plan``).
+The bf16 products take three shapes of launch, one launch a product each:
+  * p > 0, C <= 128: rows zero-padded to 128 lanes on the card, geometry
+    from ``launch_plan`` and scratch from ``bf16_scratch``;
+  * p > 0, C > 128, and p = 0, C > 256: rows of W = 64 q lanes, q =
+    ceil(C / 64) quarters (``wide_lanes``), zeros past C; the forward over
+    the q^2 quarter tiles of J, the backward over 128-lane output blocks and
+    the source's q quarters (``wide_plan``, ``wide_scratch``);
+  * p = 0, C <= 256: J = A^T B, dx_tf = A g and dx = B g^T over all lanes,
+    the operands converted inside the kernel (``gram_plan``).
 The grouped call (``displaced_joint_pieces``) takes many canvases laid one
 after another in one [rows, C] buffer (the tile pieces of
 ``ops/iic_local.py:_tiled_joints``), each with its own width and rows
@@ -36,17 +36,17 @@ Every plan is plain Python that the CPU tests check.
 
 Dispatch: CUDA tensors go to the kernel (or the call raises), CPU tensors to
 ``displaced_joint_plain_flat`` (the grouped call: its stack over the
-pieces). ``LAUNCHES`` counts wrapper calls by (kernel, padding): one a call,
-but one per block pair above 128 lanes at p > 0; a call on bf16 operands
-counts under the name with ``BF16_OPERANDS`` appended. ``chip_smoke.py``
-reads it to show the training path ran through the kernels. Device kernels
-a call, at 128 lanes and p > 0: fp32 operands 3 forward (conversion pass,
-product, chunk sum) and 2 backward (conversion of the source and g,
-product); bf16 operands 2 forward (no conversion pass) and 2 backward (the
-pass converts g alone); the grouped call 2 forward (conversion pass,
-product writing J) and 2 backward; p = 0, 2 forward (product, chunk sum) and
-1 backward. A udaiic step with two decoder taps makes 6 calls either way,
-tiled or not; the pretrain decoder step 3.
+pieces). ``LAUNCHES`` counts wrapper calls by (kernel, padding), one a call
+at any C; a call on bf16 operands counts under the name with
+``BF16_OPERANDS`` appended. ``chip_smoke.py`` reads it to show the training
+path ran through the kernels. Device kernels a call, at p > 0 (128 lanes or
+wide rows): fp32 operands 3 forward (conversion pass, product, chunk sum)
+and 2 backward (conversion of the source and g, product); bf16 operands
+of exactly 128 (or W) lanes 2 forward (no conversion pass) and 2 backward
+(the pass converts g alone); the grouped call 2 forward (conversion pass,
+product writing J) and 2 backward; p = 0 up to 256 lanes, 2 forward
+(product, chunk sum) and 1 backward. A udaiic step with two decoder taps
+makes 6 calls at any head width; the pretrain decoder step 3.
 """
 
 from __future__ import annotations
@@ -82,6 +82,7 @@ FWD_STAGE_ROWS = 64    # joint_fwd_partial: rows per pipeline stage
 FWD_STAGES = 6
 FWD_HALF = 64          # joint_fwd_partial: a block's J tile is 64 x 64
 SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on an H100
+WIDE_QUARTER = 64       # the wide kernels' lane quarter: rows of 64 q lanes
 # the p = 0 kernels (joint_gram_fwd / joint_gram_bwd)
 GRAM_STAGE_ROWS = 32   # forward: rows per stage
 GRAM_BUFS = 3          # forward: bf16 stage buffers
@@ -188,16 +189,18 @@ def _library() -> ctypes.CDLL:
         lib.mi_joint_fwd_fp32.argtypes = [vp, vp, vp, vp, ll, i, i, i, ll, i, vp]
         lib.mi_joint_bwd_fp32.argtypes = [vp, vp, vp, ll, i, i, i, i, vp]
         lib.mi_joint_fwd_bf16in.argtypes = lib.mi_joint_fwd_bf16.argtypes
-        lib.mi_joint_bwd_bf16in.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, i, i, i, i, vp]
+        lib.mi_joint_bwd_bf16in.argtypes = lib.mi_joint_bwd_bf16.argtypes
         lib.mi_joint_fwd_pieces.argtypes = [vp, vp, i, vp, vp, vp, i, vp, ll, i, i, i, i, vp]
         lib.mi_joint_bwd_pieces.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, ll, i, i, i, i, i,
                                             vp]
         lib.mi_joint_gram_fwd.argtypes = [vp, vp, i, vp, vp, ll, i, i, ll, i, i, vp]
         lib.mi_joint_gram_bwd.argtypes = [vp, i, vp, vp, ll, i, i, i, i, i, vp]
+        lib.mi_joint_fwd_wide.argtypes = [vp, vp, i, vp, vp, vp, vp, ll, i, i, i, ll, i, i, i, vp]
+        lib.mi_joint_bwd_wide.argtypes = [vp, i, vp, vp, vp, vp, ll, i, i, i, i, i, i, i, vp]
         for fn in (lib.mi_joint_fwd_bf16, lib.mi_joint_bwd_bf16, lib.mi_joint_fwd_fp32,
                    lib.mi_joint_bwd_fp32, lib.mi_joint_fwd_bf16in, lib.mi_joint_bwd_bf16in,
                    lib.mi_joint_fwd_pieces, lib.mi_joint_bwd_pieces, lib.mi_joint_gram_fwd,
-                   lib.mi_joint_gram_bwd):
+                   lib.mi_joint_gram_bwd, lib.mi_joint_fwd_wide, lib.mi_joint_bwd_wide):
             fn.restype = i
         lib.mi_joint_error_string.argtypes = [i]
         lib.mi_joint_error_string.restype = ctypes.c_char_p
@@ -276,6 +279,11 @@ class JointPlan:
     @property
     def bwd_grid(self) -> Tuple[int]:
         return (self.bwd_blocks,)
+
+    @property
+    def bwd_slabs(self) -> int:
+        """Source slab buffers of joint_bwd: one a dy, double-buffered."""
+        return 2
 
     @property
     def fwd_grid(self) -> Tuple[int, int]:
@@ -358,12 +366,19 @@ def bf16_scratch(plan: JointPlan, backward: bool, rows: bool = True) -> ScratchS
     return spec if rows else {k: v for k, v in spec.items() if k not in ("a16", "b16", "s16")}
 
 
+def row_lanes(c: int) -> int:
+    """Lanes of a row the bf16 kernels read for C live lanes: 128 up to 128
+    lanes, else the wide kernels' W (``wide_lanes``)."""
+    return LANES if c <= LANES else wide_lanes(c)
+
+
 def converts_rows(*operands: torch.Tensor) -> bool:
     """Whether a bf16 call's conversion pass copies the operand rows: always
-    for fp32 operands; for bf16 ones unless they are rows of exactly 128
-    lanes at 16-byte aligned addresses, which the kernels read in place."""
-    return any(t.dtype != torch.bfloat16 or t.shape[-1] != LANES or t.data_ptr() % 16
-               for t in operands)
+    for fp32 operands; for bf16 ones unless they are rows of exactly the
+    lanes the kernels read (``row_lanes``: 128, or W = C for a multiple of
+    64 above 128) at 16-byte aligned addresses, which they read in place."""
+    return any(t.dtype != torch.bfloat16 or t.shape[-1] != row_lanes(t.shape[-1])
+               or t.data_ptr() % 16 for t in operands)
 
 
 def alloc_scratch(spec: ScratchSpec, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -510,54 +525,161 @@ def pieces_plan(pieces: Pieces, c: int, padding: int, sm_count: int) -> PiecesPl
                       fwd_groups=base.fwd_groups, fwd_smem=base.fwd_smem)
 
 
-def _lane_tiles(c: int) -> List[slice]:
-    return [slice(i, min(i + LANES, c)) for i in range(0, c, LANES)]
+def wide_lanes(c: int) -> int:
+    """W: the lanes of a wide row for C live lanes, q = ceil(C / 64) quarters
+    of 64 lanes, at least 2 (zeros past C)."""
+    return WIDE_QUARTER * max(2, math.ceil(c / WIDE_QUARTER))
 
 
-def _lanes(x: torch.Tensor, *tiles: slice) -> torch.Tensor:
-    """``x``'s block at ``tiles`` (one per trailing axis), zero-padded to 128
-    on each and contiguous: the square 128-lane operands a launch takes."""
-    x = x[(Ellipsis,) + tiles]
-    widths = [LANES - (t.stop - t.start) for t in reversed(tiles)]
-    return F.pad(x, [w for width in widths for w in (0, width)]) if any(widths) \
-        else x.contiguous()
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """Launch geometry of the wide kernels (``csrc/joint_core.cuh``:
+    joint_fwd_wide, joint_bwd_wide) for one call shape: rows of ``lanes`` =
+    W = 64 q lanes for C live lanes. The forward's grid is (q^2 * fwd_groups
+    * taps, fwd_chunks): a block takes one chunk of rows, one quarter tile
+    (k1 quarter, k2 quarter) of J, one dy and fwd_dx_group displacements
+    along x, as ``launch_plan``'s block takes a quarter of a 128-lane J. The
+    backward's grid is (bwd_row_blocks, bwd_out_blocks): BWD_TILE output rows
+    and 128 output lanes a block (64 in a last block of one quarter,
+    ``bwd_block_lanes``), its K loop over the taps^2 displacements
+    and the source's q quarters (``bwd_steps``), each (dy, quarter) slab of
+    the source staged once in a ring of bwd_slabs buffers, H in bwd_stages
+    stages of BWD_STAGE_LANES lanes."""
+    n: int
+    c: int
+    padding: int
+    wp: int
+    lanes: int
+    fwd_dx_group: int
+    fwd_groups: int
+    fwd_rows_per_chunk: int
+    fwd_chunks: int
+    fwd_smem: int
+    bwd_row_blocks: int
+    bwd_out_blocks: int
+    bwd_slabs: int
+    bwd_stages: int
+    bwd_smem: int
+
+    @property
+    def taps(self) -> int:
+        return 2 * self.padding + 1
+
+    @property
+    def quarters(self) -> int:
+        """q: the 64-lane quarters of a row, the backward's K stages a
+        displacement; the forward computes q^2 quarter tiles of J."""
+        return self.lanes // WIDE_QUARTER
+
+    @property
+    def fwd_grid(self) -> Tuple[int, int]:
+        return (self.quarters ** 2 * self.fwd_groups * self.taps, self.fwd_chunks)
+
+    @property
+    def bwd_grid(self) -> Tuple[int, int]:
+        return (self.bwd_row_blocks, self.bwd_out_blocks)
+
+    @property
+    def bwd_slab_rows(self) -> int:
+        return BWD_TILE + 2 * self.padding
+
+    def fwd_block(self, bx: int) -> Tuple[int, int, int, int]:
+        """(k1 quarter, k2 quarter, dy, first dx) of forward block column
+        ``bx``, as the kernel decodes blockIdx.x."""
+        tiles = self.quarters ** 2
+        tile, rest = bx % tiles, bx // tiles
+        return (tile // self.quarters, tile % self.quarters, rest // self.fwd_groups,
+                rest % self.fwd_groups * self.fwd_dx_group)
+
+    def fwd_chunk_rows(self, chunk: int) -> Tuple[int, int]:
+        lo = chunk * self.fwd_rows_per_chunk
+        return lo, min(self.n, lo + self.fwd_rows_per_chunk)
+
+    def bwd_out_rows(self, block: int) -> Tuple[int, int]:
+        lo = block * BWD_TILE
+        return lo, min(self.n, lo + BWD_TILE)
+
+    def bwd_out_lanes(self, block: int) -> Tuple[int, int]:
+        """The lanes [lo, hi) of J's C that output block ``block`` writes."""
+        lo = block * LANES
+        return lo, min(self.c, lo + LANES)
+
+    def bwd_block_lanes(self, block: int) -> int:
+        """The lanes output block ``block`` computes: 128 (its m64n128
+        accumulators), or 64 where it holds the row's last quarter alone."""
+        return WIDE_QUARTER if self.lanes - block * LANES <= WIDE_QUARTER else LANES
+
+    def bwd_steps(self) -> List[Tuple[int, int, int]]:
+        """A backward block's K loop, in order: (dy, source quarter, dx)."""
+        return [(dy, kc, dx) for dy in range(self.taps) for kc in range(self.quarters)
+                for dx in range(self.taps)]
+
+    def bwd_slab_window(self, block: int, dy: int) -> Tuple[int, int]:
+        lo, hi = self.bwd_out_rows(block)
+        shift = (dy - self.padding) * self.wp
+        return lo + shift - self.padding, hi + shift + self.padding
 
 
-def lane_tiled_fwd(a: torch.Tensor, b: torch.Tensor,
-                   fwd: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """J [D, C, C] of [N, C] operands of any width from a forward that takes
-    128 lanes (``fwd(A_i, B_j)`` -> [D, 128, 128]): block (i, j) of J is fwd
-    on the 128-lane blocks A_i, B_j, each copied contiguous once, a last
-    partial block (C no multiple of 128) zero-padded to 128 lanes and its
-    rows and columns of J dropped."""
-    tiles = _lane_tiles(a.shape[1])
-    a_t = [_lanes(a, t) for t in tiles]
-    b_t = [_lanes(b, t) for t in tiles]
-    w = [t.stop - t.start for t in tiles]
-    return torch.cat([torch.cat([fwd(ai, bj)[:, :w[i], :w[j]] for j, bj in enumerate(b_t)],
-                                dim=2) for i, ai in enumerate(a_t)], dim=1)
+def _wide_chunks(per_chunk: int, n: int, sm_count: int) -> int:
+    """The forward's chunk count: at least 4 blocks per SM; of the counts up
+    to twice that, the first whose blocks fill their last wave to 95% (else
+    the fullest), and at least 4 stages a chunk."""
+    least = max(1, math.ceil(4 * sm_count / per_chunk))
+    fill = lambda k: per_chunk * k / (math.ceil(per_chunk * k / sm_count) * sm_count)
+    counts = range(least, 2 * least + 1)
+    chunks = next((k for k in counts if fill(k) >= 0.95), max(counts, key=lambda k: (fill(k), -k)))
+    return max(1, min(chunks, math.ceil(n / (4 * FWD_STAGE_ROWS)), 65535))
 
 
-def lane_tiled_bwd(src: torch.Tensor, g: torch.Tensor,
-                   bwd: Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor],
-                   transpose_g: bool) -> torch.Tensor:
-    """The backward products of ``mi_joint_bwd`` for any width from one that
-    takes 128 lanes (``bwd(src_k, g_k, transpose_g)``, returning fp32):
-      transpose_g=False (src = A): dx_tf_j = sum_i bwd(A_i, g_ij, False)
-      transpose_g=True  (src = B): dx_i    = sum_j bwd(B_j, g_ij, True)
-    with g_ij the (i, j) lane block of g [D, C, C]; a last partial block is
-    zero-padded to 128 lanes (in src and g) and its padding dropped from the
-    result. The block results are summed in fp32 and the result is cast to
-    ``src``'s dtype once, so bf16 operands get a gradient rounded once, as
-    at 128 lanes."""
-    tiles = _lane_tiles(src.shape[1])
-    src_t = [_lanes(src, t) for t in tiles]
-    out = []
-    for o in tiles:  # the output's lane block
-        parts = [bwd(src_t[k], _lanes(g, o, t) if transpose_g else _lanes(g, t, o),
-                     transpose_g) for k, t in enumerate(tiles)]
-        out.append(functools.reduce(torch.add, parts)[:, :o.stop - o.start])
-    return torch.cat(out, dim=1).to(src.dtype)
+@functools.lru_cache(maxsize=64)
+def wide_plan(n: int, c: int, padding: int, wp: int, sm_count: int) -> WidePlan:
+    """The wide kernels' launch plan (see ``WidePlan``). The backward's ring
+    takes 6 stages (4 in flight), or 4 where 6 do not fit, and as many slab
+    buffers as it needs: a buffer is refilled bwd_stages - 2 steps ahead of
+    its slab's first step, after the taps steps of each slab between."""
+    if c < 1:
+        raise ValueError(f"no lanes (C = {c})")
+    if n < 1:
+        raise ValueError(f"no rows (N = {n})")
+    _check_geometry(wp, padding)
+    t = 2 * padding + 1
+    lanes = wide_lanes(c)
+    slab = (BWD_TILE + 2 * padding) * WIDE_QUARTER * 2
+    slabs = {s: max(2, math.ceil((s - 2) / t) + 1) for s in (6, 4)}
+    smem = {s: s * LANES * BWD_STAGE_LANES * 2 + k * slab for s, k in slabs.items()}
+    fits = [s for s in (6, 4) if smem[s] <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"padding {padding} needs {smem[4]} bytes of shared memory "
+                         f"(at most {SMEM_LIMIT})")
+    stages = fits[0]
+    group = next(g for g in (7, 5, 3, 1) if t % g == 0)
+    stage = FWD_HALF * 2 * (2 * FWD_STAGE_ROWS + group - 1)
+    per_chunk = (lanes // WIDE_QUARTER) ** 2 * (t // group) * t
+    chunks = _wide_chunks(per_chunk, n, sm_count)
+    rows = math.ceil(math.ceil(n / chunks) / FWD_STAGE_ROWS) * FWD_STAGE_ROWS
+    return WidePlan(n=n, c=c, padding=padding, wp=wp, lanes=lanes, fwd_dx_group=group,
+                    fwd_groups=t // group, fwd_rows_per_chunk=rows,
+                    fwd_chunks=math.ceil(n / rows),
+                    fwd_smem=FWD_STAGES * math.ceil(stage / 1024) * 1024,
+                    bwd_row_blocks=math.ceil(n / BWD_TILE), bwd_out_blocks=math.ceil(c / LANES),
+                    bwd_slabs=slabs[stages], bwd_stages=stages, bwd_smem=smem[stages])
+
+
+def wide_scratch(plan: WidePlan, backward: bool, rows: bool = True) -> ScratchSpec:
+    """The scratch of one wide call, name -> (shape, dtype): the operands'
+    bf16 rows [N, W] (two in the forward, the source in the backward; none
+    with ``rows`` off: bf16 rows of W lanes read in place), the backward's g
+    as H [out blocks, D, 128, W] bf16 and the forward's chunk partials
+    [chunks, D, W, W] fp32."""
+    d = plan.taps ** 2
+    copy = ((plan.n, plan.lanes), torch.bfloat16)
+    if backward:
+        spec = {"s16": copy,
+                "h16": ((plan.bwd_out_blocks, d, LANES, plan.lanes), torch.bfloat16)}
+    else:
+        spec = {"a16": copy, "b16": copy,
+                "partial": ((plan.fwd_chunks, d, plan.lanes, plan.lanes), torch.float32)}
+    return spec if rows else {k: v for k, v in spec.items() if k not in ("a16", "b16", "s16")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -599,8 +721,8 @@ def _whole_width(padding: int, c: int, bf16: bool) -> bool:
 def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
                  bf16: bool = True) -> torch.Tensor:
     """Kernel launch: J [D, C, C] fp32 from flat canvases a, b [N, C] (fp32,
-    or bf16 with bf16 products); in bf16 at p = 0 one launch over all lanes
-    (C <= 256), at p > 0 one launch per pair of 128-lane blocks."""
+    or bf16 with bf16 products); in bf16 at p = 0 over all lanes (C <= 256),
+    above 128 lanes on the wide kernels."""
     _check_operand(a, "a")
     _check_operand(b, "b", a.shape, (a.dtype,))
     if a.device != b.device:
@@ -610,7 +732,7 @@ def mi_joint_fwd(a: torch.Tensor, b: torch.Tensor, wp: int, padding: int,
     if _whole_width(padding, a.shape[1], bf16):
         return _launch_gram_fwd(a, b)
     if bf16 and a.shape[1] > LANES:
-        return lane_tiled_fwd(a, b, lambda x, y: _launch_fwd(x, y, wp, padding, bf16))
+        return _launch_fwd_wide(a, b, wp, padding)
     return _launch_fwd(a, b, wp, padding, bf16)
 
 
@@ -674,6 +796,25 @@ def _launch_fwd(a, b, wp, padding, bf16):
     return out
 
 
+def _launch_fwd_wide(a, b, wp, padding):
+    n, c = a.shape
+    d = (2 * padding + 1) ** 2
+    with _on(a.device):
+        plan = wide_plan(n, c, padding, wp, _sm_count(a.device.index))
+        buf = alloc_scratch(wide_scratch(plan, backward=False, rows=converts_rows(a, b)),
+                            a.device)
+        out = torch.empty((d, c, c), dtype=torch.float32, device=a.device)
+        rc = _library().mi_joint_fwd_wide(
+            a.data_ptr(), b.data_ptr(), int(a.dtype == torch.bfloat16), _ptr(buf, "a16"),
+            _ptr(buf, "b16"), buf["partial"].data_ptr(), out.data_ptr(), n, c, padding, wp,
+            plan.fwd_rows_per_chunk, plan.fwd_chunks, plan.fwd_dx_group, plan.fwd_smem,
+            _stream(a.device))
+    name = kernel_name(FWD, a.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, padding)] += 1
+    return out
+
+
 def _ptr(buf: Dict[str, torch.Tensor], name: str):
     """A scratch buffer's address, None (NULL) where the call has none."""
     return buf[name].data_ptr() if name in buf else None
@@ -682,8 +823,8 @@ def _ptr(buf: Dict[str, torch.Tensor], name: str):
 def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
                  transpose_g: bool, bf16: bool = True) -> torch.Tensor:
     """Kernel launch: out [N, C] in src's dtype (fp32, or bf16 with bf16
-    products); in bf16 one launch per pair of 128-lane blocks, summed in fp32.
-    g [D, C, C] is fp32 (the cotangent of J).
+    products: each fp32 sum rounded once); above 128 lanes in bf16 on the
+    wide kernels. g [D, C, C] is fp32 (the cotangent of J).
 
     transpose_g=False: dx_tf[n] = sum_d src[n + o_d] @ g[d]     (src = A)
     transpose_g=True:  dx[m]    = sum_d src[m - o_d] @ g[d]^T   (src = B)
@@ -699,17 +840,32 @@ def mi_joint_bwd(src: torch.Tensor, g: torch.Tensor, wp: int, padding: int,
     if _whole_width(padding, c, bf16):
         return _launch_gram_bwd(src, g, transpose_g)
     if bf16 and c > LANES:
-        return lane_tiled_bwd(
-            src, g, lambda s, h, tr: _launch_bwd(s, h, wp, padding, tr, bf16, torch.float32),
-            transpose_g)
-    return _launch_bwd(src, g, wp, padding, transpose_g, bf16, src.dtype)
+        return _launch_bwd_wide(src, g, wp, padding, transpose_g)
+    return _launch_bwd(src, g, wp, padding, transpose_g, bf16)
 
 
-def _launch_bwd(src, g, wp, padding, transpose_g, bf16, out_dtype):
+def _launch_bwd_wide(src, g, wp, padding, transpose_g):
+    n, c = src.shape
+    with _on(src.device):
+        plan = wide_plan(n, c, padding, wp, _sm_count(src.device.index))
+        buf = alloc_scratch(wide_scratch(plan, backward=True, rows=converts_rows(src)),
+                            src.device)
+        out = torch.empty((n, c), dtype=src.dtype, device=src.device)
+        rc = _library().mi_joint_bwd_wide(
+            src.data_ptr(), int(src.dtype == torch.bfloat16), g.data_ptr(), _ptr(buf, "s16"),
+            buf["h16"].data_ptr(), out.data_ptr(), n, c, padding, wp, int(transpose_g),
+            plan.bwd_stages, plan.bwd_slabs, plan.bwd_smem, _stream(src.device))
+    name = kernel_name(BWD_DX if transpose_g else BWD_DX_TF, src.dtype)
+    _check(rc, name)
+    LAUNCHES[(name, padding)] += 1
+    return out
+
+
+def _launch_bwd(src, g, wp, padding, transpose_g, bf16):
     n, c = src.shape
     lib = _library()
     with _on(src.device):
-        out = torch.empty((n, c), dtype=out_dtype, device=src.device)
+        out = torch.empty((n, c), dtype=src.dtype, device=src.device)
         stream = _stream(src.device)
         if bf16:
             plan = launch_plan(n, c, padding, wp, _sm_count(src.device.index))
@@ -719,8 +875,7 @@ def _launch_bwd(src, g, wp, padding, transpose_g, bf16, out_dtype):
                         stream)
             if src.dtype == torch.bfloat16:
                 rc = lib.mi_joint_bwd_bf16in(src.data_ptr(), g.data_ptr(), _ptr(buf, "s16"),
-                                             buf["h16"].data_ptr(), out.data_ptr(),
-                                             int(out_dtype == torch.bfloat16), *geometry)
+                                             buf["h16"].data_ptr(), out.data_ptr(), *geometry)
             else:
                 rc = lib.mi_joint_bwd_bf16(src.data_ptr(), g.data_ptr(), buf["s16"].data_ptr(),
                                            buf["h16"].data_ptr(), out.data_ptr(), *geometry)

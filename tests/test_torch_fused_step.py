@@ -246,3 +246,53 @@ def test_fused_step_needs_one_full_map_tile():
         iic_regularization(proj, feats, flips, 1, 2, ["Up_conv2"], [1], [4], "auto")
     losses = iic_regularization(proj, feats, flips, 1, 2, ["Up_conv2"], [1], [8], "auto")
     assert torch.isfinite(losses["Up_conv2"])
+
+
+def test_wide_head_on_auto_hands_the_joint_its_live_lanes(tmp_path, monkeypatch):
+    """DecoderParams.num_clusters=30 (5 x 30 = 150 live lanes in the heads'
+    256) on Kernel.backend=auto: a step at crop 16 hands the flat loss front
+    door the S*K = 150 live lanes alone at both decoder taps (above 128 lanes
+    the joint's wide kernels then compute the quarters that hold a live lane:
+    9 quarter tiles of J, not 16). Each tap's MI equals the JAX package's
+    flat loss on the heads' whole 256-lane maps (the 150 lanes and 106 zero
+    ones; its Pallas joint in interpret mode) within rtol 1e-4 plus 1e-6
+    nats: the dead lanes add nothing to J, and both sides round the same
+    operands to bf16 (the MI sits near 0 at init, where a relative bound
+    alone means little; measured 1.4e-7 and 9.1e-8 nats, and the same with
+    the dead lanes handed to the joint)."""
+    import jax.numpy as jnp
+
+    from mi_based_regularized_semi_supervised_segmentation_tpu.ops.iic_local import (
+        iid_segmentation_small_patch_loss_flat as jax_loss_flat,
+    )
+    from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import steps
+
+    taps = []
+    real = steps.iid_segmentation_small_patch_loss_flat
+
+    def spy(x, x_tf, S, K, **kwargs):
+        taps.append((x.detach().numpy(), x_tf.detach().numpy(), S, K, kwargs["padding"],
+                     kwargs["patch_size"]))
+        return real(x, x_tf, S, K, **kwargs)
+
+    monkeypatch.setattr(steps, "iid_segmentation_small_patch_loss_flat", spy)
+    crop = 16
+    trainer = _trainer(tmp_path, backend="auto", crop=crop,
+                       DecoderParams={"num_clusters": 30, "num_subheads": 5})
+    trainer.init()
+    assert not trainer._projector.local_emit_logits
+    assert trainer._projector.heads["Up_conv2"](torch.zeros(1, 4, 4, 16)).shape[-1] == 256
+    rng = np.random.default_rng(0)
+    batch = {"labeled_image": torch.tensor(rng.random((2, crop, crop, 1), dtype=np.float32)),
+             "labeled_target": torch.tensor(rng.integers(0, 4, (2, crop, crop)),
+                                            dtype=torch.int32),
+             "unlabeled_image": torch.tensor(rng.random((3, crop, crop, 1), dtype=np.float32))}
+    metrics = trainer._train_step(batch)
+    assert [(t[0].shape, t[2:5]) for t in taps] == [((3, 10, 10, 150), (5, 30, 1)),
+                                                   ((3, 22, 22, 150), (5, 30, 3))]
+    dead = ((0, 0), (0, 0), (0, 0), (0, 256 - 150))
+    for name, (x, x_tf, S, K, padding, patch) in zip(("Up_conv3", "Up_conv2"), taps):
+        want = -float(jax_loss_flat(jnp.asarray(np.pad(x, dead)), jnp.asarray(np.pad(x_tf, dead)),
+                                    S, K, padding, patch, backend="auto", pre_padded=True))
+        np.testing.assert_allclose(float(metrics[f"individual_mis/{name}"]), want, rtol=1e-4,
+                                   atol=1e-6, err_msg=name)

@@ -320,32 +320,37 @@ def test_launch_setup_is_the_joints_plan_and_scratch(n, wp, padding):
 
 
 @pytest.mark.parametrize("n,wp,padding", [(529_000, 230, 3), (129_960, 114, 1)])
-def test_launch_setup_at_256_lanes(n, wp, padding):
-    """At C = 256 the plan is the 128-lane one; the bf16 copies hold two lane
-    blocks, H four block pairs, and the backward alone adds the [N, 256] fp32
-    dq that its products sum into (the VJP's group sums straddle the blocks);
-    the forward's chunk partials are one pair's."""
+@pytest.mark.parametrize("live", [WIDE, 150])
+def test_launch_setup_at_256_lanes(n, wp, padding, live):
+    """At C = 256 the plan is the joint's wide plan for the S*K live lanes:
+    rows of W = 64 ceil(S*K / 64) lanes (192 at 5 x 30: the quarter past
+    S*K is neither stored nor computed), one bf16 copy of W lanes an
+    operand, H of the live 128-lane output blocks, the forward's chunk
+    partials of W x W, and the backward alone adds the [N, 256] fp32 dq that
+    its product writes (the VJP's group sums straddle the blocks)."""
     from mi_based_regularized_semi_supervised_segmentation_tpu_torch.ops import mi_joint
 
     d = (2 * padding + 1) ** 2
+    w = 64 * -(-live // 64)
     for backward in (False, True):
-        plan, spec = mi_fused.launch_setup(n, wp, padding, 132, backward, lanes=WIDE)
-        assert plan == mi_joint.launch_plan(n, C, padding, wp, 132)
-        narrow = mi_joint.bf16_scratch(plan, backward)
+        plan, spec = mi_fused.launch_setup(n, wp, padding, 132, backward, lanes=WIDE, live=live)
+        assert plan == mi_joint.wide_plan(n, live, padding, wp, 132)
+        assert plan.lanes == w and plan.quarters ** 2 == (9 if live == 150 else 16)
         if backward:
-            assert spec == {"s16": ((2, n, C), torch.bfloat16),
-                            "h16": ((4, d, C, C), torch.bfloat16),
+            assert spec == {"s16": ((n, w), torch.bfloat16),
+                            "h16": ((2, d, C, w), torch.bfloat16),
                             "dq": ((n, WIDE), torch.float32)}
         else:
-            assert spec == {"a16": ((2, n, C), torch.bfloat16),
-                            "b16": ((2, n, C), torch.bfloat16), "partial": narrow["partial"]}
+            assert spec == {"a16": ((n, w), torch.bfloat16), "b16": ((n, w), torch.bfloat16),
+                            "partial": ((plan.fwd_chunks, d, w, w), torch.float32)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes,clusters", [(C, 20), (WIDE, 30)])
+@pytest.mark.parametrize("lanes,clusters", [(C, 20), (WIDE, 30), (WIDE, 20)])
 def test_kernels_match_plain_on_card(lanes, clusters):
     """The CUDA kernels against the plain version on a small canvas (padding
-    3, S x K = 5 x 20 in 128 lanes, 5 x 30 in 256): fp32 logits in both
+    3, S x K = 5 x 20 in 128 lanes, 5 x 30 in 256, and 5 x 20 in 256: rows
+    of two live quarters, one output block): fp32 logits in both
     operand modes, then bf16 logits
     with -inf dead lanes (the bf16 heads' output), 1e-4 of the largest entry,
     except the logit gradients of the bf16 products at 1e-2. There t is

@@ -31,9 +31,9 @@ test holds, and why at that tolerance:
   products, another order), the bf16 gradients within 1 bf16 ulp (the fp32
   sums rounded once on both sides) beside an absolute floor of 1e-5 of the
   largest entry (where a sum cancels to near 0, its summation order moves it
-  by more than a bf16 step of so small a value). At 256 lanes the tiled
-  backward is checked to round once, on integer inputs whose fp32 sums are
-  exact.
+  by more than a bf16 step of so small a value). Above 128 lanes the wide
+  kernels' backward decomposition is checked to round once, on integer
+  inputs whose fp32 sums are exact.
 - One bf16 step (udaiic on both data paths, the fused logits branch,
   meanteacher) against the JAX bf16 step, which is compiled with XLA's
   ``xla_allow_excess_precision`` off: by default XLA may keep a jitted
@@ -74,6 +74,7 @@ import pytest
 import torch
 
 from test_torch_checkpoints import make_config, make_loaders
+from test_torch_mi_joint import _wide_by_plan
 from test_torch_device_data import jax_draws
 from test_torch_step import BL, BU, C, CROP, FEATS, IMPORTANCE, K, LR, S, WD, _np_tree, \
     _port_state
@@ -393,33 +394,26 @@ def test_bf16_joint_matches_pallas_and_rounds_gradients_once(rng, padding, lanes
     assert _near(tx.grad, _bf16(jdx)) and _near(ty.grad, _bf16(jdy))
 
 
-def test_bf16_lane_tiled_backward_rounds_once_at_256_lanes(rng):
+@pytest.mark.parametrize("c", [150, 256])
+def test_bf16_wide_backward_rounds_once(rng, c):
     """Integer operands: every fp32 sum is exact, so the gradient rounded once
-    is exact.to(bf16), bit for bit; rounding each 128-lane block's sum first
-    would differ (checked)."""
-    padding, c = 1, 256
-    hp, wp = 9, 8
+    is exact.to(bf16), bit for bit, from the wide kernels' decomposition
+    (each output block's displacements and K quarters summed in its fp32
+    accumulators, then cast); rounding each K quarter's sum first would
+    differ (checked)."""
+    padding, hp, wp = 1, 9, 8
     n, d = 2 * hp * wp, (2 * padding + 1) ** 2
     src = torch.tensor(rng.integers(0, 9, (n, c)).astype(np.float32)).to(torch.bfloat16)
     g = torch.tensor(rng.integers(-40, 41, (d, c, c)).astype(np.float32))
-    blocks = lambda out_dtype: lambda s, h, tr: _plain_bwd(s, h, wp, padding, tr, out_dtype)
-    for transpose_g in (False, True):
-        exact = mi_joint.lane_tiled_bwd(src.float(), g, blocks(torch.float32), transpose_g)
-        got = mi_joint.lane_tiled_bwd(src, g, blocks(torch.float32), transpose_g)
+    plan = mi_joint.wide_plan(n, c, padding, wp, 4)
+    _, dx, dx_tf = _wide_by_plan(src, src, g, plan, torch.bfloat16)
+    _, dx_each, dx_tf_each = _wide_by_plan(src, src, g, plan, torch.bfloat16, round_each=True)
+    for transpose_g, got, each in ((True, dx, dx_each), (False, dx_tf, dx_tf_each)):
+        exact = mi_joint.joint_bwd_plain_flat(src.float(), g, wp, padding, transpose_g,
+                                              torch.bfloat16)
         assert got.dtype == torch.bfloat16
         assert torch.equal(got.view(torch.int16), exact.to(torch.bfloat16).view(torch.int16))
-        twice = mi_joint.lane_tiled_bwd(src.float(), g, blocks(torch.bfloat16), transpose_g)
-        assert not torch.equal(twice.to(torch.bfloat16), got)
-
-
-def _plain_bwd(src, g, wp, padding, transpose_g, out_dtype):
-    """One 128-lane block's backward product by autograd of the plain joint,
-    in ``out_dtype`` (J is linear in each operand, so the other may be 0)."""
-    src = src.float()
-    other = torch.zeros_like(src, requires_grad=True)
-    pair = (other, src) if transpose_g else (src, other)
-    joint = mi_joint.displaced_joint_plain_flat(*pair, wp, padding, torch.bfloat16)
-    return torch.autograd.grad(joint, other, g)[0].to(out_dtype).float()
+        assert not torch.equal(each, got)
 
 
 def _logits(rng, b, hp, wp, sk):
