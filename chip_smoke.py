@@ -128,6 +128,27 @@ Phases, each printing JSON lines:
   train_remat  the host-path trainer with and without Arch.remat=true from
            the same seed, 3 steps on one batch: the same losses (the first
            step bit for bit), a lower peak of device memory
+  train_graph  the headline udaiic trainer through ``main.main`` with its
+           step captured as a CUDA graph (the default on a card) against the
+           eager step (jit=False), 20 steps from the same weights and
+           generator seed, run eager, graph, eager, in six cases: the host
+           path in fp32 and bf16, the device path (shear) in fp32 and bf16 in
+           chunks of 8 (a short last chunk), and in bf16 with
+           Kernel.augment=epoch and with Trainer.pipelined_scan (the fp32
+           cases under cuDNN's deterministic algorithms): each step's losses,
+           graph against eager within 1e-5 (fp32) / 2e-3 (bf16) relative and
+           eager against eager (the floor; the limit twice the floor where it
+           is higher), the
+           parameters after 20 steps within 1e-5 of the largest (fp32), the
+           flip masks of steps 3-5 bit for bit under replay, the generator at
+           the same offset, the kernel launches a step equal (counted a
+           replay), and over a profiled window the hand-written kernels by
+           name equal to the eager run's and to the launches the wrappers
+           counted there; each run's median step wall, device ms (profiler), busy
+           share, host ms a step and peak memory. The other train phases
+           check that their step (host path) or scan chunks (device path)
+           ran as graphs; a configuration that stays eager prints why
+           (``engine/trainer.py:graph_unmet``)
   resume   the headline udaiic trainer through ``main.main`` for one epoch of
            4 steps, then ``Checkpoint=<that run dir>``: the loaded state equals
            last.pth bit for bit (model, projector, Adam, step counter,
@@ -332,6 +353,31 @@ STEP_BF16_LOOSE = 0.2
 STEP_BF16_LIVENESS = 0.75
 STEP_BF16_HEADS_LOOSE = 0.1
 BF16 = ("Precision.compute_dtype=bfloat16", "Precision.bn_dtype=bfloat16")
+# train_graph: the headline step as a CUDA graph against the eager step
+# (jit=False), GRAPH_STEPS steps from the same weights and generator seed a
+# case; the device cases in chunks of GRAPH_CHUNK (20 = 8 + 8 + 4: a short
+# last chunk). Losses within GRAPH_LOSS_TOL (relative) in fp32 and bf16,
+# parameters within GRAPH_PARAM_TOL of the largest entry (fp32), or twice
+# the eager-against-eager difference where two eager runs differ by more
+# The fp32 cases run cuDNN's deterministic algorithms: by default two eager
+# fp32 runs part from their second step on (cuDNN's fp32 weight gradients
+# sum in another order from run to run), by ~1e-5 of the MI (a loss near
+# 0), a floor that would hide a graph's fault; the bf16 runs are
+# deterministic as they are
+GRAPH_STEPS = 20
+GRAPH_CHUNK = 8
+GRAPH_LOSS_TOL = {"fp32": 1e-5, "bf16": 2e-3}
+GRAPH_PARAM_TOL = 1e-5
+GRAPH_DEVICE = ("Trainer.device_data=true", f"Trainer.scan_chunk={GRAPH_CHUNK}",
+                "Kernel.geometry=shear")
+GRAPH_CASES = (("host_fp32", "fp32", ()), ("host_bf16", "bf16", BF16),
+               ("device_shear_fp32", "fp32", GRAPH_DEVICE),
+               ("device_shear_bf16", "bf16", BF16 + GRAPH_DEVICE),
+               ("device_preaug_bf16", "bf16", BF16 + GRAPH_DEVICE + ("Kernel.augment=epoch",)),
+               ("device_pipelined_bf16", "bf16",
+                BF16 + GRAPH_DEVICE + ("Trainer.pipelined_scan=true",)))
+GRAPH_DRAWN = slice(2, 5)  # steps 3-5: the capture's step and the first replays
+GRAPH_LOSSES = ("sup_loss", "reg_loss", "uda", "mi", "total_loss")
 # train_heads: mlp heads at every position, the decoder heads normalized
 HEADS = ("IICRegParameters.EncoderParams.head_types=mlp",
          "IICRegParameters.DecoderParams.head_types=mlp",
@@ -445,6 +491,9 @@ def host_ms(fn, reps: int) -> float:
     return ms
 
 
+PROFILE_TRIES = 5  # profiler sessions device_profile takes at most
+
+
 def device_profile(fn, reps: int, warmup: int = 2) -> dict:
     """Per call, by kernel name: (device ms, launches) of every kernel that
     ``reps`` calls of ``fn`` launch (torch.profiler), divided by ``reps``."""
@@ -455,11 +504,12 @@ def device_profile(fn, reps: int, warmup: int = 2) -> dict:
         fn()
     # a profiling session now and then records no device activity at all,
     # or loses some of a window's records (seen on the card for a window of
-    # a few microsecond-kernels: one launch of three calls recorded): take
-    # it again, up to three times, until every kernel's count is a whole
-    # number of launches a call, rather than report a part of the window
+    # a few microsecond-kernels: one launch of three calls recorded; and,
+    # rarely, three sessions in a row with nothing): take it again, up to
+    # PROFILE_TRIES times, until every kernel's count is a whole number
+    # of launches a call, rather than report a part of the window
     last: dict = {}
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -478,7 +528,8 @@ def device_profile(fn, reps: int, warmup: int = 2) -> dict:
                 return split
     if last:
         return last  # the last session that saw any: the callers' checks see its counts
-    raise RuntimeError("check failed: the profiler saw no device time in three sessions")
+    raise RuntimeError(f"check failed: the profiler saw no device time in {PROFILE_TRIES} "
+                       "sessions")
 
 
 def device_split(fn, reps: int, warmup: int = 2) -> dict:
@@ -1652,7 +1703,7 @@ def _step_run(device: str, dtype, fused: bool, stem: str, heads=None, patch: int
     step = steps.build_train_step(
         model, opt, "udaiic", num_classes=3, generator=torch.Generator(device=device),
         feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj, uda_weight=10.0,
-        iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=patch)
+        iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=patch, jit=False)
     before = {k: p.detach().cpu().clone() for k, p in params}
     mj.reset_launch_counts()
     mf.reset_launch_counts()
@@ -1804,7 +1855,7 @@ def phase_step_device() -> None:
             model, opt, "udaiic", num_classes=4, generator=torch.Generator(device=device),
             feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
             uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024,
-            data_store=store, crop=32, geometry="shear")
+            data_store=store, crop=32, geometry="shear", jit=False)
         mj.reset_launch_counts()
         rot.reset_launch_counts()
         dev_aug = {k: {n: None if t is None else t.to(device) for n, t in v.items()}
@@ -1853,7 +1904,7 @@ def phase_step_meanteacher() -> None:
         step = steps.build_train_step(
             model, opt, "meanteacher", num_classes=3, generator=torch.Generator(device=device),
             teacher=teacher, reg_weight=10.0, ema_alpha=0.999, ema_weight_decay=1e-6,
-            step_counter=counter)
+            step_counter=counter, jit=False)
         metrics = step({k: torch.from_numpy(v).to(device) for k, v in batch_np.items()},
                        flip_mask=flip_mask)
         check(int(counter) == 1, f"{device}: step counter {int(counter)}")
@@ -1910,6 +1961,8 @@ def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", ru
     t0 = time.perf_counter()
     trainer = main_mod.main(argv)
     wall = time.perf_counter() - t0
+    graph = graph_wanted(trainer)
+    check(graphed(trainer) == graph, f"{phase}: graphed {graphed(trainer)}, the gate {graph}")
     used, other = (mf, mj) if fused else (mj, mf)
     counts = {f"{name}/p{p}": v for (name, p), v in sorted(used.LAUNCHES.items())}
     launches = sum(used.LAUNCHES.values())
@@ -1938,7 +1991,7 @@ def phase_train(steps: int, backend: str = "auto", extra=(), phase: str = "", ru
     check(0.0 <= val_dsc <= 1.0, f"val DSC {val_dsc}")
     step_ms = statistics.median(trainer.step_times_ms[1:])
     out = {"phase": phase, "backend": backend, "dtype": str(dtype), "steps": steps,
-           "batch": [4, 10], "crop": 224, "extra": list(extra),
+           "batch": [4, 10], "crop": 224, "extra": list(extra), "graph": graph,
            "launches": counts, "launches_per_step": launches / steps, "losses": losses,
            "val_dsc_mean": val_dsc, "first_step_ms": trainer.step_times_ms[0],
            "median_step_ms": step_ms, "step_ms": trainer.step_times_ms,
@@ -2160,6 +2213,9 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4, extra=(), phas
     t0 = time.perf_counter()
     trainer = main_mod.main(argv)
     wall = time.perf_counter() - t0
+    graph = graph_wanted(trainer)
+    check(graphed(trainer) == graph, f"{phase} {geometry}: graphed {graphed(trainer)}, the "
+                                     f"gate {graph}")
     rot_launches, joint_launches = dict(rot.LAUNCHES), dict(mj.LAUNCHES)
     n_rot, n_joint = rot.launch_count(rot.ROTATE), sum(joint_launches.values())
     want_rot = 2 * steps if geometry == "shear" else 0  # the labeled pair, the unlabeled batch
@@ -2178,7 +2234,7 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4, extra=(), phas
     per_chunk = trainer.step_times_ms[::chunk]
     steady = statistics.median(trainer.step_times_ms[chunk:]) if steps > chunk else per_chunk[0]
     out = {"phase": phase, "geometry": geometry, "dtype": str(dtype), "steps": steps,
-           "scan_chunk": chunk, "batch": [4, 10], "crop": 224,
+           "scan_chunk": chunk, "batch": [4, 10], "crop": 224, "graph": graph,
            "rotation_launches": {f"{n}/B{b}": v for (n, b), v in sorted(rot_launches.items())},
            "rotation_launches_per_step": n_rot / steps,
            "joint_launches_per_step": n_joint / steps, "losses": losses, "val_dsc_mean": val_dsc,
@@ -2190,6 +2246,309 @@ def phase_train_device(steps: int, geometry: str, chunk: int = 4, extra=(), phas
            "wall_s": wall}
     emit(out)
     return trainer, rot_launches, joint_launches, out
+
+
+def graph_wanted(trainer) -> bool:
+    """Whether the trainer's gate (graph_unmet) lets its step run as a CUDA
+    graph; where it does not, the trainer printed the reason."""
+    gate = port("engine.trainer").graph_unmet
+    return gate(trainer._config, trainer._device, trainer._teacher, trainer._ctx) is None
+
+
+def graphed(trainer) -> bool:
+    """Whether the trainer's step (host path) or scan chunk (device path)
+    runs as a captured CUDA graph."""
+    graphs = port("engine.graphs")
+    if trainer._epoch_scan:
+        chunks = getattr(trainer._epoch_fn, "chunks", None)
+        return chunks is not None and chunks.graph.captured
+    step = trainer._train_step
+    step = getattr(step, "inner", step)
+    return isinstance(step, graphs.GraphStep) and step._graph.captured
+
+
+class _DrawnMasks:
+    """A host-path step that keeps each step's flip mask: ``masks`` gets the
+    tensor of every draw (under replay the graph's own, rewritten each
+    replay), ``drawn`` a copy of it after each step."""
+
+    def __init__(self, inner, masks: list) -> None:
+        self.inner, self.masks, self.drawn = inner, masks, []
+
+    def __call__(self, batch):
+        metrics = self.inner(batch)
+        self.drawn.append(self.masks[-1].clone())
+        return metrics
+
+
+def _graph_run(case: str, extra, eager: bool) -> dict:
+    """One run of a train_graph case through ``main.main``: GRAPH_STEPS steps
+    (one epoch), the eager step when ``eager`` (the trainer's step and scan
+    builders given jit=False; the optimizer is built for a graph either
+    way), recording each step's metrics (and on the host path its flip
+    mask), then the step's device time by the profiler, the hand-written
+    kernels it ran and the launches counted meanwhile, its host time and the
+    parameters."""
+    import numpy as np
+    import torch
+
+    main_mod, trainer_mod, steps_mod = port("main"), port("engine.trainer"), port("engine.steps")
+    mj, mf, rot = port("ops.mi_joint"), port("ops.mi_fused"), port("ops.rotate")
+    device_data = "Trainer.device_data=true" in extra
+    per_step, masks, wrapped = [], [], []
+    scans = ("build_epoch_scan", "build_epoch_scan_preaug", "build_epoch_scan_pipelined")
+    orig = {"add": trainer_mod.SemiTrainer._add_step_metrics,
+            "build": trainer_mod.build_train_step, "draw": steps_mod.sample_flip_mask,
+            **{name: getattr(trainer_mod, name) for name in scans}}
+
+    def add(self, meters, metrics, groups):
+        per_step.append({k: np.array(v, copy=True) for k, v in metrics.items()})
+        return orig["add"](self, meters, metrics, groups)
+
+    def build(*a, **k):
+        step = orig["build"](*a, **{**k, "jit": k["jit"] and not eager})
+        if device_data:
+            return step
+        wrapped.append(_DrawnMasks(step, masks))
+        return wrapped[-1]
+
+    trainer_mod.SemiTrainer._add_step_metrics = add
+    trainer_mod.build_train_step = build
+    steps_mod.sample_flip_mask = lambda *a, **k: masks.append(orig["draw"](*a, **k)) or masks[-1]
+    if eager:
+        for name in scans:
+            setattr(trainer_mod, name, lambda *a, _f=orig[name], **k: _f(*a, **{**k, "jit": False}))
+    for m in (mj, mf, rot):
+        m.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = main_mod.main([
+            "Data.synthetic=true", "Data.labeled_data_ratio=0.25",
+            "Data.unlabeled_data_ratio=0.75", "Trainer.name=udaiic",
+            f"Trainer.num_batches={GRAPH_STEPS}", "Trainer.max_epoch=1", "Trainer.device=cuda",
+            f"Trainer.save_dir=chip_smoke_graph_{case}_{'eager' if eager else 'graph'}",
+            "Trainer.step_timing=true", *extra])
+    finally:
+        for name in ("build_train_step",) + scans:
+            setattr(trainer_mod, name, orig["build" if name == "build_train_step" else name])
+        trainer_mod.SemiTrainer._add_step_metrics = orig["add"]
+        steps_mod.sample_flip_mask = orig["draw"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    drawn = list(wrapped[0].drawn) if wrapped else []  # the run's steps (profiled ones follow)
+    offset = trainer._generator.get_offset()
+    launches = {name: sum(m.LAUNCHES.values()) / GRAPH_STEPS
+                for name, m in (("mi_joint", mj), ("mi_fused", mf), ("rotate", rot))}
+    check(len(per_step) == GRAPH_STEPS, f"train_graph {case}: {len(per_step)} steps recorded")
+    check(graphed(trainer) != eager, f"train_graph {case}: graphed {graphed(trainer)}, "
+                                     f"eager {eager}")
+    params = torch.cat([p.detach().float().flatten().cpu() for p in chain(
+        trainer._model.parameters(), trainer._projector.parameters())])
+    times = trainer.step_times_ms
+    # the step's device time (profiler), wall and host time, after the run
+    if device_data:
+        fn = trainer._epoch_fn
+        lab = [b["indices"] for b, _ in zip(trainer._labeled_index_loader, range(GRAPH_CHUNK))]
+        unlab = [b["indices"] for b, _ in zip(trainer._unlabeled_index_loader,
+                                             range(GRAPH_CHUNK))]
+        batches = {"labeled_indices": trainer._to_device(np.stack(lab)),
+                   "unlabeled_indices": trainer._to_device(np.stack(unlab))}
+        call = (lambda: fn(batches, 5)) if trainer._pipelined else (lambda: fn(batches))
+        per_call = GRAPH_CHUNK
+    else:
+        lab, unlab = next(zip(trainer._labeled_loader, trainer._unlabeled_loader))
+        batch = {"labeled_image": trainer._to_device(lab["image"]),
+                 "labeled_target": trainer._to_device(lab["target"]),
+                 "unlabeled_image": trainer._to_device(unlab["image"])}
+        call, per_call = (lambda: trainer._train_step(batch)), 1
+    device, wall, kernels, ours, counted = _profiled(call, 1 if device_data else 3, per_call)
+    host = host_ms(call, 1 if device_data else 5) / per_call
+    out = {"per_step": per_step, "params": params, "generator_offset": offset, "drawn": drawn,
+           "line": {"median_step_ms": statistics.median(times[2:]) if len(times) > 2 else None,
+                    "step_ms": times, "device_ms_per_step": device,
+                    "loop_wall_ms_per_step": wall, "busy_share": device / wall,
+                    "host_ms_per_step": host, "peak_gib": peak,
+                    "launches_per_step": launches,
+                    "device_kernels_per_step": kernels,
+                    "handwritten_kernels_per_step": dict(sorted(ours.items())),
+                    "launches_per_step_profiled": counted,
+                    "epoch_wall_s": trainer.epoch_times_s[0]}}
+    return out
+
+
+def handwritten_kernels() -> tuple:
+    """The names of the port's hand-written CUDA kernels: every
+    ``__global__`` function in its ``csrc/``."""
+    import re
+
+    names = set()
+    for src in sorted((Path(__file__).resolve().parent / PORT / "csrc").glob("*.cu*")):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*[<(]",
+                                src.read_text()))
+    return tuple(sorted(names))
+
+
+def _handwritten(kernel: str, names: tuple):
+    """The hand-written kernel that the profiler's ``kernel`` name is (its
+    demangled signature), or None."""
+    import re
+
+    return next((n for n in names if re.search(rf"(?<!\w){n}\s*[<(]", kernel)), None)
+
+
+def _profiled(call, reps: int, per_call: int) -> tuple:
+    """(device ms, wall ms, device kernels, {hand-written kernel:
+    launches}, {wrapper module: LAUNCHES}) a step over ``reps`` calls of
+    ``call`` (``per_call`` steps each) after one more, in one profiler
+    window (the wall its host clock, the window's overhead included); the
+    last two from the profiler's kernel names and from the wrappers' counts
+    over the same window."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    mods = {name: port(f"ops.{name}") for name in ("mi_joint", "mi_fused", "rotate")}
+    names = handwritten_kernels()
+    call()
+    torch.cuda.synchronize()
+    before = {name: collections.Counter(m.LAUNCHES) for name, m in mods.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    steps = reps * per_call
+    counted = {name: {f"{k}/{p}": v / steps for (k, p), v in
+                      sorted((m.LAUNCHES - before[name]).items())} for name, m in mods.items()}
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    ours = collections.Counter()
+    for e in events:
+        name = _handwritten(e.key, names)
+        if name is not None:
+            ours[name] += e.count
+    return (sum(e.self_device_time_total for e in events) / 1e3 / steps, wall / steps,
+            sum(e.count for e in events) / steps, {k: v / steps for k, v in ours.items()}, counted)
+
+
+def _graph_diffs(a: dict, b: dict) -> dict:
+    """The largest relative loss difference over the steps, the largest
+    parameter difference over the largest entry, and the largest loss
+    difference of each step."""
+    import numpy as np
+
+    steps = [max(abs(float(y[k]) - float(x[k])) / max(abs(float(x[k])), 1e-12)
+                 for k in GRAPH_LOSSES) for x, y in zip(a["per_step"], b["per_step"])]
+    scale = float(a["params"].abs().max())
+    return {"loss_rel": max(steps), "loss_rel_by_step": steps,
+            "param_rel": float((b["params"] - a["params"]).abs().max()) / scale,
+            "finite": bool(np.isfinite([float(x["total_loss"]) for x in b["per_step"]]).all())}
+
+
+def _check_replayed_kernels(case: str, graph: dict, eager: dict) -> None:
+    """That the replays ran the hand-written kernels: by the profiler's
+    kernel names over the same window, the graph run launched each as often
+    a step as the eager run; the rotation kernel once for each rotation
+    launch the wrappers counted (one a call), the MI kernels at least once
+    for each joint or fused launch counted (1-3 device kernels a call)."""
+    ours, counted = graph["handwritten_kernels_per_step"], graph["launches_per_step_profiled"]
+    check(ours == eager["handwritten_kernels_per_step"],
+          f"train_graph {case}: hand-written kernels a step {ours}, eager "
+          f"{eager['handwritten_kernels_per_step']}")
+    check(counted == eager["launches_per_step_profiled"],
+          f"train_graph {case}: launches counted a step {counted}, eager "
+          f"{eager['launches_per_step_profiled']}")
+    rot = port("ops.rotate")
+    n_rot = sum(v for k, v in counted["rotate"].items() if k.startswith(rot.ROTATE + "/"))
+    check(ours.get("rotate_shear_kernel", 0) == n_rot,
+          f"train_graph {case}: {ours.get('rotate_shear_kernel', 0)} rotation kernels a step, "
+          f"{n_rot} counted")
+    n_mi = sum(counted["mi_joint"].values()) + sum(counted["mi_fused"].values())
+    mi_kernels = sum(v for k, v in ours.items() if not k.startswith(("rotate_", "lane_roll_")))
+    check(0 < n_mi <= mi_kernels,
+          f"train_graph {case}: {mi_kernels} MI kernels a step for {n_mi} counted launches")
+
+
+def phase_train_graph() -> dict:
+    """The headline udaiic trainer through ``main.main`` with the step as a
+    CUDA graph against the eager step (the trainer's build_train_step and
+    scans given jit=False), GRAPH_STEPS steps
+    from the same weights and generator seed, in each of GRAPH_CASES: the
+    host path and the device path (shear) in fp32 and bf16, and in bf16
+    with Kernel.augment=epoch and with pipelined_scan (chunks of
+    GRAPH_CHUNK: a short last one); the fp32 cases under cuDNN's
+    deterministic algorithms. Runs eager, graph, eager: each step's losses, the largest
+    relative difference graph against eager and eager against eager (the
+    noise floor), the parameters after the steps, within GRAPH_LOSS_TOL and
+    GRAPH_PARAM_TOL (fp32) or twice the floor where it is above them; the
+    flip masks of steps 3-5 (the capture's step and the first replays) equal
+    the eager run's bit for bit on the host path; the generator at the same
+    offset; the kernel launches a step equal, and over a profiled window
+    the hand-written kernels by name (``_check_replayed_kernels``); each
+    run's median step wall,
+    device ms (profiler), busy share, host ms a step, peak memory. Returns
+    the graph runs' lines by case."""
+    import gc
+
+    import torch
+
+    lines = {}
+    deterministic = torch.backends.cudnn.deterministic
+    for case, dtype, extra in GRAPH_CASES:
+        runs = []
+        torch.backends.cudnn.deterministic = dtype == "fp32"
+        try:
+            for eager in (True, False, True):
+                runs.append(_graph_run(case, extra, eager=eager))
+                gc.collect()  # the run's trainer and graphs, then their memory
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        eager, graph, eager2 = runs
+        diff, floor = _graph_diffs(eager, graph), _graph_diffs(eager, eager2)
+        loss_lim = max(GRAPH_LOSS_TOL[dtype], 2 * floor["loss_rel"])
+        param_lim = max(GRAPH_PARAM_TOL, 2 * floor["param_rel"])
+        check(diff["finite"], f"train_graph {case}: a non-finite loss")
+        check(diff["loss_rel"] <= loss_lim, f"train_graph {case}: losses {diff['loss_rel']} "
+                                            f"apart (limit {loss_lim}, floor {floor['loss_rel']})")
+        if dtype == "fp32":
+            check(diff["param_rel"] <= param_lim,
+                  f"train_graph {case}: parameters {diff['param_rel']} apart (limit "
+                  f"{param_lim}, floor {floor['param_rel']})")
+        check(graph["line"]["launches_per_step"] == eager["line"]["launches_per_step"],
+              f"train_graph {case}: launches a step {graph['line']['launches_per_step']}, "
+              f"eager {eager['line']['launches_per_step']}")
+        _check_replayed_kernels(case, graph["line"], eager["line"])
+        check(graph["generator_offset"] == eager["generator_offset"],
+              f"train_graph {case}: generator at offset {graph['generator_offset']}, eager "
+              f"{eager['generator_offset']}")
+        drawn = {}  # the host path's flip masks, eager against replayed
+        if eager["drawn"]:
+            for key, span in (("steps_3_5", GRAPH_DRAWN), ("all_steps", slice(None))):
+                drawn[key] = (len(graph["drawn"]) == len(eager["drawn"]) == GRAPH_STEPS
+                              and all(torch.equal(e, g) for e, g in
+                                      zip(eager["drawn"][span], graph["drawn"][span])))
+            check(drawn["steps_3_5"],
+                  f"train_graph {case}: the flip masks of steps 3-5 differ under replay")
+        lines[case] = graph["line"]
+        emit({"phase": "train_graph", "case": case, "dtype": dtype, "extra": list(extra),
+              "steps": GRAPH_STEPS, "cudnn_deterministic": dtype == "fp32",
+              "losses_eager": [{k: float(m[k]) for k in GRAPH_LOSSES} for m in eager["per_step"]],
+              "losses_graph": [{k: float(m[k]) for k in GRAPH_LOSSES} for m in graph["per_step"]],
+              "loss_rel_graph_vs_eager": diff["loss_rel"],
+              "loss_rel_eager_vs_eager": floor["loss_rel"],
+              "loss_rel_by_step_graph_vs_eager": diff["loss_rel_by_step"],
+              "loss_limit": loss_lim,
+              "param_rel_graph_vs_eager": diff["param_rel"],
+              "param_rel_eager_vs_eager": floor["param_rel"],
+              "param_limit": param_lim if dtype == "fp32" else None,
+              "flip_masks_equal": drawn or None,
+              "generator_offset": graph["generator_offset"],
+              "graph": graph["line"], "eager": eager["line"], "eager2": eager2["line"],
+              "card": nvidia_smi()})
+    return lines
 
 
 def _zoo_argv(save_dir: str, *extra: str) -> list:
@@ -3292,7 +3651,7 @@ def _par_build(device, ctx, valid=(None, None), fused: bool = False, store=None)
         feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
         uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024,
         data_store=store, crop=32 if store is not None else 224, geometry="shear",
-        n_labeled_valid=valid[0], n_unlabeled_valid=valid[1], context=ctx)
+        n_labeled_valid=valid[0], n_unlabeled_valid=valid[1], context=ctx, jit=False)
     return model, params, step
 
 
@@ -3597,7 +3956,8 @@ def _space_build(device, ctx, dtype: str, store=None, fused: bool = False, crop:
         model, opt, "udaiic", num_classes=4, generator=torch.Generator(device=device),
         feature_names=feats, feature_importance=[1.0, 0.5, 0.5], projector=proj,
         uda_criterion="mse", uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3],
-        patch_sizes=[patch, patch], data_store=store, crop=crop, geometry="shear", context=ctx)
+        patch_sizes=[patch, patch], data_store=store, crop=crop, geometry="shear", context=ctx,
+        jit=False)
     return model, params, step
 
 
@@ -4295,7 +4655,7 @@ def main(argv=None) -> int:
                                               "step_meanteacher,step_bf16,step_s2d,step_heads,"
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_fused_wide,train_device,"
-                                              "train_bf16,train_remat,"
+                                              "train_bf16,train_remat,train_graph,"
                                               "resume,inference,train_zoo,pretrain,pretrain_wall,"
                                               "optim,arch_zoo,"
                                               "host_tier,parallel,space_parallel,"
@@ -4399,6 +4759,9 @@ def main(argv=None) -> int:
     if "train_remat" in phases:
         with timed(walls, "train_remat"):
             phase_train_remat()
+    if "train_graph" in phases:
+        with timed(walls, "train_graph"):
+            phase_train_graph()
     resume_launches, zoo_rot_launches = {}, {}
     if "resume" in phases or "inference" in phases:  # inference evaluates the resumed run
         with timed(walls, "resume"):

@@ -35,6 +35,17 @@ the scaling.
   period 5, or RAdam, period 6, slow step 0.5: the model's parameters are
   the fast weights, the slow ones live in the optimizer's state).
 
+For a CUDA graph (``build_optimizer(..., graph=True)``, which the semi
+trainer passes where it captures its step): ``Adam``, ``AdamW`` and ``SGD``
+keep ``lr`` as a 0-d fp32 tensor on the parameters' device, which
+``set_learning_rate`` fills in place, so a captured step reads each epoch's
+rate; on a card ``Adam`` / ``AdamW`` are built ``capturable`` (step counts
+and bias corrections on the device) and ``SGD`` ``fused`` (torch's foreach
+SGD reads a tensor lr on the host). The ``OptaxOptimizer``s compute their
+step-dependent scalars from a host count, so a step with one stays eager
+(``capture_unmet``). A checkpoint holds ``lr`` as a float either way
+(``optimizer_state_dict`` / ``load_optimizer_state``).
+
 The JAX trainers cannot step ``Lookahead`` / ``Ranger`` (``optax.lookahead``
 needs ``LookaheadParams``); the port's trainers refuse them too
 (``engine/trainer.py:check_optimizer``).
@@ -44,7 +55,7 @@ from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import Any, Callable, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -493,18 +504,32 @@ class Ranger(_Lookahead, RAdam):
     sync_period = 6
 
 
-def _torch_adam(params, lr, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8, **_):
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+def _graph_lr(params, lr: float, graph: bool):
+    """(lr as the optimizer keeps it, whether the parameters are on a card):
+    for a graph a 0-d fp32 tensor on the parameters' device."""
+    device = params[0].device if params else torch.device("cpu")
+    if graph:
+        lr = torch.tensor(lr, dtype=torch.float32, device=device)
+    return lr, graph and device.type == "cuda"
 
 
-def _torch_adamw(params, lr, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8, **_):
-    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+def _torch_adam(params, lr, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8, graph=False, **_):
+    lr, card = _graph_lr(params, lr, graph)
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                            capturable=card)
 
 
-def _torch_sgd(params, lr, momentum=0.0, weight_decay=0.0, nesterov=0.0, **_):
+def _torch_adamw(params, lr, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8, graph=False, **_):
+    lr, card = _graph_lr(params, lr, graph)
+    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                             capturable=card)
+
+
+def _torch_sgd(params, lr, momentum=0.0, weight_decay=0.0, nesterov=0.0, graph=False, **_):
+    lr, card = _graph_lr(params, lr, graph)
     # optax's trace is skipped without momentum, nesterov with it
     return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
-                           nesterov=bool(nesterov) and bool(momentum))
+                           nesterov=bool(nesterov) and bool(momentum), fused=card or None)
 
 
 def _ours(cls):
@@ -528,25 +553,58 @@ OPTIMIZERS: Dict[str, Callable[..., torch.optim.Optimizer]] = {
 LOOKAHEAD_NAMES = ("Lookahead", "Ranger")
 
 
-def build_optimizer(params: Iterable[torch.nn.Parameter],
-                    optim_config: Dict[str, Any]) -> torch.optim.Optimizer:
+# the names whose step a CUDA graph can capture (torch's own classes), and
+# why the others' cannot
+GRAPH_OPTIMIZERS = ("Adam", "AdamW", "SGD")
+EAGER_OPTAX = "the optax chains compute their step-dependent scalars from a host step count"
+
+
+def build_optimizer(params: Iterable[torch.nn.Parameter], optim_config: Dict[str, Any],
+                    graph: bool = False) -> torch.optim.Optimizer:
     """``optim_config``: the ``Optim`` config section ({name, lr,
-    weight_decay, ...}); see the module docstring."""
+    weight_decay, ...}); see the module docstring. ``graph``: build one of
+    ``GRAPH_OPTIMIZERS`` for a CUDA graph."""
     cfg = dict(optim_config)
     name = cfg.pop("name", "Adam")
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; available: {sorted(OPTIMIZERS)}")
+    if graph and name not in GRAPH_OPTIMIZERS:
+        raise ValueError(f"Optim.name={name} cannot be built for a CUDA graph: {EAGER_OPTAX}")
     lr = float(cfg.pop("lr", 1e-3))
-    return OPTIMIZERS[name](list(params), lr, **{k: float(v) for k, v in cfg.items()})
+    kw = {k: float(v) for k, v in cfg.items()}
+    if graph:
+        kw["graph"] = True
+    return OPTIMIZERS[name](list(params), lr, **kw)
+
+
+def capture_unmet(optimizer: Union[torch.optim.Optimizer, str]) -> Optional[str]:
+    """None when a CUDA graph can capture ``optimizer.step()``, else why
+    not; ``optimizer`` may be its ``Optim.name``, before it is built."""
+    if isinstance(optimizer, OptaxOptimizer):
+        return f"Optim.name={type(optimizer).__name__}: {EAGER_OPTAX}"
+    if isinstance(optimizer, str):
+        return None if optimizer in GRAPH_OPTIMIZERS else f"Optim.name={optimizer}: {EAGER_OPTAX}"
+    groups = optimizer.param_groups
+    if not all(isinstance(g["lr"], torch.Tensor) for g in groups):
+        return "the optimizer's lr is a Python float (build_optimizer(..., graph=True))"
+    if isinstance(optimizer, torch.optim.Adam):  # AdamW too
+        ok = all(g["capturable"] for g in groups)
+    else:
+        ok = isinstance(optimizer, torch.optim.SGD) and all(g["fused"] for g in groups)
+    if not ok:
+        return (f"{type(optimizer).__name__} is not built for a CUDA graph (Adam / AdamW "
+                "capturable, SGD fused)")
+    return None
 
 
 def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
     """Creates every parameter's state now (optax's ``tx.init``), so that a
     checkpoint of a trainer that has not stepped yet already holds every
-    entry a resumed one loads. torch's Adam / AdamW (not capturable, fused
-    or amsgrad) get step 0 and zero moments, its SGD a zero momentum buffer
+    entry a resumed one loads. torch's Adam / AdamW (not fused or amsgrad)
+    get step 0 and zero moments, its SGD a zero momentum buffer
     (its first step then gives the lazy buffer's value, g); an
-    ``OptaxOptimizer`` made its state when it was built."""
+    ``OptaxOptimizer`` made its state when it was built. A ``capturable``
+    Adam's step count lies on the parameter's device, as torch makes it."""
     if isinstance(optimizer, OptaxOptimizer):
         optimizer.init_state()
         return
@@ -556,7 +614,8 @@ def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
             if state:
                 continue
             if isinstance(optimizer, torch.optim.Adam):  # AdamW too
-                state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                state["step"] = torch.zeros((), dtype=torch.float32,
+                                            device=p.device if group["capturable"] else None)
                 state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
                 state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
             elif isinstance(optimizer, torch.optim.SGD):
@@ -568,8 +627,47 @@ def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's lr; a tensor lr (``graph``) is filled in place, where a
+    captured step reads it."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+_GRAPH_KEYS = ("capturable", "fused")
+
+
+def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer.state_dict()`` with each group's lr as a float, so that a
+    checkpoint reads alike from a card's graph-built optimizer and the
+    CPU's."""
+    state = optimizer.state_dict()
+    state["param_groups"] = [{**g, "lr": float(g["lr"])} for g in state["param_groups"]]
+    return state
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
+    """``optimizer.load_state_dict(state)`` into the optimizer's own tensors:
+    each state tensor, and a tensor lr, is filled in place, so a captured
+    step goes on reading it; ``capturable`` / ``fused`` stay as built."""
+    groups = [{k: g[k] for k in ("lr",) + _GRAPH_KEYS if k in g} for g in optimizer.param_groups]
+    own = {p: dict(st) for p, st in optimizer.state.items()}
+    optimizer.load_state_dict(state)
+    for group, kept in zip(optimizer.param_groups, groups):
+        lr = float(group["lr"])
+        group.update(kept)
+        if isinstance(kept["lr"], torch.Tensor):
+            kept["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+    for p, st in optimizer.state.items():
+        for key, value in st.items():
+            mine = own.get(p, {}).get(key)
+            if isinstance(mine, torch.Tensor) and isinstance(value, torch.Tensor) \
+                    and mine.shape == value.shape:
+                st[key] = mine.copy_(value)
 
 
 class RampScheduler:

@@ -24,8 +24,17 @@ with the device only when it reads them.
 
 With a ``DeviceDataStore`` the batch is slice indices only and the step
 gathers and augments on the card. The JAX package's epoch programs
-(``lax.scan`` over the step) become Python loops over the step that keep the
+(``lax.scan`` over the step) become loops over the step that keep the
 metrics on the device, stacked, for one readback per chunk of steps.
+
+``jit`` (the JAX builders' parameter, default True): on a card the step is
+captured once as a CUDA graph and replayed every call, and a scan's chunk
+is replays of one captured body (``engine/graphs.py``), the counterpart of
+the JAX package's ``jax.jit`` step and ``lax.scan`` epoch; ``jit=False``,
+and every step on the CPU, runs eagerly. A step that cannot be captured
+(``capture_unmet``: the mean teacher, a process group, an optax-chain
+optimizer or one not built with ``build_optimizer(..., graph=True)``)
+raises with ``jit=True`` on a card.
 
 Pad-and-mask (``n_labeled_valid`` / ``n_unlabeled_valid``, the JAX step's):
 the global sub-batches carry pad rows at their ends, and only the leading
@@ -81,7 +90,7 @@ the world's gradient sum counts it once. Any model but the U-Net raises
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -102,6 +111,8 @@ from ..ops.mi_joint import LANES
 from ..parallel.halo import halo_exchange
 from ..parallel.mesh import DistContext, local_band, reduce_grads_, reduce_sum_, single_context
 from ..utils.general import class2one_hot
+from . import graphs
+from .optim import capture_unmet as optimizer_capture_unmet
 
 MODES = ("partial", "uda", "iic", "udaiic", "entropy", "meanteacher")
 UDA_CRITERIA = ("mse", "kl")
@@ -233,6 +244,68 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
     return losses
 
 
+# why a step stays eager (``capture_unmet``, which the trainer's
+# ``graph_unmet`` asks before it builds the optimizer)
+EAGER_MEANTEACHER = ("meanteacher: the EMA update reads the global step on the host every step "
+                     "(its decay schedule)")
+EAGER_GROUP = ("a process group (data parallel W > 1 or the H split): gloo's collectives cannot "
+               "be captured, and NCCL capture is a later slice")
+
+
+def capture_unmet(device: torch.device, optimizer: Union[torch.optim.Optimizer, str],
+                  teacher: Optional[torch.nn.Module] = None,
+                  context: Optional[DistContext] = None) -> Optional[str]:
+    """None when the step on ``device`` can be captured as a CUDA graph,
+    else why it stays eager: off a card, the mean teacher, a process group,
+    the optimizer (``optim.capture_unmet``; its ``Optim.name`` before it is
+    built)."""
+    if torch.device(device).type != "cuda":
+        return f"Trainer.device={torch.device(device).type}: a CUDA graph needs a card"
+    if teacher is not None:
+        return EAGER_MEANTEACHER
+    if context is not None and context.world > 1:
+        return EAGER_GROUP
+    return optimizer_capture_unmet(optimizer)
+
+
+class TrainStep:
+    """The eager step: step(batch, flip_mask=None, aug_params=None) ->
+    metrics, one step, the global step advanced. ``body`` is the same step
+    without that advance (what a CUDA graph captures; the host advances
+    ``step_counter`` once a replay); ``unmet`` says why it cannot be
+    captured (None: it can)."""
+
+    def __init__(self, body: Callable[..., Dict[str, torch.Tensor]], step_counter: torch.Tensor,
+                 generator: torch.Generator, device: torch.device,
+                 capture: Tuple[torch.optim.Optimizer, Optional[torch.nn.Module],
+                                Optional[DistContext]]) -> None:
+        self.body, self.step_counter, self.generator = body, step_counter, generator
+        self.device, self._capture = device, capture
+
+    @property
+    def unmet(self) -> Optional[str]:
+        return capture_unmet(self.device, *self._capture)
+
+    def __call__(self, batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
+                 aug_params: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+        metrics = self.body(batch, flip_mask, aug_params)
+        self.step_counter.add_(1)
+        return metrics
+
+
+def _graphed(step, jit: bool) -> bool:
+    """Whether a builder with ``jit`` captures ``step`` (a ``TrainStep``):
+    on a card; raises where it cannot be captured."""
+    if not jit or getattr(step, "device", torch.device("cpu")).type != "cuda":
+        return False
+    if not isinstance(step, TrainStep):
+        raise TypeError("jit=True on a card takes the eager step (build_train_step(jit=False))")
+    if step.unmet is not None:
+        raise ValueError(f"jit=True captures the step as a CUDA graph, but {step.unmet}; "
+                         "pass jit=False for the eager step")
+    return True
+
+
 def build_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -261,6 +334,7 @@ def build_train_step(
     n_labeled_valid: Optional[int] = None,
     n_unlabeled_valid: Optional[int] = None,
     context: Optional[DistContext] = None,
+    jit: bool = True,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, flip_mask=None, aug_params=None) -> metrics.
 
@@ -284,7 +358,10 @@ def build_train_step(
     ``teacher`` (meanteacher only): the EMA model, a copy of ``model``.
     ``step_counter``: a 0-d int64 CPU tensor, the global step, incremented
     in place by every step (the EMA schedule reads it); the caller keeps it
-    to checkpoint it."""
+    to checkpoint it.
+    ``jit``: on a card, a ``graphs.GraphStep`` (step(batch) -> metrics, the
+    step captured as a CUDA graph after ``graphs.WARMUP`` eager steps; no
+    injected draws); else, and off a card, the eager ``TrainStep``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     if uda_criterion not in UDA_CRITERIA:
@@ -325,7 +402,7 @@ def build_train_step(
         total = sum(float(x) for x in feature_importance)
         importance = [float(x) / total for x in feature_importance]
 
-    def step(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
+    def body(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
              aug_params: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         if data_store is not None:
             lab_store, unlab_store = _stores(data_store)
@@ -452,12 +529,13 @@ def build_train_step(
         optimizer.step()
         if teacher is not None:
             _ema_update(teacher, model, int(step_counter), ema_alpha, ema_weight_decay)
-        step_counter.add_(1)
         metrics["sup_dice_inter"] = inter
         metrics["sup_dice_union"] = union
         return metrics
 
-    return step
+    step = TrainStep(body, step_counter, generator, next(model.parameters()).device,
+                     (optimizer, teacher, ctx))
+    return graphs.GraphStep(step) if _graphed(step, jit) else step
 
 
 def _check_split(model: torch.nn.Module, teacher: Optional[torch.nn.Module]) -> None:
@@ -592,13 +670,18 @@ def _stack(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
 
-def build_epoch_scan(step_fn, num_batches: int):
-    """A chunk of ``num_batches`` device-data steps: epoch(batches) ->
-    stacked metrics, where batches holds [num_batches, B] index tensors.
-    No metric leaves the device (the JAX package's ``lax.scan`` epoch)."""
+def build_epoch_scan(step_fn, num_batches: int, jit: bool = True):
+    """A chunk of device-data steps: epoch(batches) -> stacked metrics,
+    where batches holds [n, B] index tensors, n <= ``num_batches`` (the
+    epoch's last chunk may be shorter). No metric leaves the device (the JAX
+    package's ``lax.scan`` epoch). ``step_fn``: the eager step
+    (``build_train_step(jit=False)``)."""
+    if _graphed(step_fn, jit):
+        return graphs.epoch_scan(step_fn, num_batches)
 
     def epoch(batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return _stack([step_fn(_row(batches, i)) for i in range(num_batches)])
+        n = graphs.chunk_len(batches, num_batches)
+        return _stack([step_fn(_row(batches, i)) for i in range(n)])
 
     return epoch
 
@@ -621,6 +704,9 @@ def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused",
     def aug(seed: int, i: int, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=lab_store.device)
         gen.manual_seed(_fold_in(seed, i))
+        return draw(gen, batch)
+
+    def draw(gen: torch.Generator, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         lab, unlab = batch["labeled_indices"], batch["unlabeled_indices"]
         image, target = augment_from_store(lab_store, lab, crop, geometry, gen,
                                            rows=ctx.rows(len(lab)))
@@ -629,21 +715,27 @@ def build_augment_fn(data_store, crop: int = 224, geometry: str = "fused",
         return {"labeled_image": local_band(image, ctx), "labeled_target": local_band(target, ctx),
                 "unlabeled_image": local_band(unlabeled, ctx)}
 
+    aug.draw = draw  # the same from a given generator (the graphed pipeline's)
     return aug
 
 
-def build_epoch_scan_pipelined(aug_fn, step_fn, num_batches: int):
+def build_epoch_scan_pipelined(aug_fn, step_fn, num_batches: int, jit: bool = True):
     """epoch(batches, seed): batch i + 1 is augmented (``aug_fn`` with
-    ``seed``) before step i runs; the last iteration augments the first
-    batch again and drops it (one wasted augmentation per call), as the JAX
-    package's scan does. Everything runs on one stream, in that order.
-    ``step_fn`` is a tensor-batch step (no store)."""
+    ``seed``, a ``build_augment_fn``) before step i runs; the last
+    iteration augments the first batch again and drops it (one wasted
+    augmentation per call), as the JAX package's scan does. Everything runs
+    on one stream, in that order; with ``jit`` on a card each iteration is
+    a replay of one captured body (``graphs.epoch_scan_pipelined``).
+    ``step_fn`` is the eager tensor-batch step (no store)."""
+    if _graphed(step_fn, jit):
+        return graphs.epoch_scan_pipelined(step_fn, num_batches, aug_fn.draw, _fold_in)
 
     def epoch(batches: Dict[str, torch.Tensor], seed: int) -> Dict[str, torch.Tensor]:
+        n = graphs.chunk_len(batches, num_batches)
         cur = aug_fn(seed, 0, _row(batches, 0))
         out = []
-        for i in range(num_batches):
-            nxt = aug_fn(seed, i + 1, _row(batches, (i + 1) % num_batches))
+        for i in range(n):
+            nxt = aug_fn(seed, i + 1, _row(batches, (i + 1) % n))
             out.append(step_fn(cur))
             cur = nxt
         return _stack(out)
@@ -654,7 +746,7 @@ def build_epoch_scan_pipelined(aug_fn, step_fn, num_batches: int):
 def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 224,
                             geometry: str = "fused",
                             generator: Optional[torch.Generator] = None,
-                            context: Optional[DistContext] = None):
+                            context: Optional[DistContext] = None, jit: bool = True):
     """``Kernel.augment=epoch``: every stored slice is augmented once per
     call, with draws from ``generator``, and each step takes its rows of the
     augmented stores; the step's flip mask stays drawn per step. Within one
@@ -662,16 +754,27 @@ def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 2
     draws one per sample). ``step_fn`` is a tensor-batch step (no store).
     Under ``context`` every rank augments the whole store alike and each
     step takes the rank's rows of the global index batch (under the H
-    split, their band)."""
+    split, their band). ``step_fn``: the eager tensor-batch step; with
+    ``jit`` on a card the steps are replays of one captured body that
+    gathers its rows (``graphs.epoch_scan_preaug``)."""
     lab_store, unlab_store = _stores(data_store)
     ctx = context or single_context()
 
-    def epoch(batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def augment_all() -> Dict[str, torch.Tensor]:
         lab_img, lab_tgt = augment_from_store(lab_store, None, crop, geometry, generator)
         unlab_img, _ = augment_from_store(unlab_store, None, crop, geometry, generator,
                                           with_labels=False)
+        return {"labeled_image": lab_img, "labeled_target": lab_tgt, "unlabeled_image": unlab_img}
+
+    if _graphed(step_fn, jit):
+        return graphs.epoch_scan_preaug(step_fn, num_batches, augment_all)
+
+    def epoch(batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        aug = augment_all()
+        lab_img, lab_tgt, unlab_img = (aug[k] for k in ("labeled_image", "labeled_target",
+                                                         "unlabeled_image"))
         out = []
-        for i in range(num_batches):
+        for i in range(graphs.chunk_len(batches, num_batches)):
             li = batches["labeled_indices"][i].long()
             ui = batches["unlabeled_indices"][i].long()
             li, ui = li[ctx.rows(len(li))], ui[ctx.rows(len(ui))]

@@ -29,6 +29,12 @@ On either path ``Trainer.profile`` (true, or an epoch number) writes a
 ``torch.profiler`` trace of that epoch's first steps under
 ``<save_dir>/profile`` (``EpochTrace``).
 
+On a card the step (host path, per-step device path) and each scan chunk
+(``epoch_scan``, ``Kernel.augment=epoch``, ``pipelined_scan``) run as CUDA
+graphs (``engine/graphs.py``), as the JAX trainer runs its jitted step and
+scan; ``graph_unmet`` picks, before the first step, the configurations that
+stay eager, and the trainer prints the reason.
+
 Data parallelism (``context``, a ``parallel.DistContext``; ``main.py`` makes
 it from the launcher): one process per device, each running the same
 loaders with the same seeds. Each sub-batch is rounded up to a multiple of
@@ -96,7 +102,9 @@ from .optim import (
     OPTIMIZERS,
     build_optimizer,
     init_optimizer_state,
+    load_optimizer_state,
     lr_at_epoch,
+    optimizer_state_dict,
     set_learning_rate,
 )
 from .steps import (
@@ -107,6 +115,7 @@ from .steps import (
     build_eval_scan,
     build_eval_step,
     build_train_step,
+    capture_unmet,
     UDA_CRITERIA,
 )
 
@@ -431,11 +440,16 @@ class SemiTrainer:
         self._build_components()
         # the mean teacher: the model's copy at init, BN buffers included
         self._teacher = copy.deepcopy(self._model).requires_grad_(False) if self._with_ema else None
+        # decided before the optimizer, which is built for a graph only where one is captured
+        eager = graph_unmet(cfg, self._device, self._teacher, self._ctx)
+        if eager and self._ctx.is_main:
+            print(f"[trainer] the step runs eagerly: {eager}", flush=True)
+        jit = eager is None
         params = self._model.parameters()
         if self._projector is not None:
             self._projector.to(self._device)
             params = chain(params, self._projector.parameters())
-        self._optimizer = build_optimizer(params, cfg["Optim"])
+        self._optimizer = build_optimizer(params, cfg["Optim"], graph=jit)
         init_optimizer_state(self._optimizer)  # so a checkpoint holds every entry from init
         replicate_state([self._model, self._projector, self._teacher], self._optimizer, self._ctx)
         self._step_counter = torch.zeros((), dtype=torch.int64)  # global step (EMA schedule)
@@ -478,6 +492,7 @@ class SemiTrainer:
             n_labeled_valid=self._lab_bs if self._batch_padded else None,
             n_unlabeled_valid=self._unlab_bs if self._batch_padded else None,
             context=self._ctx,
+            jit=jit and not self._epoch_scan,  # a scan captures its own body
             **self._step_kwargs,
         )
         ctx = self._ctx
@@ -498,16 +513,18 @@ class SemiTrainer:
             # host seeds of the pipelined loop's augmentation, one per chunk
             self._aug_seeds = np.random.default_rng(seed + 2)
 
-            def make_epoch_fn(size: int):
-                if self._preaug:
-                    return build_epoch_scan_preaug(self._train_step, stores, size,
-                                                   crop=self._crop_size, geometry=geometry,
-                                                   generator=self._generator, context=ctx)
-                if self._pipelined:
-                    return build_epoch_scan_pipelined(aug_fn, self._train_step, size)
-                return build_epoch_scan(self._train_step, size)
-
-            self._epoch_fns = {size: make_epoch_fn(size) for size in set(self._epoch_chunks)}
+            # one function (with jit on a card one captured body) for every
+            # chunk, the shorter last one too
+            size = max(self._epoch_chunks)
+            if self._preaug:
+                self._epoch_fn = build_epoch_scan_preaug(
+                    self._train_step, stores, size, crop=self._crop_size, geometry=geometry,
+                    generator=self._generator, context=ctx, jit=jit)
+            elif self._pipelined:
+                self._epoch_fn = build_epoch_scan_pipelined(aug_fn, self._train_step, size,
+                                                            jit=jit)
+            else:
+                self._epoch_fn = build_epoch_scan(self._train_step, size, jit=jit)
             self._eval_scans = {
                 "val": build_eval_scan(self._model, num_classes=self._num_classes,
                                        data_store=self._val_store, crop=self._crop_size,
@@ -703,7 +720,7 @@ class SemiTrainer:
                 t0 = time.perf_counter()
                 batches = {"labeled_indices": self._to_device(lab_all[done:done + size]),
                            "unlabeled_indices": self._to_device(unlab_all[done:done + size])}
-                fn = self._epoch_fns[size]
+                fn = self._epoch_fn  # the chunk's steps, with any n up to scan_chunk
                 part = (fn(batches, int(self._aug_seeds.integers(1 << 62))) if self._pipelined
                         else fn(batches))
                 chunks.append(self._readback(part))  # syncs
@@ -801,7 +818,7 @@ class SemiTrainer:
         return {
             "model": self._model.state_dict(),
             "projector": None if self._projector is None else self._projector.state_dict(),
-            "optimizer": self._optimizer.state_dict(),
+            "optimizer": optimizer_state_dict(self._optimizer),
             "step": self._step_counter,
             "generator": self._generator.get_state(),
             "teacher": None if self._teacher is None else self._teacher.state_dict(),
@@ -819,7 +836,7 @@ class SemiTrainer:
             self._projector.load_state_dict(state["projector"])
         if self._teacher is not None:
             self._teacher.load_state_dict(state["teacher"])
-        self._optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(self._optimizer, state["optimizer"])
         self._step_counter.copy_(state["step"])
         self._generator.set_state(state["generator"])
 
@@ -981,6 +998,16 @@ def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
         return ("the batch needs pad rows to divide the data ranks (the fused kernels take "
                 "logits, which the pad-and-mask row mask cannot reach)")
     return None
+
+
+def graph_unmet(cfg: Dict[str, Any], device: torch.device,
+                teacher: Optional[torch.nn.Module] = None,
+                context: Optional[DistContext] = None) -> Optional[str]:
+    """None when the trainer's step runs as a CUDA graph on ``device``, else
+    why it stays eager (``steps.capture_unmet``'s list: off a card, the mean
+    ``teacher``, a process group, an optax-chain optimizer). Asked before
+    the optimizer is built, which it names by ``cfg``'s ``Optim.name``."""
+    return capture_unmet(device, (cfg.get("Optim") or {}).get("name", "Adam"), teacher, context)
 
 
 def _per_position(config: Dict[str, Any], feature_names, key: str, default) -> list:

@@ -57,7 +57,8 @@ trainer sends such a batch to the unfused path.
 Dispatch: CUDA tensors go to the kernels (or the call raises), CPU tensors to
 the plain version. ``LAUNCHES`` counts kernel launches by (kernel, padding),
 one a wrapper call, a call on bf16 logits under the name with
-``mi_joint.BF16_OPERANDS`` appended, whatever the lane count. The device
+``mi_joint.BF16_OPERANDS`` appended, whatever the lane count (under a CUDA
+graph, once a replay: ``ops/launches.py``). The device
 kernels a call launches, whatever the logits' dtype: in bf16 mode at t = 1
 (128 lanes) 3 in the forward (softmax pass, product, chunk sum) and 2 in each
 backward (softmax pass with g, product with the VJP epilogue); at t > 1 3 in
@@ -75,7 +76,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 from .mi_joint import (JointPlan, ScratchSpec, WidePlan, _check_modes, _check_operand, _offsets,
                        _ptr, _sm_count, alloc_scratch, bf16_scratch, fwd_chunking, kernel_name,
                        launch_plan, wide_plan, wide_scratch)
@@ -84,7 +85,7 @@ KERNEL_SOURCE = "mi_fused"
 FWD, BWD_DL2, BWD_DL1 = "mi_fused_fwd", "mi_fused_bwd_dl2", "mi_fused_bwd_dl1"
 LANES = 128  # the kernels' lane block: logits take C = LANES * t lanes
 MAX_LANES = 1024  # t <= 8: the whole-row kernels keep rows of C floats a warp in shared memory
-LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
+LAUNCHES: "collections.Counter[Tuple[str, int]]" = launches.counter()
 
 
 def reset_launch_counts() -> None:

@@ -38,7 +38,8 @@ Dispatch: CUDA tensors go to the kernel (or the call raises), CPU tensors to
 ``displaced_joint_plain_flat`` (the grouped call: its stack over the
 pieces). ``LAUNCHES`` counts wrapper calls by (kernel, padding), one a call
 at any C; a call on bf16 operands counts under the name with
-``BF16_OPERANDS`` appended. ``chip_smoke.py`` reads it to show the training
+``BF16_OPERANDS`` appended (under a CUDA graph, once a replay:
+``ops/launches.py``). ``chip_smoke.py`` reads it to show the training
 path ran through the kernels. Device kernels a call, at p > 0 (128 lanes or
 wide rows): fp32 operands 3 forward (conversion pass, product, chunk sum)
 and 2 backward (conversion of the source and g, product); bf16 operands
@@ -64,12 +65,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 
 KERNEL_SOURCE = "mi_joint"
 FWD, BWD_DX_TF, BWD_DX = "mi_joint_fwd", "mi_joint_bwd_dx_tf", "mi_joint_bwd_dx"
 BF16_OPERANDS = "_bf16in"  # suffix of the launches on bf16 operands
-LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
+LAUNCHES: "collections.Counter[Tuple[str, int]]" = launches.counter()
 
 _KT = 32    # rows per staged slice of the fp32 kernel (rows_per_chunk is a multiple)
 _TILE = 128  # output tile edge of the fp32 kernel

@@ -23,7 +23,7 @@ pixel permutation: exact for integer-valued inputs such as labels.
 Rolls follow ``torch.roll`` / ``jnp.roll``: a roll by s moves element i to
 i + s. Dispatch: CUDA tensors go to the kernel (or the call raises), CPU
 tensors to the plain version. ``LAUNCHES`` counts kernel launches by (name,
-batch size).
+batch size), under a CUDA graph once a replay (``ops/launches.py``).
 """
 
 from __future__ import annotations
@@ -37,11 +37,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 
 KERNEL_SOURCE = "rotate"
 ROTATE, ROLL = "rotate_shear", "lane_roll_rows"
-LAUNCHES: "collections.Counter[Tuple[str, int]]" = collections.Counter()
+LAUNCHES: "collections.Counter[Tuple[str, int]]" = launches.counter()
 LANE, SUBLANE = 128, 8
 
 # (s_x [B, Hc] int32, s_y [B, Wc] int32, (py, px, Hc, Wc))

@@ -94,8 +94,10 @@ def run_ranks(fn: Callable[..., Any], world: int, *args, device: str = "cpu",
 
 
 def _headline(device, crop: int, seed: int = 0, lr: float = 1e-7, data_store=None,
-              n_valid=None, context: Optional[DistContext] = None):
-    """(model, projector, optimizer, step) of the headline udaiic config."""
+              n_valid=None, context: Optional[DistContext] = None, jit: bool = False):
+    """(model, projector, optimizer, step) of the headline udaiic config:
+    the eager step, or with ``jit`` on a card the step as a CUDA graph and
+    its optimizer built for one (no process group: ``context`` None)."""
     from ..engine.optim import build_optimizer
     from ..engine.steps import build_train_step
     from ..models import ProjectorWrapper, UNet
@@ -103,8 +105,9 @@ def _headline(device, crop: int, seed: int = 0, lr: float = 1e-7, data_store=Non
     torch.manual_seed(seed)
     model = UNet(1, 4).to(device)
     proj = ProjectorWrapper(FEATURES, num_clusters=20, num_subheads=5).to(device)
+    graph = jit and torch.device(device).type == "cuda"
     opt = build_optimizer(list(chain(model.parameters(), proj.parameters())),
-                          {"name": "Adam", "lr": lr, "weight_decay": 1e-5})
+                          {"name": "Adam", "lr": lr, "weight_decay": 1e-5}, graph=graph)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     n_lab, n_unlab = n_valid or (None, None)
@@ -113,16 +116,17 @@ def _headline(device, crop: int, seed: int = 0, lr: float = 1e-7, data_store=Non
         feature_importance=[1.0, 0.5, 0.5], projector=proj, uda_criterion="mse",
         uda_weight=10.0, iic_weight=0.1, reg_weight=1.0, paddings=[1, 3], patch_sizes=1024,
         data_store=data_store, crop=crop, n_labeled_valid=n_lab, n_unlabeled_valid=n_unlab,
-        context=context)
+        context=context, jit=graph)
     return model, proj, opt, step
 
 
 def entry(device: str = "cuda"):
     """(step, (batch,)): the headline udaiic train step at full width on
     ``device`` with a random batch of 4 + 10 slices at 224^2 (weights from
-    seed 0); ``step(batch)`` trains once and returns the metrics."""
+    seed 0), on a card as a CUDA graph; ``step(batch)`` trains once and
+    returns the metrics."""
     crop = 224
-    *_, step = _headline(device, crop)
+    *_, step = _headline(device, crop, jit=True)
     rng = np.random.default_rng(0)
     batch = {"labeled_image": rng.random((FLAGSHIP[0], crop, crop, 1), dtype=np.float32),
              "labeled_target": rng.integers(0, 4, (FLAGSHIP[0], crop, crop)).astype(np.int32),
@@ -184,14 +188,15 @@ def dryrun_rank(ctx: DistContext, root: str, crop: int = 32) -> Dict[str, Any]:
     # the device-data epoch loop: every rank the global indices, its rows augmented
     model, proj, opt, raw = _headline(dev, crop, data_store=stores, n_valid=FLAGSHIP,
                                       context=ctx)
-    out["scan_losses"] = _finite("epoch scan", build_epoch_scan(raw, 2)(batches)["total_loss"])
+    out["scan_losses"] = _finite("epoch scan",
+                                 build_epoch_scan(raw, 2, jit=False)(batches)["total_loss"])
 
     # Kernel.augment=epoch: the whole store augmented alike on every rank
     *_, tensor_step = _headline(dev, crop, n_valid=FLAGSHIP, context=ctx)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     preaug = build_epoch_scan_preaug(tensor_step, stores, 2, crop=crop, generator=gen,
-                                     context=ctx)
+                                     context=ctx, jit=False)
     out["preaug_losses"] = _finite("preaug", preaug(batches)["total_loss"])
 
     # the eval scan: each rank forwards its slices of every patient, the sums summed
