@@ -363,7 +363,8 @@ BF16 = ("Precision.compute_dtype=bfloat16", "Precision.bn_dtype=bfloat16")
 # fp32 runs part from their second step on (cuDNN's fp32 weight gradients
 # sum in another order from run to run), by ~1e-5 of the MI (a loss near
 # 0), a floor that would hide a graph's fault; the bf16 runs are
-# deterministic as they are
+# deterministic as they are. The meanteacher case (device path, shear, bf16,
+# the teacher's EMA on the device count) runs them too
 GRAPH_STEPS = 20
 GRAPH_CHUNK = 8
 GRAPH_LOSS_TOL = {"fp32": 1e-5, "bf16": 2e-3}
@@ -375,7 +376,10 @@ GRAPH_CASES = (("host_fp32", "fp32", ()), ("host_bf16", "bf16", BF16),
                ("device_shear_bf16", "bf16", BF16 + GRAPH_DEVICE),
                ("device_preaug_bf16", "bf16", BF16 + GRAPH_DEVICE + ("Kernel.augment=epoch",)),
                ("device_pipelined_bf16", "bf16",
-                BF16 + GRAPH_DEVICE + ("Trainer.pipelined_scan=true",)))
+                BF16 + GRAPH_DEVICE + ("Trainer.pipelined_scan=true",)),
+               ("meanteacher_shear_bf16", "bf16",
+                BF16 + GRAPH_DEVICE + ("Trainer.name=meanteacher",)))
+GRAPH_DETERMINISTIC = ("host_fp32", "device_shear_fp32", "meanteacher_shear_bf16")
 GRAPH_DRAWN = slice(2, 5)  # steps 3-5: the capture's step and the first replays
 GRAPH_LOSSES = ("sup_loss", "reg_loss", "uda", "mi", "total_loss")
 # train_heads: mlp heads at every position, the decoder heads normalized
@@ -395,6 +399,17 @@ PRETRAIN_WALL_SKIP = 8           # pretrain_wall: steps left out of each median 
 # pretrain_wall: the decoder's loop wall a step over the slower of its step alone and its
 # loader alone, at most (the fault read 2-4.5x; the rest is room for the shared host)
 PRETRAIN_WALL_LIMIT = 1.5
+EVAL_GRAPH_STEPS = 2    # eval_graph: train steps before the eval epochs (one epoch)
+EVAL_GRAPH_EPOCHS = 3   # eval_graph: eval epochs (val + test) a run: warm-up, capture, replay
+# pretrain_graph: the steps synchronised at their start, bounding the unprofiled window of
+# the loop wall (after the warm-up and capture); the epoch's steps from the second one on
+# run under the profiler
+PRETRAIN_GRAPH_WINDOW = (8, 56)
+PRETRAIN_GRAPH_PHASES = ("pretrain_encoder", "pretrain_decoder", "finetune")
+# eval_graph / pretrain_graph: the graph's peak over the eager one's, at most, in the bytes
+# the tensors requested (the allocator's blocks round each up by what its cache holds). A
+# fixed part comes with the first capture: the capture stream's cuBLAS workspaces, 64 MiB
+GRAPH_PEAK_LIMIT = 1.10
 # the pretrain decoder's IIC map (pretrain.yaml): Up_conv3 of 4 patients x 3
 # partitions at crop 224, padding 0; IICHead.Decoder's 10 x 20 clusters
 PRETRAIN_TAP = ("Up_conv3", 12, 112, 0)
@@ -2252,7 +2267,7 @@ def graph_wanted(trainer) -> bool:
     """Whether the trainer's gate (graph_unmet) lets its step run as a CUDA
     graph; where it does not, the trainer printed the reason."""
     gate = port("engine.trainer").graph_unmet
-    return gate(trainer._config, trainer._device, trainer._teacher, trainer._ctx) is None
+    return gate(trainer._config, trainer._device, trainer._ctx) is None
 
 
 def graphed(trainer) -> bool:
@@ -2264,7 +2279,7 @@ def graphed(trainer) -> bool:
         return chunks is not None and chunks.graph.captured
     step = trainer._train_step
     step = getattr(step, "inner", step)
-    return isinstance(step, graphs.GraphStep) and step._graph.captured
+    return isinstance(step, graphs.GraphStep) and step.captured
 
 
 class _DrawnMasks:
@@ -2342,8 +2357,10 @@ def _graph_run(case: str, extra, eager: bool) -> dict:
     check(len(per_step) == GRAPH_STEPS, f"train_graph {case}: {len(per_step)} steps recorded")
     check(graphed(trainer) != eager, f"train_graph {case}: graphed {graphed(trainer)}, "
                                      f"eager {eager}")
-    params = torch.cat([p.detach().float().flatten().cpu() for p in chain(
-        trainer._model.parameters(), trainer._projector.parameters())])
+    flat = lambda mods: torch.cat([p.detach().float().flatten().cpu() for p in chain(
+        *(m.parameters() for m in mods if m is not None))])
+    params = flat((trainer._model, trainer._projector, trainer._teacher))
+    teacher = None if trainer._teacher is None else flat((trainer._teacher,))
     times = trainer.step_times_ms
     # the step's device time (profiler), wall and host time, after the run
     if device_data:
@@ -2363,7 +2380,8 @@ def _graph_run(case: str, extra, eager: bool) -> dict:
         call, per_call = (lambda: trainer._train_step(batch)), 1
     device, wall, kernels, ours, counted = _profiled(call, 1 if device_data else 3, per_call)
     host = host_ms(call, 1 if device_data else 5) / per_call
-    out = {"per_step": per_step, "params": params, "generator_offset": offset, "drawn": drawn,
+    out = {"per_step": per_step, "params": params, "teacher": teacher,
+           "generator_offset": offset, "drawn": drawn,
            "line": {"median_step_ms": statistics.median(times[2:]) if len(times) > 2 else None,
                     "step_ms": times, "device_ms_per_step": device,
                     "loop_wall_ms_per_step": wall, "busy_share": device / wall,
@@ -2438,12 +2456,15 @@ def _graph_diffs(a: dict, b: dict) -> dict:
     parameter difference over the largest entry, and the largest loss
     difference of each step."""
     import numpy as np
+    import torch
 
     steps = [max(abs(float(y[k]) - float(x[k])) / max(abs(float(x[k])), 1e-12)
-                 for k in GRAPH_LOSSES) for x, y in zip(a["per_step"], b["per_step"])]
+                 for k in GRAPH_LOSSES if k in x) for x, y in zip(a["per_step"], b["per_step"])]
     scale = float(a["params"].abs().max())
     return {"loss_rel": max(steps), "loss_rel_by_step": steps,
             "param_rel": float((b["params"] - a["params"]).abs().max()) / scale,
+            "teacher_bit_equal": None if a["teacher"] is None
+            else bool(torch.equal(a["teacher"], b["teacher"])),
             "finite": bool(np.isfinite([float(x["total_loss"]) for x in b["per_step"]]).all())}
 
 
@@ -2467,7 +2488,7 @@ def _check_replayed_kernels(case: str, graph: dict, eager: dict) -> None:
           f"{n_rot} counted")
     n_mi = sum(counted["mi_joint"].values()) + sum(counted["mi_fused"].values())
     mi_kernels = sum(v for k, v in ours.items() if not k.startswith(("rotate_", "lane_roll_")))
-    check(0 < n_mi <= mi_kernels,
+    check(n_mi <= mi_kernels and (n_mi > 0) == (mi_kernels > 0),  # meanteacher: none
           f"train_graph {case}: {mi_kernels} MI kernels a step for {n_mi} counted launches")
 
 
@@ -2498,7 +2519,7 @@ def phase_train_graph() -> dict:
     deterministic = torch.backends.cudnn.deterministic
     for case, dtype, extra in GRAPH_CASES:
         runs = []
-        torch.backends.cudnn.deterministic = dtype == "fp32"
+        torch.backends.cudnn.deterministic = case in GRAPH_DETERMINISTIC
         try:
             for eager in (True, False, True):
                 runs.append(_graph_run(case, extra, eager=eager))
@@ -2513,6 +2534,10 @@ def phase_train_graph() -> dict:
         check(diff["finite"], f"train_graph {case}: a non-finite loss")
         check(diff["loss_rel"] <= loss_lim, f"train_graph {case}: losses {diff['loss_rel']} "
                                             f"apart (limit {loss_lim}, floor {floor['loss_rel']})")
+        if diff["teacher_bit_equal"] is not None:  # the EMA on the device count
+            check(diff["teacher_bit_equal"] and diff["loss_rel"] == 0.0,
+                  f"train_graph {case}: teacher parameters bit-equal {diff['teacher_bit_equal']},"
+                  f" losses {diff['loss_rel']} apart")
         if dtype == "fp32":
             check(diff["param_rel"] <= param_lim,
                   f"train_graph {case}: parameters {diff['param_rel']} apart (limit "
@@ -2534,9 +2559,12 @@ def phase_train_graph() -> dict:
                   f"train_graph {case}: the flip masks of steps 3-5 differ under replay")
         lines[case] = graph["line"]
         emit({"phase": "train_graph", "case": case, "dtype": dtype, "extra": list(extra),
-              "steps": GRAPH_STEPS, "cudnn_deterministic": dtype == "fp32",
-              "losses_eager": [{k: float(m[k]) for k in GRAPH_LOSSES} for m in eager["per_step"]],
-              "losses_graph": [{k: float(m[k]) for k in GRAPH_LOSSES} for m in graph["per_step"]],
+              "steps": GRAPH_STEPS, "cudnn_deterministic": case in GRAPH_DETERMINISTIC,
+              "losses_eager": [{k: float(m[k]) for k in GRAPH_LOSSES if k in m}
+                               for m in eager["per_step"]],
+              "losses_graph": [{k: float(m[k]) for k in GRAPH_LOSSES if k in m}
+                               for m in graph["per_step"]],
+              "teacher_bit_equal": diff["teacher_bit_equal"],
               "loss_rel_graph_vs_eager": diff["loss_rel"],
               "loss_rel_eager_vs_eager": floor["loss_rel"],
               "loss_rel_by_step_graph_vs_eager": diff["loss_rel_by_step"],
@@ -2548,6 +2576,294 @@ def phase_train_graph() -> dict:
               "generator_offset": graph["generator_offset"],
               "graph": graph["line"], "eager": eager["line"], "eager2": eager2["line"],
               "card": nvidia_smi()})
+    return lines
+
+
+def peaks_gib() -> dict:
+    """The peaks since the last reset of the memory stats, GiB: allocated
+    (the allocator's blocks), requested (what the tensors asked for) and
+    reserved (the segments the process holds)."""
+    import torch
+
+    stats = torch.cuda.memory_stats()
+    return {k: stats[f"{k}_bytes.all.peak"] / 2 ** 30 for k in ("allocated", "requested",
+                                                                "reserved")}
+
+
+def _eval_epochs(trainer, programs, record: list) -> dict:
+    """EVAL_GRAPH_EPOCHS eval epochs of ``trainer`` (val, then test, as
+    ``start_training`` runs them) with ``programs`` in place (host path: its
+    eval step; scan path: {split: eval scan}), each call's outputs appended
+    to ``record``: each epoch's wall, the peak, then one more epoch profiled
+    (device ms, kernels)."""
+    import torch
+
+    def recorded(fn):
+        def call(*args):
+            out = fn(*args)
+            record.append(out)  # read back after the timed epochs
+            return out
+        return call
+
+    if trainer._epoch_scan:
+        trainer._eval_scans = {which: recorded(fn) for which, fn in programs.items()}
+    else:
+        trainer._eval_step = recorded(programs)
+
+    def epoch():
+        trainer._eval_epoch(trainer._val_loader)
+        trainer._eval_epoch(trainer._test_loader)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(EVAL_GRAPH_EPOCHS):
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    line = {"eval_epoch_wall_ms": walls, "peak_gib": peaks_gib()}
+    calls = len(record)
+    device, wall, kernels, _, _ = _profiled(epoch, 1, 1)
+    record[:] = [{k: v.cpu() for k, v in out.items()} for out in record[:calls]]
+    return {**line, "device_ms_per_epoch": device, "profiled_wall_ms_per_epoch": wall,
+            "busy_share": device / wall, "device_kernels_per_epoch": kernels,
+            "calls_per_epoch": calls // EVAL_GRAPH_EPOCHS}
+
+
+def phase_eval_graph() -> dict:
+    """The headline trainer's val and test eval (``_eval_epoch``) on the host
+    path (one ``build_eval_step`` graph a padded patient length) and the scan
+    path (``Trainer.device_data=true``: one ``build_eval_scan`` graph a split):
+    one trainer a path through ``main.main`` (EVAL_GRAPH_STEPS steps, its own
+    eval once), then EVAL_GRAPH_EPOCHS eval epochs eager (the builders given
+    jit=False) and as many with the trainer's own graphs, on the same
+    weights (``_eval_epochs``): every output bit-equal; each epoch's wall
+    (val + test, readbacks included), device ms and busy share over one more
+    profiled epoch, device kernels an epoch, peak memory (allocated and
+    reserved; ``peaks_gib``), the requested within GRAPH_PEAK_LIMIT of eager. Returns the
+    graph lines by path."""
+    import torch
+
+    steps = port("engine.steps")
+    lines = {}
+    for path in ("host", "scan"):
+        extra = ("Trainer.device_data=true",) if path == "scan" else ()
+        trainer = port("main").main(_zoo_argv(
+            f"chip_smoke_eval_{path}", "Trainer.max_epoch=1",
+            f"Trainer.num_batches={EVAL_GRAPH_STEPS}", *extra))
+        kw = dict(num_classes=trainer._num_classes, context=trainer._ctx, jit=False)
+        if trainer._epoch_scan:
+            own = dict(trainer._eval_scans)
+            eager = {which: steps.build_eval_scan(
+                trainer._model, data_store=getattr(trainer, f"_{which}_store"),
+                crop=trainer._crop_size, **kw) for which in own}
+            graphs = own["val"].graphs
+        else:
+            own = trainer._eval_step
+            eager = steps.build_eval_step(trainer._model, **kw)
+            graphs = own.graphs
+        outputs = {True: [], False: []}
+        e = _eval_epochs(trainer, eager, outputs[True])
+        g = _eval_epochs(trainer, own, outputs[False])
+        got, want = outputs[False], outputs[True]
+        equal = len(got) == len(want) > 0 and all(
+            set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
+            for a, b in zip(got, want))
+        lines[path] = g
+        emit({"phase": "eval_graph", "path": path, "epochs": EVAL_GRAPH_EPOCHS,
+              "outputs_bit_equal": equal, "graphs": len(graphs.graphs),  # a length, or a split
+              "graph": g, "eager": e,
+              "device_ms_graph_over_eager": g["device_ms_per_epoch"] / e["device_ms_per_epoch"],
+              "card": nvidia_smi()})
+        check(graphs.captured, f"eval_graph {path}: no graph captured")
+        check(equal, f"eval_graph {path}: graph outputs differ from eager ({len(got)} calls, "
+                     f"eager {len(want)})")
+        check(g["peak_gib"]["requested"] <= GRAPH_PEAK_LIMIT * e["peak_gib"]["requested"],
+              f"eval_graph {path}: peak {g['peak_gib']} GiB, eager {e['peak_gib']}")
+        del trainer, own, eager, graphs
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _pretrain_graph_run(eager: bool) -> dict:
+    """``pretrain_main`` (iiccontrast, PRETRAIN_WALL_STEPS batches, one epoch
+    a phase, no step synchronised) with its steps and finetune's eval as
+    graphs or, when ``eager``, built with jit=False (the phases' Adam built
+    for a graph either way). For each phase: every step's metrics, the state
+    after it (model, heads), the joint's launches, the loop wall a step
+    (``loop_walls_ms``) and over PRETRAIN_GRAPH_WINDOW (synchronised at both
+    ends), the device ms, busy share and kernels by name a step over the
+    steps after the window (profiled), the peak."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pm, pre, mj = port("pretrain_main"), port("engine.pretrain"), port("ops.mi_joint")
+    graphs = port("engine.graphs")
+    warmup = graphs.WARMUP
+    names = handwritten_kernels()
+    record: dict = {}
+    real_phase = pre.ContrastTrainer._run_phase
+    first, last = PRETRAIN_GRAPH_WINDOW
+
+    def watched(self, name, phase, step, batches, *args, **kwargs):
+        rec = record[name] = {"metrics": [], "marks": [], "peaks": {}}
+        prof = profile(activities=[ProfilerActivity.CUDA])
+
+        def peak(segment):
+            """The peak since the last segment's end, then a fresh count."""
+            rec["peaks"][segment] = peaks_gib()
+            torch.cuda.reset_peak_memory_stats()
+
+        def timed(batch, **valid):
+            i = len(rec["metrics"])
+            if i in (warmup, warmup + 1):  # the warm-up steps, then the capture's
+                peak("warmup" if i == warmup else "capture")
+            if i in (first, last):
+                torch.cuda.synchronize()
+                rec["marks"].append(time.perf_counter())
+            if i == last:
+                prof.start()
+                rec["marks"].append(time.perf_counter())
+            out = step(batch, **valid)
+            rec["metrics"].append(out)
+            if i == self._num_batches - 1:
+                torch.cuda.synchronize()
+                rec["marks"].append(time.perf_counter())
+                prof.stop()
+                peak("loop")
+            return out
+
+        timed.graphs = step if isinstance(step, graphs.GraphStep) else None  # released after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mj.reset_launch_counts()
+        try:
+            real_phase(self, name, phase, timed, batches, *args, **kwargs)
+        finally:
+            peak("eval_and_checkpoint")  # after the loop: finetune's val eval, last.pth
+            rec["peak_gib"] = {k: max(p[k] for p in rec["peaks"].values())
+                               for k in ("allocated", "requested", "reserved")}
+            rec["launches"] = {f"{k}/p{p}": v for (k, p), v in sorted(mj.LAUNCHES.items())}
+            rec["graphed"] = isinstance(step, graphs.GraphStep)
+            rec["state"] = {f"{i}.{k}": v.detach().cpu().clone() for i, m in enumerate(
+                (self._model, phase.heads)) for k, v in m.state_dict().items()}
+        if len(rec["marks"]) == 4:  # the phase ran its epoch: the profiled steps
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+            rec["profiled"] = (sum(e.self_device_time_total for e in events) / 1e3,
+                               sum(e.count for e in events))
+            ours = {}
+            for e in events:
+                kernel = _handwritten(e.key, names)
+                if kernel is not None:
+                    ours[kernel] = ours.get(kernel, 0) + e.count
+            rec["handwritten"] = ours
+
+    patches = [(pre.ContrastTrainer, "_run_phase", watched)]
+    if eager:
+        for builder in ("build_pretrain_encoder_step", "build_pretrain_decoder_step",
+                        "build_finetune_step", "build_finetune_mt_step", "build_eval_step"):
+            real = getattr(pre, builder)
+            patches.append((pre, builder,
+                            lambda *a, _f=real, **k: _f(*a, **{**k, "jit": False})))
+    with ExitStack() as stack:
+        for target, attribute, value in patches:
+            stack.enter_context(mock.patch.object(target, attribute, value))
+        trainer = pm.main(_pretrain_argv("iiccontrast",
+                                          f"chip_smoke_pretrain_graph_{int(eager)}",
+                                          steps=PRETRAIN_WALL_STEPS, timing=False))
+    steps, out = PRETRAIN_WALL_STEPS, {}
+    for phase in PRETRAIN_GRAPH_PHASES:
+        rec = record[phase]
+        (loop,) = trainer.loop_walls_ms[phase]
+        window = (rec["marks"][1] - rec["marks"][0]) * 1e3 / (last - first)
+        profiled_wall = (rec["marks"][3] - rec["marks"][2]) * 1e3 / (steps - last)
+        device_ms = rec["profiled"][0] / (steps - last)
+        out[phase] = {
+            "metrics": [{k: v.cpu() for k, v in m.items()} for m in rec["metrics"]],
+            "state": rec["state"], "graphed": rec["graphed"], "line": {
+                "loop_wall_ms_per_step": loop / steps, "window_wall_ms_per_step": window,
+                "device_ms_per_step": device_ms, "profiled_wall_ms_per_step": profiled_wall,
+                "busy_share": device_ms / profiled_wall,
+                "device_kernels_per_step": rec["profiled"][1] / (steps - last),
+                "handwritten_kernels_per_step": {k: v / (steps - last) for k, v in
+                                                 sorted(rec["handwritten"].items())},
+                "launches": rec["launches"], "peak_gib": rec["peak_gib"],
+                "peak_by_segment_gib": rec["peaks"]}}
+    out["val_dsc"] = float(_phase_rows(Path(trainer._save_dir), "finetune")[0]["val_ds_DSC_mean"])
+    del trainer, record
+    return out
+
+
+def phase_pretrain_graph() -> dict:
+    """Each pretrain phase of ``Trainer.name=iiccontrast`` through
+    ``pretrain_main`` at PRETRAIN_WALL_STEPS batches (pretrain_wall's N), eager (the
+    builders given jit=False) against graph from the same weights and seed,
+    under cuDNN's deterministic algorithms (``_pretrain_graph_run``): every
+    step's metrics, the state after each phase and finetune's val DSC
+    bit-equal; the decoder's joint launched 3 times a step (its 3 products,
+    counted once a replay) and the other phases not at all, as eager; the
+    hand-written kernels a step by name equal; the graph's peak (requested
+    bytes, ``peaks_gib``, by segment: warm-up, capture, loop, eval) within
+    GRAPH_PEAK_LIMIT of eager; each phase's loop wall, device ms and busy
+    share beside the eager step's. Returns the graph run's lines by phase."""
+    import gc
+
+    import torch
+
+    mj = port("ops.mi_joint")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for eager in (True, False):
+            runs[eager] = _pretrain_graph_run(eager)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    eager_run, graph_run = runs[True], runs[False]
+    check(eager_run["val_dsc"] == graph_run["val_dsc"],
+          f"pretrain_graph: val DSC {graph_run['val_dsc']}, eager {eager_run['val_dsc']}")
+    lines = {}
+    for phase in PRETRAIN_GRAPH_PHASES:
+        g, e = graph_run[phase], eager_run[phase]
+        metrics_equal = len(g["metrics"]) == len(e["metrics"]) == PRETRAIN_WALL_STEPS and all(
+            set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
+            for a, b in zip(g["metrics"], e["metrics"]))
+        state_equal = set(g["state"]) == set(e["state"]) and all(
+            torch.equal(g["state"][k], v) for k, v in e["state"].items())
+        gl, el = g["line"], e["line"]
+        lines[phase] = gl
+        emit({"phase": "pretrain_graph", "stage": phase, "steps": PRETRAIN_WALL_STEPS,
+              "window": list(PRETRAIN_GRAPH_WINDOW), "cudnn_deterministic": True,
+              "metrics_bit_equal": metrics_equal, "state_bit_equal": state_equal,
+              "graph": gl, "eager": el,
+              "device_ms_graph_over_eager": gl["device_ms_per_step"] / el["device_ms_per_step"],
+              "card": nvidia_smi()})
+        check(g["graphed"] and not e["graphed"],
+              f"pretrain_graph {phase}: graphed {g['graphed']}, eager run {e['graphed']}")
+        check(metrics_equal and state_equal, f"pretrain_graph {phase}: metrics bit-equal "
+                                             f"{metrics_equal}, state bit-equal {state_equal}")
+        want = {}
+        if phase == "pretrain_decoder":
+            want = {f"{name}/p0": PRETRAIN_WALL_STEPS * PRETRAIN_LAUNCHES_PER_PRODUCT
+                    for name in sorted((mj.FWD, mj.BWD_DX, mj.BWD_DX_TF))}
+        check(gl["launches"] == el["launches"] == want,
+              f"pretrain_graph {phase}: joint launches {gl['launches']}, eager "
+              f"{el['launches']} (want {want})")
+        check(gl["handwritten_kernels_per_step"] == el["handwritten_kernels_per_step"],
+              f"pretrain_graph {phase}: hand-written kernels a step "
+              f"{gl['handwritten_kernels_per_step']}, eager {el['handwritten_kernels_per_step']}")
+        check(gl["peak_gib"]["requested"] <= GRAPH_PEAK_LIMIT * el["peak_gib"]["requested"],
+              f"pretrain_graph {phase}: peak {gl['peak_gib']} GiB, eager {el['peak_gib']}")
+    emit({"phase": "pretrain_graph", "stage": "finetune_val", "val_dsc": graph_run["val_dsc"],
+          "val_dsc_bit_equal": True})
     return lines
 
 
@@ -2699,7 +3015,11 @@ def phase_train_zoo():
                "median_step_ms": statistics.median(trainer.step_times_ms[1:]),
                "step_ms": trainer.step_times_ms, "epoch_wall_s": trainer.epoch_times_s[0],
                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["graphed"] = graphed(trainer)
+        check(out["graphed"] == graph_wanted(trainer),
+              f"{name}: graphed {out['graphed']}, the gate {graph_wanted(trainer)}")
         if name == "meanteacher":
+            check(out["graphed"], "meanteacher: its scan chunks ran eagerly")
             out["median_step_ms_note"] = ("chunks of 2 steps, each step its chunk's wall time / 2:"
                                           " the median is the second chunk's")
             check(n_rot == 2 * ZOO_STEPS, f"meanteacher: {n_rot} rotation launches in "
@@ -2887,6 +3207,7 @@ def phase_pretrain_mt(steps: int = PRETRAIN_STEPS) -> None:
     import torch
 
     pm, mj, models = port("pretrain_main"), port("ops.mi_joint"), port("models")
+    build_eval_step = port("engine.steps").build_eval_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mj.reset_launch_counts()
@@ -2904,7 +3225,8 @@ def phase_pretrain_mt(steps: int = PRETRAIN_STEPS) -> None:
     for who in ("teacher", "model"):
         net = models.UNet(1, 4).to(dev)
         net.load_state_dict(state[who])
-        scores[who] = trainer._eval_phase(net)[1]
+        scores[who] = trainer._eval_phase(build_eval_step(
+            net, num_classes=4, context=trainer._ctx, jit=False))[1]
     csv_score = float(row["val_ds_DSC_mean"])
     check(abs(scores["teacher"] - csv_score) <= 1e-6,
           f"pretrain_mt: CSV val DSC {csv_score}, the teacher's {scores['teacher']}")
@@ -2948,7 +3270,7 @@ def _pretrain_step_run(device: str):
                        torch.device(device), 11)
     step = pre.build_pretrain_decoder_step(model, phase.heads["projector"], phase.optimizer,
                                            generator=phase.generator,
-                                           iic_head=phase.heads["iic"])
+                                           iic_head=phase.heads["iic"], jit=False)
     params = list(chain(model.named_parameters(), heads.named_parameters(prefix="heads")))
     before = {k: p.detach().cpu().clone() for k, p in params}
     mj.reset_launch_counts()
@@ -3069,6 +3391,7 @@ def _alone_and_loader(steps: int) -> dict:
     import torch
 
     pre, trainer_mod = port("engine.pretrain"), port("engine.trainer")
+    graphs = port("engine.graphs")
     record = {}
 
     def measure(self, name, phase, step, batches, *args, **kwargs):
@@ -3089,6 +3412,7 @@ def _alone_and_loader(steps: int) -> dict:
             record[name] = {"loader_ms_per_batch": loader_ms, "alone_ms": times}
         finally:
             self._start_epoch = 0
+            graphs.release(step)
             phase.close()
 
     _wall_main("chip_smoke_pretrain_alone", steps,
@@ -4384,21 +4708,21 @@ def _ppar_run(device, ctx, data: dict) -> dict:
         if phase == "encoder":
             step = pre.build_pretrain_encoder_step(
                 model, ph.heads["projector"], ph.optimizer, iic_head=ph.heads["iic"],
-                step_counter=ph.counter, context=ctx)
+                step_counter=ph.counter, context=ctx, jit=False)
             batch = {"image": t(data["enc_image"]), "image_tf": t(data["enc_image_tf"]),
                      "labels": torch.from_numpy(data["labels_encoder"]).to(device)}
             kw = {"n_valid": n}
         elif phase == "decoder":
             step = pre.build_pretrain_decoder_step(
                 model, ph.heads["projector"], ph.optimizer, generator=ph.generator,
-                iic_head=ph.heads["iic"], step_counter=ph.counter, context=ctx)
+                iic_head=ph.heads["iic"], step_counter=ph.counter, context=ctx, jit=False)
             batch = {"image": t(data["image"]), "image_tf": t(data["image_tf"]),
                      "labels": torch.from_numpy(data["labels_decoder"]).to(device)}
             kw = {"n_valid": n, "flip_mask": torch.from_numpy(data["flips"])}
         else:
             step = pre.build_finetune_mt_step(
                 model, ph.teacher, ph.optimizer, num_classes=4, generator=ph.generator,
-                step_counter=ph.counter, context=ctx)
+                step_counter=ph.counter, context=ctx, jit=False)
             batch = {"image": t(data["labeled"]), "target": t(data["target"]),
                      "unlabeled_image": t(data["image"])}
             kw = {"n_valid": PPAR_LABELED, "n_unlabeled_valid": n,
@@ -4655,8 +4979,9 @@ def main(argv=None) -> int:
                                               "step_meanteacher,step_bf16,step_s2d,step_heads,"
                                               "train,train_tiled,train_heads,train_backends,"
                                               "train_fused,train_fused_wide,train_device,"
-                                              "train_bf16,train_remat,train_graph,"
+                                              "train_bf16,train_remat,train_graph,eval_graph,"
                                               "resume,inference,train_zoo,pretrain,pretrain_wall,"
+                                              "pretrain_graph,"
                                               "optim,arch_zoo,"
                                               "host_tier,parallel,space_parallel,"
                                               "train_parallel,"
@@ -4762,6 +5087,9 @@ def main(argv=None) -> int:
     if "train_graph" in phases:
         with timed(walls, "train_graph"):
             phase_train_graph()
+    if "eval_graph" in phases:
+        with timed(walls, "eval_graph"):
+            phase_eval_graph()
     resume_launches, zoo_rot_launches = {}, {}
     if "resume" in phases or "inference" in phases:  # inference evaluates the resumed run
         with timed(walls, "resume"):
@@ -4782,6 +5110,9 @@ def main(argv=None) -> int:
     if "pretrain_wall" in phases:
         with timed(walls, "pretrain_wall"):
             phase_pretrain_wall()
+    if "pretrain_graph" in phases:
+        with timed(walls, "pretrain_graph"):
+            phase_pretrain_graph()
     if "optim" in phases:
         with timed(walls, "optim"):
             phase_optim(args.steps)

@@ -1,11 +1,13 @@
-"""CUDA graphs of the train step and of the epoch scan's chunks: the
-counterpart of the JAX package's compiled step (``jax.jit``) and epoch
-programs (``lax.scan``), built by ``engine/steps.py`` with ``jit=True`` on a
-card.
+"""CUDA graphs of the JAX package's compiled programs: the train step and
+the epoch scan's chunks (``jax.jit``, ``lax.scan``), the eval step and eval
+scan, and the four pretrain steps, built by ``engine/steps.py`` and
+``engine/pretrain.py`` with ``jit=True`` on a card.
 
-``Graphed`` runs a body with no arguments: its first ``WARMUP`` calls
-eagerly on a side stream (real steps of the run: cuDNN, cuBLAS and the
-kernels' one-time set-up happen there), then it captures the body once
+``Graphed`` runs a body with no arguments: its first ``warmup`` calls
+eagerly on the capture's stream (real steps of the run: cuDNN, cuBLAS and
+the kernels' one-time set-up happen there; cuBLAS keeps workspaces for each
+stream it runs on, 64 MiB on the card, so a warm-up stream of its own would
+hold as much again for good), then it captures the body once
 (the step's generators registered, so each replay draws what the eager step
 would draw from the generator's state; any host sync raises) and replays
 it, once a call from then on. The kernel wrappers' launch counts are taken
@@ -14,7 +16,13 @@ out of the capture and added once a replay (``ops/launches.py``).
 The bodies read static buffers:
 - ``GraphStep`` (one step a call): the batch is copied into static
   tensors, one replay runs the step, the metrics are cloned out of the
-  graph's outputs;
+  graph's outputs. It keeps one graph for each batch layout (keys, shapes,
+  dtypes) and each set of static keyword values (a pretrain step's
+  ``n_valid``), the counterpart of ``jax.jit``'s trace per shape, all of
+  them drawing on one memory pool: outputs are cloned right after each
+  replay, so no graph reads what another's replay overwrote. ``calls``
+  makes one of a function of tensors (the eval step, one graph per padded
+  patient length; the eval scan, one a split);
 - ``epoch_scan``, ``epoch_scan_preaug`` and ``epoch_scan_pipelined`` (a
   chunk of up to ``capacity`` steps a call): the chunk's [n, B] index rows
   are copied into static [capacity, B] buffers, a device counter is set to
@@ -28,7 +36,8 @@ The bodies read static buffers:
   for the augmentation hid none of it on the card), from a generator the
   host seeds with ``_fold_in(seed, i + 1)`` before replay i, then copies
   the next batch over the current one.
-The host advances the global step (``step_counter``) once a step.
+The host advances the global step (``step_counter``) once a step; the mean
+teacher's EMA reads a device copy of it that its body advances.
 
 Off a card every call runs the body eagerly: the tests' view of what is
 captured.
@@ -38,13 +47,16 @@ from __future__ import annotations
 
 import contextlib
 import gc
+from functools import partial
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import launches
 
-WARMUP = 2  # eager steps on a side stream before the capture
+WARMUP = 2  # eager steps on the capture's stream before the capture
+EVAL_WARMUP = 1  # eager eval calls before the capture (no optimizer state to set up)
 
 _STREAMS: Dict[Tuple[torch.device, str], "torch.cuda.Stream"] = {}
 
@@ -91,12 +103,14 @@ def _host_syncs_raise():
 class Graphed:
     """``body()`` as one CUDA graph on ``device`` (see the module
     docstring); off a card the body itself. ``out`` holds the captured
-    body's outputs, rewritten by each replay."""
+    body's outputs, rewritten by each replay. ``pool``: the memory pool of
+    the capture (``torch.cuda.graph_pool_handle()``; None: its own)."""
 
     def __init__(self, body: Callable[[], Any], device: torch.device,
-                 generators: Sequence[torch.Generator] = ()) -> None:
+                 generators: Sequence[torch.Generator] = (), warmup: int = WARMUP,
+                 pool=None) -> None:
         self._body, self.device = body, torch.device(device)
-        self._generators, self._warm = tuple(generators), WARMUP
+        self._generators, self._warm, self._pool = tuple(generators), int(warmup), pool
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._launches: Optional[launches.CapturedLaunches] = None
         self.out: Any = None
@@ -112,7 +126,7 @@ class Graphed:
             if self._warm > 0:
                 self._warm -= 1
                 main = torch.cuda.current_stream(self.device)
-                side = own_stream(self.device, "warmup")
+                side = own_stream(self.device, "capture")
                 side.wait_stream(main)
                 with torch.cuda.stream(side):
                     out = self._body()
@@ -129,7 +143,7 @@ class Graphed:
             graph.register_generator_state(gen)
         # thread-local: the prefetch thread goes on copying batches meanwhile
         with launches.captured() as counted, _no_collection(), \
-                torch.cuda.graph(graph, stream=own_stream(self.device, "capture"),
+                torch.cuda.graph(graph, pool=self._pool, stream=own_stream(self.device, "capture"),
                                  capture_error_mode="thread_local"), _host_syncs_raise():
             self.out = self._body()
         self._graph, self._launches = graph, counted
@@ -150,24 +164,76 @@ def _take(rows: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 
 class GraphStep:
-    """``build_train_step(jit=True)`` on a card: step(batch) -> metrics,
-    the eager step's body (``steps.TrainStep``) captured on static copies of
-    the batch; every batch has the first one's keys, shapes and dtypes."""
+    """``build_*_step(jit=True)`` on a card: step(batch, **static) ->
+    metrics, the eager step's ``body(batch, **static)`` (``steps.TrainStep``)
+    captured on static copies of the batch: one graph for each batch layout
+    and each set of ``static`` keyword values (module docstring), the first
+    ``warmup`` calls of each eager; the step's generator registered with
+    each and its ``step_counter`` (when it has one) advanced once a call.
+    ``pool``: the graphs' memory pool (None: one of their own)."""
 
-    def __init__(self, step) -> None:
-        self.eager = step
-        self._batch: Optional[Dict[str, torch.Tensor]] = None
-        self._graph = Graphed(lambda: step.body(self._batch), step.device, (step.generator,))
+    def __init__(self, step, warmup: int = WARMUP, pool=None) -> None:
+        self.eager, self._warmup = step, int(warmup)
+        if pool is None and step.device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
+        self._pool = pool
+        self._generators = tuple(g for g in (getattr(step, "generator", None),) if g is not None)
+        self.graphs: Dict[tuple, Tuple[Dict[str, torch.Tensor], Graphed]] = {}
 
-    def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        dev = self._graph.device
-        if self._batch is None:
-            self._batch = {k: v.to(dev, copy=True) for k, v in batch.items()}
+    @property
+    def captured(self) -> bool:
+        return any(graph.captured for _, graph in self.graphs.values())
+
+    def __call__(self, batch: Dict[str, torch.Tensor], **static) -> Dict[str, torch.Tensor]:
+        if any(isinstance(v, torch.Tensor) for v in static.values()):
+            raise TypeError(f"a captured step takes its tensors in the batch, not as "
+                            f"{sorted(static)} (an injected draw needs jit=False)")
+        key = (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+               tuple(sorted(static.items())))
+        entry = self.graphs.get(key)
+        if entry is None:
+            dev = self.eager.device
+            inputs = {k: v.to(dev, copy=True) for k, v in batch.items()}
+            entry = self.graphs[key] = (inputs, Graphed(
+                partial(self.eager.body, inputs, **static), dev, self._generators,
+                self._warmup, self._pool))
         else:
-            _copy_rows(self._batch, batch)
-        metrics = self._graph()
-        self.eager.step_counter.add_(1)
+            _copy_rows(entry[0], batch)
+        metrics = entry[1]()
+        counter = getattr(self.eager, "step_counter", None)
+        if counter is not None:
+            counter.add_(1)
         return {k: v.clone() for k, v in metrics.items()}
+
+    def release(self) -> None:
+        """Drops every graph, its static buffers and outputs (their pool
+        goes once nothing else holds its memory)."""
+        self.graphs.clear()
+
+
+def release(*programs) -> None:
+    """Drops the graphs of each program that has any (a ``GraphStep``, or a
+    ``calls`` function); an eager one, or None, has none."""
+    for program in programs:
+        step = program if isinstance(program, GraphStep) else getattr(program, "graphs", None)
+        if step is not None:
+            step.release()
+
+
+def calls(fn: Callable[..., Dict[str, torch.Tensor]], names: Sequence[str],
+          device: torch.device, pool=None):
+    """``fn(*tensors) -> {name: tensor}`` as a ``GraphStep`` (the tensors its
+    batch under ``names``), ``EVAL_WARMUP`` eager calls a layout: call(*tensors)
+    -> the outputs, cloned; ``call.graphs`` the ``GraphStep``."""
+    names = tuple(names)
+    step = GraphStep(SimpleNamespace(body=lambda batch: fn(*(batch[n] for n in names)),
+                                     device=torch.device(device)), EVAL_WARMUP, pool)
+
+    def call(*tensors: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return step(dict(zip(names, tensors)))
+
+    call.graphs = step
+    return call
 
 
 def _copy_rows(static: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],

@@ -16,7 +16,8 @@ Three phases over one U-Net, each with its own Adam and its own generator
 - ``finetune``: the supervised loss on the labeled slices, every component
   training; ``ContrastTrainerMT`` adds a mean teacher (MSE between the
   student's softmax on the flipped unlabeled slices and the teacher's,
-  flipped) and evaluates the teacher.
+  flipped; the EMA schedule reads the phase's step count on the device,
+  ``_Phase.ema_count``) and evaluates the teacher.
 ``IICContrastTrainer`` adds IIC cluster heads to both pretrain phases: a
 ``ClusterHead`` on the encoder features (``iid_loss`` per subhead, then the
 mean) and a 5-D ``LocalClusterHead`` on the decoder features, whose
@@ -31,6 +32,15 @@ their forward in train mode, so their BN running statistics move, as in the
 JAX package. A parameter of the phase's Adam that the loss does not reach
 (the projector under ``disable_contrastive``) gets a zero gradient, as
 ``jax.grad`` gives it, so its coupled weight decay still moves it.
+
+On a card (``jit``, the JAX builders' parameter) each step is a CUDA graph
+(``engine/graphs.py:GraphStep``): one for each batch shape and real-row
+count ``n_valid`` (a full batch and an epoch's short last one), replayed
+every step, the phase's Adam built for it (``build_optimizer(...,
+graph=True)``: a tensor lr, capturable); the val eval of finetune too, built
+once a phase. A phase drops its graphs when it ends, before the next phase
+captures its own. Under a process group, and off a card, the steps run
+eagerly (``steps.capture_unmet``; the trainer prints why).
 
 Each epoch: the learning rate of ``lr_at_epoch`` (eta_min 0 in the pretrain
 phases, 5e-7 in finetune), ``num_batches`` steps on batches prefetched by a
@@ -91,9 +101,17 @@ from ..parallel.mesh import DistContext, reduce_grads_, replicate_state, single_
 from ..utils import AverageValueMeter, MeterInterface, Storage, StorageIncomeDict, SummaryWriter, \
     UniversalDice
 from ..utils.general import class2one_hot
+from . import graphs
 from .checkpoints import BEST_NAME, LAST_NAME, load_checkpoint, save_checkpoint
-from .optim import build_optimizer, init_optimizer_state, lr_at_epoch, set_learning_rate
-from .steps import _ema_update, build_eval_step, dice_stats
+from .optim import (
+    build_optimizer,
+    init_optimizer_state,
+    load_optimizer_state,
+    lr_at_epoch,
+    optimizer_state_dict,
+    set_learning_rate,
+)
+from .steps import TrainStep, _ema_update, _graphed, build_eval_step, capture_unmet, dice_stats
 from .trainer import _NullWriter, check_parallel, eval_rows, pad_rows, resolve_device, to_device
 
 __all__ = [
@@ -247,6 +265,17 @@ def _counter(step_counter: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64) if step_counter is None else step_counter
 
 
+def _program(body: Callable[..., Dict[str, torch.Tensor]], step_counter: Optional[torch.Tensor],
+             generator: Optional[torch.Generator], model: nn.Module,
+             optimizer: torch.optim.Optimizer, ctx: DistContext, jit: bool):
+    """The step of ``body``: the eager ``steps.TrainStep`` (which advances
+    the counter after each call), or with ``jit`` on a card its
+    ``graphs.GraphStep``, which raises where it cannot be captured."""
+    step = TrainStep(body, _counter(step_counter), generator, next(model.parameters()).device,
+                     (optimizer, ctx))
+    return graphs.GraphStep(step) if _graphed(step, jit) else step
+
+
 def _real_rows(n: int, n_valid: Optional[int], rows: slice,
                device) -> Tuple[int, Optional[torch.Tensor]]:
     """(The real rows of a global batch of ``n``: its leading ``n_valid``,
@@ -293,6 +322,7 @@ def build_pretrain_encoder_step(
     extract_position: str = "Conv5", iic_head: Optional[nn.Module] = None,
     iic_weight: float = 1.0, disable_contrastive: bool = False,
     step_counter: Optional[torch.Tensor] = None, context: Optional[DistContext] = None,
+    jit: bool = True,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """step({image, image_tf [B, H, W, 1], labels [B]}, n_valid=None) ->
     metrics: one train-mode U-Net forward over both views, the
@@ -301,12 +331,12 @@ def build_pretrain_encoder_step(
     views, averaged (``disable_contrastive``: that alone is the loss).
     ``n_valid``: the real rows of the global batch (its leading ones; None:
     all). Under ``context`` the images are the rank's rows and ``labels``
-    the global batch's, whole (see the module docstring)."""
-    counter = _counter(step_counter)
+    the global batch's, whole (see the module docstring). ``jit``: on a
+    card a CUDA graph (see the module docstring), else eager."""
     ctx = context or single_context()
     group, world = ctx.group, ctx.data_world
 
-    def step(batch: Dict[str, torch.Tensor], n_valid: Optional[int] = None
+    def body(batch: Dict[str, torch.Tensor], n_valid: Optional[int] = None
              ) -> Dict[str, torch.Tensor]:
         img = batch["image"]
         n = img.shape[0] * world
@@ -334,10 +364,9 @@ def build_pretrain_encoder_step(
         total.backward()
         metrics = _sum_over_ranks(optimizer, ctx, metrics)
         optimizer.step()
-        counter.add_(1)
         return metrics
 
-    return step
+    return _program(body, step_counter, None, model, optimizer, ctx, jit)
 
 
 def build_pretrain_decoder_step(
@@ -346,7 +375,7 @@ def build_pretrain_decoder_step(
     iic_head: Optional[nn.Module] = None, iic_weight: float = 1.0,
     disable_contrastive: bool = False, iic_padding: int = 0, iic_patch_size: int = 512,
     flip_threshold: float = 0.5, step_counter: Optional[torch.Tensor] = None,
-    context: Optional[DistContext] = None,
+    context: Optional[DistContext] = None, jit: bool = True,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """step({image (view 1), image_tf (view 2, the same geometry), labels
     [4B]}, flip_mask=None, n_valid=None) -> metrics. View 1 is flipped by
@@ -358,12 +387,13 @@ def build_pretrain_decoder_step(
     5-D ``LocalClusterHead``): the displaced-MI loss of the two halves'
     [B, h, w, S, K] maps at ``iic_padding`` / ``iic_patch_size`` (on the
     card, through the CUDA joint). Under ``context`` the images are the
-    rank's rows and ``labels`` the global batch's, whole."""
-    counter = _counter(step_counter)
+    rank's rows and ``labels`` the global batch's, whole. ``jit``: on a card
+    a CUDA graph with ``generator`` registered (no injected ``flip_mask``),
+    else eager."""
     ctx = context or single_context()
     group, world = ctx.group, ctx.data_world
 
-    def step(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
+    def body(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
              n_valid: Optional[int] = None) -> Dict[str, torch.Tensor]:
         img, img_ctf = batch["image"], batch["image_tf"]
         n = img.shape[0] * world
@@ -406,10 +436,9 @@ def build_pretrain_decoder_step(
         total.backward()
         metrics = _sum_over_ranks(optimizer, ctx, metrics)
         optimizer.step()
-        counter.add_(1)
         return metrics
 
-    return step
+    return _program(body, step_counter, generator, model, optimizer, ctx, jit)
 
 
 def _supervised(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
@@ -426,15 +455,14 @@ def _supervised(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
 
 def build_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer, *, num_classes: int,
                         step_counter: Optional[torch.Tensor] = None,
-                        context: Optional[DistContext] = None):
+                        context: Optional[DistContext] = None, jit: bool = True):
     """step({image [B, H, W, 1], target [B, H, W]}, n_valid=None) -> metrics:
     the supervised loss on the labeled slices (the dice sums [B, C] of the
     global batch, 0 on pad rows). Under ``context`` the batch holds the
-    rank's rows."""
-    counter = _counter(step_counter)
+    rank's rows. ``jit``: on a card a CUDA graph, else eager."""
     ctx = context or single_context()
 
-    def step(batch: Dict[str, torch.Tensor], n_valid: Optional[int] = None
+    def body(batch: Dict[str, torch.Tensor], n_valid: Optional[int] = None
              ) -> Dict[str, torch.Tensor]:
         image = batch["image"]
         n = image.shape[0] * ctx.data_world
@@ -446,17 +474,17 @@ def build_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer, *, n
         sup.backward()
         metrics = _sum_over_ranks(optimizer, ctx, {"sup_loss": sup}, (inter, union), n)
         optimizer.step()
-        counter.add_(1)
         return metrics
 
-    return step
+    return _program(body, step_counter, None, model, optimizer, ctx, jit)
 
 
 def build_finetune_mt_step(
     model: nn.Module, teacher: nn.Module, optimizer: torch.optim.Optimizer, *,
     num_classes: int, generator: torch.Generator, reg_weight: float = 10.0,
     ema_alpha: float = 0.999, ema_weight_decay: float = 1e-6, flip_threshold: float = 0.5,
-    step_counter: Optional[torch.Tensor] = None, context: Optional[DistContext] = None,
+    step_counter: Optional[torch.Tensor] = None, ema_count: Optional[torch.Tensor] = None,
+    context: Optional[DistContext] = None, jit: bool = True,
 ):
     """step({image, target, unlabeled_image}, flip_mask=None, n_valid=None,
     n_unlabeled_valid=None) -> metrics. The teacher's no-grad train-mode
@@ -465,14 +493,19 @@ def build_finetune_mt_step(
     supervised loss + ``reg_weight`` * MSE of the softmaxes; after the Adam
     step the teacher's parameters move to (teacher * a + (1 - a) * student)
     * (1 - ``ema_weight_decay``), a = min(1 - 1 / (t + 1), ``ema_alpha``), t
-    the phase's step before this one, alike on every rank. ``flip_mask``:
+    the phase's step before this one, alike on every rank, read from
+    ``ema_count`` (a 0-d int64 tensor on the model's device that each step
+    advances; default: made from ``step_counter``). ``flip_mask``:
     [n_unlabeled_valid, 2] over the real unlabeled rows of the global batch.
-    Under ``context`` the batch holds the rank's rows."""
+    Under ``context`` the batch holds the rank's rows. ``jit``: on a card a
+    CUDA graph with ``generator`` registered, else eager."""
     counter = _counter(step_counter)
+    if ema_count is None:
+        ema_count = counter.to(next(model.parameters()).device, copy=True)
     ctx = context or single_context()
     group, world = ctx.group, ctx.data_world
 
-    def step(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
+    def body(batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
              n_valid: Optional[int] = None, n_unlabeled_valid: Optional[int] = None
              ) -> Dict[str, torch.Tensor]:
         image, unlabeled = batch["image"], batch["unlabeled_image"]
@@ -507,11 +540,10 @@ def build_finetune_mt_step(
         metrics = _sum_over_ranks(optimizer, ctx, {"sup_loss": sup, "reg_loss": reg},
                                   (inter, union), n_lab)
         optimizer.step()
-        _ema_update(teacher, model, int(counter), ema_alpha, ema_weight_decay)
-        counter.add_(1)
+        _ema_update(teacher, model, ema_count, ema_alpha, ema_weight_decay)
         return metrics
 
-    return step
+    return _program(body, counter, generator, model, optimizer, ctx, jit)
 
 
 # ---------------------------------------------------------------------------
@@ -520,41 +552,50 @@ def build_finetune_mt_step(
 
 class _Phase:
     """One phase's trainable state: the heads, the Adam over the trainable
-    parameters, the generator (seeded ``seed``), the step counter and, in the
-    mean-teacher finetune, the teacher. ``state_dict`` / ``load_state_dict``
-    hold all of it with the model, for the phase's checkpoints."""
+    parameters (``graph``: built for a CUDA graph), the generator (seeded
+    ``seed``), the step counter and, in the mean-teacher finetune, the
+    teacher and the counter's copy on the card (``ema_count``).
+    ``state_dict`` / ``load_state_dict`` hold all of it with the model, for
+    the phase's checkpoints; a load fills every tensor in place."""
 
     def __init__(self, model: nn.Module, heads: nn.ModuleDict, components: Sequence[str],
                  lr: float, weight_decay: float, device: torch.device, seed: int,
-                 teacher: Optional[nn.Module] = None) -> None:
+                 teacher: Optional[nn.Module] = None, graph: bool = False) -> None:
         self.model, self.heads, self.teacher = model, heads.to(device), teacher
         mask = freeze_mask(model, components)
         for name, p in model.named_parameters():
             p.requires_grad_(mask[name])
         params = [p for name, p in model.named_parameters() if mask[name]]
         self.optimizer = build_optimizer(params + list(self.heads.parameters()),
-                                         {"name": "Adam", "lr": lr, "weight_decay": weight_decay})
+                                         {"name": "Adam", "lr": lr, "weight_decay": weight_decay},
+                                         graph=graph)
         init_optimizer_state(self.optimizer)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
         self.counter = torch.zeros((), dtype=torch.int64)
+        self.ema_count = (None if teacher is None
+                          else torch.zeros((), dtype=torch.int64, device=device))
 
     def state_dict(self) -> Dict[str, Any]:
         return {"model": self.model.state_dict(), "heads": self.heads.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.counter,
+                "optimizer": optimizer_state_dict(self.optimizer), "step": self.counter,
                 "generator": self.generator.get_state(),
                 "teacher": None if self.teacher is None else self.teacher.state_dict()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.model.load_state_dict(state["model"])
         self.heads.load_state_dict(state["heads"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(self.optimizer, state["optimizer"])
         self.counter.copy_(state["step"])
         self.generator.set_state(state["generator"])
         if self.teacher is not None:
             self.teacher.load_state_dict(state["teacher"])
+            self.ema_count.copy_(state["step"])
 
     def close(self) -> None:
+        """Every parameter trains again; the gradients go (a captured step's
+        live in its graph's pool)."""
+        self.optimizer.zero_grad(set_to_none=True)
         self.model.requires_grad_(True)
 
 
@@ -643,6 +684,11 @@ class ContrastTrainer:
         self._storages = {phase: Storage() for phase in PHASES}
         self._best_score = -1.0
         self._start_epoch = 0
+        # the phases' steps and eval as CUDA graphs (each phase's Adam built for them)
+        eager = capture_unmet(self._device, "Adam", ctx)
+        if eager and ctx.is_main:
+            print(f"[{self.name}] the steps run eagerly: {eager}", flush=True)
+        self._jit = eager is None
 
     # --- phase helpers ---------------------------------------------------
     def _init_head(self, make: Callable[[], nn.Module], salt: int) -> nn.Module:
@@ -655,7 +701,7 @@ class ContrastTrainer:
         """The phase's state, every rank holding rank 0's (the JAX
         ``replicate_state`` of each phase's state)."""
         phase = _Phase(self._model, nn.ModuleDict(heads), components, lr, weight_decay,
-                       self._device, self._seed + 1, teacher)
+                       self._device, self._seed + 1, teacher, graph=self._jit)
         replicate_state([self._model, phase.heads, teacher], phase.optimizer, self._ctx)
         return phase
 
@@ -691,7 +737,9 @@ class ContrastTrainer:
                    meter_names: Sequence[str], income_key: str, writer,
                    eval_model: Optional[nn.Module] = None) -> None:
         """The phase's epochs from ``_start_epoch``; ``eval_model``: evaluate
-        it on the val patients each epoch and keep ``best.pth`` (finetune).
+        it on the val patients each epoch (one eval program a phase) and keep
+        ``best.pth`` (finetune). The step's and the eval's graphs go when the
+        phase ends.
         ``batches``: the phase's host batches, prefetched on a background
         thread each epoch, which leaves them N + 3 batches on for N steps (the
         3 surplus batches are lost, as in the JAX package); under a data group
@@ -705,6 +753,8 @@ class ContrastTrainer:
         times = self.step_times_ms.setdefault(name, [])
         walls = self.loop_walls_ms.setdefault(name, [])
         ring = PinnedRing(self._device) if self._device.type == "cuda" else None  # one a phase
+        evaluate = None if eval_model is None else build_eval_step(
+            eval_model, num_classes=self._num_classes, context=self._ctx, jit=self._jit)
         try:
             for epoch in range(self._start_epoch, max_epoch):
                 t_epoch = time.perf_counter()
@@ -745,8 +795,8 @@ class ContrastTrainer:
                                                group_name=groups)
                 income = {income_key: meters.tracking_status()}
                 cur_score = None
-                if eval_model is not None:
-                    income["val"], cur_score = self._eval_phase(eval_model)
+                if evaluate is not None:
+                    income["val"], cur_score = self._eval_phase(evaluate)
                 storage.put_from_dict(StorageIncomeDict(**income), epoch)
                 writer.add_scalars_from_income_dict(income, epoch)
                 is_best = cur_score is not None and cur_score > self._best_score
@@ -770,17 +820,17 @@ class ContrastTrainer:
                       flush=True)
         finally:
             self._start_epoch = 0
+            graphs.release(step, evaluate)
             phase.close()
 
-    def _eval_phase(self, model: nn.Module) -> Tuple[Dict[str, Dict[str, float]], float]:
-        """The val patients: each patient's slices padded to a multiple of the
-        data world, each rank forwarding its rows; the loss and I/U summed
-        over the ranks."""
+    def _eval_phase(self, evaluate) -> Tuple[Dict[str, Dict[str, float]], float]:
+        """The val patients through ``evaluate`` (a ``build_eval_step``):
+        each patient's slices padded to a multiple of the data world, each
+        rank forwarding its rows; the loss and I/U summed over the ranks."""
         meters = MeterInterface()
         meters.register_meter("sup_loss", AverageValueMeter())
         meters.register_meter(
             "ds", UniversalDice(self._num_classes, list(range(1, self._num_classes))))
-        evaluate = build_eval_step(model, num_classes=self._num_classes, context=self._ctx)
         for batch in self._val_loader:
             out = evaluate(*eval_rows(batch, self._ctx, self._device))
             meters["sup_loss"].add(float(out["loss"]))
@@ -816,7 +866,7 @@ class ContrastTrainer:
         step = build_pretrain_encoder_step(
             self._model, phase.heads["projector"], phase.optimizer,
             extract_position=extract_position, iic_head=iic_head, step_counter=phase.counter,
-            context=self._ctx, **extra)
+            context=self._ctx, jit=self._jit, **extra)
 
         def make(b):
             out = self._views(b)
@@ -845,7 +895,7 @@ class ContrastTrainer:
         step = build_pretrain_decoder_step(
             self._model, phase.heads["projector"], phase.optimizer, generator=phase.generator,
             extract_position=extract_position, iic_head=iic_head, step_counter=phase.counter,
-            context=self._ctx, **extra)
+            context=self._ctx, jit=self._jit, **extra)
 
         def make(b):
             out = self._views(b)
@@ -892,7 +942,7 @@ class ContrastTrainer:
 
     def _build_finetune_step(self, phase: _Phase):
         return build_finetune_step(self._model, phase.optimizer, num_classes=self._num_classes,
-                                   step_counter=phase.counter, context=self._ctx)
+                                   step_counter=phase.counter, context=self._ctx, jit=self._jit)
 
     # --- orchestration ---------------------------------------------------
     def start_training(self, checkpoint: Optional[str] = None,
@@ -929,7 +979,8 @@ class ContrastTrainerMT(ContrastTrainer):
         return build_finetune_mt_step(
             self._model, phase.teacher, phase.optimizer, num_classes=self._num_classes,
             generator=phase.generator, reg_weight=reg_weight, ema_alpha=alpha,
-            ema_weight_decay=ema_weight_decay, step_counter=phase.counter, context=self._ctx)
+            ema_weight_decay=ema_weight_decay, step_counter=phase.counter,
+            ema_count=phase.ema_count, context=self._ctx, jit=self._jit)
 
 
 class IICContrastTrainer(ContrastTrainer):

@@ -16,7 +16,8 @@ optimizer step (``Optim.name``). Modes:
            g the EMA teacher: a no-grad train-mode forward on its own BN
            running statistics; after the optimizer step its parameters move to
            (g * a + (1 - a) * f) * (1 - weight_decay),
-           a = min(1 - 1 / (t + 1), alpha), t the global step
+           a = min(1 - 1 / (t + 1), alpha), t the global step, read from a
+           device copy of it (``ema_count``) that the step advances
 
 The step updates the model, projector, optimizer, teacher and step counter
 in place and returns its metrics as detached tensors, so the caller syncs
@@ -30,11 +31,12 @@ metrics on the device, stacked, for one readback per chunk of steps.
 ``jit`` (the JAX builders' parameter, default True): on a card the step is
 captured once as a CUDA graph and replayed every call, and a scan's chunk
 is replays of one captured body (``engine/graphs.py``), the counterpart of
-the JAX package's ``jax.jit`` step and ``lax.scan`` epoch; ``jit=False``,
-and every step on the CPU, runs eagerly. A step that cannot be captured
-(``capture_unmet``: the mean teacher, a process group, an optax-chain
-optimizer or one not built with ``build_optimizer(..., graph=True)``)
-raises with ``jit=True`` on a card.
+the JAX package's ``jax.jit`` step and ``lax.scan`` epoch; so are the eval
+step (one graph for each padded patient length) and the eval scan (one a
+split). ``jit=False``, and every program on the CPU, runs eagerly. A
+program that cannot be captured (``capture_unmet``: a process group, an
+optax-chain optimizer or one not built with
+``build_optimizer(..., graph=True)``) raises with ``jit=True`` on a card.
 
 Pad-and-mask (``n_labeled_valid`` / ``n_unlabeled_valid``, the JAX step's):
 the global sub-batches carry pad rows at their ends, and only the leading
@@ -244,41 +246,37 @@ def iic_regularization(projector, features: Dict[str, torch.Tensor], flip_mask: 
     return losses
 
 
-# why a step stays eager (``capture_unmet``, which the trainer's
+# why a program stays eager (``capture_unmet``, which the trainer's
 # ``graph_unmet`` asks before it builds the optimizer)
-EAGER_MEANTEACHER = ("meanteacher: the EMA update reads the global step on the host every step "
-                     "(its decay schedule)")
 EAGER_GROUP = ("a process group (data parallel W > 1 or the H split): gloo's collectives cannot "
                "be captured, and NCCL capture is a later slice")
 
 
-def capture_unmet(device: torch.device, optimizer: Union[torch.optim.Optimizer, str],
-                  teacher: Optional[torch.nn.Module] = None,
+def capture_unmet(device: torch.device,
+                  optimizer: Union[torch.optim.Optimizer, str, None] = None,
                   context: Optional[DistContext] = None) -> Optional[str]:
-    """None when the step on ``device`` can be captured as a CUDA graph,
-    else why it stays eager: off a card, the mean teacher, a process group,
-    the optimizer (``optim.capture_unmet``; its ``Optim.name`` before it is
-    built)."""
+    """None when a program on ``device`` can be captured as a CUDA graph,
+    else why it stays eager: off a card, a process group, the optimizer
+    (``optim.capture_unmet``; its ``Optim.name`` before it is built; None:
+    an eval program, which has none)."""
     if torch.device(device).type != "cuda":
         return f"Trainer.device={torch.device(device).type}: a CUDA graph needs a card"
-    if teacher is not None:
-        return EAGER_MEANTEACHER
     if context is not None and context.world > 1:
         return EAGER_GROUP
-    return optimizer_capture_unmet(optimizer)
+    return None if optimizer is None else optimizer_capture_unmet(optimizer)
 
 
 class TrainStep:
-    """The eager step: step(batch, flip_mask=None, aug_params=None) ->
+    """The eager step (a train or pretrain step): step(batch, ...) ->
     metrics, one step, the global step advanced. ``body`` is the same step
     without that advance (what a CUDA graph captures; the host advances
-    ``step_counter`` once a replay); ``unmet`` says why it cannot be
-    captured (None: it can)."""
+    ``step_counter`` once a replay); ``generator`` its draws' (None: it
+    draws nothing); ``unmet`` says why it cannot be captured (None: it
+    can)."""
 
     def __init__(self, body: Callable[..., Dict[str, torch.Tensor]], step_counter: torch.Tensor,
-                 generator: torch.Generator, device: torch.device,
-                 capture: Tuple[torch.optim.Optimizer, Optional[torch.nn.Module],
-                                Optional[DistContext]]) -> None:
+                 generator: Optional[torch.Generator], device: torch.device,
+                 capture: Tuple[torch.optim.Optimizer, Optional[DistContext]]) -> None:
         self.body, self.step_counter, self.generator = body, step_counter, generator
         self.device, self._capture = device, capture
 
@@ -286,9 +284,9 @@ class TrainStep:
     def unmet(self) -> Optional[str]:
         return capture_unmet(self.device, *self._capture)
 
-    def __call__(self, batch: Dict[str, torch.Tensor], flip_mask: Optional[torch.Tensor] = None,
-                 aug_params: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
-        metrics = self.body(batch, flip_mask, aug_params)
+    def __call__(self, batch: Dict[str, torch.Tensor], *args, **kwargs
+                 ) -> Dict[str, torch.Tensor]:
+        metrics = self.body(batch, *args, **kwargs)
         self.step_counter.add_(1)
         return metrics
 
@@ -303,6 +301,18 @@ def _graphed(step, jit: bool) -> bool:
     if step.unmet is not None:
         raise ValueError(f"jit=True captures the step as a CUDA graph, but {step.unmet}; "
                          "pass jit=False for the eager step")
+    return True
+
+
+def _eval_graphed(device: torch.device, context: Optional[DistContext], jit: bool) -> bool:
+    """Whether an eval builder with ``jit`` captures its program: on a card;
+    raises where it cannot be captured (a process group)."""
+    if not jit or torch.device(device).type != "cuda":
+        return False
+    unmet = capture_unmet(device, None, context)
+    if unmet is not None:
+        raise ValueError(f"jit=True captures the eval program as a CUDA graph, but {unmet}; "
+                         "pass jit=False for the eager one")
     return True
 
 
@@ -331,6 +341,7 @@ def build_train_step(
     ema_alpha: float = 0.999,
     ema_weight_decay: float = 1e-6,
     step_counter: Optional[torch.Tensor] = None,
+    ema_count: Optional[torch.Tensor] = None,
     n_labeled_valid: Optional[int] = None,
     n_unlabeled_valid: Optional[int] = None,
     context: Optional[DistContext] = None,
@@ -357,8 +368,11 @@ def build_train_step(
     H), an index batch the global indices.
     ``teacher`` (meanteacher only): the EMA model, a copy of ``model``.
     ``step_counter``: a 0-d int64 CPU tensor, the global step, incremented
-    in place by every step (the EMA schedule reads it); the caller keeps it
-    to checkpoint it.
+    in place by every step; the caller keeps it to checkpoint it.
+    ``ema_count`` (meanteacher): a 0-d int64 tensor on the model's device
+    holding the same count, which the EMA schedule reads and each step
+    advances (default: made from ``step_counter``); a caller that restores
+    ``step_counter`` restores it too.
     ``jit``: on a card, a ``graphs.GraphStep`` (step(batch) -> metrics, the
     step captured as a CUDA graph after ``graphs.WARMUP`` eager steps; no
     injected draws); else, and off a card, the eager ``TrainStep``."""
@@ -373,6 +387,9 @@ def build_train_step(
     needs_uda = mode in ("uda", "udaiic", "meanteacher")
     if step_counter is None:
         step_counter = torch.zeros((), dtype=torch.int64)
+    device = next(model.parameters()).device
+    if teacher is not None and ema_count is None:
+        ema_count = step_counter.to(device, copy=True)
     ctx = context or single_context()
     group, world = ctx.group, ctx.data_world
     space = ctx if ctx.split_h else None
@@ -528,13 +545,12 @@ def build_train_step(
                             for r in riders[len(keys):].split(n_lab * num_classes))
         optimizer.step()
         if teacher is not None:
-            _ema_update(teacher, model, int(step_counter), ema_alpha, ema_weight_decay)
+            _ema_update(teacher, model, ema_count, ema_alpha, ema_weight_decay)
         metrics["sup_dice_inter"] = inter
         metrics["sup_dice_union"] = union
         return metrics
 
-    step = TrainStep(body, step_counter, generator, next(model.parameters()).device,
-                     (optimizer, teacher, ctx))
+    step = TrainStep(body, step_counter, generator, device, (optimizer, ctx))
     return graphs.GraphStep(step) if _graphed(step, jit) else step
 
 
@@ -546,19 +562,28 @@ def _check_split(model: torch.nn.Module, teacher: Optional[torch.nn.Module]) -> 
             check_space_split(m)
 
 
+def ema_rate(count: torch.Tensor, alpha: float) -> torch.Tensor:
+    """a = min(1 - 1 / (t + 1), alpha) of the step count t (an int64 tensor,
+    read on its device), in fp32 as the JAX step computes it."""
+    t = count.to(torch.float32)
+    return torch.clamp_max(1.0 - (t + 1.0).reciprocal(), float(np.float32(alpha)))
+
+
 @torch.no_grad()
-def _ema_update(teacher: torch.nn.Module, student: torch.nn.Module, step: int, alpha: float,
-                weight_decay: float) -> None:
+def _ema_update(teacher: torch.nn.Module, student: torch.nn.Module, count: torch.Tensor,
+                alpha: float, weight_decay: float) -> None:
     """teacher = (teacher * a + (1 - a) * student) * (1 - weight_decay) over
-    the parameters, a = min(1 - 1 / (step + 1), alpha), in fp32 as the JAX
-    step computes a; the BN buffers are the teacher's own."""
-    t = np.float32(step)
-    a = min(np.float32(1.0) - np.float32(1.0) / (t + np.float32(1.0)), np.float32(alpha))
-    decay = np.float32(1.0) - np.float32(weight_decay)
+    the parameters, a = ``ema_rate(count, alpha)``, then ``count`` advanced
+    by one: device ops alone, so a CUDA graph captures it. The BN buffers
+    are the teacher's own."""
+    a = ema_rate(count, alpha)
+    decay = float(np.float32(1.0) - np.float32(weight_decay))
     params = list(teacher.parameters())
-    torch._foreach_mul_(params, float(a))
-    torch._foreach_add_(params, list(student.parameters()), alpha=float(np.float32(1.0) - a))
-    torch._foreach_mul_(params, float(decay))
+    torch._foreach_mul_(params, a)
+    # _foreach_add_'s alpha takes a number: the scaled student comes first
+    torch._foreach_add_(params, torch._foreach_mul(list(student.parameters()), 1.0 - a))
+    torch._foreach_mul_(params, decay)
+    count.add_(1)
 
 
 def _eval_sums(model: torch.nn.Module, num_classes: int, image: torch.Tensor,
@@ -594,7 +619,8 @@ def _store_batch(data_store, crop: int, indices, mask, rows: slice):
 
 
 def build_eval_step(model: torch.nn.Module, *, num_classes: int, data_store=None,
-                    crop: int = 224, context: Optional[DistContext] = None):
+                    crop: int = 224, context: Optional[DistContext] = None, jit: bool = True,
+                    pool=None):
     """Returns evaluate(image, target, mask) -> {loss, inter [1, C],
     union [1, C], pred}: one padded patient volume per call, dice sums pooled
     over its valid slices (volume dice). With ``data_store`` the signature is
@@ -602,7 +628,10 @@ def build_eval_step(model: torch.nn.Module, *, num_classes: int, data_store=None
     the store's device. Under ``context`` the image, target and mask are the
     rank's rows (with a store, the indices and mask are the whole patient's
     and the step keeps its rows); the loss and I/U are summed over the
-    ranks, ``pred`` holds the rank's rows (``parallel.gather_rows``)."""
+    ranks, ``pred`` holds the rank's rows (``parallel.gather_rows``).
+    ``jit`` on a card: one CUDA graph for each shape of the inputs (a padded
+    length), all in ``pool`` (None: one of the builder's own;
+    ``graphs.calls``); off a card, and with ``jit=False``, eager."""
     ctx = context or single_context()
 
     @torch.no_grad()
@@ -615,7 +644,12 @@ def build_eval_step(model: torch.nn.Module, *, num_classes: int, data_store=None
     def evaluate_device(indices: torch.Tensor, mask: torch.Tensor):
         return evaluate(*_store_batch(data_store, crop, indices, mask, ctx.rows(len(indices))))
 
-    return evaluate if data_store is None else evaluate_device
+    device = next(model.parameters()).device
+    if not _eval_graphed(device, context, jit):
+        return evaluate if data_store is None else evaluate_device
+    if data_store is None:
+        return graphs.calls(evaluate, ("image", "target", "mask"), device, pool)
+    return graphs.calls(evaluate_device, ("indices", "mask"), device, pool)
 
 
 # ---------------------------------------------------------------------------
@@ -787,12 +821,13 @@ def build_epoch_scan_preaug(step_fn, data_store, num_batches: int, crop: int = 2
 
 
 def build_eval_scan(model: torch.nn.Module, *, num_classes: int, data_store, crop: int = 224,
-                    context: Optional[DistContext] = None):
+                    context: Optional[DistContext] = None, jit: bool = True, pool=None):
     """eval_all(indices [P, padded], masks [P, padded]) -> {loss [P],
     inter [P, C], union [P, C]} over every patient of ``data_store``, kept on
     the device. Under ``context`` each rank forwards its rows of every
     patient and the sums of all patients are summed over the ranks in one
-    collective."""
+    collective. ``jit`` on a card: the P patients as one CUDA graph (one a
+    split: its [P, padded] shape), in ``pool``; else eager."""
     ctx = context or single_context()
 
     @torch.no_grad()
@@ -804,4 +839,7 @@ def build_eval_scan(model: torch.nn.Module, *, num_classes: int, data_store, cro
         stacked = reduce_sum_(torch.stack([v for v, _, _ in sums]), ctx.group)
         return _eval_out(stacked, sums[0][1], num_classes)
 
-    return eval_all
+    device = next(model.parameters()).device
+    if not _eval_graphed(device, context, jit):
+        return eval_all
+    return graphs.calls(eval_all, ("indices", "masks"), device, pool)

@@ -32,8 +32,10 @@ On either path ``Trainer.profile`` (true, or an epoch number) writes a
 On a card the step (host path, per-step device path) and each scan chunk
 (``epoch_scan``, ``Kernel.augment=epoch``, ``pipelined_scan``) run as CUDA
 graphs (``engine/graphs.py``), as the JAX trainer runs its jitted step and
-scan; ``graph_unmet`` picks, before the first step, the configurations that
-stay eager, and the trainer prints the reason.
+scan; so do the eval steps (one graph for each padded patient length, all
+of the trainer's eval graphs in one memory pool) and the eval scans (one a
+split). ``graph_unmet`` picks, before the first step, the configurations
+that stay eager, and the trainer prints the reason.
 
 Data parallelism (``context``, a ``parallel.DistContext``; ``main.py`` makes
 it from the launcher): one process per device, each running the same
@@ -441,10 +443,13 @@ class SemiTrainer:
         # the mean teacher: the model's copy at init, BN buffers included
         self._teacher = copy.deepcopy(self._model).requires_grad_(False) if self._with_ema else None
         # decided before the optimizer, which is built for a graph only where one is captured
-        eager = graph_unmet(cfg, self._device, self._teacher, self._ctx)
+        eager = graph_unmet(cfg, self._device, self._ctx)
         if eager and self._ctx.is_main:
             print(f"[trainer] the step runs eagerly: {eager}", flush=True)
         jit = eager is None
+        # the eval programs have no optimizer: off a card and under a group they stay eager
+        eval_jit = capture_unmet(self._device, None, self._ctx) is None
+        eval_pool = torch.cuda.graph_pool_handle() if eval_jit else None
         params = self._model.parameters()
         if self._projector is not None:
             self._projector.to(self._device)
@@ -452,7 +457,10 @@ class SemiTrainer:
         self._optimizer = build_optimizer(params, cfg["Optim"], graph=jit)
         init_optimizer_state(self._optimizer)  # so a checkpoint holds every entry from init
         replicate_state([self._model, self._projector, self._teacher], self._optimizer, self._ctx)
-        self._step_counter = torch.zeros((), dtype=torch.int64)  # global step (EMA schedule)
+        self._step_counter = torch.zeros((), dtype=torch.int64)  # global step
+        # its copy on the card, which the mean teacher's EMA schedule reads and its step advances
+        self._ema_count = (torch.zeros((), dtype=torch.int64, device=self._device)
+                           if self._teacher is not None else None)
         self._base_lr = float(cfg["Optim"].get("lr", 1e-3))
         scheduler = cfg.get("Scheduler") or {}
         self._sched_multiplier = float(scheduler.get("multiplier", 1.0)) if scheduler else None
@@ -489,6 +497,7 @@ class SemiTrainer:
             geometry=geometry,
             teacher=self._teacher,
             step_counter=self._step_counter,
+            ema_count=self._ema_count,
             n_labeled_valid=self._lab_bs if self._batch_padded else None,
             n_unlabeled_valid=self._unlab_bs if self._batch_padded else None,
             context=self._ctx,
@@ -496,15 +505,14 @@ class SemiTrainer:
             **self._step_kwargs,
         )
         ctx = self._ctx
-        self._eval_step = build_eval_step(self._model, num_classes=self._num_classes, context=ctx)
+        evals = dict(num_classes=self._num_classes, context=ctx, jit=eval_jit, pool=eval_pool)
+        self._eval_step = build_eval_step(self._model, **evals)
         if self._device_data:
             self._eval_steps_dev = {
-                "val": build_eval_step(self._model, num_classes=self._num_classes,
-                                       data_store=self._val_store, crop=self._crop_size,
-                                       context=ctx),
-                "test": build_eval_step(self._model, num_classes=self._num_classes,
-                                        data_store=self._test_store, crop=self._crop_size,
-                                        context=ctx)}
+                "val": build_eval_step(self._model, data_store=self._val_store,
+                                       crop=self._crop_size, **evals),
+                "test": build_eval_step(self._model, data_store=self._test_store,
+                                        crop=self._crop_size, **evals)}
         if self._epoch_scan:
             self._scan_chunk = max(int(trainer_cfg.get("scan_chunk", 100)), 1)
             self._epoch_chunks = self._chunk_sizes(self._num_batches, self._scan_chunk)
@@ -526,12 +534,10 @@ class SemiTrainer:
             else:
                 self._epoch_fn = build_epoch_scan(self._train_step, size, jit=jit)
             self._eval_scans = {
-                "val": build_eval_scan(self._model, num_classes=self._num_classes,
-                                       data_store=self._val_store, crop=self._crop_size,
-                                       context=ctx),
-                "test": build_eval_scan(self._model, num_classes=self._num_classes,
-                                        data_store=self._test_store, crop=self._crop_size,
-                                        context=ctx)}
+                "val": build_eval_scan(self._model, data_store=self._val_store,
+                                       crop=self._crop_size, **evals),
+                "test": build_eval_scan(self._model, data_store=self._test_store,
+                                        crop=self._crop_size, **evals)}
 
     def _batch_sizes(self, cfg: Dict[str, Any]) -> None:
         """The global sub-batch sizes (the host loaders' own, else the
@@ -830,7 +836,8 @@ class SemiTrainer:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Copies ``state`` (as ``state_dict`` returns it) into the trainer's
-        modules, optimizer, step counter and generator."""
+        modules, optimizer, step counter (and its card copy) and generator,
+        each tensor in place, where a captured graph reads it."""
         self._model.load_state_dict(state["model"])
         if self._projector is not None:
             self._projector.load_state_dict(state["projector"])
@@ -838,6 +845,8 @@ class SemiTrainer:
             self._teacher.load_state_dict(state["teacher"])
         load_optimizer_state(self._optimizer, state["optimizer"])
         self._step_counter.copy_(state["step"])
+        if self._ema_count is not None:
+            self._ema_count.copy_(state["step"])
         self._generator.set_state(state["generator"])
 
     def save(self, cur_score: float) -> None:
@@ -1001,13 +1010,12 @@ def fused_path_unmet(device: torch.device, patch_sizes, crop_size: int,
 
 
 def graph_unmet(cfg: Dict[str, Any], device: torch.device,
-                teacher: Optional[torch.nn.Module] = None,
                 context: Optional[DistContext] = None) -> Optional[str]:
     """None when the trainer's step runs as a CUDA graph on ``device``, else
-    why it stays eager (``steps.capture_unmet``'s list: off a card, the mean
-    ``teacher``, a process group, an optax-chain optimizer). Asked before
-    the optimizer is built, which it names by ``cfg``'s ``Optim.name``."""
-    return capture_unmet(device, (cfg.get("Optim") or {}).get("name", "Adam"), teacher, context)
+    why it stays eager (``steps.capture_unmet``'s list: off a card, a
+    process group, an optax-chain optimizer). Asked before the optimizer is
+    built, which it names by ``cfg``'s ``Optim.name``."""
+    return capture_unmet(device, (cfg.get("Optim") or {}).get("name", "Adam"), context)
 
 
 def _per_position(config: Dict[str, Any], feature_names, key: str, default) -> list:

@@ -142,7 +142,9 @@ def supcon_loss(features: torch.Tensor, labels: Optional[torch.Tensor] = None,
     n_anchor = anchor_count * b
     self_col = (torch.arange(anchor_count, device=dev)[:, None] * total + idx[None]).reshape(-1)
     logits_mask = col_valid[None].repeat(n_anchor, 1)
-    logits_mask[torch.arange(n_anchor, device=dev), self_col] = 0.0
+    # a device zero: a Python scalar would be copied from the host, which a
+    # CUDA graph cannot capture
+    logits_mask[torch.arange(n_anchor, device=dev), self_col] = logits_mask.new_zeros(())
     pos = base.repeat(anchor_count, n_views) * logits_mask
     log_prob = logits - torch.log((torch.exp(logits) * logits_mask).sum(1, keepdim=True))
     pos_count = pos.sum(1).clamp_min(1.0)

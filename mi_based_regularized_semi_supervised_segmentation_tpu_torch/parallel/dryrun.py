@@ -203,7 +203,7 @@ def dryrun_rank(ctx: DistContext, root: str, crop: int = 32) -> Dict[str, Any]:
     val_store = DeviceDataStore(ACDCDataset(root, "val"), device=dev)
     loader = DevicePatientEvalLoader(val_store, pad_multiple=n)
     eval_scan = build_eval_scan(model, num_classes=4, data_store=val_store, crop=crop,
-                                context=ctx)
+                                context=ctx, jit=False)
     indices = torch.from_numpy(np.stack([b["indices"] for b in loader])).to(dev)
     masks = torch.from_numpy(np.stack([b["mask"] for b in loader])).to(dev)
     ev = eval_scan(indices, masks)
@@ -228,7 +228,7 @@ def dryrun_rank(ctx: DistContext, root: str, crop: int = 32) -> Dict[str, Any]:
         chain(model.state_dict().values(), proj.state_dict().values()),
         chain(model2.state_dict().values(), proj2.state_dict().values())))
     ev2 = build_eval_scan(model2, num_classes=4, data_store=val_store, crop=crop,
-                          context=ctx)(indices, masks)
+                          context=ctx, jit=False)(indices, masks)
     reproduced = all(torch.equal(ev[k], ev2[k]) for k in ("inter", "union"))
     if not (same and reproduced and kept == 0 and meta["cur_epoch"] == 1):
         raise RuntimeError(f"checkpoint round trip: state equal {same}, eval reproduced "

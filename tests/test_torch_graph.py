@@ -7,9 +7,10 @@ where each captured body runs eagerly, and on the card (marked ``cuda``).
   metrics, parameters, BN statistics, the global step. The eager loops are
   held against the JAX package's ``build_epoch_scan*`` by
   tests/test_torch_epoch_scan.py.
-- ``graph_unmet``: None for every covered configuration (the headline
-  among them), a reason for each one that stays eager; a step asked to be
-  captured raises where its optimizer was not built for a graph.
+- ``graph_unmet``: None for every covered configuration (the headline and
+  the mean teacher among them), a reason for each one that stays eager; a
+  step asked to be captured raises where its optimizer was not built for a
+  graph.
 - ``build_optimizer`` builds for a graph only when asked (``graph=True``;
   the pretrain phases and every other caller keep a float lr), and refuses
   an optax chain for one.
@@ -176,26 +177,28 @@ def _cfg(optim="Adam"):
 CARD = torch.device("cuda")
 
 
+@pytest.mark.parametrize("mode", ["udaiic", "meanteacher"])
 @pytest.mark.parametrize("world", [None, 1])
 @pytest.mark.parametrize("optim", ["Adam", "AdamW", "SGD"])
-def test_graph_unmet_none_for_covered(optim, world):
+def test_graph_unmet_none_for_covered(optim, world, mode):
+    """The mean teacher is covered: its EMA reads the step count on the
+    card (``steps.ema_rate``), so the trainer's teacher is no reason."""
     ctx = None if world is None else DistContext()
-    assert graph_unmet(_cfg(optim), CARD, None, ctx) is None
+    cfg = _cfg(optim)
+    cfg["Trainer"]["name"] = mode
+    assert graph_unmet(cfg, CARD, ctx) is None
 
 
-@pytest.mark.parametrize("case", ["cpu", "meanteacher", "RAdam", "AdaBound", "data_parallel",
-                                  "space_split"])
+@pytest.mark.parametrize("case", ["cpu", "RAdam", "AdaBound", "data_parallel", "space_split"])
 def test_graph_unmet_reason_for_eager(case):
-    cfg, device, teacher, ctx = _cfg(), CARD, None, None
+    cfg, device, ctx = _cfg(), CARD, None
     if case == "cpu":
         device = torch.device("cpu")
-    elif case == "meanteacher":  # the trainer's teacher decides
-        teacher = torch.nn.Linear(2, 2)
     elif case in ("RAdam", "AdaBound"):
         cfg = _cfg(case)
     else:
         ctx = DistContext(world=2, space_size=2 if case == "space_split" else 1)
-    reason = graph_unmet(cfg, device, teacher, ctx)
+    reason = graph_unmet(cfg, device, ctx)
     assert isinstance(reason, str) and reason
     if case in ("RAdam", "AdaBound"):  # the same reason from the built optimizer
         params = [torch.nn.Parameter(torch.zeros(3))]
