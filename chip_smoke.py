@@ -131,11 +131,13 @@ Phases, each printing JSON lines:
   train_graph  the headline udaiic trainer through ``main.main`` with its
            step captured as a CUDA graph (the default on a card) against the
            eager step (jit=False), 20 steps from the same weights and
-           generator seed, run eager, graph, eager, in six cases: the host
+           generator seed, run eager, graph, eager, in nine cases: the host
            path in fp32 and bf16, the device path (shear) in fp32 and bf16 in
            chunks of 8 (a short last chunk), and in bf16 with
-           Kernel.augment=epoch and with Trainer.pipelined_scan (the fp32
-           cases under cuDNN's deterministic algorithms): each step's losses,
+           Kernel.augment=epoch, with Trainer.pipelined_scan and under
+           meanteacher; the host path in bf16 under Optim.name=RAdam and the
+           device path (shear) in fp32 under AdaBound (the fp32 cases and
+           meanteacher under cuDNN's deterministic algorithms): each step's losses,
            graph against eager within 1e-5 (fp32) / 2e-3 (bf16) relative and
            eager against eager (the floor; the limit twice the floor where it
            is higher), the
@@ -191,11 +193,15 @@ Phases, each printing JSON lines:
            and its loader
   optim    the headline trainer through ``main.main`` under Optim.name=SGD
            (momentum 0.9) and RAdam: 6 joint launches a step each, finite
-           losses; a resume under SGD equal to last.pth in every entry; then
-           every OPTIMIZERS name stepped 6 times on that trainer's parameters
-           (model and projector), card against CPU from the same values and
-           gradients within OPTIM_TOL of the largest move, with the card's
-           step time
+           losses, each step a CUDA graph; a resume under SGD equal to
+           last.pth in every entry; then every OPTIMIZERS name stepped 6
+           times on that trainer's parameters (model and projector), card
+           against CPU from the same values and gradients within OPTIM_TOL
+           of the largest move, with the card's step time; and every name
+           but Lookahead / Ranger built for a graph on the card, its step
+           captured (engine/graphs.py) against its eager step, bit for bit,
+           each against the CPU as above, and the median ms of an eager
+           step and of a replay
   arch_zoo every model family of ``get_arch`` (ENet, Attention U-Net,
            DeepLabV2 / V3 / V3+, V3+ also at n_blocks (3, 4, 23, 3), VNet,
            DenseNet3D) and VGG11 + ClassifyHead at full width on ACDC-shaped
@@ -378,8 +384,14 @@ GRAPH_CASES = (("host_fp32", "fp32", ()), ("host_bf16", "bf16", BF16),
                ("device_pipelined_bf16", "bf16",
                 BF16 + GRAPH_DEVICE + ("Trainer.pipelined_scan=true",)),
                ("meanteacher_shear_bf16", "bf16",
-                BF16 + GRAPH_DEVICE + ("Trainer.name=meanteacher",)))
-GRAPH_DETERMINISTIC = ("host_fp32", "device_shear_fp32", "meanteacher_shear_bf16")
+                BF16 + GRAPH_DEVICE + ("Trainer.name=meanteacher",)),
+               ("radam_host_bf16", "bf16", BF16 + ("Optim.name=RAdam",)),
+               ("adabound_shear_fp32", "fp32", GRAPH_DEVICE + ("Optim.name=AdaBound",)))
+GRAPH_DETERMINISTIC = ("host_fp32", "device_shear_fp32", "meanteacher_shear_bf16",
+                       "adabound_shear_fp32")
+# the optax-chain cases and the Adam case of the same path, whose graph's
+# device ms the line reports beside theirs
+GRAPH_ADAM_TWIN = {"radam_host_bf16": "host_bf16", "adabound_shear_fp32": "device_shear_fp32"}
 GRAPH_DRAWN = slice(2, 5)  # steps 3-5: the capture's step and the first replays
 GRAPH_LOSSES = ("sup_loss", "reg_loss", "uda", "mi", "total_loss")
 # train_heads: mlp heads at every position, the decoder heads normalized
@@ -428,6 +440,7 @@ PRETRAIN_LAUNCHES_PER_PRODUCT = 1
 OPTIM_RUNS = {"SGD": ("Optim.name=SGD", "Optim.momentum=0.9"), "RAdam": ("Optim.name=RAdam",)}
 OPTIM_STEPS = 6
 OPTIM_TOL, OPTIM_ULPS = 1e-4, 2.0
+OPTIM_TIMED = 20  # optim: timed steps of each graph-built name, eager and replayed
 # arch_zoo: every family at full width on ACDC-shaped input (2-D: 14 slices of
 # 224^2, the headline step's 4 + 10; 3-D: an ACDC volume's slices padded to 16,
 # a multiple of VNet's three stride-2 stages), a forward, backward and Adam
@@ -2420,33 +2433,46 @@ def _profiled(call, reps: int, per_call: int) -> tuple:
     ``call`` (``per_call`` steps each) after one more, in one profiler
     window (the wall its host clock, the window's overhead included); the
     last two from the profiler's kernel names and from the wrappers' counts
-    over the same window."""
+    over the same window. A session that lost records (``device_profile``;
+    seen on the card: one of a preaug chunk's two rotation kernels) is taken
+    again, up to PROFILE_TRIES times: one that recorded fewer rotation
+    kernels than the wrapper launched (one kernel a launch) or fewer MI
+    kernels than joint and fused launches (one to three a launch)."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     mods = {name: port(f"ops.{name}") for name in ("mi_joint", "mi_fused", "rotate")}
+    rotate = mods["rotate"].ROTATE + "/"
     names = handwritten_kernels()
     call()
     torch.cuda.synchronize()
-    before = {name: collections.Counter(m.LAUNCHES) for name, m in mods.items()}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    for _ in range(PROFILE_TRIES):
+        before = {name: collections.Counter(m.LAUNCHES) for name, m in mods.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        launched = {name: m.LAUNCHES - before[name] for name, m in mods.items()}
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        ours = collections.Counter()
+        for e in events:
+            name = _handwritten(e.key, names)
+            if name is not None:
+                ours[name] += e.count
+        n_rot = sum(v for (k, p), v in launched["rotate"].items() if f"{k}/{p}".startswith(rotate))
+        n_mi = sum(launched["mi_joint"].values()) + sum(launched["mi_fused"].values())
+        mi_kernels = sum(v for k, v in ours.items() if not k.startswith(("rotate_", "lane_roll_")))
+        if events and ours["rotate_shear_kernel"] >= n_rot and mi_kernels >= n_mi:
+            break
     steps = reps * per_call
-    counted = {name: {f"{k}/{p}": v / steps for (k, p), v in
-                      sorted((m.LAUNCHES - before[name]).items())} for name, m in mods.items()}
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    ours = collections.Counter()
-    for e in events:
-        name = _handwritten(e.key, names)
-        if name is not None:
-            ours[name] += e.count
+    counted = {name: {f"{k}/{p}": v / steps for (k, p), v in sorted(launched[name].items())}
+               for name in mods}
     return (sum(e.self_device_time_total for e in events) / 1e3 / steps, wall / steps,
             sum(e.count for e in events) / steps, {k: v / steps for k, v in ours.items()}, counted)
 
@@ -2498,9 +2524,11 @@ def phase_train_graph() -> dict:
     scans given jit=False), GRAPH_STEPS steps
     from the same weights and generator seed, in each of GRAPH_CASES: the
     host path and the device path (shear) in fp32 and bf16, and in bf16
-    with Kernel.augment=epoch and with pipelined_scan (chunks of
-    GRAPH_CHUNK: a short last one); the fp32 cases under cuDNN's
-    deterministic algorithms. Runs eager, graph, eager: each step's losses, the largest
+    with Kernel.augment=epoch, with pipelined_scan and under meanteacher
+    (chunks of GRAPH_CHUNK: a short last one), the host path in bf16 under
+    RAdam and the device path in fp32 under AdaBound (optax chains whose
+    count and scalars live on the card); the fp32 cases and meanteacher
+    under cuDNN's deterministic algorithms. Runs eager, graph, eager: each step's losses, the largest
     relative difference graph against eager and eager against eager (the
     noise floor), the parameters after the steps, within GRAPH_LOSS_TOL and
     GRAPH_PARAM_TOL (fp32) or twice the floor where it is above them; the
@@ -2565,6 +2593,11 @@ def phase_train_graph() -> dict:
               "losses_graph": [{k: float(m[k]) for k in GRAPH_LOSSES if k in m}
                                for m in graph["per_step"]],
               "teacher_bit_equal": diff["teacher_bit_equal"],
+              "params_bit_equal": bool(torch.equal(eager["params"], graph["params"])),
+              "losses_bit_equal": diff["loss_rel"] == 0.0,
+              "adam_twin": GRAPH_ADAM_TWIN.get(case),
+              "adam_twin_graph_device_ms": lines[GRAPH_ADAM_TWIN[case]]["device_ms_per_step"]
+              if case in GRAPH_ADAM_TWIN else None,
               "loss_rel_graph_vs_eager": diff["loss_rel"],
               "loss_rel_eager_vs_eager": floor["loss_rel"],
               "loss_rel_by_step_graph_vs_eager": diff["loss_rel_by_step"],
@@ -3579,6 +3612,7 @@ def phase_optim(steps: int) -> None:
                                     run_tag=f"_{name.lower()}")
         check(type(trainer._optimizer).__name__ == name,
               f"optim: Optim.name={name} built {type(trainer._optimizer).__name__}")
+        check(graphed(trainer), f"optim: the step under Optim.name={name} is not a CUDA graph")
     _, loaded, load_s, n_tensors, n_entries = _resume_loaded("chip_smoke_resume_sgd",
                                                               *OPTIM_RUNS["SGD"])
     check(type(loaded._optimizer).__name__ == "SGD", "optim: the resumed trainer's optimizer")
@@ -3592,7 +3626,9 @@ def phase_optim(steps: int) -> None:
 def _optim_names(params0, device: str = "cuda") -> None:
     """Every OPTIMIZERS name stepped OPTIM_STEPS times from ``params0`` on the
     CPU and on ``device`` with the same gradients (lr changed after step 2):
-    the two within OPTIM_TOL of the largest move; ``device``'s step time."""
+    the two within OPTIM_TOL of the largest move; ``device``'s step time.
+    Then each name but Lookahead / Ranger built for a graph on ``device``
+    (``_optim_graph``)."""
     import torch
 
     optim = port("engine.optim")
@@ -3618,20 +3654,112 @@ def _optim_names(params0, device: str = "cuda") -> None:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             after[dev] = [p.detach().cpu() for p in params]
         moved = max(float((a - p0).abs().max()) for a, p0 in zip(after["cpu"], params0))
-        err = max(float((a - b).abs().max()) for a, b in zip(after[device], after["cpu"]))
-        # beyond OPTIM_TOL of the largest move, in units of each parameter's
-        # fp32 spacing (Adadelta moves ~1e-5 on parameters ~1e-2)
-        fp32 = torch.finfo(torch.float32)
-        ulps = max(float(((a - b).abs() - OPTIM_TOL * moved)
-                         .div(fp32.eps * b.abs().clamp_min(fp32.tiny)).max())
-                   for a, b in zip(after[device], after["cpu"]))
+        err, ulps = _optim_gap(after[device], after["cpu"], moved)
         check(moved > 0 and ulps <= OPTIM_ULPS,
               f"optim {name}: card vs CPU {err:.3e} of a {moved:.3e} move ({ulps:.2f} ulps over)")
         rows[name] = {"class": type(opt).__name__, "max_abs_err": err, "largest_move": moved,
                       "ulps_beyond_tol": ulps,
                       "median_step_ms": statistics.median(step_ms[OPTIM_STEPS + 1:])}
+        if name not in optim.LOOKAHEAD_NAMES:
+            rows[name]["graph"] = _optim_graph(name, cfg, params0, grads, after["cpu"], moved,
+                                               device)
     emit({"phase": "optim", "device": device, "parameters": sum(p.numel() for p in params0),
-          "tensors": len(params0), "steps": OPTIM_STEPS, "tol": OPTIM_TOL, "names": rows})
+          "tensors": len(params0), "steps": OPTIM_STEPS, "tol": OPTIM_TOL, "names": rows,
+          "timed_steps": OPTIM_TIMED, "pow": _optim_pow(device), "card": nvidia_smi()})
+
+
+def _optim_pow(device: str, steps: int = 100_000) -> dict:
+    """Which ``decay ** t`` the card takes for the chains' bias corrections:
+    for each decay and t = 1..steps, the number of t where the port's
+    ``_pow`` (float64, rounded once) on ``device`` differs from the CPU's,
+    and where ``device``'s fp32 ``torch.pow`` would (the CPU side:
+    scripts/torch_pow_rounding.py)."""
+    import torch
+
+    optim = port("engine.optim")
+    t = torch.arange(1, steps + 1, dtype=torch.float32)
+    out = {}
+    for decay in (0.9, 0.99, 0.999, 0.25):
+        cpu = optim._pow(decay, t)
+        card = optim._pow(decay, t.to(device)).cpu()
+        fp32 = torch.pow(torch.tensor(float(decay), dtype=torch.float32, device=device),
+                         t.to(device)).cpu()
+        out[str(decay)] = {"port_card_vs_cpu": int((card != cpu).sum()),
+                           "fp32_pow_card_vs_port_cpu": int((fp32 != cpu).sum())}
+    return out
+
+
+def _optim_gap(got, want, moved: float) -> tuple:
+    """(largest difference, and how far past OPTIM_TOL of the largest move
+    it goes in units of each element's fp32 spacing: Adadelta moves ~1e-5
+    on parameters ~1e-2)."""
+    import torch
+
+    fp32 = torch.finfo(torch.float32)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    ulps = max(float(((a - b).abs() - OPTIM_TOL * moved)
+                     .div(fp32.eps * b.abs().clamp_min(fp32.tiny)).max())
+               for a, b in zip(got, want))
+    return err, ulps
+
+
+def _optim_graph(name: str, cfg: dict, params0, grads, cpu_after, moved: float,
+                 device: str) -> dict:
+    """``name`` built for a graph on ``device`` (``build_optimizer(...,
+    graph=True)``), run twice over the same gradients: its eager step, and
+    its step captured through ``engine/graphs.py`` (2 eager warm-up steps,
+    the capture, replays) on static gradients. Held: the two bit for bit
+    (parameters and state), each within OPTIM_TOL / OPTIM_ULPS of the CPU's
+    plain build; then the median wall ms of OPTIM_TIMED more eager steps
+    and replays, each synchronised."""
+    import gc
+
+    import torch
+
+    optim, graphs = port("engine.optim"), port("engine.graphs")
+    grads = [[g.to(device) for g in step] for step in grads]
+    runs = {}
+    for captured in (False, True):
+        params = [torch.nn.Parameter(p.to(device, copy=True)) for p in params0]
+        opt = optim.build_optimizer(params, cfg, graph=True)
+        optim.init_optimizer_state(opt)
+        unmet = optim.capture_unmet(opt)
+        check(unmet is None, f"optim {name}: built for a graph, yet {unmet}")
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        step = graphs.Graphed(opt.step, device) if captured else opt.step
+        for i, g in enumerate(grads):
+            if i == 2:
+                optim.set_learning_rate(opt, 3e-4)
+            for p, gi in zip(params, g):
+                p.grad.copy_(gi)
+            step()
+        torch.cuda.synchronize()
+        check(not captured or step.captured, f"optim {name}: the step was not captured")
+        state = [v.detach().to("cpu", copy=True) for p in params for v in opt.state[p].values()]
+        runs[captured] = ([p.detach().to("cpu", copy=True) for p in params], state)
+        times = []
+        for _ in range(OPTIM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[captured] += (statistics.median(times),)
+        del step, opt, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    (eager, eager_state, eager_ms), (graph, graph_state, graph_ms) = runs[False], runs[True]
+    equal = (all(torch.equal(a, b) for a, b in zip(graph, eager))
+             and all(torch.equal(a, b) for a, b in zip(graph_state, eager_state)))
+    check(equal, f"optim {name}: the captured step differs from the eager step")
+    row = {"bit_equal": equal, "eager_ms": eager_ms, "replay_ms": graph_ms}
+    for label, got in (("eager", eager), ("graph", graph)):
+        err, ulps = _optim_gap(got, cpu_after, moved)
+        check(ulps <= OPTIM_ULPS, f"optim {name}: the graph-built {label} step vs CPU {err:.3e} "
+                                  f"of a {moved:.3e} move ({ulps:.2f} ulps over)")
+        row[f"{label}_vs_cpu_max_abs_err"], row[f"{label}_vs_cpu_ulps_beyond_tol"] = err, ulps
+    return row
 
 
 def _zoo_model(arch: str, kw: dict, dtype):

@@ -36,19 +36,24 @@ the scaling.
   the fast weights, the slow ones live in the optimizer's state).
 
 For a CUDA graph (``build_optimizer(..., graph=True)``, which the semi
-trainer passes where it captures its step): ``Adam``, ``AdamW`` and ``SGD``
-keep ``lr`` as a 0-d fp32 tensor on the parameters' device, which
-``set_learning_rate`` fills in place, so a captured step reads each epoch's
-rate; on a card ``Adam`` / ``AdamW`` are built ``capturable`` (step counts
-and bias corrections on the device) and ``SGD`` ``fused`` (torch's foreach
-SGD reads a tensor lr on the host). The ``OptaxOptimizer``s compute their
-step-dependent scalars from a host count, so a step with one stays eager
-(``capture_unmet``). A checkpoint holds ``lr`` as a float either way
+trainer passes where it captures its step) every name but ``Lookahead`` /
+``Ranger`` keeps ``lr`` as a 0-d fp32 tensor on the parameters' device,
+which ``set_learning_rate`` fills in place, so a captured step reads each
+epoch's rate. On a card ``Adam`` / ``AdamW`` are built ``capturable``
+(step counts and bias corrections on the device) and ``SGD`` ``fused``
+(torch's foreach SGD reads a tensor lr on the host). An ``OptaxOptimizer``
+keeps one count a group on the device and computes its step's scalars
+there with torch ops (``b ** t`` in float64, rounded once to fp32, as on
+the CPU), its branches (RAdam's rectification, NovoGrad's first step) as
+selects; built plainly it computes the same scalars on the CPU from each
+parameter's count and hands them over as floats, and the two agree bit for
+bit. A checkpoint holds ``lr`` as a float either way
 (``optimizer_state_dict`` / ``load_optimizer_state``).
 
 The JAX trainers cannot step ``Lookahead`` / ``Ranger`` (``optax.lookahead``
 needs ``LookaheadParams``); the port's trainers refuse them too
-(``engine/trainer.py:check_optimizer``).
+(``engine/trainer.py:check_optimizer``), and they are not built for a graph
+(``capture_unmet``).
 """
 
 from __future__ import annotations
@@ -82,17 +87,35 @@ def lr_at_epoch(
     return eta_min + (peak - eta_min) * (1 + math.cos(math.pi * t / t_max)) / 2
 
 
-# --- step-dependent scalars, in fp32 as optax computes them ----------------
+# --- step-dependent scalars -------------------------------------------------
+# Each is a 0-d fp32 tensor computed with torch ops from the chain's count t
+# (a 0-d fp32 tensor), in optax's order: on the parameters' device for an
+# optimizer built with ``graph=True``, which hands them to the _foreach_*
+# ops as tensors; on the CPU otherwise, handed over as Python floats
+# (``OptaxOptimizer._step_scalars``).
 _f32 = np.float32
 
 
-def _pow(decay: float, t: int) -> np.float32:
-    return _f32(decay) ** _f32(t)
+def _pow(decay: float, t: torch.Tensor) -> torch.Tensor:
+    """``decay ** t`` in fp32: the fp32 decay raised in float64 and rounded
+    once, so that the card and the CPU give the same value (their fp32 pows
+    differ; numpy's powf is an ulp off from t = 4 at 0.9, XLA's fp32 pow
+    equals this over the first hundreds of steps)."""
+    return torch.pow(float(_f32(decay)), t.double()).float()
 
 
-def _bias(decay: float, t: int) -> float:
+def _bias(decay: float, t: torch.Tensor) -> torch.Tensor:
     """``1 - decay ** t`` (optax's ``bias_correction``)."""
-    return float(_f32(1) - _pow(decay, t))
+    return torch.rsub(_pow(decay, t), 1.0)
+
+
+def _select(cond: Union[bool, torch.Tensor], taken: Tensors, other: Tensors) -> Tensors:
+    """``taken`` where ``cond`` else ``other``, tensor by tensor; both were
+    computed, and a NaN in the one not taken reaches nothing. ``cond``: a
+    Python bool (host scalars) or a 0-d bool tensor."""
+    if isinstance(cond, bool):
+        return taken if cond else other
+    return [torch.where(cond, a, b) for a, b in zip(taken, other)]
 
 
 # --- moments, in optax's order ----------------------------------------------
@@ -110,37 +133,112 @@ def _decayed(grads: Tensors, params: Tensors, weight_decay: float) -> Tensors:
     return torch._foreach_add(grads, torch._foreach_mul(params, weight_decay))
 
 
+Scalars = Dict[str, Any]
+
+
 class OptaxOptimizer(torch.optim.Optimizer):
     """A ``torch.optim.Optimizer`` whose step is an optax chain ending in
     ``scale_by_learning_rate``. A subclass names its hyperparameters and
-    their JAX defaults in ``hyper``, its per-parameter state in ``_init``
-    and the chain's update (lr included) in ``_updates``. The state exists
-    from construction (optax's ``tx.init``); ``state[p]["step"]`` is the
-    chain's count, a CPU scalar as in torch's own optimizers."""
+    their JAX defaults in ``hyper``, its per-parameter state in ``_init``,
+    the scalars its step computes from the count in ``_scalars`` and the
+    chain's update (lr included, ``_scaled``) in ``_updates``. The state
+    exists from construction (optax's ``tx.init``).
+
+    ``state[p]["step"]`` is the chain's count. Built plainly it is a CPU
+    scalar of each parameter's own, as in torch's optimizers, and parameters
+    at different counts step apart. With ``graph=True`` a group has one
+    count on its parameters' device, as optax's chain has one, and every
+    parameter's ``state[p]["step"]`` is that tensor; lr is a 0-d fp32
+    tensor on the same device, and the step reads neither on the host, so a
+    CUDA graph can capture it. A parameter without a gradient is skipped
+    either way (under a graph, the set of the captured step)."""
 
     hyper: Dict[str, float] = {}
 
-    def __init__(self, params, lr: float, **hyper: float) -> None:
-        super().__init__(params, dict(self.hyper, lr=float(lr), **hyper))
+    def __init__(self, params, lr: float, graph: bool = False, **hyper: float) -> None:
+        self.graph = bool(graph)
+        self._counts: Dict[int, torch.Tensor] = {}  # graph: each group's count
+        lr = float(lr)
+        if self.graph:
+            params = list(params)
+            lr, _ = _graph_lr(params, lr, True)
+        super().__init__(params, dict(self.hyper, lr=lr, **hyper))
         self.init_state()
 
     def init_state(self) -> None:
-        for group in self.param_groups:
+        for i, group in enumerate(self.param_groups):
             for p in group["params"]:
                 if not self.state[p]:
-                    self.state[p]["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    self.state[p]["step"] = self._new_count(i, p)
                     self.state[p].update(self._init(p, group))
+
+    def _new_count(self, i: int, p: torch.Tensor) -> torch.Tensor:
+        if not self.graph:
+            return torch.tensor(0.0, dtype=torch.float32)
+        if i not in self._counts:
+            self._counts[i] = torch.zeros((), dtype=torch.float32, device=p.device)
+        return self._counts[i]
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """torch's load, then the counts made this optimizer's again: plain,
+        a CPU tensor for each parameter (a graph-built optimizer's checkpoint
+        holds one tensor a group); graph, each group's own count, filled in
+        place with the largest of its parameters' loaded counts."""
+        super().load_state_dict(state_dict)
+        for i, group in enumerate(self.param_groups):
+            states = [self.state[p] for p in group["params"] if "step" in self.state[p]]
+            if not self.graph:
+                for s in states:
+                    s["step"] = s["step"].detach().to("cpu", torch.float32, copy=True)
+                continue
+            if not states:
+                continue
+            count = self._new_count(i, group["params"][0])
+            count.copy_(torch.stack([s["step"].to(count.device, torch.float32)
+                                     for s in states]).max())
+            for s in states:
+                s["step"] = count
 
     def _init(self, p: torch.Tensor, group: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {}
 
+    def _scalars(self, group: Dict[str, Any], t: torch.Tensor, lr: torch.Tensor) -> Scalars:
+        return {}
+
     def _updates(self, group: Dict[str, Any], params: Tensors, grads: Tensors,
-                 states: List[Dict[str, torch.Tensor]], t: int) -> Tensors:
+                 states: List[Dict[str, torch.Tensor]], s: Scalars) -> Tensors:
         raise NotImplementedError
 
-    def _scaled(self, group: Dict[str, Any], directions: Tensors) -> Tensors:
+    def _scaled(self, directions: Tensors, s: Scalars) -> Tensors:
         """-lr * directions (``scale_by_learning_rate``)."""
-        return torch._foreach_mul(directions, -group["lr"])
+        return torch._foreach_mul(directions, s["neg_lr"])
+
+    def _step_scalars(self, group: Dict[str, Any], t: torch.Tensor) -> Scalars:
+        """The step's scalars at count ``t``: -lr and the subclass's; as
+        tensors for a graph, else as Python floats and bools."""
+        lr = group["lr"]
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.tensor(lr, dtype=torch.float32)
+        s = {"neg_lr": -lr, **self._scalars(group, t, lr)}
+        return s if self.graph else {k: v.item() for k, v in s.items()}
+
+    def _stepped(self, i: int, group: Dict[str, Any]):
+        """(count after the step, parameters) for each set of the group's
+        parameters with a gradient that steps together, the count advanced:
+        graph, the group's count; else each parameter's, the parameters
+        grouped by it (on the host)."""
+        params = [p for p in group["params"] if p.grad is not None]
+        if self.graph:
+            if params:
+                yield self._counts[i].add_(1), params
+            return
+        by_count = defaultdict(list)
+        for p in params:
+            by_count[int(self.state[p]["step"])].append(p)
+        for count, same in by_count.items():
+            for p in same:
+                self.state[p]["step"] += 1
+            yield torch.tensor(count + 1.0, dtype=torch.float32), same
 
     @torch.no_grad()
     def step(self, closure: Callable[[], float] | None = None):
@@ -149,17 +247,11 @@ class OptaxOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         self.init_state()
-        for group in self.param_groups:
-            by_count = defaultdict(list)  # parameters at the same count step together
-            for p in group["params"]:
-                if p.grad is not None:
-                    by_count[int(self.state[p]["step"])].append(p)
-            for count, params in by_count.items():
+        for i, group in enumerate(self.param_groups):
+            for t, params in self._stepped(i, group):
                 states = [self.state[p] for p in params]
-                for s in states:
-                    s["step"] += 1
                 updates = self._updates(group, params, [p.grad for p in params], states,
-                                        count + 1)
+                                        self._step_scalars(group, t))
                 torch._foreach_add_(params, updates)
         return loss
 
@@ -172,7 +264,14 @@ def _take(states, name: str) -> Tensors:
     return [s[name] for s in states]
 
 
-def _adam_directions(group, params, grads, states, t, weight_decay: float,
+def _adam_scalars(group, t, nesterov: bool = False) -> Scalars:
+    s = {"bc1": _bias(group["b1"], t), "bc2": _bias(group["b2"], t)}
+    if nesterov:
+        s["bc1_next"] = _bias(group["b1"], t + 1)
+    return s
+
+
+def _adam_directions(group, params, grads, states, s, weight_decay: float,
                      nesterov: bool = False) -> Tensors:
     """``add_decayed_weights`` (coupled) + ``scale_by_adam``."""
     b1, b2, eps = group["b1"], group["b2"], group["eps"]
@@ -181,12 +280,11 @@ def _adam_directions(group, params, grads, states, t, weight_decay: float,
     _moment(mu, g, b1, 1)
     _moment(nu, g, b2, 2)
     if nesterov:
-        mu_hat = torch._foreach_mul(torch._foreach_div(mu, _bias(b1, t + 1)), b1)
-        torch._foreach_add_(mu_hat, torch._foreach_mul(torch._foreach_div(g, _bias(b1, t)),
-                                                       1 - b1))
+        mu_hat = torch._foreach_mul(torch._foreach_div(mu, s["bc1_next"]), b1)
+        torch._foreach_add_(mu_hat, torch._foreach_mul(torch._foreach_div(g, s["bc1"]), 1 - b1))
     else:
-        mu_hat = torch._foreach_div(mu, _bias(b1, t))
-    denom = torch._foreach_sqrt(torch._foreach_div(nu, _bias(b2, t)))
+        mu_hat = torch._foreach_div(mu, s["bc1"])
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, s["bc2"]))
     torch._foreach_add_(denom, eps)
     return torch._foreach_div(mu_hat, denom)
 
@@ -199,9 +297,12 @@ class OptaxAdam(OptaxOptimizer):
     nesterov = False
     _init = _zeros("mu", "nu")
 
-    def _updates(self, group, params, grads, states, t):
-        return self._scaled(group, _adam_directions(group, params, grads, states, t,
-                                                    group["weight_decay"], self.nesterov))
+    def _scalars(self, group, t, lr):
+        return _adam_scalars(group, t, self.nesterov)
+
+    def _updates(self, group, params, grads, states, s):
+        return self._scaled(_adam_directions(group, params, grads, states, s,
+                                             group["weight_decay"], self.nesterov), s)
 
 
 class NAdam(OptaxAdam):
@@ -210,36 +311,41 @@ class NAdam(OptaxAdam):
 
 class RAdam(OptaxOptimizer):
     """``scale_by_radam``: Adam rectified where rho_t >= 5, the bias-corrected
-    first moment elsewhere."""
+    first moment elsewhere (a select on the count: both computed; r is NaN
+    where rho_t < 4, in the branch not taken)."""
 
     hyper = dict(weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8)
     _init = _zeros("mu", "nu")
     threshold = 5.0
 
-    def _updates(self, group, params, grads, states, t):
+    def _scalars(self, group, t, lr):
+        b2 = group["b2"]
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t = _pow(b2, t)
+        ro = torch.rsub(t * 2 * b2t / torch.rsub(b2t, 1.0), ro_inf)
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                       / (ro * ((ro_inf - 4.0) * (ro_inf - 2.0))))
+        return {"bc1": _bias(group["b1"], t), "bc2": _bias(b2, t),
+                "rectified": ro >= self.threshold, "r": r}
+
+    def _updates(self, group, params, grads, states, s):
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
         g = _decayed(grads, params, group["weight_decay"])
         mu, nu = _take(states, "mu"), _take(states, "nu")
         _moment(mu, g, b1, 1)
         _moment(nu, g, b2, 2)
-        ro_inf = 2.0 / (1.0 - b2) - 1.0
-        b2t = _pow(b2, t)
-        ro = _f32(ro_inf) - _f32(2 * t) * b2t / (_f32(1) - b2t)
-        mu_hat = torch._foreach_div(mu, _bias(b1, t))
-        if ro < self.threshold:
-            return self._scaled(group, mu_hat)
-        r = np.sqrt((ro - _f32(4)) * (ro - _f32(2)) * _f32(ro_inf)
-                    / (_f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, _bias(b2, t)))
+        mu_hat = torch._foreach_div(mu, s["bc1"])
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, s["bc2"]))
         torch._foreach_add_(denom, eps)
-        return self._scaled(group, torch._foreach_div(torch._foreach_mul(mu_hat, float(r)), denom))
+        rectified = torch._foreach_div(torch._foreach_mul(mu_hat, s["r"]), denom)
+        return self._scaled(_select(s["rectified"], rectified, mu_hat), s)
 
 
 class Adadelta(OptaxOptimizer):
     hyper = dict(weight_decay=0.0, rho=0.9, eps=1e-6)
     _init = _zeros("e_g", "e_x")
 
-    def _updates(self, group, params, grads, states, t):
+    def _updates(self, group, params, grads, states, s):
         rho, eps = group["rho"], group["eps"]
         g = _decayed(grads, params, group["weight_decay"])
         e_g, e_x = _take(states, "e_g"), _take(states, "e_x")
@@ -248,7 +354,7 @@ class Adadelta(OptaxOptimizer):
         den = torch._foreach_sqrt(torch._foreach_add(e_g, eps))
         upd = torch._foreach_mul(torch._foreach_div(num, den), g)
         _moment(e_x, upd, rho, 2)
-        return self._scaled(group, upd)
+        return self._scaled(upd, s)
 
 
 class Adagrad(OptaxOptimizer):
@@ -260,26 +366,29 @@ class Adagrad(OptaxOptimizer):
     def _init(self, p, group):
         return {"sum_of_squares": torch.full_like(p, group["initial_accumulator_value"])}
 
-    def _updates(self, group, params, grads, states, t):
+    def _updates(self, group, params, grads, states, s):
         g = _decayed(grads, params, group["weight_decay"])
         sums = _take(states, "sum_of_squares")
         torch._foreach_add_(sums, torch._foreach_mul(g, g))
-        scale = [torch.where(s > 0, torch.rsqrt(s + group["eps"]), 0.0) for s in sums]
-        return self._scaled(group, torch._foreach_mul(scale, g))
+        scale = [torch.where(q > 0, torch.rsqrt(q + group["eps"]), 0.0) for q in sums]
+        return self._scaled(torch._foreach_mul(scale, g), s)
 
 
 class Adamax(OptaxOptimizer):
     hyper = dict(weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8)
     _init = _zeros("mu", "nu")
 
-    def _updates(self, group, params, grads, states, t):
+    def _scalars(self, group, t, lr):
+        return {"bc1": _bias(group["b1"], t)}
+
+    def _updates(self, group, params, grads, states, s):
         b1, b2 = group["b1"], group["b2"]
         g = _decayed(grads, params, group["weight_decay"])
         mu, nu = _take(states, "mu"), _take(states, "nu")
         _moment(mu, g, b1, 1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_maximum_(nu, torch._foreach_add(torch._foreach_abs(g), group["eps"]))
-        return self._scaled(group, torch._foreach_div(torch._foreach_div(mu, _bias(b1, t)), nu))
+        return self._scaled(torch._foreach_div(torch._foreach_div(mu, s["bc1"]), nu), s)
 
 
 class RMSprop(OptaxOptimizer):
@@ -292,7 +401,7 @@ class RMSprop(OptaxOptimizer):
         names = ["nu"] + ["mu"] * bool(group["centered"]) + ["trace"] * bool(group["momentum"])
         return {n: torch.zeros_like(p) for n in names}
 
-    def _updates(self, group, params, grads, states, t):
+    def _updates(self, group, params, grads, states, s):
         alpha = group["alpha"]
         g = _decayed(grads, params, group["weight_decay"])
         nu = _take(states, "nu")
@@ -309,7 +418,7 @@ class RMSprop(OptaxOptimizer):
             torch._foreach_mul_(trace, group["momentum"])
             torch._foreach_add_(trace, upd)
             upd = trace
-        return self._scaled(group, upd)
+        return self._scaled(upd, s)
 
 
 class Rprop(OptaxOptimizer):
@@ -325,19 +434,19 @@ class Rprop(OptaxOptimizer):
     def _init(self, p, group):
         return {"step_sizes": torch.ones_like(p), "prev_updates": torch.zeros_like(p)}
 
-    def _updates(self, group, params, grads, states, t):
+    def _updates(self, group, params, grads, states, s):
         g = _decayed(grads, params, group["weight_decay"])
         out = []
-        for grad, s in zip(g, states):
-            sign = grad * s["prev_updates"]
+        for grad, st in zip(g, states):
+            sign = grad * st["prev_updates"]
             grown = torch.where(sign > 0, group["eta_plus"], group["eta_minus"])
-            steps = torch.where(sign == 0, s["step_sizes"],
-                                (s["step_sizes"] * grown).clamp(self.min_step, self.max_step))
-            applied = torch.where(sign < 0, 0.0, s["prev_updates"])
-            s["step_sizes"].copy_(steps)
-            s["prev_updates"].copy_(torch.where(sign < 0, 0.0, steps * torch.sign(grad)))
+            steps = torch.where(sign == 0, st["step_sizes"],
+                                (st["step_sizes"] * grown).clamp(self.min_step, self.max_step))
+            applied = torch.where(sign < 0, 0.0, st["prev_updates"])
+            st["step_sizes"].copy_(steps)
+            st["prev_updates"].copy_(torch.where(sign < 0, 0.0, steps * torch.sign(grad)))
             out.append(applied)
-        return self._scaled(group, out)
+        return self._scaled(out, s)
 
 
 class AdaBound(OptaxOptimizer):
@@ -349,21 +458,23 @@ class AdaBound(OptaxOptimizer):
     hyper = dict(weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8, final_lr=0.1, gamma=1e-3)
     _init = _zeros("mu", "nu")
 
-    def _updates(self, group, params, grads, states, t):
+    def _scalars(self, group, t, lr):
+        final, gamma = group["final_lr"], group["gamma"]
+        return {"step_size": lr * torch.sqrt(_bias(group["b2"], t)) / _bias(group["b1"], t),
+                "lower": torch.rsub(torch.reciprocal(t * gamma + 1.0), 1.0) * final,
+                "upper": (torch.reciprocal(t * gamma) + 1.0) * final}
+
+    def _updates(self, group, params, grads, states, s):
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
         g = _decayed(grads, params, group["weight_decay"])
         mu, nu = _take(states, "mu"), _take(states, "nu")
         _moment(mu, g, b1, 1)
         _moment(nu, g, b2, 2)
-        tf, lr = _f32(t), _f32(group["lr"])
-        step_size = lr * np.sqrt(_f32(_bias(b2, t))) / _f32(_bias(b1, t))
-        final, gamma = _f32(group["final_lr"]), _f32(group["gamma"])
-        lower = float(final * (_f32(1) - _f32(1) / (gamma * tf + _f32(1))))
-        upper = float(final * (_f32(1) + _f32(1) / (gamma * tf)))
         denom = torch._foreach_add(torch._foreach_sqrt(nu), eps)
-        eff = torch._foreach_div([torch.full_like(d, float(step_size)) for d in denom], denom)
-        torch._foreach_clamp_min_(eff, lower)
-        torch._foreach_clamp_max_(eff, upper)
+        eff = [torch.div(s["step_size"], d) for d in denom]
+        # one bound a tensor: maximum / minimum take no single 0-d tensor
+        torch._foreach_maximum_(eff, [s["lower"]] * len(eff))
+        torch._foreach_minimum_(eff, [s["upper"]] * len(eff))
         return torch._foreach_mul(torch._foreach_neg(eff), mu)
 
 
@@ -375,17 +486,19 @@ class AdaBelief(OptaxOptimizer):
     eps_root = 1e-16
     _init = _zeros("mu", "nu")
 
-    def _updates(self, group, params, grads, states, t):
+    def _scalars(self, group, t, lr):
+        return _adam_scalars(group, t)
+
+    def _updates(self, group, params, grads, states, s):
         b1, b2 = group["b1"], group["b2"]
         g = _decayed(grads, params, group["weight_decay"])
         mu, nu = _take(states, "mu"), _take(states, "nu")
         _moment(mu, g, b1, 1)
         _moment(nu, torch._foreach_sub(g, mu), b2, 2)
         torch._foreach_add_(nu, self.eps_root)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, _bias(b2, t)))
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, s["bc2"]))
         torch._foreach_add_(denom, group["eps"])
-        return self._scaled(group, torch._foreach_div(torch._foreach_div(mu, _bias(b1, t)),
-                                                      denom))
+        return self._scaled(torch._foreach_div(torch._foreach_div(mu, s["bc1"]), denom), s)
 
 
 class Yogi(OptaxOptimizer):
@@ -397,7 +510,10 @@ class Yogi(OptaxOptimizer):
     def _init(self, p, group):
         return {n: torch.full_like(p, self.initial_accumulator_value) for n in ("mu", "nu")}
 
-    def _updates(self, group, params, grads, states, t):
+    def _scalars(self, group, t, lr):
+        return _adam_scalars(group, t)
+
+    def _updates(self, group, params, grads, states, s):
         b1, b2 = group["b1"], group["b2"]
         g = _decayed(grads, params, group["weight_decay"])
         mu, nu = _take(states, "mu"), _take(states, "nu")
@@ -405,38 +521,42 @@ class Yogi(OptaxOptimizer):
         g2 = torch._foreach_mul(g, g)
         sign = torch._foreach_sign(torch._foreach_sub(nu, g2))
         torch._foreach_sub_(nu, torch._foreach_mul(torch._foreach_mul(sign, 1 - b2), g2))
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, _bias(b2, t)))
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, s["bc2"]))
         torch._foreach_add_(denom, group["eps"])
-        return self._scaled(group, torch._foreach_div(torch._foreach_div(mu, _bias(b1, t)),
-                                                      denom))
+        return self._scaled(torch._foreach_div(torch._foreach_div(mu, s["bc1"]), denom), s)
 
 
 class NovoGrad(OptaxOptimizer):
     """``scale_by_novograd``: one second moment a tensor (its squared norm's
-    average), the first moment of the normalized gradient."""
+    average), the first moment of the normalized gradient. At the first
+    step optax sets both moments to their new term; the count selects the
+    coefficients (decay 0, weight 1 then), which give those terms exactly
+    from the zero state."""
 
     hyper = dict(weight_decay=0.0, b1=0.9, b2=0.25, eps=1e-8)
 
     def _init(self, p, group):
         return {"mu": torch.zeros_like(p), "nu": torch.zeros((), dtype=p.dtype, device=p.device)}
 
-    def _updates(self, group, params, grads, states, t):
-        b1, b2, eps = group["b1"], group["b2"], group["eps"]
+    def _scalars(self, group, t, lr):
+        first = t == 1
+        b1, b2 = group["b1"], group["b2"]
+        return {"nu_decay": torch.where(first, 0.0, b2).float(),
+                "nu_weight": torch.where(first, 1.0, 1 - b2).float(),
+                "mu_decay": torch.where(first, 0.0, b1).float()}
+
+    def _updates(self, group, params, grads, states, s):
+        eps = group["eps"]
         g = _decayed(grads, params, group["weight_decay"])
         nu = _take(states, "nu")
         sq = [n * n for n in torch._foreach_norm(g)]
-        if t == 1:
-            torch._foreach_copy_(nu, sq)
-        else:
-            _moment(nu, sq, b2, 1)
+        torch._foreach_mul_(nu, s["nu_decay"])
+        torch._foreach_add_(nu, torch._foreach_mul(sq, s["nu_weight"]))
         added = torch._foreach_div(g, torch._foreach_add(torch._foreach_sqrt(nu), eps))
         mu = _take(states, "mu")
-        if t == 1:
-            torch._foreach_copy_(mu, added)
-        else:
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, added)
-        return self._scaled(group, mu)
+        torch._foreach_mul_(mu, s["mu_decay"])
+        torch._foreach_add_(mu, added)
+        return self._scaled(mu, s)
 
 
 class Lamb(OptaxOptimizer):
@@ -446,13 +566,16 @@ class Lamb(OptaxOptimizer):
     hyper = dict(weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-6)
     _init = _zeros("mu", "nu")
 
-    def _updates(self, group, params, grads, states, t):
-        upd = _adam_directions(group, params, grads, states, t, weight_decay=0.0)
+    def _scalars(self, group, t, lr):
+        return _adam_scalars(group, t)
+
+    def _updates(self, group, params, grads, states, s):
+        upd = _adam_directions(group, params, grads, states, s, weight_decay=0.0)
         if group["weight_decay"]:
             upd = _decayed(upd, params, group["weight_decay"])
         p_norm, u_norm = torch._foreach_norm(params), torch._foreach_norm(upd)
         ratio = [torch.where((pn == 0) | (un == 0), 1.0, pn / un) for pn, un in zip(p_norm, u_norm)]
-        return self._scaled(group, torch._foreach_mul(upd, ratio))
+        return self._scaled(torch._foreach_mul(upd, ratio), s)
 
 
 class Lion(OptaxOptimizer):
@@ -462,7 +585,7 @@ class Lion(OptaxOptimizer):
     hyper = dict(weight_decay=0.0, b1=0.9, b2=0.99)
     _init = _zeros("mu")
 
-    def _updates(self, group, params, grads, states, t):
+    def _updates(self, group, params, grads, states, s):
         b1, b2 = group["b1"], group["b2"]
         mu = _take(states, "mu")
         mix = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(mu, b1))
@@ -470,23 +593,28 @@ class Lion(OptaxOptimizer):
         _moment(mu, grads, b2, 1)
         if group["weight_decay"]:
             upd = _decayed(upd, params, group["weight_decay"])
-        return self._scaled(group, upd)
+        return self._scaled(upd, s)
 
 
 class _Lookahead(OptaxOptimizer):
     """optax's ``lookahead`` over the next class in the MRO (the inner
     optimizer): the parameters are the fast weights; every ``sync_period``
     steps the slow weights (``slow`` in the state) move ``slow_step`` of the
-    way to the fast ones, and the fast ones take their place."""
+    way to the fast ones, and the fast ones take their place. Its sync is a
+    host branch: it is not built for a graph (``build_optimizer``,
+    ``capture_unmet``)."""
 
     sync_period, slow_step = 5, 0.5
 
     def _init(self, p, group):
         return {**super()._init(p, group), "slow": p.detach().clone()}
 
-    def _updates(self, group, params, grads, states, t):
-        fast = super()._updates(group, params, grads, states, t)
-        if t % self.sync_period:
+    def _scalars(self, group, t, lr):
+        return {**super()._scalars(group, t, lr), "sync": t % self.sync_period == 0}
+
+    def _updates(self, group, params, grads, states, s):
+        fast = super()._updates(group, params, grads, states, s)
+        if not s["sync"]:
             return fast
         # optax: diff = f + u - s; f += u - (1 - a) diff; s += a diff
         slow = _take(states, "slow")
@@ -533,8 +661,8 @@ def _torch_sgd(params, lr, momentum=0.0, weight_decay=0.0, nesterov=0.0, graph=F
 
 
 def _ours(cls):
-    def factory(params, lr, **kw):
-        return cls(params, lr, **{k: v for k, v in kw.items() if k in cls.hyper})
+    def factory(params, lr, graph=False, **kw):
+        return cls(params, lr, graph=graph, **{k: v for k, v in kw.items() if k in cls.hyper})
     return factory
 
 
@@ -549,27 +677,23 @@ OPTIMIZERS: Dict[str, Callable[..., torch.optim.Optimizer]] = {
         NovoGrad, Lamb, Lion, Lookahead, Ranger)},
 }
 # names the trainers refuse: optax.lookahead needs LookaheadParams, which the
-# JAX trainers' flat parameter tree is not
+# JAX trainers' flat parameter tree is not; the only ones not built for a graph
 LOOKAHEAD_NAMES = ("Lookahead", "Ranger")
-
-
-# the names whose step a CUDA graph can capture (torch's own classes), and
-# why the others' cannot
-GRAPH_OPTIMIZERS = ("Adam", "AdamW", "SGD")
-EAGER_OPTAX = "the optax chains compute their step-dependent scalars from a host step count"
+EAGER_LOOKAHEAD = ("the lookahead chains stay eager (their sync is a host branch, and the "
+                   "trainers refuse them: optax's lookahead needs LookaheadParams)")
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], optim_config: Dict[str, Any],
                     graph: bool = False) -> torch.optim.Optimizer:
     """``optim_config``: the ``Optim`` config section ({name, lr,
-    weight_decay, ...}); see the module docstring. ``graph``: build one of
-    ``GRAPH_OPTIMIZERS`` for a CUDA graph."""
+    weight_decay, ...}); see the module docstring. ``graph``: build it for a
+    CUDA graph (every name but ``LOOKAHEAD_NAMES``)."""
     cfg = dict(optim_config)
     name = cfg.pop("name", "Adam")
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; available: {sorted(OPTIMIZERS)}")
-    if graph and name not in GRAPH_OPTIMIZERS:
-        raise ValueError(f"Optim.name={name} cannot be built for a CUDA graph: {EAGER_OPTAX}")
+    if graph and name in LOOKAHEAD_NAMES:
+        raise ValueError(f"Optim.name={name} cannot be built for a CUDA graph: {EAGER_LOOKAHEAD}")
     lr = float(cfg.pop("lr", 1e-3))
     kw = {k: float(v) for k, v in cfg.items()}
     if graph:
@@ -580,20 +704,23 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], optim_config: Dict[str
 def capture_unmet(optimizer: Union[torch.optim.Optimizer, str]) -> Optional[str]:
     """None when a CUDA graph can capture ``optimizer.step()``, else why
     not; ``optimizer`` may be its ``Optim.name``, before it is built."""
-    if isinstance(optimizer, OptaxOptimizer):
-        return f"Optim.name={type(optimizer).__name__}: {EAGER_OPTAX}"
     if isinstance(optimizer, str):
-        return None if optimizer in GRAPH_OPTIMIZERS else f"Optim.name={optimizer}: {EAGER_OPTAX}"
+        return f"Optim.name={optimizer}: {EAGER_LOOKAHEAD}" if optimizer in LOOKAHEAD_NAMES else None
+    if isinstance(optimizer, _Lookahead):
+        return f"Optim.name={type(optimizer).__name__}: {EAGER_LOOKAHEAD}"
     groups = optimizer.param_groups
     if not all(isinstance(g["lr"], torch.Tensor) for g in groups):
         return "the optimizer's lr is a Python float (build_optimizer(..., graph=True))"
-    if isinstance(optimizer, torch.optim.Adam):  # AdamW too
+    if isinstance(optimizer, OptaxOptimizer):
+        ok = optimizer.graph and all(g["lr"].is_cuda for g in groups) and all(
+            c.is_cuda for c in optimizer._counts.values())
+    elif isinstance(optimizer, torch.optim.Adam):  # AdamW too
         ok = all(g["capturable"] for g in groups)
     else:
         ok = isinstance(optimizer, torch.optim.SGD) and all(g["fused"] for g in groups)
     if not ok:
         return (f"{type(optimizer).__name__} is not built for a CUDA graph (Adam / AdamW "
-                "capturable, SGD fused)")
+                "capturable, SGD fused, an optax chain's count and lr on the card)")
     return None
 
 

@@ -34,8 +34,8 @@ is replays of one captured body (``engine/graphs.py``), the counterpart of
 the JAX package's ``jax.jit`` step and ``lax.scan`` epoch; so are the eval
 step (one graph for each padded patient length) and the eval scan (one a
 split). ``jit=False``, and every program on the CPU, runs eagerly. A
-program that cannot be captured (``capture_unmet``: a process group, an
-optax-chain optimizer or one not built with
+program that cannot be captured (``capture_unmet``: a process group,
+``Lookahead`` / ``Ranger``, or an optimizer not built with
 ``build_optimizer(..., graph=True)``) raises with ``jit=True`` on a card.
 
 Pad-and-mask (``n_labeled_valid`` / ``n_unlabeled_valid``, the JAX step's):

@@ -1013,7 +1013,8 @@ def graph_unmet(cfg: Dict[str, Any], device: torch.device,
                 context: Optional[DistContext] = None) -> Optional[str]:
     """None when the trainer's step runs as a CUDA graph on ``device``, else
     why it stays eager (``steps.capture_unmet``'s list: off a card, a
-    process group, an optax-chain optimizer). Asked before the optimizer is
+    process group, ``Lookahead`` / ``Ranger``, which ``check_optimizer``
+    refuses first). Asked before the optimizer is
     built, which it names by ``cfg``'s ``Optim.name``."""
     return capture_unmet(device, (cfg.get("Optim") or {}).get("name", "Adam"), context)
 

@@ -7,13 +7,15 @@ where each captured body runs eagerly, and on the card (marked ``cuda``).
   metrics, parameters, BN statistics, the global step. The eager loops are
   held against the JAX package's ``build_epoch_scan*`` by
   tests/test_torch_epoch_scan.py.
-- ``graph_unmet``: None for every covered configuration (the headline and
-  the mean teacher among them), a reason for each one that stays eager; a
-  step asked to be captured raises where its optimizer was not built for a
-  graph.
+- ``graph_unmet``: None for every covered configuration (the headline, the
+  mean teacher and the optax chains RAdam and AdaBound among them), a
+  reason for each one that stays eager (the CPU, a process group,
+  Lookahead / Ranger); a step asked to be captured raises where its
+  optimizer was not built for a graph.
 - ``build_optimizer`` builds for a graph only when asked (``graph=True``;
   the pretrain phases and every other caller keep a float lr), and refuses
-  an optax chain for one.
+  the lookahead chains for one (the optax chains built for a graph:
+  tests/test_torch_graph_optim.py).
 - Adam, AdamW and SGD built for a graph (a tensor lr that
   ``set_learning_rate`` fills) against the float-lr optimizers over 5 steps
   with an lr change: within 4 fp32 ulps of each parameter, or 1e-6 of a
@@ -25,7 +27,8 @@ where each captured body runs eagerly, and on the card (marked ``cuda``).
   replay adds them back once.
 - On the card: the headline step at a small size, graph against eager from
   the same weights and generator seed, losses (against the eager-to-eager
-  floor), flip draws and launches.
+  floor), flip draws and launches; each optax chain's step captured against
+  its eager step, bit for bit.
 """
 
 from itertools import chain
@@ -179,28 +182,29 @@ CARD = torch.device("cuda")
 
 @pytest.mark.parametrize("mode", ["udaiic", "meanteacher"])
 @pytest.mark.parametrize("world", [None, 1])
-@pytest.mark.parametrize("optim", ["Adam", "AdamW", "SGD"])
+@pytest.mark.parametrize("optim", ["Adam", "AdamW", "SGD", "RAdam", "AdaBound"])
 def test_graph_unmet_none_for_covered(optim, world, mode):
     """The mean teacher is covered: its EMA reads the step count on the
-    card (``steps.ema_rate``), so the trainer's teacher is no reason."""
+    card (``steps.ema_rate``), so the trainer's teacher is no reason; so
+    are the optax chains, whose count and scalars live on the card."""
     ctx = None if world is None else DistContext()
     cfg = _cfg(optim)
     cfg["Trainer"]["name"] = mode
     assert graph_unmet(cfg, CARD, ctx) is None
 
 
-@pytest.mark.parametrize("case", ["cpu", "RAdam", "AdaBound", "data_parallel", "space_split"])
+@pytest.mark.parametrize("case", ["cpu", "Lookahead", "Ranger", "data_parallel", "space_split"])
 def test_graph_unmet_reason_for_eager(case):
     cfg, device, ctx = _cfg(), CARD, None
     if case == "cpu":
         device = torch.device("cpu")
-    elif case in ("RAdam", "AdaBound"):
+    elif case in ("Lookahead", "Ranger"):
         cfg = _cfg(case)
     else:
         ctx = DistContext(world=2, space_size=2 if case == "space_split" else 1)
     reason = graph_unmet(cfg, device, ctx)
     assert isinstance(reason, str) and reason
-    if case in ("RAdam", "AdaBound"):  # the same reason from the built optimizer
+    if case in ("Lookahead", "Ranger"):  # the same reason from the built optimizer
         params = [torch.nn.Parameter(torch.zeros(3))]
         assert capture_unmet(build_optimizer(params, cfg["Optim"])) == reason
         with pytest.raises(ValueError, match="CUDA graph"):
@@ -337,3 +341,49 @@ def test_graph_step_against_eager_on_card(monkeypatch):
     assert gap(eager, graph) <= max(1e-5, 2 * gap(eager, eager2)), (eager, graph, eager2)
     for e, g in zip(eager_masks, graph_masks):
         assert torch.equal(e, g)
+
+
+CHAINS = ("RAdam", "NAdam", "Adadelta", "Adagrad", "Adamax", "RMSprop", "Rprop", "AdaBound",
+          "AdaBelief", "Yogi", "NovoGrad", "Lamb", "Lion")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CHAINS)
+def test_captured_chain_step_equals_eager_on_card(name):
+    """Each optax chain built for a graph on the card, its step captured
+    (``graphs.Graphed``: 2 eager warm-up steps, the capture, replays) on
+    static gradients, against the same optimizer's eager step, 8 steps (past
+    RAdam's switch at 6) with the lr changed after step 2, weight decay on:
+    parameters and state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(0)
+    shapes = ((4, 3), (3,), (2, 3, 3, 3))
+    p0 = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes] for _ in range(8)]
+    runs = []
+    for captured in (False, True):
+        params = [torch.nn.Parameter(p.cuda()) for p in p0]
+        opt = build_optimizer(params, {"name": name, "lr": 1e-2, "weight_decay": 1e-2,
+                                       "momentum": 0.9}, graph=True)
+        init_optimizer_state(opt)
+        assert capture_unmet(opt) is None
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        step = graphs.Graphed(opt.step, CARD) if captured else opt.step
+        for i, g in enumerate(grads):
+            if i == 2:
+                set_learning_rate(opt, 3e-3)
+            for p, gi in zip(params, g):
+                p.grad.copy_(gi)
+            step()
+        torch.cuda.synchronize()
+        assert not captured or step.captured
+        runs.append(([p.detach().cpu() for p in params],
+                     [{k: v.cpu() for k, v in opt.state[p].items()} for p in params]))
+    (p_e, s_e), (p_g, s_g) = runs
+    for a, b in zip(p_g, p_e):
+        assert torch.equal(a, b)
+    for a, b in zip(s_g, s_e):
+        for key in b:
+            assert torch.equal(a[key], b[key]), key

@@ -19,8 +19,9 @@ the outputs cloned. Held bit for bit against the eager builder:
   parameters and statistics;
 - the EMA rate read from a device count (``steps.ema_rate``) equal to the
   np.float32 value the step computed on the host, for t in 0..10^5;
-- ``graph_unmet``: None for ``meanteacher``, a reason for an optax chain
-  and for W > 1; the pretrain trainer's phases eager off a card.
+- ``graph_unmet``: None for ``meanteacher`` (under Adam and under the optax
+  chain RAdam), a reason for Ranger and for W > 1; the pretrain trainer's
+  phases eager off a card.
 The eager builders are held against the JAX package by
 tests/test_torch_pretrain.py, test_torch_device_data.py, test_torch_ops.py
 and test_torch_zoo.py (the mean teacher's device EMA).
@@ -354,7 +355,9 @@ def test_graph_unmet_covers_meanteacher():
     assert graph_unmet(cfg, CARD) is None
     assert graph_unmet(cfg, CARD, DistContext()) is None
     radam = {**cfg, "Optim": {"name": "RAdam", "lr": 1e-3}}
-    assert "RAdam" in graph_unmet(radam, CARD)
+    assert graph_unmet(radam, CARD) is None  # the optax chains are captured too
+    ranger = {**cfg, "Optim": {"name": "Ranger", "lr": 1e-3}}
+    assert "Ranger" in graph_unmet(ranger, CARD)
     assert "process group" in graph_unmet(cfg, CARD, DistContext(world=2))
     assert "card" in graph_unmet(cfg, torch.device("cpu"))
     # the eval programs: no optimizer, so only the CPU and a group keep them eager

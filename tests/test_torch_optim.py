@@ -6,17 +6,21 @@ numpy gradients (a tenth of the entries zero, one tensor starting at zero)
 for ``STEPS`` steps on both sides, the learning rate changed between steps 2
 and 3 (``set_learning_rate`` on both). Held: every parameter after every
 step within ``TOL`` of the largest move of its tensor from the start. Read
-on this CPU: 0 (bit for bit) for 10 of the optax-ordered names; up to 1.5e-5
-for torch's Adam / AdamW / SGD (another summation order); up to 3.5e-5 for
-RAdam and Ranger, whose rectification term at t = 6 is ill-conditioned in
-fp32 (XLA's pow and numpy's give b2^t one ulp apart, which moves rho_t from
-5.955 to 5.975 and r by 0.6%; float64: 5.994).
+on this CPU: 0 (bit for bit) for 8 of the optax-ordered names (NAdam,
+Adadelta, Adamax, Rprop, AdaBelief, Yogi, Lion, Lookahead), up to 1.2e-5 for
+the others but RAdam and Ranger; up to 1.5e-5 for torch's Adam / AdamW /
+SGD (another summation order); up to 3.5e-5 for RAdam and Ranger, whose
+rectification term at t = 6 is ill-conditioned in fp32 (rho_t 5.975 against
+5.994 in float64; r moves 0.6% for each 0.02 of rho_t). b^t itself is the
+same on both sides over these steps (scripts/torch_pow_rounding.py).
 
 ``Lookahead`` / ``Ranger`` are held against ``optax.lookahead`` on
 ``LookaheadParams`` (fast and slow weights); the trainers refuse them.
 One udaiic step under SGD (momentum, nesterov) and under RAdam is held
 against the JAX step with the step tests' bounds (``test_torch_step.py``),
-and a resume under SGD and RAdam restores the optimizer bit for bit.
+and a resume under SGD and RAdam restores the optimizer bit for bit, as one
+under RAdam and AdaBound built for a graph does, from its own checkpoint and
+from a plain one (the graph-built chains: test_torch_graph_optim.py).
 """
 
 import copy
@@ -48,6 +52,9 @@ from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import (
     init_optimizer_state,
     set_learning_rate,
     trainer_zoos,
+)
+from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine import (
+    trainer as trainer_module,
 )
 from mi_based_regularized_semi_supervised_segmentation_tpu_torch.engine.optim import (
     OptaxOptimizer,
@@ -262,31 +269,64 @@ def loaders(tmp_path_factory):
     return make_loaders(root)
 
 
-@pytest.mark.parametrize("optim", [
-    {"name": "SGD", "lr": 1e-3, "momentum": 0.9, "weight_decay": 1e-5},
-    {"name": "RAdam", "lr": 1e-3, "weight_decay": 1e-5},
-], ids=["SGD", "RAdam"])
-def test_resume_restores_the_optimizer_bit_for_bit(loaders, tmp_path, optim):
+RESUME_SGD = {"name": "SGD", "lr": 1e-3, "momentum": 0.9, "weight_decay": 1e-5}
+RESUME_RADAM = {"name": "RAdam", "lr": 1e-3, "weight_decay": 1e-5}
+RESUME_ADABOUND = {"name": "AdaBound", "lr": 1e-3, "weight_decay": 1e-5}
+
+
+@pytest.mark.parametrize("optim,graph", [
+    (RESUME_SGD, (False, False)), (RESUME_RADAM, (False, False)),
+    (RESUME_RADAM, (True, True)), (RESUME_ADABOUND, (True, True)),
+    (RESUME_RADAM, (False, True)), (RESUME_ADABOUND, (False, True)),
+], ids=["SGD", "RAdam", "RAdam-graph", "AdaBound-graph", "RAdam-cpu_count_into_graph",
+        "AdaBound-cpu_count_into_graph"])
+def test_resume_restores_the_optimizer_bit_for_bit(loaders, tmp_path, monkeypatch, optim, graph):
+    """``graph``: whether the writing and the resumed trainer build their
+    optimizer for a CUDA graph (``graph_unmet`` made None on the CPU: lr a
+    tensor and one count a group, the step eager as off a card). A plain
+    writer's checkpoint holds a CPU count a parameter, as the port wrote it
+    before the optax chains were built for a graph; a graph-built reader
+    loads it strict and lenient, each tensor and the lr in place."""
     cfg = make_config("udaiic")
     cfg["Optim"] = optim
+    unmet = trainer_module.graph_unmet
 
-    def build(save_dir, max_epoch=1):
+    def build(save_dir, graphed, max_epoch=1):
+        monkeypatch.setattr(trainer_module, "graph_unmet", (lambda *a: None) if graphed else unmet)
         t = trainer_zoos["udaiic"](configuration=json.loads(json.dumps(cfg)), save_dir=save_dir,
                                    max_epoch=max_epoch, num_batches=2, device="cpu",
                                    crop_size=CROP, run_dir=str(tmp_path), **loaders)
         t.init()
+        assert getattr(t._optimizer, "graph", graphed) == graphed
         return t
 
-    first = build("run")
+    first = build("run", graph[0])
     assert type(first._optimizer).__name__ == optim["name"]
     first.start_training()
     saved = torch.load(tmp_path / "run" / checkpoints.LAST_NAME, weights_only=True)
     state = saved["optimizer"]["state"]
     assert len(state) == len(list(first._optimizer.param_groups[0]["params"]))
     assert saved["optimizer"]["param_groups"][0]["lr"] == first._optimizer.param_groups[0]["lr"]
-    resumed = build("resumed", max_epoch=2)
-    resumed.load_state_dict_from_path(str(tmp_path / "run"), strict=True)
-    _assert_same(resumed.state_dict(), {k: v for k, v in saved.items() if k != "meta"})
+    for strict in (True, False) if graph == (False, True) else (True,):
+        resumed = build(f"resumed_{strict}", graph[1], max_epoch=2)
+        opt = resumed._optimizer
+        owned = [id(v) for st in opt.state.values() for v in st.values()]
+        lr = opt.param_groups[0]["lr"]
+        resumed.load_state_dict_from_path(str(tmp_path / "run"), strict=strict)
+        _assert_same(_lr32(resumed.state_dict()),
+                     _lr32({k: v for k, v in saved.items() if k != "meta"}))
+        if graph[1]:  # into the optimizer's own tensors, which a captured step reads
+            assert [id(v) for st in opt.state.values() for v in st.values()] == owned
+            assert opt.param_groups[0]["lr"] is lr
+        _one_step(resumed)
+        stepped = resumed.state_dict()
     _one_step(first)
-    _one_step(resumed)
-    _assert_same(resumed.state_dict(), first.state_dict())
+    _assert_same(_lr32(stepped), _lr32(first.state_dict()))
+
+
+def _lr32(state):
+    """``state`` with the optimizer's lr as its fp32 rounding: what a tensor
+    lr holds of a plain checkpoint's float (the step multiplies in fp32
+    either way)."""
+    groups = [{**g, "lr": float(np.float32(g["lr"]))} for g in state["optimizer"]["param_groups"]]
+    return {**state, "optimizer": {**state["optimizer"], "param_groups": groups}}
